@@ -1,0 +1,65 @@
+"""Carry parameter trees between the JAX package and the port.
+
+Trees are nested dicts with numpy-convertible leaves on the JAX side (what
+``np.asarray`` makes of a JAX array, or a checkpoint's ``arrays.npz``) and
+tensors on the port side, in the SAME layouts (``wq [d,H,hd]``,
+``wo [H,hd,d]``, stacked ``[L, ...]`` layers), so leaves compare one for one.
+bfloat16 leaves cross bit-exactly in both directions (as raw 16-bit words
+into the port; as float32, which holds every bfloat16 value, out of it).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import device as _device
+
+
+def _leaf_to_torch(leaf, device, dtype):
+    if isinstance(leaf, torch.Tensor):
+        return leaf.to(device=device, dtype=dtype or leaf.dtype)
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":          # ml_dtypes' numpy bfloat16
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16).copy())
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr, copy=True))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(tree, device="cuda", dtype=None) -> dict:
+    """A JAX/numpy param tree (``embed``, ``norm_out``, ``layers/{attn:{wq,
+    wk,wv,wo}, norm_a, norm_f, mlp:{wi,wg,wo}}``, ...) as tensors on
+    ``device``, cast to ``dtype`` when given."""
+    dev = _device.resolve(device)
+    return _map(tree, lambda leaf: _leaf_to_torch(leaf, dev, dtype))
+
+
+def params_to_numpy(tree) -> dict:
+    """The inverse of :func:`params_from_jax`: tensors -> host numpy
+    (bfloat16 as float32, exact)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+
+    return _map(tree, leaf)
+
+
+def kept_from_jax(kept, device="cuda") -> dict:
+    """FedAP kept-unit index rows ``{"mlp": [L, keep]}`` as int64 tensors."""
+    dev = _device.resolve(device)
+    return _map(kept, lambda leaf: _leaf_to_torch(leaf, dev, torch.int64))
+
+
+def masks_from_jax(masks, device="cuda") -> dict:
+    """FedAP filter keep-masks ``{"mlp": [L, d_ff]}`` as float32 tensors."""
+    dev = _device.resolve(device)
+    return _map(masks, lambda leaf: _leaf_to_torch(leaf, dev, torch.float32))

@@ -1,0 +1,124 @@
+"""Build the CUDA kernels in ``csrc/`` with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exports a plain C launcher and becomes its own
+shared library, ``build/repro_torch/<hash>/lib<name>.so`` at the repository
+root; ``<hash>`` covers the sources and the flags, so an edited kernel is
+rebuilt and an unchanged one is reused.  All sources compile in parallel,
+one ``nvcc`` process each, at the first call that needs a kernel — never at
+import, so the CPU-only tests can import every module.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[3] / "build"
+              / "repro_torch")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# library name -> (exported launcher, argtypes); every launcher returns the
+# cudaError_t of its launch as an int.
+SIGNATURES = {
+    "decode_attention": ("decode_attention_launch",
+                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "masked_matmul": ("masked_matmul_launch",
+                      [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+}
+
+_lock = threading.Lock()
+_loaded: dict = {}      # library name -> configured ctypes function
+_logs: dict = {}        # library name -> nvcc/ptxas output of its build
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found (looked on PATH, $CUDA_HOME and "
+                       "/usr/local/cuda): the CUDA kernels cannot be built")
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_all() -> dict:
+    """Build (or reuse) every kernel library and return ``{name: launcher}``.
+
+    Raises ``RuntimeError`` with nvcc's output when a source does not
+    compile.
+    """
+    with _lock:
+        if _loaded:
+            return dict(_loaded)
+        sources = sorted(CSRC.glob("*.cu"))
+        out_dir = BUILD_ROOT / _digest(sources)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        jobs = []
+        for src in sources:
+            lib = out_dir / f"lib{src.stem}.so"
+            if lib.exists():
+                continue
+            tmp = out_dir / f".lib{src.stem}.so.tmp-{os.getpid()}"
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs.append((src, lib, tmp, proc))
+        failures = []
+        for src, lib, tmp, proc in jobs:
+            output, _ = proc.communicate()
+            _logs[src.stem] = output
+            (out_dir / f"{src.stem}.log").write_text(output)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failures.append(f"nvcc failed on {src.name} "
+                                f"(exit {proc.returncode}):\n{output}")
+            else:
+                os.replace(tmp, lib)
+        if failures:
+            raise RuntimeError("\n".join(failures))
+        for src in sources:
+            name = src.stem
+            if name not in SIGNATURES:
+                raise RuntimeError(f"{src.name} has no entry in SIGNATURES")
+            symbol, argtypes = SIGNATURES[name]
+            fn = getattr(ctypes.CDLL(str(out_dir / f"lib{name}.so")), symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _loaded[name] = fn
+        return dict(_loaded)
+
+
+def launcher(name: str):
+    """The ctypes launcher of kernel library ``name`` (building at first
+    use)."""
+    fn = _loaded.get(name)
+    return fn if fn is not None else build_all()[name]
+
+
+def build_logs() -> dict:
+    """nvcc/ptxas output of the libraries built by this process."""
+    return dict(_logs)
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launcher returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")

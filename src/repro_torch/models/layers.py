@@ -1,0 +1,231 @@
+"""Transformer building blocks for decode, as plain functions on tensors.
+
+Counterpart of the reference's ``models/layers.py``, limited to what the
+dense decode path needs.  Layouts follow the reference: ``wq [d,H,hd]``,
+``wk/wv [d,KV,hd]``, ``wo [H,hd,d]``, cache ``[B,S,KV,hd]``, FFN
+``wi/wg [d,ff]``, ``wo [ff,d]``.  The compute dtype is the input dtype;
+norms, rope and softmax run in f32.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.masked_matmul import BLOCK_N
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def apply_norm(params, x, kind: str, eps: float = 1e-5):
+    """rmsnorm (scale), layernorm (scale, bias) or nonparam (OLMo: layernorm
+    without affine), computed in f32 and cast back."""
+    xf = x.float()
+    if kind == "rmsnorm":
+        y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+        return (y * params["scale"].float()).to(x.dtype)
+    if kind not in ("layernorm", "nonparam"):
+        raise ValueError(kind)
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    if kind == "layernorm":
+        y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings: 1d / GLM-2d
+# ---------------------------------------------------------------------------
+
+def _rope_angles(positions, dim: int, base: float = 10000.0):
+    """positions [..., S] -> (sin, cos) [..., S, dim//2] in f32."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=positions.device) / dim
+    freqs = 1.0 / (base ** exps)
+    ang = positions.float()[..., None] * freqs
+    return torch.sin(ang), torch.cos(ang)
+
+
+def _rotate(x, sin, cos):
+    """x [..., dim], rotating interleaved pairs (x[..., ::2], x[..., 1::2])."""
+    x1, x2 = x[..., ::2], x[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.stack([y1, y2], dim=-1).reshape(x.shape)
+
+
+def apply_rope(x, positions, kind: str):
+    """x [B, S, n, head_dim]; positions [P, B, S] with P=1 (1d) or 2 (GLM
+    2d: first half of head_dim by stream 0, second by stream 1)."""
+    if kind == "none":
+        return x
+    hd = x.shape[-1]
+    xf = x.float()
+    if kind == "1d":
+        sin, cos = _rope_angles(positions[0], hd)
+        out = _rotate(xf, sin[:, :, None, :], cos[:, :, None, :])
+    elif kind == "2d":
+        h = hd // 2
+        s0, c0 = _rope_angles(positions[0], h)
+        s1, c1 = _rope_angles(positions[1], h)
+        out = torch.cat([
+            _rotate(xf[..., :h], s0[:, :, None, :], c0[:, :, None, :]),
+            _rotate(xf[..., h:], s1[:, :, None, :], c1[:, :, None, :]),
+        ], dim=-1)
+    elif kind == "mrope":
+        raise ValueError("rope='mrope' (qwen2-vl) is not ported yet")
+    else:
+        raise ValueError(kind)
+    return out.to(x.dtype)
+
+
+def default_positions(batch: int, seq: int, kind: str, offset: int = 0, *,
+                      device="cpu"):
+    """[P, B, S] int32 positions ``arange(seq) + offset`` per rope stream."""
+    p = {"none": 1, "1d": 1, "2d": 2, "mrope": 3}[kind]
+    pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :] + offset
+    return pos.expand(p, batch, seq).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# attention decode against the KV cache
+# ---------------------------------------------------------------------------
+
+def _heads(x, w):
+    """einsum('bsd,dhk->bshk') as one matmul."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+
+
+def attention_decode(params, x, cache_k, cache_v, cache_index, positions,
+                     cfg: ModelConfig):
+    """One-token decode.  x [B,1,d]; cache [B,S,KV,hd].  Returns the
+    attention output [B,1,d] and writes the new K/V into the cache.
+
+    ``cache_index`` is a 0-d tensor (lockstep: every sequence at the same
+    depth) or an int32 [B] tensor (continuous batching: one fill level per
+    decode slot).  The new K/V land at slot ``index mod S`` and slots
+    ``<= index`` are attended (all S once the index passes S), through the
+    ``decode_attention`` kernel with ``lengths = index + 1``.
+
+    The cache is written IN PLACE (one ``index_copy_`` of B rows), where the
+    reference returns a fresh cache selected with a one-hot ``where``.  A
+    frozen slot of the engine writes at its unchanged index, a slot that
+    stays invalid.
+    """
+    b = x.shape[0]
+    s_cache, kvh, hd = cache_k.shape[1], cache_k.shape[2], cache_k.shape[3]
+    q = apply_rope(_heads(x, params["wq"]), positions, cfg.rope)
+    k_new = apply_rope(_heads(x, params["wk"]), positions, cfg.rope)
+    v_new = _heads(x, params["wv"])
+    idx = cache_index.expand(b) if cache_index.ndim == 0 else cache_index
+    rows = torch.arange(b, device=x.device) * s_cache + torch.remainder(
+        idx, s_cache).long()
+    cache_k.view(b * s_cache, kvh, hd).index_copy_(
+        0, rows, k_new.reshape(b, kvh, hd).to(cache_k.dtype))
+    cache_v.view(b * s_cache, kvh, hd).index_copy_(
+        0, rows, v_new.reshape(b, kvh, hd).to(cache_v.dtype))
+    # the reference's lockstep Pallas path attends all S slots even while
+    # the cache fills; here both index forms attend the valid prefix only,
+    # as its XLA path does
+    lengths = (idx + 1).to(torch.int32).contiguous()
+    out = ops.decode_attention(q, cache_k, cache_v, lengths)
+    h = out.shape[2]
+    wo = params["wo"]
+    return out.reshape(b, 1, h * hd) @ wo.reshape(h * hd, wo.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GELU), optionally FedAP-masked
+# ---------------------------------------------------------------------------
+
+def apply_mlp(params, x, act: str, mask=None):
+    """Dense FFN (GELU in the tanh form, as ``jax.nn.gelu``).  With ``mask``
+    ([d_ff] 0/1) the pruned hidden units are zeroed at the pre-activation
+    (silu(0) = gelu(0) = 0 through wo, so the logits equal the shrunk
+    model's) and the up/gate products go through :func:`masked_dense`, which
+    skips fully pruned 128-column blocks."""
+    if mask is None:
+        h = x @ params["wi"]
+        if act == "silu":
+            h = F.silu(x @ params["wg"]) * h
+        else:
+            h = F.gelu(h, approximate="tanh")
+        return h @ params["wo"]
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    h = masked_dense(x2, params["wi"], mask)
+    if act == "silu":
+        h = F.silu(masked_dense(x2, params["wg"], mask)) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return (h @ params["wo"]).reshape(shape)
+
+
+def masked_dense(x, w, mask):
+    """``(x @ w) * mask`` for x [M,K], w [K,N], mask [N] 0/1.
+
+    When K and N are multiples of 128 the product runs the ``masked_matmul``
+    kernel with ``block_mask = max`` of the mask over each 128-column block,
+    so fully pruned blocks are skipped; a partly kept block is computed and
+    re-masked elementwise.  Any M is taken as it is.  Unaligned K or N mask
+    the plain product.  The mask is applied in the activation dtype (0/1 are
+    exact in bf16), so a bf16 stack stays bf16.
+    """
+    k, n = w.shape
+    if k % BLOCK_N == 0 and n % BLOCK_N == 0:
+        block_mask = mask.float().reshape(n // BLOCK_N, BLOCK_N).amax(1)
+        y = ops.masked_matmul(x.contiguous(), w.contiguous(), block_mask)
+    else:
+        y = x @ w
+    return y * mask.to(y.dtype)
+
+
+def _init_normal(shape, scale, dtype, generator, device):
+    return (torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device) * scale).to(dtype)
+
+
+def init_layer_stack(cfg: ModelConfig, n_layers: int, dtype, generator,
+                     device) -> dict:
+    """Stacked [L, ...] params of ``n_layers`` dense blocks (attention, two
+    norms, FFN), drawn from ``generator``."""
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.resolved_head_dim
+    if cfg.pad_heads_to and h % cfg.pad_heads_to:
+        raise ValueError("pad_heads_to is not ported yet")
+    s = 1.0 / math.sqrt(d)
+
+    def normal(shape, scale):
+        return _init_normal((n_layers,) + shape, scale, dtype, generator,
+                            device)
+
+    attn = {"wq": normal((d, h, hd), s), "wk": normal((d, kv, hd), s),
+            "wv": normal((d, kv, hd), s),
+            "wo": normal((h, hd, d), 1.0 / math.sqrt(h * hd))}
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(cfg.d_ff)
+    mlp = {"wi": normal((d, cfg.d_ff), s_in)}
+    if cfg.act == "silu":
+        mlp["wg"] = normal((d, cfg.d_ff), s_in)
+    mlp["wo"] = normal((cfg.d_ff, d), s_out)
+    return {"attn": attn, "norm_a": init_norm(cfg, dtype, device, n_layers),
+            "mlp": mlp, "norm_f": init_norm(cfg, dtype, device, n_layers)}
+
+
+def init_norm(cfg: ModelConfig, dtype, device, n_layers=None) -> dict:
+    lead = () if n_layers is None else (n_layers,)
+    shape = lead + (cfg.d_model,)
+    if cfg.norm == "rmsnorm":
+        return {"scale": torch.ones(shape, dtype=dtype, device=device)}
+    if cfg.norm == "layernorm":
+        return {"scale": torch.ones(shape, dtype=dtype, device=device),
+                "bias": torch.zeros(shape, dtype=dtype, device=device)}
+    if cfg.norm == "nonparam":
+        return {}
+    raise ValueError(cfg.norm)

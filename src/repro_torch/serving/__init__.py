@@ -1,0 +1,11 @@
+"""Serving: the continuous-batching decode engine and checkpoint loading."""
+from repro_torch.serving.checkpoint import SERVE_MODES, Servable, load_servable
+from repro_torch.serving.engine import (
+    Completion,
+    DecodeEngine,
+    QueueFull,
+    ServeConfig,
+)
+
+__all__ = ["SERVE_MODES", "Completion", "DecodeEngine", "QueueFull",
+           "Servable", "ServeConfig", "load_servable"]

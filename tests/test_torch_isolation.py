@@ -1,0 +1,123 @@
+"""The port stands alone and never runs on the CPU by accident.
+
+* Every ``repro_torch`` module imports with ``jax`` and ``repro`` blocked.
+* No source line of the port or of ``chip_smoke.py`` imports either.
+* Entry points default to ``device="cuda"`` and raise on a machine without
+  CUDA instead of carrying on on the CPU.
+* The kernel dispatch serves only CPU tensors with the plain versions: any
+  other device launches the kernel or raises.
+"""
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import interop
+from repro_torch.configs import get_config
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import decode_attention as k5
+from repro_torch.kernels import masked_matmul as k1
+from repro_torch.models.lm import LM
+from repro_torch.serving import DecodeEngine, ServeConfig, load_servable
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+TINY = get_config("olmo-1b").reduced(vocab_size=256, d_ff=256)
+
+
+def _modules():
+    return sorted(".".join(p.relative_to(REPO / "src").with_suffix("").parts)
+                  .removesuffix(".__init__")
+                  for p in PORT.rglob("*.py"))
+
+
+def test_every_module_imports_without_jax_or_repro():
+    code = ("import importlib, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            f"for name in {_modules()!r}:\n"
+            "    importlib.import_module(name)\n"
+            "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+            "               for m in sys.modules if sys.modules[m] is not None)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env={"PYTHONPATH": str(REPO / "src"),
+                               "PATH": "/usr/bin:/bin"},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_no_source_line_imports_jax_or_repro():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
+    files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    hits = [f"{f}:{i}" for f in files
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if pattern.match(line)]
+    assert not hits, hits
+
+
+def test_importing_builds_nothing():
+    """Kernels are compiled at first launch, never at import."""
+    assert _build.build_logs() == {}
+    assert list(_build.CSRC.glob("*.cu"))
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+
+
+@pytest.mark.parametrize("entry", ["LM", "DecodeEngine", "load_servable",
+                                   "params_from_jax"])
+def test_default_device_raises_without_cuda(no_cuda, entry):
+    params = LM(TINY, device="cpu").init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if entry == "LM":
+            LM(TINY)
+        elif entry == "DecodeEngine":
+            DecodeEngine(LM(TINY, device="cpu"), params,
+                         ServeConfig(slots=1, cache_len=8, max_prompt=4,
+                                     max_new_tokens=4))
+        elif entry == "load_servable":
+            load_servable({"params": params, "model_config": TINY}, "dense")
+        else:
+            interop.params_from_jax({"w": np.zeros(3, np.float32)})
+
+
+def test_engine_refuses_a_model_on_another_device():
+    model = LM(TINY, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    other = type("OnMeta", (), {"cfg": TINY, "device": torch.device("meta")})
+    with pytest.raises(ValueError, match="model lives on"):
+        DecodeEngine(other(), params, ServeConfig(slots=1, cache_len=8,
+                                                  max_prompt=4,
+                                                  max_new_tokens=4),
+                     device="cpu")
+
+
+def test_dispatch_raises_on_a_non_cpu_tensor():
+    """A meta tensor is neither CPU nor CUDA: no plain version serves it."""
+    q = torch.empty((2, 1, 4, 32), device="meta")
+    kv = torch.empty((2, 16, 2, 32), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.decode_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.masked_matmul(torch.empty((8, 128), device="meta"),
+                          torch.empty((128, 256), device="meta"),
+                          torch.ones(2, device="meta"))
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The CUDA wrappers never compute on the CPU (and count nothing)."""
+    before = (k5.launches, k1.launches)
+    q, kv = torch.zeros(2, 1, 4, 32), torch.zeros(2, 16, 2, 32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        k5.decode_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="CUDA device"):
+        k1.masked_matmul(torch.zeros(8, 128), torch.zeros(128, 256),
+                         torch.ones(2))
+    assert (k5.launches, k1.launches) == before

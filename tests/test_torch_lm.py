@@ -1,0 +1,301 @@
+"""The port's dense LM decode and FedAP pruning against the JAX package.
+
+JAX ``LM.init`` -> ``interop.params_from_jax`` -> the port on the CPU, on
+the tiny dense config of ``tests/test_serving.py`` and on olmo-1b's reduced
+config (MHA, non-parametric LayerNorm, tied embeddings).  Per-slot decode is
+held against the JAX Pallas path (interpret mode), lockstep decode against
+the JAX XLA path (the port attends the valid prefix for both index forms).
+Logit tolerance 1e-5 (f32, another summation order).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.configs.base import ModelConfig as JaxModelConfig
+from repro.core import pruning_lm as jax_pruning
+from repro.models import layers as jax_layers
+from repro.models.lm import LM as JaxLM
+from repro_torch import interop
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import pruning_lm
+from repro_torch.models import layers
+from repro_torch.models.lm import LM
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+TINY = JaxModelConfig(name="dense-tiny", family="dense", rope="1d",
+                      norm="rmsnorm", act="silu", param_dtype="float32",
+                      remat="none", num_layers=2, d_model=128, num_heads=4,
+                      num_kv_heads=2, d_ff=512, vocab_size=2048)
+OLMO_SMALL = jax_get_config("olmo-1b").reduced()
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _port_cfg(cfg):
+    return ModelConfig.from_dict(cfg.to_dict())
+
+
+@pytest.fixture(scope="module", params=["dense-tiny", "olmo-reduced"])
+def world(request):
+    cfg = TINY if request.param == "dense-tiny" else OLMO_SMALL
+    jparams = JaxLM(cfg).init(jax.random.key(0))
+    model = LM(_port_cfg(cfg), device="cpu")
+    return cfg, jparams, model, interop.params_from_jax(_np_tree(jparams),
+                                                        "cpu")
+
+
+def _tokens(rng, b, vocab):
+    return rng.integers(0, vocab, (b, 1)).astype(np.int32)
+
+
+def _decode_both(cfg, jparams, model, params, *, start, attn_impl,
+                 jmasks=None, masks=None, steps=4):
+    """Run the same teacher-forced tokens through both decode steps; yield
+    (jax logits, port logits) per step and finally the two caches."""
+    jm = JaxLM(cfg, attn_impl=attn_impl)
+    b, s_len = 3, 8
+    jc = jm.init_cache(b, s_len)
+    pc = model.init_cache(b, s_len)
+    if start is not None:
+        jc["index"] = jnp.asarray(start, jnp.int32)
+        pc["index"] = torch.tensor(start, dtype=torch.int32)
+    rng = np.random.default_rng(1)
+    out = []
+    for _ in range(steps):
+        tok = _tokens(rng, b, cfg.vocab_size)
+        jl, jc = jm.decode_step(jparams, jc, {"tokens": jnp.asarray(tok)},
+                                masks=jmasks)
+        pl, pc = model.decode_step(params, pc, {"tokens": torch.from_numpy(tok)},
+                                   masks=masks)
+        out.append((np.asarray(jl), pl.numpy()))
+    return out, jc, pc
+
+
+class TestDecodeStep:
+    @pytest.mark.parametrize("index", ["scalar", "per-slot"])
+    def test_logits_and_cache_match_jax(self, world, index):
+        cfg, jparams, model, params = world
+        start = None if index == "scalar" else [0, 2, 5]
+        impl = "xla" if index == "scalar" else "pallas"
+        steps, jc, pc = _decode_both(cfg, jparams, model, params,
+                                     start=start, attn_impl=impl)
+        for want, got in steps:
+            assert got.shape == want.shape
+            np.testing.assert_allclose(got, want, **TOL)
+        np.testing.assert_allclose(pc["k"].numpy(), np.asarray(jc["k"]), **TOL)
+        np.testing.assert_allclose(pc["v"].numpy(), np.asarray(jc["v"]), **TOL)
+        np.testing.assert_array_equal(pc["index"].numpy(),
+                                      np.asarray(jc["index"]))
+
+    def test_ring_buffer_wraps_like_jax(self, world):
+        """Past the cache length the writes wrap (index mod S) and every
+        slot is attended — lockstep against the JAX XLA path."""
+        cfg, jparams, model, params = world
+        steps, _, _ = _decode_both(cfg, jparams, model, params,
+                                   start=[6, 9, 15], attn_impl="pallas",
+                                   steps=3)
+        for want, got in steps:
+            np.testing.assert_allclose(got, want, **TOL)
+
+    def test_masked_decode_matches_jax(self, world):
+        cfg, jparams, model, params = world
+        jm = JaxLM(cfg)
+        kept = jm.decide_kept(jparams, 0.5)
+        jmasks = jm.filter_masks(jparams, kept)
+        masks = interop.masks_from_jax(_np_tree(jmasks), "cpu")
+        steps, _, _ = _decode_both(cfg, jparams, model, params,
+                                   start=[1, 0, 4], attn_impl="pallas",
+                                   jmasks=jmasks, masks=masks)
+        for want, got in steps:
+            np.testing.assert_allclose(got, want, **TOL)
+
+    def test_masked_equals_shrunk(self, world):
+        """Masked decode at dense shapes == decode of the compacted model."""
+        cfg, _, model, params = world
+        kept = model.decide_kept(params, 0.5)
+        masks = model.filter_masks(params, kept)
+        shrunk = model.shrink_params(params, kept)
+        s_model = LM(dataclasses.replace(model.cfg,
+                                         d_ff=kept["mlp"].shape[1]),
+                     device="cpu")
+        b, s_len = 2, 8
+        cm, cs = model.init_cache(b, s_len), s_model.init_cache(b, s_len)
+        rng = np.random.default_rng(2)
+        for _ in range(4):
+            tok = torch.from_numpy(_tokens(rng, b, cfg.vocab_size))
+            lm_, cm = model.decode_step(params, cm, {"tokens": tok},
+                                        masks=masks)
+            ls_, cs = s_model.decode_step(shrunk, cs, {"tokens": tok})
+            np.testing.assert_allclose(lm_.numpy(), ls_.numpy(), **TOL)
+
+    def test_non_dense_family_is_refused(self):
+        cfg = dataclasses.replace(_port_cfg(TINY), family="ssm",
+                                  name="ssm-tiny")
+        with pytest.raises(ValueError, match="'ssm'"):
+            LM(cfg, device="cpu")
+
+
+class TestPruning:
+    def test_kept_indices_and_masks_equal_jax(self, world):
+        cfg, jparams, model, params = world
+        jm = JaxLM(cfg)
+        for rate in (0.25, 0.5, 0.8):
+            jkept = jm.decide_kept(jparams, rate)
+            kept = model.decide_kept(params, rate)
+            np.testing.assert_array_equal(kept["mlp"], np.asarray(jkept["mlp"]))
+            np.testing.assert_array_equal(
+                model.filter_masks(params, kept)["mlp"].numpy(),
+                np.asarray(jm.filter_masks(jparams, jkept)["mlp"]))
+        jpm = jax.tree.leaves(_np_tree(jm.param_masks(jparams, jkept)))
+        pm = jax.tree.leaves(interop.params_to_numpy(
+            model.param_masks(params, kept)))
+        assert len(jpm) == len(pm)
+        for a, b in zip(jpm, pm):
+            np.testing.assert_array_equal(a, b)
+
+    def test_shrink_equals_jax(self, world):
+        cfg, jparams, model, params = world
+        kept = model.decide_kept(params, 0.5)
+        want = _np_tree(jax_pruning.shrink_ffn_at(jparams, kept["mlp"]))
+        got = interop.params_to_numpy(model.shrink_params(params, kept))
+        for a, b in zip(jax.tree.leaves(want), jax.tree.leaves(got)):
+            np.testing.assert_array_equal(a, b)
+
+    def test_ties_rank_the_later_index_first(self):
+        """Equal scores everywhere: the reference's flipped stable argsort
+        keeps the highest indices; the port keeps the same ones."""
+        cfg = dataclasses.replace(TINY, d_ff=256)
+        ones = {"layers": {"mlp": {
+            "wi": np.ones((2, 128, 256), np.float32),
+            "wg": np.ones((2, 128, 256), np.float32),
+            "wo": np.ones((2, 256, 128), np.float32)}}}
+        want = jax_pruning.ffn_kept_indices(
+            jax.tree.map(jnp.asarray, ones), cfg, 0.5)
+        got = pruning_lm.ffn_kept_indices(
+            interop.params_from_jax(ones, "cpu"), _port_cfg(cfg), 0.5)
+        np.testing.assert_array_equal(got, np.asarray(want))
+        np.testing.assert_array_equal(got[0], np.arange(128, 256))
+
+    @pytest.mark.parametrize("d,rate,align", [
+        (512, 0.5, 128), (512, 0.3, 128), (100, 0.5, 128), (512, 0.0, None)])
+    def test_aligned_keep_equals_jax(self, d, rate, align):
+        assert pruning_lm._aligned_keep(d, rate, align) == \
+            jax_pruning._aligned_keep(d, rate, align)
+
+    @pytest.mark.parametrize("d,rate,align,match", [
+        (512, 1.0, 128, "must be in"), (300, 0.1, 128, "exceeds")])
+    def test_aligned_keep_errors(self, d, rate, align, match):
+        with pytest.raises(ValueError, match=match):
+            pruning_lm._aligned_keep(d, rate, align)
+
+
+class TestLayers:
+    @pytest.mark.parametrize("kind", ["rmsnorm", "layernorm", "nonparam"])
+    def test_norms_equal_jax(self, kind):
+        rng = np.random.default_rng(3)
+        x = rng.standard_normal((2, 3, 64)).astype(np.float32) * 3 + 1
+        p = {"scale": rng.standard_normal(64).astype(np.float32),
+             "bias": rng.standard_normal(64).astype(np.float32)}
+        want = jax_layers.apply_norm(jax.tree.map(jnp.asarray, p),
+                                     jnp.asarray(x), kind)
+        got = layers.apply_norm({k: torch.from_numpy(v) for k, v in p.items()},
+                                torch.from_numpy(x), kind)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+    @pytest.mark.parametrize("kind", ["1d", "2d"])
+    def test_rope_equals_jax(self, kind):
+        """Interleaved-pair rotation with f32 angles, per-slot offsets."""
+        rng = np.random.default_rng(4)
+        x = rng.standard_normal((3, 1, 4, 64)).astype(np.float32)
+        off = np.asarray([0, 17, 300], np.int32)
+        jpos = jax_layers.default_positions(3, 1, kind) + \
+            jnp.asarray(off)[None, :, None]
+        pos = layers.default_positions(3, 1, kind) + \
+            torch.from_numpy(off)[None, :, None]
+        np.testing.assert_array_equal(pos.numpy(), np.asarray(jpos))
+        want = jax_layers.apply_rope(jnp.asarray(x), jpos, kind)
+        got = layers.apply_rope(torch.from_numpy(x), pos, kind)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+    def test_mrope_not_ported_yet(self):
+        with pytest.raises(ValueError, match="mrope"):
+            layers.apply_rope(torch.zeros(1, 1, 1, 8),
+                              layers.default_positions(1, 1, "mrope"), "mrope")
+
+    @pytest.mark.parametrize("act", ["silu", "gelu"])
+    @pytest.mark.parametrize("masked", [False, True])
+    def test_apply_mlp_equals_jax(self, act, masked):
+        rng = np.random.default_rng(6)
+        x = rng.standard_normal((3, 1, 128)).astype(np.float32)
+        p = {"wi": rng.standard_normal((128, 256)).astype(np.float32) / 11,
+             "wo": rng.standard_normal((256, 128)).astype(np.float32) / 16}
+        if act == "silu":
+            p["wg"] = rng.standard_normal((128, 256)).astype(np.float32) / 11
+        mask = None
+        if masked:
+            mask = (rng.random(256) > 0.5).astype(np.float32)
+            mask[128:] = 0.0                  # one block fully pruned
+        want = jax_layers.apply_mlp(
+            jax.tree.map(jnp.asarray, p), jnp.asarray(x), act,
+            None if mask is None else jnp.asarray(mask))
+        got = layers.apply_mlp(
+            {k: torch.from_numpy(v) for k, v in p.items()},
+            torch.from_numpy(x), act,
+            None if mask is None else torch.from_numpy(mask))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+    def test_masked_dense_unaligned_masks_the_plain_product(self):
+        rng = np.random.default_rng(5)
+        x = rng.standard_normal((3, 96)).astype(np.float32)
+        w = rng.standard_normal((96, 200)).astype(np.float32)
+        mask = (rng.random(200) > 0.5).astype(np.float32)
+        want = jax_layers.masked_dense(jnp.asarray(x), jnp.asarray(w),
+                                       jnp.asarray(mask))
+        got = layers.masked_dense(torch.from_numpy(x), torch.from_numpy(w),
+                                  torch.from_numpy(mask))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+class TestConfigAndInterop:
+    def test_config_copy_round_trips(self):
+        for cfg in (TINY, OLMO_SMALL, jax_get_config("olmo-1b")):
+            assert _port_cfg(cfg).to_dict() == cfg.to_dict()
+        assert get_config("olmo-1b").to_dict() == \
+            jax_get_config("olmo-1b").to_dict()
+        assert get_config("olmo-1b").reduced().to_dict() == \
+            OLMO_SMALL.to_dict()
+        with pytest.raises(ValueError, match="unknown field"):
+            ModelConfig.from_dict({**TINY.to_dict(), "bogus": 1})
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_interop_round_trips_exactly(self, dtype):
+        cfg = dataclasses.replace(TINY, param_dtype=dtype)
+        jp = _np_tree(JaxLM(cfg).init(jax.random.key(1)))
+        port = interop.params_from_jax(jp, "cpu")
+        assert port["embed"].dtype == getattr(torch, dtype)
+        assert tuple(port["layers"]["attn"]["wq"].shape) == (2, 128, 4, 32)
+        back = interop.params_to_numpy(port)
+        for a, b in zip(jax.tree.leaves(jp), jax.tree.leaves(back)):
+            np.testing.assert_array_equal(np.asarray(a, np.float32), b)
+
+    def test_kept_and_masks_cross(self):
+        jm = JaxLM(TINY)
+        jp = jm.init(jax.random.key(2))
+        kept = jm.decide_kept(jp, 0.5)
+        masks = jm.filter_masks(jp, kept)
+        pk = interop.kept_from_jax(kept, "cpu")
+        pmk = interop.masks_from_jax(masks, "cpu")
+        assert pk["mlp"].dtype == torch.int64
+        assert pmk["mlp"].dtype == torch.float32
+        np.testing.assert_array_equal(pk["mlp"].numpy(), np.asarray(kept["mlp"]))
+        np.testing.assert_array_equal(pmk["mlp"].numpy(),
+                                      np.asarray(masks["mlp"]))
