@@ -9,18 +9,30 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build    — compile ``src/repro_torch/kernels/csrc/*.cu`` with nvcc
               (one process per source, in parallel) into ``build/``;
 3. kernels  — each CUDA kernel against its plain PyTorch version on the card
-              at the serving path's shapes, in float32 and bfloat16, with
-              CUDA-event times of the kernel, the plain version and one
-              library call of the same function, beside the bound;
+              at its paths' shapes (serving: K5, K1 at M = 8; training: K1,
+              K2, K3 at M = 512 and 500, K = 2048, N = 8192), in float32 and
+              bfloat16, with CUDA-event times of the kernel, the plain
+              version and one library call of the same function, beside the
+              bound;
 4. parity   — olmo-1b at full width, 2 layers, float32: teacher-forced
               decode steps on the card (kernels) against the CPU (plain
               versions), dense and masked at prune rate 0.5, plus the
               masked model against its shrunk twin;
-5. serving  — olmo-1b at full width, all 16 layers, bfloat16: the
+5. train-parity — olmo-1b at full width, 2 layers, float32: the masked loss
+              and every gradient, then one kernel-mode FedDUMAP round, on the
+              card against the CPU;
+6. training — olmo-1b at full width, all 16 layers, float32: a FedDUMAP
+              ``FederatedTrainer`` run of ``fedap_plan(4, prune_round=2,
+              mode="mask")`` in kernel mode, with each masked_matmul kernel's
+              launch count checked against the gradient evaluations, then
+              timed and profiled rounds;
+7. serving  — olmo-1b at full width, all 16 layers, bfloat16: the
               continuous-batching DecodeEngine over ``load_servable`` in
               dense, masked@0.5 and shrunk@0.5 modes, with each kernel's
               launch count checked against the decode steps taken, and one
               wave run under ``torch.cuda.set_sync_debug_mode("error")``.
+
+Each phase after the build prints its peak device memory.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -28,6 +40,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -149,10 +162,19 @@ def _k5_bound_ms(b, h, kvh, hd, lens_sum, elt, dtype_name) -> float:
     return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name])
 
 
-def _k1_bound_ms(m, k, n, kept_blocks, elt, dtype_name) -> float:
-    nbytes = elt * (m * k + k * 128 * kept_blocks + m * n) + 4 * (n // 128)
-    flops = 2 * m * k * 128 * kept_blocks
-    return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name])
+def _mm_bound(kind, m, k, n, kept_blocks, elt, dtype_name):
+    """(bound ms, "bytes" or "operations") of one masked product: the kept
+    128-column blocks are read, the others are not, every output element
+    is written once, and only kept blocks cost multiply-adds."""
+    kn = 128 * kept_blocks
+    any_kept = 1 if kept_blocks else 0
+    elems = {"fwd": m * k * any_kept + k * kn + m * n,     # x, w kept, y
+             "dx": m * kn + k * kn + m * k,               # dy, w kept, dx
+             "dw": m * k * any_kept + m * kn + k * n}[kind]  # x, dy, dw
+    t_bytes = (elt * elems + 4 * (n // 128)) / HBM_BYTES_PER_S
+    t_ops = 2 * m * k * kn / PEAK_FLOPS[dtype_name]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def phase_kernels(torch, timer) -> dict:
@@ -247,18 +269,108 @@ def phase_kernels(torch, timer) -> dict:
                 plain_ms = timer(lambda: ref.masked_matmul_ref(x, w, bm))
                 lib_ms = timer(lambda: torch.matmul(x, w))
                 kept = int((bm > 0).sum())
-                bound = _k1_bound_ms(m, kdim, n, kept, x.element_size(), dname)
+                bound, by = _mm_bound("fwd", m, kdim, n, kept,
+                                      x.element_size(), dname)
                 log(f"[kernels] masked_matmul {dname} kept {kept}/{nb} blocks: "
                     f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, dense "
-                    f"matmul {lib_ms:.4f} ms, bound {bound:.4f} ms (bytes)")
+                    f"matmul {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
                 if dtype == torch.bfloat16:
                     records["masked_matmul"] = {
                         "name": "masked_matmul", "route": "cuda",
                         "source": "src/repro_torch/kernels/csrc/masked_matmul.cu",
                         "replaces": "src/repro/kernels/masked_matmul.py:122",
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound, "bound_by": "bytes",
+                        "bound_ms": bound, "bound_by": by,
                         "library_ms": lib_ms}
+    for name, rec in _training_kernels(torch, timer, gen).items():
+        records.setdefault(name, {}).update(rec)
+    return records
+
+
+TRAIN_M, TRAIN_K, TRAIN_N = 512, 2048, 8192   # B x S, d_model, d_ff
+
+
+def _training_kernels(torch, timer, gen) -> dict:
+    """K1, K2 and K3 at the training path's FFN shapes (M = 4 x 128 tokens,
+    and a ragged M = 500), float32 (what training runs) and bfloat16, with
+    rate-0.5, all-ones and all-zeros block masks.  The all-ones f32 case at
+    M = 512 is the path's (FedAP's kept units fill no block's worth of
+    pruning) and gives each record; K1 keeps its serving record and adds
+    its training time as ``train_*`` keys."""
+    from repro_torch.kernels import masked_matmul as k1
+    from repro_torch.kernels import ref
+
+    kdim, n = TRAIN_K, TRAIN_N
+    nb = n // 128
+    half = torch.zeros(nb, device="cuda")
+    half[torch.randperm(nb, generator=gen, device="cuda")[: nb // 2]] = 1.0
+    masks = [("ones", torch.ones(nb, device="cuda")), ("rate0.5", half),
+             ("zeros", torch.zeros(nb, device="cuda"))]
+    kernels = {
+        "masked_matmul": ("fwd", 122, k1.masked_matmul, ref.masked_matmul_ref,
+                          lambda a, b: torch.matmul(a, b)),
+        "masked_matmul_dx": ("dx", 142, k1.masked_matmul_dx,
+                             ref.masked_matmul_dx_ref,
+                             lambda a, b: torch.matmul(a, b.T)),
+        "masked_matmul_dw": ("dw", 162, k1.masked_matmul_dw,
+                             ref.masked_matmul_dw_ref,
+                             lambda a, b: torch.matmul(a.T, b)),
+    }
+    records = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        w = (torch.randn((kdim, n), generator=gen, device="cuda")
+             / kdim ** 0.5).to(dtype)
+        for m in (TRAIN_M, 500):
+            x = torch.randn((m, kdim), generator=gen, device="cuda").to(dtype)
+            dy = torch.randn((m, n), generator=gen, device="cuda").to(dtype)
+            operands = {"fwd": (x, w), "dx": (dy, w), "dw": (x, dy)}
+            for name, (kind, line, fn, plain, lib) in kernels.items():
+                a, b = operands[kind]
+                for label, bm in masks:
+                    got = fn(a, b, bm)
+                    want = plain(a, b, bm)
+                    torch.cuda.synchronize()
+                    err, rel = max_rel_err(torch, got, want)
+                    log(f"[kernels] {name} {label} {dname} M={m} K={kdim} "
+                        f"N={n}: max_abs_err={err:.3e} rel={rel:.3e} "
+                        f"(tol {TOL[dname]:.3e})")
+                    require(bool(torch.isfinite(got).all()),
+                            f"{name}: non-finite output")
+                    require(rel <= TOL[dname], f"{name} {label} {dname} M={m}"
+                            f": error {rel:.3e} over tolerance")
+                    if label == "zeros":
+                        require(float(got.float().abs().max()) == 0.0,
+                                f"{name}: pruned blocks not exactly zero")
+                    if m != TRAIN_M or label == "zeros":
+                        continue
+                    ms = timer(lambda: fn(a, b, bm))
+                    plain_ms = timer(lambda: plain(a, b, bm))
+                    lib_ms = timer(lambda: lib(a, b))
+                    kept = int((bm > 0).sum())
+                    bound, by = _mm_bound(kind, m, kdim, n, kept,
+                                          a.element_size(), dname)
+                    log(f"[kernels] {name} {dname} M={m} kept {kept}/{nb} "
+                        f"blocks: kernel {ms:.4f} ms "
+                        f"({2e-9 * m * kdim * 128 * kept / ms:.1f} TFLOP/s), "
+                        f"plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} "
+                        f"ms, bound {bound:.4f} ms ({by})")
+                    if dtype != torch.float32 or label != "ones":
+                        continue
+                    rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                           "bound_by": by, "library_ms": lib_ms,
+                           "max_abs_err": err}
+                    if name == "masked_matmul":
+                        records[name] = {f"train_{k}": v
+                                         for k, v in rec.items()}
+                    else:
+                        records[name] = {
+                            "name": name, "route": "cuda",
+                            "source": "src/repro_torch/kernels/csrc/"
+                                      "masked_matmul.cu",
+                            "replaces": "src/repro/kernels/masked_matmul.py:"
+                                        f"{line}", **rec}
+    return records
     return records
 
 
@@ -332,7 +444,255 @@ def phase_parity(torch) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: serving olmo-1b at full width on the card
+# phase 5: the training path on the card against the CPU, float32
+# ---------------------------------------------------------------------------
+
+TRAIN_TOL = 1e-4   # f32, relative to max |cpu| per leaf (a gradient or a
+                   # round's parameter update): products of 2048 to 50304
+                   # terms summed in another order, through 2 layers
+# A round's update is a difference of f32 parameters, and FedDU's g0 =
+# (w_half - w_end) / (tau lr) divides one by tau lr, so the two devices'
+# updates also differ by the parameters' own rounding: each leaf is allowed
+# TRAIN_TOL of its max |update| plus ROUND_ULPS spacings of f32 at its
+# max |param|.
+ROUND_ULPS = 4
+
+
+def _leaf_errs(got, want):
+    """[(max |got - want|, max |want|)] per leaf of two trees."""
+    from repro_torch.utils.tree import tree_leaves
+
+    return [(float((g.detach().cpu().float() - w.float()).abs().max()),
+             float(w.float().abs().max()))
+            for g, w in zip(tree_leaves(got), tree_leaves(want))]
+
+
+def phase_train_parity(torch) -> None:
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.core import backend, engine
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.models.lm import LM
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config("olmo-1b"), num_layers=2,
+                              param_dtype="float32", remat="none")
+    cpu, gpu = LM(cfg, device="cpu"), LM(cfg, device="cuda")
+    params_c = cpu.init(torch.Generator().manual_seed(3))
+    params_g = interop.params_from_jax(params_c, "cuda")
+    # layer 0 keeps its first 32 of 64 FFN blocks whole (the kernels skip
+    # the other 32); layer 1 keeps FedAP's weight-norm choice at rate 0.5
+    kept = cpu.decide_kept(params_c, 0.5)
+    kept["mlp"][0] = np.arange(cfg.d_ff // 2)
+    fm_c = cpu.filter_masks(params_c, kept)
+    fm_g = interop.masks_from_jax(fm_c, "cuda")
+    blocks = fm_c["mlp"].reshape(cfg.num_layers, -1, 128).amax(-1)
+    rng = np.random.default_rng(5)
+    b, s_len = 2, 32
+    x = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s_len))
+                         .astype(np.int32))
+    y = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s_len))
+                         .astype(np.int32))
+    log(f"[train-parity] olmo-1b d_model={cfg.d_model} d_ff={cfg.d_ff} "
+        f"L={cfg.num_layers} f32, B={b} S={s_len}; "
+        f"{int((blocks == 0).sum())}/{blocks.numel()} FFN blocks fully pruned")
+
+    (l_c, _), g_c = engine.value_and_grad_aux(
+        lambda p: cpu.loss_and_acc(p, x, y, masks=fm_c), params_c)
+    (l_g, _), g_g = engine.value_and_grad_aux(
+        lambda p: gpu.loss_and_acc(p, x.cuda(), y.cuda(), masks=fm_g),
+        params_g)
+    errs = _leaf_errs(g_g, g_c)
+    worst = max(e / m if m > 0 else e for e, m in errs)
+    log(f"[train-parity] masked loss card {float(l_g):.6f} cpu "
+        f"{float(l_c):.6f}; {len(errs)} gradient leaves, worst error "
+        f"{worst:.3e} relative to the leaf's max |grad| (tol {TRAIN_TOL:.0e})")
+    require(abs(float(l_g) - float(l_c)) <= TRAIN_TOL * max(1.0, abs(float(l_c))),
+            "train-parity: masked loss differs")
+    require(worst <= TRAIN_TOL, f"train-parity: gradient error {worst:.3e}")
+    del g_c, g_g
+
+    # one round: 2 clients x 1 local step and 1 server step, each on B x S
+    eng = EngineConfig(lr=3e-3, lr_decay=1.0, use_server_update=True,
+                       local_momentum="restart", server_momentum=True,
+                       use_masks=True, masked_compute="kernel")
+
+    def toks(*lead):
+        t = rng.integers(0, cfg.vocab_size, lead + (s_len + 1,))
+        return (torch.from_numpy(t[..., :-1].astype(np.int32)),
+                torch.from_numpy(t[..., 1:].astype(np.int32)))
+
+    batch_c = {"client": toks(2, 1, b), "sizes": torch.tensor([8.0, 8.0]),
+               "server": toks(1, b), "d_round": torch.tensor(0.3),
+               "d_server": torch.tensor(0.02), "n0": torch.tensor(8.0)}
+    deltas = {}
+    eps = torch.finfo(torch.float32).eps
+    ulp = [eps * float(t.abs().max()) for t in tree_leaves(params_c)]
+    for name, model, params, fm in (("cpu", cpu, params_c, fm_c),
+                                    ("card", gpu, params_g, fm_g)):
+        dev = "cpu" if name == "cpu" else "cuda"
+        state = engine.init_round_state(
+            tree_map(torch.clone, params), eng,
+            filter_masks=model.filter_masks(params, {}))
+        backend.masked_round_state(state, model.param_masks(params, kept),
+                                   filter_masks=fm)
+        before = tree_map(torch.clone, state["params"])
+        grad_fn, la_fn = backend.model_fns(model, eng)
+        state, met = engine.round_core(
+            eng, grad_fn, la_fn, state,
+            tree_map(lambda t: t.to(dev), batch_c))
+        deltas[name] = tree_map(lambda a, b_: (a - b_).cpu(), state["params"],
+                                before)
+        log(f"[train-parity] one FedDUMAP round on the {name}: tau_eff "
+            f"{float(met['tau_eff']):.6f}, server acc "
+            f"{float(met['server_acc']):.4f}")
+        del state, before
+    errs = _leaf_errs(deltas["card"], deltas["cpu"])
+    rel = max(e / m if m > 0 else e for e, m in errs)
+    ulps = max(e / u for (e, _), u in zip(errs, ulp))
+    worst = max(e / (TRAIN_TOL * m + ROUND_ULPS * u)
+                for (e, m), u in zip(errs, ulp))
+    log(f"[train-parity] round parameter updates ({len(errs)} leaves): worst "
+        f"error {rel:.3e} relative to the leaf's max |update|, {ulps:.2f} f32 "
+        f"spacings at the leaf's max |param|; worst error / allowance "
+        f"({TRAIN_TOL:.0e} x max |update| + {ROUND_ULPS} spacings) = "
+        f"{worst:.3f}")
+    require(worst <= 1.0, f"train-parity: round update error {worst:.3f} "
+            f"of its allowance")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: FedDUMAP training of olmo-1b at full width on the card
+# ---------------------------------------------------------------------------
+
+def phase_training(torch) -> dict:
+    """Returns {kernel name: launches over the plan's run}."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import fedap_plan
+    from repro_torch.core.pruning import FedAPConfig
+    from repro_torch.core.rounds import FederatedTrainer, feddumap_config
+    from repro_torch.data.pipeline import build_lm_federated_data
+    from repro_torch.data.synthetic import TokenSpec
+    from repro_torch.kernels import masked_matmul as k1
+    from repro_torch.models.lm import LM
+    from repro_torch.utils.tree import tree_size
+
+    cfg = dataclasses.replace(get_config("olmo-1b"), param_dtype="float32",
+                              remat="none")
+    model = LM(cfg, device="cuda")
+    data = build_lm_federated_data(
+        num_clients=4, server_fraction=0.25,
+        spec=TokenSpec(vocab_size=cfg.vocab_size, num_topics=8, seq_len=129,
+                       num_sequences=45))
+    fl = feddumap_config(num_clients=4, clients_per_round=2, batch_size=4,
+                         server_batch_size=4, local_epochs=1, lr=3e-3,
+                         lr_decay=1.0, masked_compute="kernel",
+                         fedap=FedAPConfig(align=128, min_rate=0.5,
+                                           probe_size=4, participants=2))
+    trainer = FederatedTrainer(model, data, fl, device="cuda")
+    backend = trainer.backend(use_masks=True)
+    kw = backend.sample_kw
+    seq = data.client_x.shape[-1]
+    grads_per_round = (kw["clients_per_round"] * kw["local_steps"]
+                       + kw["server_tau"])
+    tokens_per_round = seq * (kw["clients_per_round"] * kw["local_steps"]
+                              * kw["batch_size"]
+                              + kw["server_tau"] * kw["server_batch"])
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    log(f"[training] olmo-1b full width f32: {cfg.num_layers} layers, "
+        f"{tree_size(params) / 1e9:.3f} B params; n_k="
+        f"{data.client_x.shape[1]}, n0={data.server_x.shape[0]}, S={seq}; "
+        f"per round {kw['clients_per_round']} clients x {kw['local_steps']} "
+        f"local steps of B={kw['batch_size']} + tau={kw['server_tau']} server "
+        f"steps of B={kw['server_batch']}: {grads_per_round} gradient "
+        f"evaluations, {tokens_per_round} tokens")
+    rounds = 4
+    plan = fedap_plan(rounds, prune_round=2, mode="mask")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = k1.dx_launches = k1.dw_launches = 0
+    t0 = time.perf_counter()
+    res = trainer.run(plan, params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"masked_matmul": k1.launches,
+                "masked_matmul_dx": k1.dx_launches,
+                "masked_matmul_dw": k1.dw_launches}
+    del params
+    h = res.history
+    for r, loss, acc, tau, t in zip(h["round"], h["loss"], h["acc"],
+                                    h["tau_eff"], h["time"]):
+        log(f"[training] round {r}: test loss {loss:.6f} acc {acc:.4f} "
+            f"tau_eff {tau:.6f} at {t:.3f} s on the host clock")
+    art = res.artifacts["prune"]
+    fmask = res.state["filter_masks"]["mlp"]
+    blocks = fmask.reshape(cfg.num_layers, -1, 128).amax(-1)
+    log(f"[training] prune at round 2: p*={art['p_star']:.6f}, kept "
+        f"{art['kept_counts']} of {cfg.d_ff} units per layer, "
+        f"{int((blocks == 0).sum())}/{blocks.numel()} FFN column blocks fully "
+        f"pruned; plan ran in {wall:.3f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    want = rounds * grads_per_round * 2 * cfg.num_layers
+    log(f"[training] launches masked_matmul={launches['masked_matmul']} "
+        f"dx={launches['masked_matmul_dx']} dw={launches['masked_matmul_dw']}"
+        f" (expected {rounds} rounds x {grads_per_round} gradient evaluations"
+        f" x 2 products x {cfg.num_layers} layers = {want})")
+    require(all(n == want for n in launches.values()),
+            f"training: kernel launches {launches}, expected {want} each")
+    require(len(h["loss"]) == rounds and all(
+        math.isfinite(v) for k in ("loss", "acc", "tau_eff") for v in h[k]),
+        "training: history not finite")
+    kept = art["kept_counts"]["mlp"]
+    require(kept < cfg.d_ff and bool(
+        (fmask.sum(1) == kept).all()), "training: the prune was not applied")
+
+    # steady-state rounds on the pruned state: two timed on the host clock,
+    # one under the profiler
+    state = res.state
+    t0 = time.perf_counter()
+    state, _ = backend.run_rounds(state, rounds, 2)
+    torch.cuda.synchronize()
+    round_s = (time.perf_counter() - t0) / 2
+    log(f"[training] steady state: {round_s:.3f} s/round -> "
+        f"{1 / round_s:.3f} rounds/s, {tokens_per_round / round_s:.1f} "
+        f"tokens/s trained")
+    _profile_round(torch, backend, state, rounds + 2, round_s)
+    del res, state, trainer, backend
+    return launches
+
+
+def _profile_round(torch, backend, state, t, round_s) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        backend.run_rounds(state, t, 1)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA"
+               and e.self_device_time_total > 0]
+    if not kernels:
+        log("[profile] training: device time not measured (the profiler saw "
+            "no CUDA kernels)")
+        return
+    dev_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    busy = 100 * dev_s / round_s
+    log(f"[profile] training: round {round_s:.3f} s on the host clock, "
+        f"kernels {dev_s:.3f} s on the device -> busy {busy:.1f}%, idle "
+        f"{100 - busy:.1f}%")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[profile] training:   {e.self_device_time_total / 1e6:8.4f} "
+            f"s/round  {e.count:5d}/round  {e.key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: serving olmo-1b at full width on the card
 # ---------------------------------------------------------------------------
 
 def phase_serving(torch) -> dict:
@@ -344,12 +704,13 @@ def phase_serving(torch) -> dict:
     from repro_torch.kernels import masked_matmul as k1
     from repro_torch.models.lm import LM
     from repro_torch.serving import DecodeEngine, ServeConfig, load_servable
+    from repro_torch.utils.tree import tree_size
 
     cfg = get_config("olmo-1b")
     model = LM(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     kept = model.decide_kept(params, 0.5)
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = tree_size(params)
     log(f"[serving] olmo-1b full width: {cfg.num_layers} layers, "
         f"{n_params / 1e9:.3f} B params, {cfg.param_dtype}")
     scfg = ServeConfig(slots=8, cache_len=512, max_prompt=64,
@@ -414,14 +775,6 @@ def phase_serving(torch) -> dict:
     return launches
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def _full_engine(torch, sv, scfg, prompts):
     """An engine with every slot admitted and one wave run."""
     from repro_torch.serving import DecodeEngine
@@ -484,6 +837,19 @@ def _sync_free_wave(torch, sv, scfg, prompts) -> None:
         f"set_sync_debug_mode('error') without a host sync")
 
 
+def _phase(torch, name, fn, *args):
+    """Run one phase with the device's peak memory measured around it."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    log(f"[memory] {name}: peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB, {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -496,9 +862,13 @@ def main() -> int:
     phase_device(torch)
     phase_build()
     timer = Timer(torch)
-    records = phase_kernels(torch, timer)
-    phase_parity(torch)
-    launches = phase_serving(torch)
+    records = _phase(torch, "kernels", phase_kernels, torch, timer)
+    del timer
+    _phase(torch, "parity", phase_parity, torch)
+    _phase(torch, "train-parity", phase_train_parity, torch)
+    launches = _phase(torch, "training", phase_training, torch)
+    for name, n in _phase(torch, "serving", phase_serving, torch).items():
+        launches[name] = launches.get(name, 0) + n
     for name, rec in records.items():
         rec["launches"] = launches[name]
         rec.update(tpu_kernel=rec["replaces"], max_err=rec["max_abs_err"],

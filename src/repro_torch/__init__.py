@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of the FedDUMAP reproduction (``repro``).
 
 The JAX package ``repro`` is the reference; this package mirrors its layout
-(``configs/``, ``kernels/``, ``models/``, ``core/``, ``serving/``) so each
+(``configs/``, ``kernels/``, ``models/``, ``core/``, ``data/``,
+``serving/``, ``utils/``) so each
 module has a counterpart under the same name.  It imports ``torch``, numpy
 and the standard library only — never JAX and nothing of ``repro``.
 

@@ -1,1 +1,2 @@
-"""Core: FedAP pruning of the LM and the checkpoint reader."""
+"""Core: the federated round engine, FedDU/FedDUM math, FedAP pruning,
+training plans, the plan executor and trainer, and the checkpoint reader."""

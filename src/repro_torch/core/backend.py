@@ -1,0 +1,248 @@
+"""The plan executor and the local backend it drives.
+
+Counterpart of the reference's ``core/backend.py`` for one device.  A
+:class:`~repro_torch.core.plan.TrainPlan` says WHAT happens (Scan / Eval /
+Prune); :class:`PlanExecutor` owns the schedule loop (history, artifacts,
+the Prune decision/apply split) and drives :class:`LocalBackend`, which
+runs the rounds of :func:`repro_torch.core.engine.round_core` eagerly.
+
+Where the reference compiles a scan chunk, the port runs one eager round
+after another, and a ``Prune(mode="mask")`` writes the masks into the
+existing state tensors (``copy_``/``mul_``/``zero_``): every state tensor
+keeps its storage and shape, the eager analogue of the reference's "zero
+added programs".  Checkpoints, host faults, ``Snapshot``/``Callback``
+events and the mesh backend come with later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+import inspect
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core import engine
+from repro_torch.core.engine import EngineConfig
+from repro_torch.core.plan import Eval, Prune, RunResult, Scan, TrainPlan
+from repro_torch.utils.tree import tree_map
+
+
+def model_fns(model, eng: EngineConfig):
+    """``(grad_fn, loss_and_acc_fn)`` for ``round_core`` from a model with
+    ``loss_and_acc(params, x, y[, masks=])`` over ``(x, y)`` batches."""
+    accepts_masks = "masks" in inspect.signature(model.loss_and_acc).parameters
+    if eng.use_masks and eng.masked_compute == "kernel" and not accepts_masks:
+        raise TypeError(
+            f"masked_compute='kernel' needs the model's loss_and_acc to "
+            f"accept masks=, but {type(model).__name__}.loss_and_acc does not")
+
+    if accepts_masks:
+        def la_fn(p, b, fm):
+            return model.loss_and_acc(p, b[0], b[1], masks=fm)
+    else:
+        def la_fn(p, b, fm):
+            return model.loss_and_acc(p, b[0], b[1])
+
+    def loss_fn(p, b, fm):
+        return la_fn(p, b, fm)[0]
+
+    return engine.build_model_fns(eng, loss_fn, la_fn)
+
+
+def sim_sample_kw(cfg, data) -> dict:
+    """The sampling shape of one simulated round."""
+    n_k = int(data.client_x.shape[1])
+    n0 = int(data.server_x.shape[0])
+    return dict(
+        clients_per_round=cfg.clients_per_round,
+        batch_size=cfg.batch_size,
+        local_steps=max(1, n_k // cfg.batch_size) * cfg.local_epochs,
+        server_batch=cfg.server_batch_size,
+        server_tau=max(1, n0 // cfg.server_batch_size) * cfg.server_epochs,
+    )
+
+
+def masked_round_state(state: dict, masks: Any, filter_masks: Any = None
+                       ) -> dict:
+    """Inject FedAP keep-masks into a live masked round state, IN PLACE:
+    server (and communicated) momentum restarts at zero, the masks and
+    filter masks are copied into their tensors, and the params are masked.
+    No state tensor changes storage or shape."""
+    with torch.no_grad():
+        for k in ("server_m", "global_m"):
+            if k in state:
+                tree_map(torch.Tensor.zero_, state[k])
+        tree_map(lambda dst, m: dst.copy_(m), state["masks"], masks)
+        engine.mask_(state["params"], state["masks"])
+        if filter_masks is not None:
+            tree_map(lambda dst, m: dst.copy_(m), state["filter_masks"],
+                     filter_masks)
+    return state
+
+
+class LocalBackend:
+    """Rounds on one device, eagerly, with the whole federated dataset
+    resident there.
+
+    ``batches`` (optional) is a per-round batch source: ``batches(t)``
+    returns round ``t``'s ``round_core`` batch (0-based over the run; numpy
+    or tensors).  Without it, rounds sample with :func:`engine.
+    draw_round_indices` from ``generator``.
+    """
+
+    def __init__(self, model, data, cfg, *, use_masks: bool = False,
+                 device, generator: torch.Generator | None = None,
+                 batches: Callable | None = None):
+        from repro_torch.core.rounds import engine_config
+
+        self.model, self.data, self.cfg = model, data, cfg
+        self.device = torch.device(device)
+        self.eng = dataclasses.replace(engine_config(cfg),
+                                       use_masks=use_masks)
+        self.sample_kw = sim_sample_kw(cfg, data)
+        self.grad_fn, self.la_fn = model_fns(model, self.eng)
+        self.generator = generator
+        self.batches = batches
+        self._data = None
+
+    @property
+    def _kernel_masks(self) -> bool:
+        return self.eng.use_masks and self.eng.masked_compute == "kernel"
+
+    def device_data(self) -> dict:
+        if self._data is None:
+            self._data = self.data.device_arrays(self.device)
+        return self._data
+
+    def init_state(self, params) -> dict:
+        """A fresh round state over a COPY of ``params`` (kernel mode: with
+        all-ones filter masks, whose contents a prune event replaces)."""
+        fmasks = (self.model.filter_masks(params, {})
+                  if self._kernel_masks else None)
+        return engine.init_round_state(tree_map(torch.clone, params),
+                                       self.eng, filter_masks=fmasks)
+
+    def round_batch(self, t: int) -> dict:
+        """Round ``t``'s batch: from the injected source, or drawn."""
+        if self.batches is not None:
+            return tree_map(lambda a: _tensor(a, self.device),
+                            self.batches(t))
+        d = self.device_data()
+        kw = self.sample_kw
+        sel, idx, sidx = engine.draw_round_indices(
+            self.generator, num_clients=int(d["client_x"].shape[0]),
+            n_k=int(d["client_x"].shape[1]),
+            n0=int(d["server_x"].shape[0]), **kw)
+        return engine.sample_round_batches(d, sel, idx, sidx, **kw)
+
+    def run_rounds(self, state: dict, t: int, n: int):
+        """Rounds ``t .. t+n-1`` on ``state`` (in place); returns (state,
+        per-round metrics)."""
+        mets = []
+        for r in range(t, t + n):
+            state, met = engine.round_core(self.eng, self.grad_fn,
+                                           self.la_fn, state,
+                                           self.round_batch(r))
+            mets.append(met)
+        return state, mets
+
+    def evaluate(self, state):
+        d = self.device_data()
+        with torch.no_grad():
+            return self.model.loss_and_acc(state["params"], d["test_x"],
+                                           d["test_y"])
+
+    def prune_decision(self, state, init_params):
+        from repro_torch.core import fedap
+
+        return fedap.fedap_decision(
+            self.model, self.data, self.cfg.fedap, state["params"],
+            init_params=init_params,
+            rng=np.random.default_rng(self.cfg.seed))
+
+    def apply_prune(self, state: dict, mode: str, kept):
+        """mask: write keep-masks into the live state (momentum restarts);
+        shrink: a new state over the smaller model."""
+        params = state["params"]
+        if mode == "mask":
+            masks = self.model.param_masks(params, kept)
+            fmasks = self.model.filter_masks(params, kept)
+            new_state = masked_round_state(
+                state, masks,
+                filter_masks=fmasks if self._kernel_masks else None)
+            return new_state, {"filter_masks": fmasks}
+        new_params = self.model.shrink_params(params, kept)
+        fm = (self.model.filter_masks(new_params, {})
+              if self._kernel_masks else None)
+        new_state = engine.init_round_state(new_params, self.eng,
+                                            filter_masks=fm)
+        new_state["round"] = state["round"]
+        return new_state, {"params_before": params}
+
+
+def _tensor(a, device) -> torch.Tensor:
+    if not isinstance(a, torch.Tensor):
+        a = torch.as_tensor(np.array(a))
+    return a.to(device)
+
+
+class PlanExecutor:
+    """Executes a :class:`TrainPlan` against a backend: history rows record
+    the completed-round count at each Eval, and artifact keys get ``#k``
+    suffixes on repeats."""
+
+    def __init__(self, backend: LocalBackend):
+        self.backend = backend
+
+    def run(self, plan: TrainPlan, *, params) -> RunResult:
+        """Run ``plan`` from ``params`` (which are not modified; they are
+        the Lipschitz estimate's start point of any Prune decision)."""
+        backend = self.backend
+        state = backend.init_state(params)
+        history = {"round": [], "acc": [], "loss": [], "tau_eff": [],
+                   "time": [], "health": []}
+        artifacts: dict = {}
+        t0 = time.perf_counter()
+        t = 0
+        last_tau = 0.0
+
+        def record(name, value):
+            k, i = name, 1
+            while k in artifacts:
+                k = f"{name}#{i}"
+                i += 1
+            artifacts[k] = value
+
+        for ev in plan.compiled():
+            if isinstance(ev, Scan):
+                state, mets = backend.run_rounds(state, t, ev.rounds)
+                t += ev.rounds
+                last_tau = float(mets[-1]["tau_eff"])
+                history["health"].extend(float(m["health"]) for m in mets)
+            elif isinstance(ev, Eval):
+                loss, acc = backend.evaluate(state)
+                history["round"].append(t)
+                history["acc"].append(float(acc))
+                history["loss"].append(float(loss))
+                history["tau_eff"].append(last_tau)
+                history["time"].append(time.perf_counter() - t0)
+            elif isinstance(ev, Prune):
+                state, art = self._prune(ev, state, params, artifacts)
+                record(ev.name, art)
+            else:  # pragma: no cover — TrainPlan validates event types
+                raise TypeError(f"unknown plan event: {ev!r}")
+        return RunResult(params=state["params"], history=history,
+                         artifacts=artifacts, state=state)
+
+    def _prune(self, ev: Prune, state: dict, init_params, artifacts: dict):
+        """Decision + apply of one Prune event -> (new state, artifact)."""
+        decision = self.backend.prune_decision(state, init_params)
+        art = decision.summary()
+        art["kept"] = decision.kept
+        art["mode"] = ev.mode
+        new_state, extra = self.backend.apply_prune(state, ev.mode,
+                                                    decision.kept)
+        art.update(extra)
+        return new_state, art

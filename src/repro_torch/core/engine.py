@@ -1,0 +1,393 @@
+"""The federated round engine: one implementation of the paper's round
+(steps 2-5 of Section 3.1), eager, on one device.
+
+Counterpart of the reference's ``core/engine.py`` for ``algorithm="fedavg"``
+with every momentum mode (none / restart / communicated local momentum,
+FedDUM server momentum), the FedDU dynamic server update, and FedAP masks
+in ``"params"`` and ``"kernel"`` compute modes.  FedProx, FedDyn, the health
+guard, fault injection and client dropout are later slices and raise.
+
+Differences from the reference, each for memory at the width of a real
+model (olmo-1b in f32 is 4.71 GB per param-sized tree):
+
+* Clients train one after another instead of under ``vmap``.  FedAvg is a
+  running f32 sum ``sum_k w_k theta_k`` with ``w = sizes / sum(sizes)``
+  fixed before the first client, so the round holds one client's params,
+  momentum and gradient at a time, not ``C`` of each.
+* :func:`round_core` updates the round state IN PLACE and returns it;
+  temporaries are dropped as soon as they are dead.  Nothing is donated or
+  copied behind the caller's back, so a caller that wants to keep a state
+  passes a copy.
+
+Model access is two callables over an opaque batch (``(x, y)`` tuples for
+the simulation models), as in the reference:
+
+  grad_fn(params, batch[, filter_masks])          -> grads tree
+  loss_and_acc_fn(params, batch[, filter_masks])  -> (loss, acc)
+
+the filter masks being passed iff ``use_masks`` and
+``masked_compute == "kernel"`` (:func:`build_model_fns`).  The Formula-7
+accuracy gate comes from the FIRST server step's own forward.
+
+Randomness is an input: :func:`sample_round_batches` gathers one round's
+batches at given client and sample indices, and :func:`draw_round_indices`
+draws those indices from a ``torch.Generator``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core import niid
+from repro_torch.core.momentum import (
+    FedDUMConfig,
+    server_momentum_step,
+    server_pseudo_gradient,
+)
+from repro_torch.core.server_update import FedDUConfig, feddu_apply, tau_eff
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+LATER = {
+    "algorithm": "the FedProx/FedDyn client algorithms come with the CNN "
+                 "slice",
+    "guard": "the health guard comes with the reliability slice",
+    "faults": "fault injection comes with the reliability slice",
+    "dropout_rate": "client dropout comes with the CNN slice",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Algorithm switches of the round: FedAvg / FedDU / FedDUM / FedDA /
+    FedDUMAP (FedAP prunes between rounds, as a plan event)."""
+
+    lr: float = 0.1                 # eta: local AND server SGD step size
+    lr_decay: float = 1.0           # per-round geometric decay (paper 4.1)
+    use_server_update: bool = True  # FedDU (Formulas 4-7)
+    local_momentum: str = "none"    # none | restart | communicated
+    server_momentum: bool = False   # FedDUM server SGDM (Formulas 8/12)
+    use_masks: bool = False         # FedAP masks in the round state
+    masked_compute: str = "params"  # params | kernel
+    algorithm: str = "fedavg"       # only fedavg is ported
+    guard: str = "off"              # only off is ported
+    faults: tuple = ()              # none are ported
+    feddu: FedDUConfig = dataclasses.field(default_factory=FedDUConfig)
+    feddum: FedDUMConfig = dataclasses.field(default_factory=FedDUMConfig)
+
+    def __post_init__(self):
+        if self.local_momentum not in ("none", "restart", "communicated"):
+            raise ValueError(f"unknown local_momentum: {self.local_momentum}")
+        if self.masked_compute not in ("params", "kernel"):
+            raise ValueError(
+                f"unknown masked_compute: {self.masked_compute!r} "
+                "(expected 'params' or 'kernel')")
+        check_ported(algorithm=self.algorithm, guard=self.guard,
+                     faults=self.faults)
+
+
+def check_ported(**switches) -> None:
+    """Raise for a switch of a later slice set away from its default."""
+    defaults = {"algorithm": "fedavg", "guard": "off", "faults": (),
+                "dropout_rate": 0.0}
+    for name, value in switches.items():
+        if value != defaults[name]:
+            raise ValueError(f"{name}={value!r} is not ported yet: "
+                             f"{LATER[name]}")
+
+
+def init_round_state(params: Any, cfg: EngineConfig,
+                     filter_masks: Any = None) -> dict:
+    """``{"params", "server_m", ["global_m"], ["masks"], ["filter_masks"],
+    "round"}`` on the params' device.  ``params`` is held, not copied.
+    Masks start as all ones (a no-op round), so a prune event only changes
+    their contents.  ``filter_masks`` (required iff ``use_masks`` and
+    ``masked_compute == "kernel"``) is copied."""
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    dev = tree_leaves(params)[0].device
+    state = {"params": params, "server_m": tree_map(zeros, params),
+             "round": torch.zeros((), dtype=torch.float32, device=dev)}
+    if cfg.local_momentum == "communicated":
+        state["global_m"] = tree_map(zeros, params)
+    if cfg.use_masks:
+        state["masks"] = tree_map(
+            lambda p: torch.ones(p.shape, dtype=torch.float32,
+                                 device=p.device), params)
+        if cfg.masked_compute == "kernel":
+            if filter_masks is None:
+                raise ValueError(
+                    "masked_compute='kernel' needs filter_masks in the round "
+                    "state: pass the model's all-ones filter masks to "
+                    "init_round_state")
+            state["filter_masks"] = tree_map(
+                lambda m: torch.as_tensor(m, dtype=torch.float32,
+                                          device=dev).clone(), filter_masks)
+    return state
+
+
+def mask_(tree: Any, masks: Any) -> Any:
+    """A param-structured tree times its 0/1 keep-masks, in place (the
+    reference's ``apply_masks``); returns ``tree``."""
+    tree_map(lambda x, m: x.mul_(m), tree, masks)
+    return tree
+
+
+def _detached_leaves(params):
+    q = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    return q, tree_leaves(q)
+
+
+def grad(loss_fn: Callable, params: Any, *args) -> Any:
+    """The gradient tree of the scalar ``loss_fn(params, *args)`` (the
+    counterpart of ``jax.grad``); ``params`` are not modified."""
+    with torch.enable_grad():
+        q, leaves = _detached_leaves(params)
+        loss = loss_fn(q, *args)
+        return tree_unflatten(params, torch.autograd.grad(loss, leaves))
+
+
+def value_and_grad_aux(fn: Callable, params: Any, *args):
+    """``((value, aux), grads)`` of ``fn(params, *args) -> (value, aux)``,
+    differentiating the value (``jax.value_and_grad(has_aux=True)``)."""
+    with torch.enable_grad():
+        q, leaves = _detached_leaves(params)
+        value, aux = fn(q, *args)
+        grads = torch.autograd.grad(value, leaves)
+    return (value.detach(), aux.detach()), tree_unflatten(params, grads)
+
+
+def build_model_fns(cfg: EngineConfig, loss_fn: Callable,
+                    la_fn: Callable) -> tuple[Callable, Callable]:
+    """``(grad_fn, loss_and_acc_fn)`` in the arity :func:`round_core`
+    expects, from ``loss_fn(params, batch, filter_masks)`` and
+    ``la_fn(params, batch, filter_masks)``: 3-argument with the filter
+    masks in kernel mode, else 2-argument with ``filter_masks=None``."""
+    if cfg.use_masks and cfg.masked_compute == "kernel":
+        def grad_fn(p, b, fm):
+            return grad(loss_fn, p, b, fm)
+
+        def loss_and_acc_fn(p, b, fm):
+            return la_fn(p, b, fm)
+    else:
+        def grad_fn(p, b):
+            return grad(loss_fn, p, b, None)
+
+        def loss_and_acc_fn(p, b):
+            return la_fn(p, b, None)
+    return grad_fn, loss_and_acc_fn
+
+
+def local_train(cfg: EngineConfig, grad_fn: Callable, params: Any, m: Any,
+                batches, lr) -> tuple[Any, Any]:
+    """E local epochs on ONE client (Formula 11 when momentum is on),
+    updating ``params`` and the f32 momentum ``m`` IN PLACE (``m`` is None
+    without local momentum).  ``batches`` is a sequence of step batches;
+    ``lr`` a 0-d f32 tensor."""
+    use_m = cfg.local_momentum != "none"
+    beta = cfg.feddum.beta_local
+    for batch in batches:
+        g = grad_fn(params, batch)
+        if use_m:
+            tree_map(lambda mi, gi: mi.mul_(beta).add_(
+                gi.float().mul_(1.0 - beta)), m, g)
+            del g
+            tree_map(lambda p, mi: p.sub_((lr * mi).to(p.dtype)), params, m)
+        else:
+            tree_map(lambda p, gi: p.sub_(gi.mul_(lr)), params, g)
+            del g
+    return params, m
+
+
+def _zeros_like_f32(tree):
+    return tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                          device=t.device), tree)
+
+
+def _add_weighted(acc, tree, w):
+    """``acc + w * tree`` in f32, consuming ``tree`` (its buffer becomes
+    the sum when ``acc`` is None and it is already f32)."""
+    if acc is None:
+        return tree_map(lambda t: t.float().mul_(w), tree)
+    tree_map(lambda a, t: a.add_(t.float().mul_(w)), acc, tree)
+    return acc
+
+
+def round_core(cfg: EngineConfig, grad_fn: Callable, loss_and_acc_fn: Callable,
+               state: dict, batch: dict) -> tuple[dict, dict]:
+    """One federated round (paper steps 2-5) on ``state``, IN PLACE.
+
+    batch (tensors on the state's device):
+      client    (x, y), leading dims [C, steps, ...] — per-client batches
+      sizes     [C] f32 n_k
+      server    (x, y), leading dim [tau, ...] — server SGD batches
+      d_round   D(Pbar'^t), non-IID degree of this round's selection
+      d_server  D(P0), non-IID degree of the server data
+      n0        number of server samples
+      sel       [C] (optional, unused: the selected clients' indices)
+
+    Returns ``(state, {"tau_eff", "server_acc", "health"})`` as 0-d f32
+    tensors (``health`` is 0: the guard is not ported).
+    """
+    with torch.no_grad():
+        return _round(cfg, grad_fn, loss_and_acc_fn, state, batch)
+
+
+def _round(cfg, grad_fn, loss_and_acc_fn, state, batch):
+    if cfg.use_masks:
+        masks = state["masks"]
+
+        def _m(t):
+            return mask_(t, masks)
+
+        # kernel mode: filter masks thread into the model, whose masked FFN
+        # products run the masked_matmul kernels forward and backward; the
+        # param masks still scrub grads/params/momentum as in "params" mode
+        extra = ((state["filter_masks"],)
+                 if cfg.masked_compute == "kernel" else ())
+        base_grad, base_la = grad_fn, loss_and_acc_fn
+
+        def grad_fn(p, b):
+            return _m(base_grad(p, b, *extra))
+
+        def loss_and_acc_fn(p, b):
+            return base_la(p, b, *extra)
+    else:
+        def _m(t):
+            return t
+
+    params = _m(state["params"])
+    lr = cfg.lr * (cfg.lr_decay ** state["round"])
+
+    # (2)-(4) local epochs client after client, FedAvg as a running sum
+    cx, cy = batch["client"]
+    sizes = batch["sizes"].float()
+    w = sizes / sizes.sum()
+    w_half = new_global_m = None
+    for c in range(cx.shape[0]):
+        p = tree_map(torch.clone, params)
+        if cfg.local_momentum == "communicated":
+            m = _m(tree_map(torch.clone, state["global_m"]))
+        elif cfg.local_momentum == "restart":
+            m = _zeros_like_f32(params)
+        else:
+            m = None
+        steps = [(cx[c, s], cy[c, s]) for s in range(cx.shape[1])]
+        p, m = local_train(cfg, grad_fn, p, m, steps, lr)
+        w_half = _add_weighted(w_half, p, w[c])
+        if cfg.local_momentum == "communicated":
+            new_global_m = _add_weighted(new_global_m, m, w[c])
+        del p, m
+    w_half = tree_map(lambda a, p: a.to(p.dtype), w_half, params)
+
+    # (5a) FedDU dynamic server update (Formulas 4-7); acc from the FIRST
+    # server step's own forward
+    if cfg.use_server_update:
+        sx, sy = batch["server"]
+        tau = sx.shape[0]
+        w_end = tree_map(torch.clone, w_half)
+        acc = None
+        for i in range(tau):
+            (_, acc_i), g = value_and_grad_aux(loss_and_acc_fn, w_end,
+                                               (sx[i], sy[i]))
+            g = _m(g)
+            if acc is None:
+                acc = acc_i.float()
+            tree_map(lambda pi, gi: pi.sub_(gi.mul_(lr)), w_end, g)
+            del g
+        # Formula 6 by the telescoping identity, written over w_end
+        g0 = tree_map(lambda a, b: torch.sub(a.float(), b.float(), out=b)
+                      .div_(tau * lr), w_half, w_end)
+        t_eff = tau_eff(cfg.feddu, acc=acc, round_idx=state["round"],
+                        n0=batch["n0"], n_prime=batch["sizes"].sum(),
+                        d_round=batch["d_round"], d_server=batch["d_server"],
+                        tau=tau)
+        proposed = feddu_apply(w_half, g0, t_eff, lr, out=w_half)
+        del g0, w_end
+    else:
+        proposed = w_half
+        t_eff = torch.zeros((), dtype=torch.float32, device=lr.device)
+        acc = torch.zeros((), dtype=torch.float32, device=lr.device)
+
+    # (5b) FedDUM server momentum on the pseudo-gradient (Formulas 8/12)
+    if cfg.server_momentum:
+        pseudo = server_pseudo_gradient(params, proposed, out=proposed)
+        server_momentum_step(params, state["server_m"], pseudo, cfg.feddum,
+                             out=(params, state["server_m"]))
+    else:
+        tree_map(lambda p, q: p.copy_(q), params, proposed)
+    del proposed, w_half
+
+    _m(params)
+    _m(state["server_m"])
+    if cfg.local_momentum == "communicated":
+        state["global_m"] = _m(new_global_m)
+    state["round"].add_(1.0)
+    return state, {"tau_eff": t_eff, "server_acc": acc,
+                   "health": torch.zeros((), dtype=torch.float32,
+                                         device=lr.device)}
+
+
+# ---------------------------------------------------------------------------
+# Sampling: indices drawn from a torch.Generator, gathered on the device
+# ---------------------------------------------------------------------------
+
+def epoch_indices(generator: torch.Generator, n: int, count: int) -> torch.Tensor:
+    """``count`` sample indices drawn as repeated without-replacement epochs
+    over ``n`` samples (the paper's epoch semantics)."""
+    reps = -(-count // n)
+    dev = generator.device
+    return torch.cat([torch.randperm(n, generator=generator, device=dev)
+                      for _ in range(reps)])[:count]
+
+
+def draw_round_indices(generator: torch.Generator, *, num_clients: int,
+                       n_k: int, n0: int, clients_per_round: int,
+                       batch_size: int, local_steps: int, server_batch: int,
+                       server_tau: int) -> tuple:
+    """One round's draws on the generator's device: ``(sel [C], idx
+    [C, local_steps * batch_size], sidx [server_tau * server_batch])`` —
+    ``C`` distinct clients, and per client and for the server, sample
+    indices in without-replacement epochs (the semantics of the
+    reference's ``sample_clients`` / ``epoch_indices``, not its draws)."""
+    dev = generator.device
+    sel = torch.randperm(num_clients, generator=generator,
+                         device=dev)[:clients_per_round]
+    count = local_steps * batch_size
+    idx = torch.stack([epoch_indices(generator, n_k, count)
+                       for _ in range(clients_per_round)])
+    sidx = epoch_indices(generator, n0, server_tau * server_batch)
+    return sel, idx, sidx
+
+
+def sample_round_batches(data: dict, sel, idx, sidx, *, clients_per_round: int,
+                         batch_size: int, local_steps: int, server_batch: int,
+                         server_tau: int) -> dict:
+    """One round's :func:`round_core` batch gathered from the device-resident
+    dataset (``FederatedData.device_arrays``) at the given indices: ``sel``
+    [C] clients, ``idx`` [C, local_steps * batch_size] samples of each,
+    ``sidx`` [server_tau * server_batch] server samples."""
+    sel = torch.as_tensor(sel, device=data["sizes"].device).long()
+    idx = torch.as_tensor(idx, device=sel.device).long()
+    sidx = torch.as_tensor(sidx, device=sel.device).long()
+    cx = data["client_x"][sel[:, None], idx]
+    cy = data["client_y"][sel[:, None], idx]
+    cx = cx.reshape(clients_per_round, local_steps, batch_size, *cx.shape[2:])
+    cy = cy.reshape(clients_per_round, local_steps, batch_size, *cy.shape[2:])
+    sx = data["server_x"][sidx].reshape(server_tau, server_batch,
+                                        *data["server_x"].shape[1:])
+    sy = data["server_y"][sidx].reshape(server_tau, server_batch,
+                                        *data["server_y"].shape[1:])
+    p_round = niid.round_distribution(data["client_dists"], data["sizes"], sel)
+    return {
+        "client": (cx, cy),
+        "sizes": data["sizes"][sel],
+        "server": (sx, sy),
+        "d_round": niid.non_iid_degree(p_round, data["p_bar"]),
+        "d_server": data["d_server"],
+        "n0": torch.tensor(float(data["server_y"].shape[0]),
+                           dtype=torch.float32, device=sel.device),
+        "sel": sel.to(torch.int32),
+    }

@@ -1,0 +1,134 @@
+"""FedAP as a plan event: the Algorithm 3 decision for the scanned LM.
+
+Counterpart of the host path of the reference's ``core/fedap.py``:
+per-participant expected rates from the empirical-Fisher eigen-gap (the
+server and ``cfg.participants`` sampled devices, one after another), the
+Formula 15 aggregate clipped to ``[min_rate, max_rate]``, and the kept FFN
+units chosen by the model's ``decide_kept`` seam.  The participant draw is
+numpy, so it equals the reference's for the same seed.
+
+Per-sample gradients are computed one sample at a time (the reference
+vmaps them): at olmo-1b's width each is a 4.71 GB tree.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core import engine, niid
+from repro_torch.core.pruning import (
+    FedAPConfig,
+    aggregate_rates,
+    expected_rate_from_spectrum,
+    fisher_spectrum,
+    lipschitz_estimate,
+)
+from repro_torch.utils.tree import tree_leaves
+
+
+def participant_rate(model, params, init_params, x, y,
+                     cfg: FedAPConfig) -> torch.Tensor:
+    """p*_k for one participant from its local probe data (the first
+    ``cfg.probe_size`` samples of ``x``/``y``)."""
+    probe = (x[: cfg.probe_size], y[: cfg.probe_size])
+
+    def loss_one(p, xi, yi):
+        return model.loss_and_acc(p, xi[None], yi[None])[0]
+
+    def per_sample_grads(p, batch):
+        return [engine.grad(loss_one, p, xi, yi) for xi, yi in zip(*batch)]
+
+    eigs = fisher_spectrum(per_sample_grads, params, probe)
+
+    def grad_fn(p, batch):
+        return engine.grad(
+            lambda q: model.loss_and_acc(q, batch[0], batch[1])[0], p)
+
+    lip = lipschitz_estimate(grad_fn, params, init_params, probe)
+    return expected_rate_from_spectrum(eigs, lip, cfg.max_rate)
+
+
+@dataclasses.dataclass
+class FedAPDecision:
+    """The output of Algorithm 3: which units each prunable stack keeps."""
+
+    kept: dict[str, np.ndarray]        # stack -> [L, keep] kept-unit rows
+    p_star: float                      # Formula-15 aggregate rate
+    layer_rates: dict[str, float]      # realized rate per stack
+
+    def summary(self) -> dict[str, Any]:
+        """JSON-friendly view (kept reduced to per-layer counts)."""
+        return {"p_star": self.p_star, "layer_rates": dict(self.layer_rates),
+                "kept_counts": {k: int(np.asarray(v).shape[-1])
+                                for k, v in self.kept.items()}}
+
+
+def _draw_participants(data, cfg: FedAPConfig, rng: np.random.Generator
+                       ) -> np.ndarray:
+    """The probed client subset (index 0 of the rate vectors is always the
+    server), clamped to the available clients with a warning."""
+    num_clients = data.client_x.shape[0]
+    draw = min(cfg.participants, num_clients)
+    if draw < cfg.participants:
+        warnings.warn(
+            f"FedAPConfig.participants={cfg.participants} exceeds the "
+            f"{num_clients} available clients; probing all {num_clients} "
+            "instead (every client's local data contributes a rate)",
+            stacklevel=3)
+    return rng.choice(num_clients, size=draw, replace=False)
+
+
+def _finish_decision(model, cfg: FedAPConfig, params: Any, rates, sizes,
+                     degrees) -> FedAPDecision:
+    """Algorithm 3 after step 1: Formula 15, the ``[min_rate, max_rate]``
+    clip, and the model's kept-unit choice (the ``decide_kept`` branch of
+    the reference)."""
+    if not hasattr(model, "decide_kept"):
+        raise NotImplementedError(
+            "the HRank filter selection of PruneSpec models comes with the "
+            "CNN slice; only models with a decide_kept seam are ported")
+    p_star = aggregate_rates(rates, sizes, degrees, cfg.eps)
+    p_star = torch.clamp(p_star, cfg.min_rate, cfg.max_rate)
+    kept = {k: np.asarray(v) for k, v in
+            model.decide_kept(params, float(p_star), align=cfg.align).items()}
+    widths = {k: int(m.shape[-1])
+              for k, m in model.filter_masks(params, kept).items()}
+    return FedAPDecision(
+        kept=kept, p_star=float(p_star),
+        layer_rates={k: 1.0 - v.shape[-1] / widths[k]
+                     for k, v in kept.items()})
+
+
+def fedap_decision(model, data, cfg: FedAPConfig, params: Any, *,
+                   init_params: Any, rng: np.random.Generator | None = None
+                   ) -> FedAPDecision:
+    """Algorithm 3: expected rates -> Formula 15 -> kept units.  A pure
+    decision on the params' device; applying it is the executor's job.
+    ``init_params`` are the params the run started from (the Lipschitz
+    estimate's second point)."""
+    rng = np.random.default_rng(0) if rng is None else rng
+    dev = tree_leaves(params)[0].device
+    p_bar = niid.global_distribution(data.client_dists, data.sizes)
+
+    def on_dev(a):
+        return torch.as_tensor(np.asarray(a), device=dev)
+
+    ids = _draw_participants(data, cfg, rng)
+    rates = [participant_rate(model, params, init_params,
+                              on_dev(data.server_x), on_dev(data.server_y),
+                              cfg)]
+    sizes = [float(data.server_x.shape[0])]
+    degrees = [niid.non_iid_degree(data.server_dist, p_bar)]
+    for k in ids:
+        rates.append(participant_rate(model, params, init_params,
+                                      on_dev(data.client_x[k]),
+                                      on_dev(data.client_y[k]), cfg))
+        sizes.append(float(data.sizes[k]))
+        degrees.append(niid.non_iid_degree(data.client_dists[k], p_bar))
+    return _finish_decision(model, cfg, params,
+                            torch.stack([r.cpu() for r in rates]),
+                            torch.tensor(sizes), torch.stack(degrees))

@@ -1,16 +1,26 @@
-"""Reader of ``repro-checkpoint-v1`` directories (``meta.json`` +
-``arrays.npz``), as written by the reference's ``RunResult.save``.
+"""Training plans and the checkpoint reader.
 
-A port of the reference's ``core/plan.py`` loader (``load_artifact`` and
-its helpers), so a checkpoint saved by the JAX package loads straight into
-the port.  Arrays come back as host numpy; :mod:`repro_torch.interop` moves
-them to a device.
+The port's copy of the reference's ``core/plan.py``:
+
+* the schedule language of the trainer — :class:`Scan` (rounds),
+  :class:`Eval` (score the global model), :class:`Prune` (FedAP as an
+  event, in ``mask`` or ``shrink`` form), the :class:`TrainPlan` that
+  orders them, the paper's :func:`fedap_plan`, and the :class:`RunResult`
+  an execution returns (``Snapshot``/``Callback`` events, checkpointing
+  and ``RunResult.save`` come with the reliability slice);
+* the reader of ``repro-checkpoint-v1`` directories (``meta.json`` +
+  ``arrays.npz``) written by the reference's ``RunResult.save``, so a
+  checkpoint saved by the JAX package loads straight into the port.  Its
+  arrays come back as host numpy; :mod:`repro_torch.interop` moves them to
+  a device.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import zipfile
+from typing import Any, Iterable, Union
 
 import numpy as np
 
@@ -23,6 +33,155 @@ class CheckpointError(ValueError):
     Subclasses :class:`ValueError` so ``except ValueError`` callers keep
     working.
     """
+
+
+@dataclasses.dataclass(frozen=True)
+class Scan:
+    """``rounds`` federated rounds."""
+
+    rounds: int
+
+    def __post_init__(self):
+        if self.rounds < 1:
+            raise ValueError(f"Scan.rounds must be >= 1, got {self.rounds}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Eval:
+    """Evaluate the global model on the test split; appends to history.
+    ``history["round"]`` records the rounds completed at the Eval."""
+
+
+@dataclasses.dataclass(frozen=True)
+class Prune:
+    """FedAP (Algorithm 3) at this point of the schedule.
+
+    mode="mask":   shapes stay: keep-masks are written into the round
+                   state (its tensors keep their storage) and applied every
+                   round; with ``FLConfig(masked_compute="kernel")`` the
+                   masked FFN products run the ``masked_matmul`` kernels.
+    mode="shrink": the pruned model is re-materialized at its smaller
+                   shapes.
+    Both restart the server momentum.  (The reference's ``reuse=``
+    mask-now-shrink-later form comes with the CNN slice.)
+    """
+
+    mode: str = "mask"
+    name: str = "prune"
+
+    def __post_init__(self):
+        if self.mode not in ("mask", "shrink"):
+            raise ValueError(f"Prune.mode must be 'mask' or 'shrink', "
+                             f"got {self.mode!r}")
+
+
+Event = Union[Scan, Eval, Prune]
+_EVENTS = (Scan, Eval, Prune)
+
+
+class TrainPlan:
+    """An ordered schedule of :data:`Event` items, e.g.
+    ``TrainPlan(Scan(30), Eval(), Prune(mode="mask"), Scan(30), Eval())``.
+    Iterables flatten, so sub-schedules splice in place."""
+
+    def __init__(self, *events: Event | Iterable[Event]):
+        flat: list = []
+        for e in events:
+            if isinstance(e, _EVENTS):
+                flat.append(e)
+            else:
+                flat.extend(e)
+        for e in flat:
+            if not isinstance(e, _EVENTS):
+                raise TypeError(f"not a TrainPlan event: {e!r}")
+        self.events: tuple = tuple(flat)
+
+    def __repr__(self):
+        return f"TrainPlan({', '.join(map(repr, self.events))})"
+
+    def __eq__(self, other):
+        return isinstance(other, TrainPlan) and self.events == other.events
+
+    @property
+    def total_rounds(self) -> int:
+        return sum(e.rounds for e in self.events if isinstance(e, Scan))
+
+    @property
+    def uses_masks(self) -> bool:
+        """True iff the plan schedules a mask-mode prune: the round state
+        then carries all-ones masks from round 0."""
+        return any(isinstance(e, Prune) and e.mode == "mask"
+                   for e in self.events)
+
+    def compiled(self) -> tuple:
+        """The events with consecutive Scan segments merged."""
+        out: list = []
+        for e in self.events:
+            if isinstance(e, Scan) and out and isinstance(out[-1], Scan):
+                out[-1] = Scan(out[-1].rounds + e.rounds)
+            else:
+                out.append(e)
+        return tuple(out)
+
+    @classmethod
+    def standard(cls, num_rounds: int, *, eval_every: int = 1) -> "TrainPlan":
+        """``num_rounds`` of training with an Eval every ``eval_every``
+        rounds (and after the last)."""
+        if eval_every < 1:
+            raise ValueError(f"eval_every must be >= 1, got {eval_every}")
+        events: list = []
+        t = 0
+        while t < num_rounds:
+            n = min(eval_every - (t % eval_every), num_rounds - t)
+            events.append(Scan(n))
+            t += n
+            if t % eval_every == 0 or t == num_rounds:
+                events.append(Eval())
+        return cls(events)
+
+
+def fedap_plan(num_rounds: int, *, prune_round: int, mode: str = "mask",
+               eval_every: int = 1) -> TrainPlan:
+    """The paper's FedDUMAP schedule: train, FedAP once at ``prune_round``,
+    keep training, with an Eval every ``eval_every`` rounds."""
+    if not 0 < prune_round <= num_rounds:
+        raise ValueError(f"prune_round must be in (0, {num_rounds}], "
+                         f"got {prune_round}")
+    if eval_every < 1:
+        raise ValueError(f"eval_every must be >= 1, got {eval_every}")
+    events: list = []
+    t = 0
+    while t < num_rounds:
+        stops = [t + eval_every - (t % eval_every), num_rounds]
+        if t < prune_round:
+            stops.append(prune_round)
+        stop = min(stops)
+        events.append(Scan(stop - t))
+        t = stop
+        if t % eval_every == 0 or t == num_rounds:
+            events.append(Eval())
+        if t == prune_round:
+            events.append(Prune(mode=mode))
+    return TrainPlan(events)
+
+
+@dataclasses.dataclass
+class RunResult:
+    """What a plan execution returns.
+
+    params     final global params (mask mode: pruned coordinates are 0)
+    history    {"round", "acc", "loss", "tau_eff", "time"} per Eval, and
+               "health" per round
+    artifacts  per-event outputs keyed by event name (``#k`` suffixes on
+               repeats): Prune -> {"p_star", "layer_rates", "kept",
+               "kept_counts", "mode", "filter_masks" | "params_before"}
+    state      the final round state
+    """
+
+    params: Any
+    history: dict
+    artifacts: dict
+    state: dict
 
 
 def _unflatten_arrays(flat: dict) -> dict:

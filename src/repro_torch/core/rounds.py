@@ -1,0 +1,161 @@
+"""The simulation trainer: configuration and the user-facing facade.
+
+Counterpart of the reference's ``core/rounds.py`` for the local backend.
+One round (Section 3.1): select a device subset, each device runs E local
+epochs (SGD, or restart-SGDM for FedDUM), the server aggregates with FedAvg
+weights n_k/n', then updates on its shared data with the dynamic tau_eff
+(FedDU), optionally through server momentum (FedDUM).  FedAP prunes as a
+``Prune`` event of the plan::
+
+    trainer = FederatedTrainer(model, data, feddumap_config(...),
+                               device="cuda")
+    res = trainer.run(fedap_plan(60, prune_round=30, mode="mask"))
+    res.history["acc"], res.artifacts["prune"]["kept"]
+
+The round engine is :mod:`repro_torch.core.engine`, the schedule loop
+:class:`repro_torch.core.backend.PlanExecutor`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch import device as _device
+from repro_torch.core.backend import LocalBackend, PlanExecutor
+from repro_torch.core.engine import EngineConfig, check_ported
+from repro_torch.core.momentum import FedDUMConfig
+from repro_torch.core.plan import RunResult, TrainPlan
+from repro_torch.core.pruning import FedAPConfig
+from repro_torch.core.server_update import FedDUConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class FLConfig:
+    num_clients: int = 100
+    clients_per_round: int = 10
+    local_epochs: int = 5          # E
+    batch_size: int = 10           # B
+    lr: float = 0.1                # eta (local and server SGD)
+    lr_decay: float = 0.99         # per-round learning-rate decay (paper 4.1)
+    seed: int = 0
+    # Feature switches — FedDUMAP = server update + restart momentum (+FedAP).
+    use_server_update: bool = True       # FedDU
+    local_momentum: str = "none"         # none | restart | communicated
+    server_momentum: bool = False
+    # Later slices (they raise when set): client algorithms, dropout, the
+    # health guard and fault injection.
+    algorithm: str = "fedavg"
+    dropout_rate: float = 0.0
+    guard: str = "off"
+    faults: tuple = ()
+    # "params" zeroes the parameter tree only (full-density products);
+    # "kernel" threads filter masks into the model, so masked FFN products
+    # run the masked_matmul kernels forward and backward.
+    masked_compute: str = "params"
+    # Server data per round: tau = server_epochs * floor(n0 / B_server).
+    server_epochs: int = 1
+    server_batch_size: int = 32
+    feddu: FedDUConfig = dataclasses.field(default_factory=FedDUConfig)
+    feddum: FedDUMConfig = dataclasses.field(default_factory=FedDUMConfig)
+    fedap: FedAPConfig = dataclasses.field(default_factory=FedAPConfig)
+
+    def __post_init__(self):
+        if self.local_momentum not in ("none", "restart", "communicated"):
+            raise ValueError(
+                f"unknown local_momentum: {self.local_momentum!r} "
+                "(expected 'none', 'restart' or 'communicated')")
+        if self.masked_compute not in ("params", "kernel"):
+            raise ValueError(
+                f"unknown masked_compute: {self.masked_compute!r} "
+                "(expected 'params' or 'kernel')")
+        if not 1 <= self.clients_per_round <= self.num_clients:
+            raise ValueError(
+                f"clients_per_round must be in [1, num_clients="
+                f"{self.num_clients}], got {self.clients_per_round}")
+        for name in ("local_epochs", "batch_size", "server_epochs",
+                     "server_batch_size"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1, got "
+                                 f"{getattr(self, name)}")
+        if self.lr <= 0:
+            raise ValueError(f"lr must be > 0, got {self.lr}")
+        if self.lr_decay <= 0:
+            raise ValueError(f"lr_decay must be > 0, got {self.lr_decay}")
+        check_ported(algorithm=self.algorithm, dropout_rate=self.dropout_rate,
+                     guard=self.guard, faults=self.faults)
+
+
+def feddumap_config(**kw) -> FLConfig:
+    """The full method: FedDU + FedDUM (+FedAP via a plan Prune event)."""
+    kw.setdefault("use_server_update", True)
+    kw.setdefault("local_momentum", "restart")
+    kw.setdefault("server_momentum", True)
+    return FLConfig(**kw)
+
+
+def engine_config(cfg: FLConfig) -> EngineConfig:
+    """The FLConfig -> EngineConfig wiring."""
+    return EngineConfig(
+        lr=cfg.lr, lr_decay=cfg.lr_decay,
+        use_server_update=cfg.use_server_update,
+        local_momentum=cfg.local_momentum,
+        server_momentum=cfg.server_momentum,
+        masked_compute=cfg.masked_compute,
+        feddu=cfg.feddu, feddum=cfg.feddum)
+
+
+class FederatedTrainer:
+    """Binds (model, data, config) to the local backend on ``device``
+    (default ``"cuda"``, which raises when CUDA is missing) and runs
+    TrainPlans.
+
+    model: ``init(generator)``, ``loss_and_acc(params, x, y[, masks=])``
+        and, for Prune events, the FedAP seam (``decide_kept``,
+        ``filter_masks``, ``param_masks``, ``shrink_params``), e.g.
+        :class:`repro_torch.models.lm.LM` on the same device;
+    data: :class:`repro_torch.data.pipeline.FederatedData`.
+    """
+
+    def __init__(self, model, data, cfg: FLConfig, *, device="cuda"):
+        self.device = _device.resolve(device)
+        model_dev = getattr(model, "device", self.device)
+        if torch.device(model_dev) != self.device:
+            raise ValueError(f"the model lives on {model_dev}, the trainer "
+                             f"on {self.device}")
+        self.model, self.data, self.cfg = model, data, cfg
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(cfg.seed)
+        self._backends: dict = {}
+
+    def backend(self, *, use_masks: bool = False,
+                batches: Callable | None = None) -> LocalBackend:
+        """The local backend for a mask mode (cached when it samples its
+        own batches, so the device-resident dataset is built once)."""
+        if batches is not None:
+            return LocalBackend(self.model, self.data, self.cfg,
+                                use_masks=use_masks, device=self.device,
+                                batches=batches)
+        if use_masks not in self._backends:
+            self._backends[use_masks] = LocalBackend(
+                self.model, self.data, self.cfg, use_masks=use_masks,
+                device=self.device, generator=self.generator)
+        return self._backends[use_masks]
+
+    def run(self, plan: TrainPlan | int, *, eval_every: int = 1,
+            params=None, batches: Callable | None = None) -> RunResult:
+        """Execute a plan (an ``int`` builds the standard train+eval plan
+        for that many rounds).  ``params`` default to ``model.init`` from a
+        generator seeded with ``cfg.seed``; they are not modified.
+        ``batches`` (optional) is a per-round batch source ``batches(t)``
+        that replaces the trainer's own sampling (round ``t`` counts from
+        0 over the run)."""
+        if isinstance(plan, int):
+            plan = TrainPlan.standard(plan, eval_every=eval_every)
+        if params is None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self.cfg.seed)
+            params = self.model.init(gen)
+        backend = self.backend(use_masks=plan.uses_masks, batches=batches)
+        return PlanExecutor(backend).run(plan, params=params)

@@ -1,0 +1,123 @@
+"""The federated dataset container and the LM dataset (paper Section 4.1
+protocol on a next-token corpus).
+
+Counterpart of the reference's ``data/pipeline.py``: the arrays are built
+in numpy exactly as the reference builds them, and
+:meth:`FederatedData.device_arrays` moves them to one device for the round
+engine.  The image-classification dataset comes with the CNN slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import device as _device
+from repro_torch.core import niid
+from repro_torch.data import partition as part
+from repro_torch.data.synthetic import TokenSpec, synthetic_tokens
+
+
+@dataclasses.dataclass
+class FederatedData:
+    client_x: np.ndarray      # [N, n_k, ...]  (equal n_k: label-shard protocol)
+    client_y: np.ndarray      # [N, n_k, ...]
+    sizes: np.ndarray         # [N] float n_k
+    client_dists: np.ndarray  # [N, num_classes] P_k
+    server_x: np.ndarray      # [n0, ...]
+    server_y: np.ndarray      # [n0, ...]
+    server_dist: np.ndarray   # [num_classes] P_0
+    test_x: np.ndarray
+    test_y: np.ndarray
+
+    def device_arrays(self, device="cuda") -> dict:
+        """The whole dataset as one dict of tensors on ``device`` (default
+        CUDA, which raises when it is missing): the per-client arrays, the
+        server pool, the test split, and the derived ``p_bar`` (P_bar over
+        all clients) and ``d_server`` (D(P_0)).  Token and label arrays are
+        int32."""
+        dev = _device.resolve(device)
+        dists = torch.as_tensor(self.client_dists, dtype=torch.float32)
+        sizes = torch.as_tensor(self.sizes, dtype=torch.float32)
+        p_bar = niid.global_distribution(dists, sizes)
+        d_server = niid.non_iid_degree(
+            torch.as_tensor(self.server_dist, dtype=torch.float32), p_bar)
+
+        def arr(a, dtype=None):
+            t = torch.as_tensor(np.asarray(a))
+            return t.to(device=dev, dtype=dtype or t.dtype)
+
+        return {
+            "client_x": arr(self.client_x),
+            "client_y": arr(self.client_y, torch.int32),
+            "sizes": sizes.to(dev),
+            "client_dists": dists.to(dev),
+            "p_bar": p_bar.to(dev),
+            "d_server": d_server.to(dev),
+            "server_x": arr(self.server_x),
+            "server_y": arr(self.server_y, torch.int32),
+            "test_x": arr(self.test_x),
+            "test_y": arr(self.test_y, torch.int32),
+        }
+
+
+def _dists(ys: np.ndarray, num_classes: int) -> np.ndarray:
+    d = np.stack([np.bincount(y, minlength=num_classes)
+                  for y in ys]).astype(np.float32)
+    return d / np.clip(d.sum(1, keepdims=True), 1, None)
+
+
+def build_lm_federated_data(
+    *,
+    num_clients: int = 8,
+    server_fraction: float = 0.05,     # p
+    server_niid: str = "iid",
+    test_fraction: float = 0.1,
+    spec: TokenSpec | None = None,
+    seed: int = 0,
+) -> FederatedData:
+    """The paper's Section-4.1 federated protocol on a next-token corpus,
+    each sequence's topic playing the role of its label:
+
+    * sequences are label-shard partitioned over ``num_clients`` by topic
+      (2 topic shards each, equal n_k);
+    * the server draws ``server_fraction`` of the device pool from the
+      remaining sequences with a controllable topic non-IID degree;
+    * ``client_x``/``client_y`` are the [n_k, S-1] int32 next-token pairs
+      ``(tokens[:-1], tokens[1:])``.
+    """
+    spec = spec or TokenSpec()
+    toks, topics = synthetic_tokens(spec)
+    x, y = np.asarray(toks[:, :-1]), np.asarray(toks[:, 1:])
+
+    n = toks.shape[0]
+    n_test = max(1, int(test_fraction * n))
+    train_n = n - n_test
+    device_pool = max(num_clients, int(0.8 * train_n))
+    device_pool = min(device_pool, train_n - 1)
+    rest = np.arange(device_pool, train_n)
+
+    idxs = part.label_shard_partition(topics[:device_pool], num_clients,
+                                      seed=seed)
+    client_ix = np.stack([ix for ix in idxs])
+
+    n0 = max(1, int(server_fraction * device_pool))
+    n0 = min(n0, len(rest))
+    server_idx = part.server_subset(topics, rest, n0,
+                                    niid_target=server_niid, seed=seed + 7)
+    server_dist = np.bincount(topics[server_idx],
+                              minlength=spec.num_topics).astype(np.float32)
+    server_dist /= server_dist.sum()
+
+    return FederatedData(
+        client_x=x[client_ix],
+        client_y=y[client_ix],
+        sizes=np.full(num_clients, client_ix.shape[1], np.float32),
+        client_dists=_dists(topics[client_ix], spec.num_topics),
+        server_x=x[server_idx],
+        server_y=y[server_idx],
+        server_dist=server_dist,
+        test_x=x[train_n:],
+        test_y=y[train_n:],
+    )

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch.utils.tree import tree_map
 
 
 def _leaf_to_torch(leaf, device, dtype):
@@ -27,18 +28,12 @@ def _leaf_to_torch(leaf, device, dtype):
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
-
-
 def params_from_jax(tree, device="cuda", dtype=None) -> dict:
     """A JAX/numpy param tree (``embed``, ``norm_out``, ``layers/{attn:{wq,
     wk,wv,wo}, norm_a, norm_f, mlp:{wi,wg,wo}}``, ...) as tensors on
     ``device``, cast to ``dtype`` when given."""
     dev = _device.resolve(device)
-    return _map(tree, lambda leaf: _leaf_to_torch(leaf, dev, dtype))
+    return tree_map(lambda leaf: _leaf_to_torch(leaf, dev, dtype), tree)
 
 
 def params_to_numpy(tree) -> dict:
@@ -50,16 +45,33 @@ def params_to_numpy(tree) -> dict:
             t = t.float()
         return t.numpy()
 
-    return _map(tree, leaf)
+    return tree_map(leaf, tree)
 
 
 def kept_from_jax(kept, device="cuda") -> dict:
     """FedAP kept-unit index rows ``{"mlp": [L, keep]}`` as int64 tensors."""
     dev = _device.resolve(device)
-    return _map(kept, lambda leaf: _leaf_to_torch(leaf, dev, torch.int64))
+    return tree_map(lambda leaf: _leaf_to_torch(leaf, dev, torch.int64), kept)
 
 
 def masks_from_jax(masks, device="cuda") -> dict:
     """FedAP filter keep-masks ``{"mlp": [L, d_ff]}`` as float32 tensors."""
     dev = _device.resolve(device)
-    return _map(masks, lambda leaf: _leaf_to_torch(leaf, dev, torch.float32))
+    return tree_map(lambda leaf: _leaf_to_torch(leaf, dev, torch.float32),
+                    masks)
+
+
+ROUND_STATE_KEYS = ("params", "server_m", "global_m", "masks", "filter_masks",
+                    "round")
+
+
+def round_state_from_jax(state, device="cuda") -> dict:
+    """A reference engine round state (``{"params", "server_m",
+    ["global_m"], ["masks"], ["filter_masks"], "round"}``, as numpy or JAX
+    arrays) as tensors on ``device``, every leaf keeping its dtype, so the
+    port's ``round_core`` and the reference's can start from one state."""
+    unknown = set(state) - set(ROUND_STATE_KEYS)
+    if unknown:
+        raise ValueError(f"round state keys {sorted(unknown)} are not ported "
+                         f"yet (known: {ROUND_STATE_KEYS})")
+    return params_from_jax(state, device)

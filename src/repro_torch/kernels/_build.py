@@ -1,7 +1,7 @@
 """Build the CUDA kernels in ``csrc/`` with ``nvcc`` and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exports a plain C launcher and becomes its own
-shared library, ``build/repro_torch/<hash>/lib<name>.so`` at the repository
+Each ``csrc/<name>.cu`` exports plain C launchers (one per kernel, listed
+in :data:`SIGNATURES`) and becomes its own shared library, ``build/repro_torch/<hash>/lib<name>.so`` at the repository
 root; ``<hash>`` covers the sources and the flags, so an edited kernel is
 rebuilt and an unchanged one is reused.  All sources compile in parallel,
 one ``nvcc`` process each, at the first call that needs a kernel — never at
@@ -25,17 +25,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# library name -> (exported launcher, argtypes); every launcher returns the
-# cudaError_t of its launch as an int.
+_MM_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+# kernel name -> (library built from csrc/<library>.cu, exported launcher,
+# argtypes); every launcher returns the cudaError_t of its launch as an int.
 SIGNATURES = {
-    "decode_attention": ("decode_attention_launch",
-                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
-    "masked_matmul": ("masked_matmul_launch",
-                      [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "decode_attention": ("decode_attention", "decode_attention_launch",
+                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                          _P]),
+    "masked_matmul": ("masked_matmul", "masked_matmul_launch", _MM_ARGS),
+    "masked_matmul_dx": ("masked_matmul", "masked_matmul_dx_launch",
+                         _MM_ARGS),
+    "masked_matmul_dw": ("masked_matmul", "masked_matmul_dw_launch",
+                         _MM_ARGS),
 }
 
 _lock = threading.Lock()
-_loaded: dict = {}      # library name -> configured ctypes function
+_loaded: dict = {}      # kernel name -> configured ctypes function
 _logs: dict = {}        # library name -> nvcc/ptxas output of its build
 
 
@@ -59,7 +64,8 @@ def _digest(sources) -> str:
 
 
 def build_all() -> dict:
-    """Build (or reuse) every kernel library and return ``{name: launcher}``.
+    """Build (or reuse) every kernel library and return ``{kernel name:
+    launcher}``.
 
     Raises ``RuntimeError`` with nvcc's output when a source does not
     compile.
@@ -94,12 +100,12 @@ def build_all() -> dict:
                 os.replace(tmp, lib)
         if failures:
             raise RuntimeError("\n".join(failures))
-        for src in sources:
-            name = src.stem
-            if name not in SIGNATURES:
-                raise RuntimeError(f"{src.name} has no entry in SIGNATURES")
-            symbol, argtypes = SIGNATURES[name]
-            fn = getattr(ctypes.CDLL(str(out_dir / f"lib{name}.so")), symbol)
+        libs = {src.stem for src in sources}
+        missing = libs - {lib for lib, _, _ in SIGNATURES.values()}
+        if missing:
+            raise RuntimeError(f"{sorted(missing)} have no entry in SIGNATURES")
+        for name, (lib, symbol, argtypes) in SIGNATURES.items():
+            fn = getattr(ctypes.CDLL(str(out_dir / f"lib{lib}.so")), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _loaded[name] = fn
@@ -107,8 +113,7 @@ def build_all() -> dict:
 
 
 def launcher(name: str):
-    """The ctypes launcher of kernel library ``name`` (building at first
-    use)."""
+    """The ctypes launcher of kernel ``name`` (building at first use)."""
     fn = _loaded.get(name)
     return fn if fn is not None else build_all()[name]
 

@@ -1,35 +1,54 @@
-// FedAP structured-pruning matmul, forward: y = x @ w with pruned 128-column
-// blocks skipped, for sm_90a.
+// FedAP structured-pruning matmul for sm_90a: the forward y = x @ w (K1) and
+// its two backward products dx = dy @ w^T (K2) and dw = x^T @ dy (K3), with
+// pruned 128-column blocks of w skipped.
 //
-// Replaces the TPU kernel repro/kernels/masked_matmul.py::_masked_mm_kernel
-// (pallas_call in _fwd_call(), line 122).
+// Replaces the TPU kernels of repro/kernels/masked_matmul.py:
+//   K1 _masked_mm_kernel (pallas_call in _fwd_call(), line 122),
+//   K2 _masked_dx_kernel (pallas_call in _dx_call(), line 142),
+//   K3 _masked_dw_kernel (pallas_call in _dw_call(), line 162).
 //
-// x [M,K], w [K,N], block_mask float32 [N/128], y [M,N], all row-major and
-// contiguous; K and N are multiples of 128, M is any size.  Column block j
-// is computed iff block_mask[j] > 0; otherwise it is written as zeros and
-// that block of w is never read.  Sums run in f32; y has x's type.
+// Shapes: x [M,K], w [K,N], dy [M,N], block_mask float32 [N/128]; every
+// operand row-major and contiguous; K and N are multiples of 128, M is any
+// size.  Column block j of w is kept iff block_mask[j] > 0 (NaN counts as
+// pruned), read on the device.  Sums run in f32; outputs have the inputs'
+// type (float32 or bfloat16).
+//   K1: pruned column blocks of y are written as zeros; w there is never read.
+//   K2: the contraction over N skips pruned blocks (exact: the forward zeroed
+//       those output columns, so their cotangent never contributes).
+//   K3: pruned column blocks of dw are written as exact zeros; x and dy are
+//       not read for them.
 //
-// What bounds it on an H100: bytes.  At decode M is the slot count (<= 8 in
-// serving), so each w element read is used for at most 8 multiply-adds:
-// the kernel streams the kept column blocks of w once, and the pruned ones
-// not at all (FedAP's saving shows up as bytes not moved).  The design keeps
-// many 16-byte loads of w in flight and touches x only through shared memory:
-//   * one thread block per (8-row M tile, 32-column slice of a 128-column
-//     block); a pruned block's slices exit after writing zeros;
-//   * 256 threads = 64 K-groups x 4 column groups; each thread owns 8 columns
-//     and reads 8 rows of w per 512-deep K chunk as 16-byte vectors, all
-//     in flight before any is used; the x chunk [8, 512] is staged in shared
-//     memory as f32;
-//   * partial sums over the K-groups are reduced with warp shuffles and then
-//     across the 8 warps in shared memory.
-// Known weak spot: an M tile larger than 8 rows re-reads w once per tile,
-// which is fine at decode and wasteful for large M (a tensor-core tile is
-// the later fix).
+// What bounds them on an H100.
+//   * K1 at decode (M = serving slots, <= 64): bytes.  Each w element read
+//     feeds at most M multiply-adds, so the decode tile below streams the kept
+//     blocks of w once and keeps many 16-byte loads in flight.
+//   * K1, K2, K3 at training shapes (M = batch x sequence = 512, K = 2048,
+//     N = 8192): operations.  2*M*K*N_kept flops over (M*K + K*N + M*N)
+//     elements is ~230 flops per f32 element, above the 20 flops per byte at
+//     which 67 TFLOP/s of f32 (no TF32: the products are held to f32) meets
+//     3.35 TB/s.  The tiled body below is a SIMT f32 GEMM: a 128x128 (or
+//     64x64, when that gives too few blocks to fill 132 SMs) output tile per
+//     256-thread block, 8x8 (or 4x4) outputs per thread in registers, the
+//     A and B tiles staged through a two-stage shared-memory ring with the
+//     next tile's global loads in flight while the current one is used.
+//     Tensor cores are not used: TF32 would round the f32 operands, and a
+//     bf16 wgmma path is later work.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// K1 decode tile (M <= 64): one thread block per (8-row M tile, 32-column
+// slice of a 128-column block); a pruned block's slices exit after writing
+// zeros.  256 threads = 64 K-groups x 4 column groups; each thread owns 8
+// columns and reads 8 rows of w per 512-deep K chunk as 16-byte vectors, all
+// in flight before any is used; the x chunk [8, 512] is staged in shared
+// memory as f32.  Partial sums over the K-groups are reduced with warp
+// shuffles and then across the 8 warps in shared memory.  An M tile re-reads
+// w, so larger M goes to the tiled body further down.
+// ---------------------------------------------------------------------------
 
 constexpr int kBM = 8;                  // rows of x per block
 constexpr int kBlockN = 128;            // mask granularity (columns)
@@ -167,9 +186,208 @@ masked_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tiled body shared by K1 (M > 64), K2 and K3:
+//   C[P,Q] = sum_r A(p,r) B(r,q), C row-major,
+// where A(p,r) is a[p*lda + r] (kATrans false) or a[r*lda + p] (true), and
+// B(r,q) is b[r*ldb + q] (kBTrans false) or b[q*ldb + r] (true).
+//   kMode 0: the mask gates 128-column blocks of C (K1, K3): a pruned tile
+//            writes zeros and reads nothing.
+//   kMode 1: the mask gates 128-row blocks of the contraction r (K2).
+// Ragged sizes: only P (K1, K2: M) and R (K3: M) may be any size; the
+// launcher checks the other alignments.
+// ---------------------------------------------------------------------------
+
+constexpr int kTK = 8;                  // contraction depth of one stage
+
+template <typename T, int E> struct Load;   // E consecutive elements -> f32
+template <> struct Load<float, 4> {
+  __device__ static void run(const float* p, float* r) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    r[0] = v.x; r[1] = v.y; r[2] = v.z; r[3] = v.w;
+  }
+};
+template <> struct Load<float, 2> {
+  __device__ static void run(const float* p, float* r) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    r[0] = v.x; r[1] = v.y;
+  }
+};
+template <> struct Load<__nv_bfloat16, 4> {
+  __device__ static void run(const __nv_bfloat16* p, float* r) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    r[0] = a.x; r[1] = a.y; r[2] = b.x; r[3] = b.y;
+  }
+};
+template <> struct Load<__nv_bfloat16, 2> {
+  __device__ static void run(const __nv_bfloat16* p, float* r) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    r[0] = a.x; r[1] = a.y;
+  }
+};
+
+template <int H> struct Lds;                // H consecutive floats of smem
+template <> struct Lds<4> {
+  __device__ static void run(const float* p, float* r) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    r[0] = v.x; r[1] = v.y; r[2] = v.z; r[3] = v.w;
+  }
+};
+template <> struct Lds<2> {
+  __device__ static void run(const float* p, float* r) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    r[0] = v.x; r[1] = v.y;
+  }
+};
+
+// First contraction offset >= r whose 128-block is kept (kMode 1), or r.
+template <int kMode>
+__device__ __forceinline__ int next_kept(int r, int R, const float* mask) {
+  if (kMode == 1)
+    while (r < R && !(mask[r / kBlockN] > 0.f)) r = (r / kBlockN + 1) * kBlockN;
+  return r;
+}
+
+template <typename T, int TM, bool kATrans, bool kBTrans, int kMode>
+__global__ void __launch_bounds__(kThreads)
+tiled_kernel(const T* __restrict__ a, const T* __restrict__ b,
+             const float* __restrict__ mask, T* __restrict__ c,
+             int P, int Q, int R, int lda, int ldb) {
+  constexpr int BT = 16 * TM;           // output tile edge (128 or 64)
+  constexpr int H = TM / 2;             // outputs per thread per half-tile
+  constexpr int E = BT * kTK / kThreads;  // elements a thread loads per operand
+  __shared__ __align__(16) float As[2][kTK][BT];
+  __shared__ __align__(16) float Bs[2][kTK][BT];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int q0 = blockIdx.x * BT;
+  const int p0 = blockIdx.y * BT;
+
+  if (kMode == 0 && !(mask[q0 / kBlockN] > 0.f)) {   // pruned output block
+    for (int i = tid; i < BT * BT; i += kThreads) {
+      const int r = i / BT, col = i % BT;
+      if (p0 + r < P) store(c + static_cast<size_t>(p0 + r) * Q + q0 + col, 0.f);
+    }
+    return;
+  }
+
+  // where this thread's loads land: (row, col) within the stage's tile
+  // non-transposed A / transposed B: BT rows of kTK contiguous elements
+  constexpr int kRowThreads = kTK / E;
+  const int ld_row = tid / kRowThreads, ld_col = (tid % kRowThreads) * E;
+  // transposed A / non-transposed B: kTK rows of BT contiguous elements
+  constexpr int kColThreads = BT / E;
+  const int st_row = tid / kColThreads, st_col = (tid % kColThreads) * E;
+
+  float ra[E], rb[E];
+  auto load = [&](int r0) {
+    if (!kATrans) {
+      const int p = p0 + ld_row;
+      if (p < P) Load<T, E>::run(a + static_cast<size_t>(p) * lda + r0 + ld_col, ra);
+      else for (int e = 0; e < E; ++e) ra[e] = 0.f;
+    } else {
+      const int r = r0 + st_row;
+      if (r < R) Load<T, E>::run(a + static_cast<size_t>(r) * lda + p0 + st_col, ra);
+      else for (int e = 0; e < E; ++e) ra[e] = 0.f;
+    }
+    if (!kBTrans) {
+      const int r = r0 + st_row;
+      if (r < R) Load<T, E>::run(b + static_cast<size_t>(r) * ldb + q0 + st_col, rb);
+      else for (int e = 0; e < E; ++e) rb[e] = 0.f;
+    } else {
+      const int q = q0 + ld_row;
+      if (q < Q) Load<T, E>::run(b + static_cast<size_t>(q) * ldb + r0 + ld_col, rb);
+      else for (int e = 0; e < E; ++e) rb[e] = 0.f;
+    }
+  };
+  auto stash = [&](int buf) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if (!kATrans) As[buf][ld_col + e][ld_row] = ra[e];
+      else As[buf][st_row][st_col + e] = ra[e];
+      if (!kBTrans) Bs[buf][st_row][st_col + e] = rb[e];
+      else Bs[buf][ld_col + e][ld_row] = rb[e];
+    }
+  };
+
+  float acc[TM][TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TM; ++j) acc[i][j] = 0.f;
+
+  int r0 = next_kept<kMode>(0, R, mask);
+  if (r0 < R) {
+    load(r0);
+    stash(0);
+  }
+  __syncthreads();
+  int buf = 0;
+  while (r0 < R) {
+    const int rn = next_kept<kMode>(r0 + kTK, R, mask);
+    if (rn < R) load(rn);               // next stage's loads in flight
+#pragma unroll
+    for (int k = 0; k < kTK; ++k) {
+      float av[TM], bv[TM];
+      Lds<H>::run(&As[buf][k][ty * H], av);
+      Lds<H>::run(&As[buf][k][BT / 2 + ty * H], av + H);
+      Lds<H>::run(&Bs[buf][k][tx * H], bv);
+      Lds<H>::run(&Bs[buf][k][BT / 2 + tx * H], bv + H);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TM; ++j) acc[i][j] += av[i] * bv[j];
+    }
+    if (rn < R) stash(buf ^ 1);
+    __syncthreads();
+    buf ^= 1;
+    r0 = rn;
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int p = p0 + (i < H ? ty * H + i : BT / 2 + ty * H + i - H);
+    if (p >= P) continue;
+#pragma unroll
+    for (int j = 0; j < TM; ++j) {
+      const int q = q0 + (j < H ? tx * H + j : BT / 2 + tx * H + j - H);
+      store(c + static_cast<size_t>(p) * Q + q, acc[i][j]);
+    }
+  }
+}
+
+// 128x128 tiles when they give at least one block per SM, else 64x64.
+constexpr int kNumSMs = 132;
+
+template <typename T, bool kATrans, bool kBTrans, int kMode>
+int launch_tiled(const void* a, const void* b, const void* mask, void* c,
+                 int P, int Q, int R, int lda, int ldb, cudaStream_t stream) {
+  const long big_tiles = static_cast<long>(Q / 128) * ((P + 127) / 128);
+  if (big_tiles >= kNumSMs) {
+    const dim3 grid(Q / 128, (P + 127) / 128);
+    tiled_kernel<T, 8, kATrans, kBTrans, kMode><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(a), static_cast<const T*>(b),
+        static_cast<const float*>(mask), static_cast<T*>(c), P, Q, R, lda, ldb);
+  } else {
+    const dim3 grid(Q / 64, (P + 63) / 64);
+    tiled_kernel<T, 4, kATrans, kBTrans, kMode><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(a), static_cast<const T*>(b),
+        static_cast<const float*>(mask), static_cast<T*>(c), P, Q, R, lda, ldb);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int kDecodeMaxM = 64;         // K1 takes the decode tile up to here
+
 template <typename T>
-int launch(const void* x, const void* w, const void* block_mask, void* y,
-           int M, int K, int N, cudaStream_t stream) {
+int launch_fwd(const void* x, const void* w, const void* block_mask, void* y,
+               int M, int K, int N, cudaStream_t stream) {
+  if (M > kDecodeMaxM)   // y[M,N] = x[M,K] @ w[K,N]
+    return launch_tiled<T, false, false, 0>(x, w, block_mask, y, M, N, K, K, N,
+                                            stream);
   const dim3 grid((M + kBM - 1) / kBM, N / kCW);
   masked_matmul_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
@@ -177,16 +395,52 @@ int launch(const void* x, const void* w, const void* block_mask, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+bool bad_shape(int M, int K, int N) {
+  return M <= 0 || K <= 0 || N <= 0 || K % kBlockN != 0 || N % kBlockN != 0;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16.  Each returns the cudaError_t of its
+// launch.
+
+// K1: y[M,N] = x[M,K] @ w[K,N], pruned column blocks of y written as zeros.
 extern "C" int masked_matmul_launch(const void* x, const void* w, const void* block_mask,
                                     void* y, int M, int K, int N, int dtype,
                                     void* stream) {
-  if (M <= 0 || N <= 0 || K % kBlockN != 0 || N % kBlockN != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(M, K, N)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, w, block_mask, y, M, K, N, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, w, block_mask, y, M, K, N, s);
+  if (dtype == 0) return launch_fwd<float>(x, w, block_mask, y, M, K, N, s);
+  if (dtype == 1) return launch_fwd<__nv_bfloat16>(x, w, block_mask, y, M, K, N, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K2: dx[M,K] = dy[M,N] @ w[K,N]^T over the kept N-blocks only.
+extern "C" int masked_matmul_dx_launch(const void* dy, const void* w, const void* block_mask,
+                                       void* dx, int M, int K, int N, int dtype,
+                                       void* stream) {
+  if (bad_shape(M, K, N)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // P = M, Q = K, R = N; A(p,r) = dy[p*N + r], B(r,q) = w[q*N + r]
+  if (dtype == 0)
+    return launch_tiled<float, false, true, 1>(dy, w, block_mask, dx, M, K, N, N, N, s);
+  if (dtype == 1)
+    return launch_tiled<__nv_bfloat16, false, true, 1>(dy, w, block_mask, dx, M, K, N,
+                                                       N, N, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K3: dw[K,N] = x[M,K]^T @ dy[M,N], pruned column blocks of dw exact zeros.
+extern "C" int masked_matmul_dw_launch(const void* x, const void* dy, const void* block_mask,
+                                       void* dw, int M, int K, int N, int dtype,
+                                       void* stream) {
+  if (bad_shape(M, K, N)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // P = K, Q = N, R = M; A(p,r) = x[r*K + p], B(r,q) = dy[r*N + q]
+  if (dtype == 0)
+    return launch_tiled<float, true, false, 0>(x, dy, block_mask, dw, K, N, M, K, N, s);
+  if (dtype == 1)
+    return launch_tiled<__nv_bfloat16, true, false, 0>(x, dy, block_mask, dw, K, N, M,
+                                                       K, N, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

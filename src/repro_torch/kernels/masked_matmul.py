@@ -1,17 +1,23 @@
-"""FedAP masked matmul on the card: the wrapper of ``csrc/masked_matmul.cu``.
+"""FedAP masked matmul on the card: the wrappers of ``csrc/masked_matmul.cu``.
 
-Replaces the forward TPU kernel
-``repro/kernels/masked_matmul.py::_masked_mm_kernel`` (its ``pallas_call``
-in ``_fwd_call``).  On an H100, at the decode shapes (M = serving slots) the
-kernel is bound by bytes: the kept 128-column blocks of ``w`` are streamed
-once and the pruned ones are never read, so FedAP's pruning shows up as
-bytes not moved.  The design (8-row M tiles x 32-column slices, 16-byte
-loads of ``w`` in flight, x staged in shared memory) is described in the
-source.  Any M is taken: the wrapper pads nothing.
+Three kernels, one per TPU kernel of ``repro/kernels/masked_matmul.py``:
 
-Forward only: serving runs under ``torch.inference_mode()``.  The backward
-kernels (``_masked_dx_kernel``, ``_masked_dw_kernel``) and the
-``torch.autograd.Function`` come with the training slice.
+* K1 :func:`masked_matmul` — ``y = x @ w``, replacing ``_masked_mm_kernel``
+  (``_fwd_call``).  Decode shapes (M <= 64) are bound by bytes and take an
+  8-row GEMV-like tile that streams the kept blocks of ``w`` once; larger M
+  takes the tiled body.
+* K2 :func:`masked_matmul_dx` — ``dx = dy @ w.T`` over the kept N-blocks,
+  replacing ``_masked_dx_kernel`` (``_dx_call``).
+* K3 :func:`masked_matmul_dw` — ``dw = x.T @ dy`` with pruned column
+  blocks written as exact zeros, replacing ``_masked_dw_kernel``
+  (``_dw_call``).
+
+At training shapes (M = 512, K = 2048, N = 8192) all three are bound by
+operations; their tiled body is a SIMT f32 GEMM (register micro-tiles, a
+two-stage shared-memory ring), described in the source.  Pruned blocks are
+never read, so FedAP's saving shows up as work not done.  Any M is taken:
+the wrappers pad nothing.  The differentiable op over the three is
+:class:`repro_torch.kernels.ops.MaskedMatmul`.
 """
 from __future__ import annotations
 
@@ -19,10 +25,26 @@ import torch
 
 from repro_torch.kernels import _build
 
-launches = 0    # kernel launches since the caller last reset it
+launches = 0     # K1 launches since the caller last reset it
+dx_launches = 0  # K2 launches since the caller last reset it
+dw_launches = 0  # K3 launches since the caller last reset it
 
 BLOCK_N = 128   # mask granularity: one mask entry per 128 columns of w
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_blocks(kdim: int, n: int, block_mask) -> None:
+    """K and N multiples of 128, and one mask entry per 128 columns."""
+    if n % BLOCK_N or kdim % BLOCK_N:
+        raise ValueError(
+            f"masked_matmul shapes must be block-aligned: w.shape="
+            f"{(kdim, n)} needs K and N to be multiples of {BLOCK_N} "
+            f"(mask masked_dense's plain product instead)")
+    if tuple(block_mask.shape) != (n // BLOCK_N,):
+        raise ValueError(
+            f"masked_matmul block_mask must have shape (N // block_n,) = "
+            f"({n // BLOCK_N},), got {tuple(block_mask.shape)} for w.shape="
+            f"{(kdim, n)} block_n={BLOCK_N}")
 
 
 def check_shapes(x, w, block_mask) -> None:
@@ -43,44 +65,94 @@ def check_shapes(x, w, block_mask) -> None:
             f"{tuple(x.shape)} w.shape={tuple(w.shape)} need K and N to be "
             f"multiples of {BLOCK_N} (mask masked_dense's plain product "
             f"instead)")
-    if tuple(block_mask.shape) != (n // BLOCK_N,):
+    _check_blocks(kdim, n, block_mask)
+
+
+def check_shapes_dx(dy, w, block_mask) -> None:
+    """dy [M,N] against w [K,N] for ``dx = dy @ w.T``."""
+    if dy.ndim != 2 or w.ndim != 2 or dy.shape[1] != w.shape[1]:
+        raise ValueError(f"masked_matmul_dx expects dy [M,N] and w [K,N], got "
+                         f"dy.shape={tuple(dy.shape)} w.shape="
+                         f"{tuple(w.shape)}")
+    _check_blocks(w.shape[0], w.shape[1], block_mask)
+
+
+def check_shapes_dw(x, dy, block_mask) -> None:
+    """x [M,K] against dy [M,N] for ``dw = x.T @ dy``."""
+    if x.ndim != 2 or dy.ndim != 2 or x.shape[0] != dy.shape[0]:
+        raise ValueError(f"masked_matmul_dw expects x [M,K] and dy [M,N], got "
+                         f"x.shape={tuple(x.shape)} dy.shape="
+                         f"{tuple(dy.shape)}")
+    _check_blocks(x.shape[1], dy.shape[1], block_mask)
+
+
+def _check_operands(name, a, b, block_mask) -> None:
+    tensors = (a, b, block_mask)
+    if any(t.device.type != "cuda" or t.device != a.device for t in tensors):
         raise ValueError(
-            f"masked_matmul block_mask must have shape (N // block_n,) = "
-            f"({n // BLOCK_N},), got {tuple(block_mask.shape)} for w.shape="
-            f"{tuple(w.shape)} block_n={BLOCK_N}")
+            f"{name} kernel: every tensor must lie on one CUDA device, "
+            f"got {[str(t.device) for t in tensors]}")
+    if a.dtype not in _DTYPES or b.dtype != a.dtype:
+        raise ValueError(
+            f"{name} kernel: both operands must share float32 or bfloat16, "
+            f"got {a.dtype}, {b.dtype}")
+    if block_mask.dtype != torch.float32:
+        raise ValueError(
+            f"{name} kernel: block_mask must be float32, got "
+            f"{block_mask.dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} kernel: inputs must be contiguous")
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError(f"{name} kernel: operands must be 16-byte aligned")
+
+
+def _launch(name, a, b, block_mask, out, m, kdim, n) -> None:
+    err = _build.launcher(name)(
+        a.data_ptr(), b.data_ptr(), block_mask.data_ptr(), out.data_ptr(),
+        m, kdim, n, _DTYPES[a.dtype],
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(err, name)
 
 
 def masked_matmul(x, w, block_mask):
-    """Launch the CUDA kernel: x [M,K] @ w [K,N] on one CUDA device,
-    float32 or bfloat16, contiguous, with ``block_mask`` float32 [N/128]
-    (column block j is computed iff ``block_mask[j] > 0``, else zero).
-    Returns a new [M,N] tensor of x's type."""
+    """K1: x [M,K] @ w [K,N] on one CUDA device, float32 or bfloat16,
+    contiguous, with ``block_mask`` float32 [N/128] (column block j is
+    computed iff ``block_mask[j] > 0``, else zero).  Returns a new [M,N]
+    tensor of x's type."""
     global launches
     check_shapes(x, w, block_mask)
-    tensors = (x, w, block_mask)
-    if any(t.device.type != "cuda" or t.device != x.device for t in tensors):
-        raise ValueError(
-            f"masked_matmul kernel: every tensor must lie on one CUDA device, "
-            f"got {[str(t.device) for t in tensors]}")
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
-        raise ValueError(
-            f"masked_matmul kernel: x and w must share float32 or bfloat16, "
-            f"got {x.dtype}, {w.dtype}")
-    if block_mask.dtype != torch.float32:
-        raise ValueError(
-            f"masked_matmul kernel: block_mask must be float32, got "
-            f"{block_mask.dtype}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("masked_matmul kernel: inputs must be contiguous")
-    if w.data_ptr() % 16:
-        raise ValueError("masked_matmul kernel: w must be 16-byte aligned")
+    _check_operands("masked_matmul", x, w, block_mask)
     m, kdim = x.shape
     n = w.shape[1]
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    fn = _build.launcher("masked_matmul")
-    err = fn(x.data_ptr(), w.data_ptr(), block_mask.data_ptr(), y.data_ptr(),
-             m, kdim, n, _DTYPES[x.dtype],
-             torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "masked_matmul")
+    _launch("masked_matmul", x, w, block_mask, y, m, kdim, n)
     launches += 1
     return y
+
+
+def masked_matmul_dx(dy, w, block_mask):
+    """K2: dy [M,N] @ w [K,N].T over the kept column blocks of w only.
+    Returns a new [M,K] tensor of dy's type."""
+    global dx_launches
+    check_shapes_dx(dy, w, block_mask)
+    _check_operands("masked_matmul_dx", dy, w, block_mask)
+    m, n = dy.shape
+    kdim = w.shape[0]
+    dx = torch.empty((m, kdim), dtype=dy.dtype, device=dy.device)
+    _launch("masked_matmul_dx", dy, w, block_mask, dx, m, kdim, n)
+    dx_launches += 1
+    return dx
+
+
+def masked_matmul_dw(x, dy, block_mask):
+    """K3: x [M,K].T @ dy [M,N] with the pruned column blocks written as
+    exact zeros.  Returns a new [K,N] tensor of x's type."""
+    global dw_launches
+    check_shapes_dw(x, dy, block_mask)
+    _check_operands("masked_matmul_dw", x, dy, block_mask)
+    m, kdim = x.shape
+    n = dy.shape[1]
+    dw = torch.empty((kdim, n), dtype=x.dtype, device=x.device)
+    _launch("masked_matmul_dw", x, dy, block_mask, dw, m, kdim, n)
+    dw_launches += 1
+    return dw

@@ -6,6 +6,8 @@ the two and no switch: the device of the data decides.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import masked_matmul as _mm
 from repro_torch.kernels import ref
@@ -30,10 +32,57 @@ def decode_attention(q, k, v, lengths=None):
     return ref.decode_attention_ref(q, k, v, lengths)
 
 
-def masked_matmul(x, w, block_mask):
-    """x [M,K] @ w [K,N] with the 128-column blocks whose mask entry is not
-    > 0 skipped and written as zeros."""
+def masked_matmul_fwd(x, w, block_mask):
+    """K1, not differentiable: x [M,K] @ w [K,N] with the 128-column blocks
+    whose mask entry is not > 0 skipped and written as zeros."""
     _mm.check_shapes(x, w, block_mask)
     if _route("masked_matmul", x):
         return _mm.masked_matmul(x, w, block_mask)
     return ref.masked_matmul_ref(x, w, block_mask)
+
+
+def masked_matmul_dx(dy, w, block_mask):
+    """K2: dy [M,N] @ w [K,N].T over the kept column blocks of w."""
+    _mm.check_shapes_dx(dy, w, block_mask)
+    if _route("masked_matmul_dx", dy):
+        return _mm.masked_matmul_dx(dy, w, block_mask)
+    return ref.masked_matmul_dx_ref(dy, w, block_mask)
+
+
+def masked_matmul_dw(x, dy, block_mask):
+    """K3: x [M,K].T @ dy [M,N], pruned column blocks exact zeros."""
+    _mm.check_shapes_dw(x, dy, block_mask)
+    if _route("masked_matmul_dw", x):
+        return _mm.masked_matmul_dw(x, dy, block_mask)
+    return ref.masked_matmul_dw_ref(x, dy, block_mask)
+
+
+class MaskedMatmul(torch.autograd.Function):
+    """The differentiable masked matmul, the counterpart of the reference's
+    ``jax.custom_vjp`` around its three Pallas kernels: the forward is K1,
+    the backward K2 for ``x`` and K3 for ``w``; ``block_mask`` gets no
+    gradient.  Every product dispatches by device, so CPU tensors run the
+    plain versions through the same Function."""
+
+    @staticmethod
+    def forward(ctx, x, w, block_mask):
+        ctx.save_for_backward(x, w, block_mask)
+        return masked_matmul_fwd(x, w, block_mask)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, block_mask = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = masked_matmul_dx(dy, w, block_mask)
+        if ctx.needs_input_grad[1]:
+            dw = masked_matmul_dw(x, dy, block_mask)
+        return dx, dw, None
+
+
+def masked_matmul(x, w, block_mask):
+    """x [M,K] @ w [K,N] with the 128-column blocks whose mask entry is not
+    > 0 skipped and written as zeros; differentiable in ``x`` and ``w``."""
+    _mm.check_shapes(x, w, block_mask)
+    return MaskedMatmul.apply(x, w, block_mask)

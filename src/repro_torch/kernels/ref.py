@@ -46,3 +46,29 @@ def masked_matmul_ref(x, w, block_mask, *, block_n: int = 128):
     keep = torch.repeat_interleave(block_mask.to(x.device) > 0, block_n)
     out = x.float() @ w.float()
     return torch.where(keep[None, :], out, 0.0).to(x.dtype)
+
+
+def _keep_columns(block_mask, n: int, device, block_n: int = 128):
+    """[n] bool: True on the columns of the kept 128-column blocks."""
+    keep = torch.repeat_interleave(block_mask.to(device) > 0, block_n)
+    if keep.numel() != n:
+        raise ValueError(f"block_mask covers {keep.numel()} columns, not {n}")
+    return keep
+
+
+def masked_matmul_dx_ref(dy, w, block_mask, *, block_n: int = 128):
+    """``dx = dy @ w.T`` in f32 over the kept column blocks of ``w`` only
+    (the pruned blocks of the contraction are never read), cast to
+    ``dy.dtype``.  dy [M,N], w [K,N] -> [M,K]."""
+    keep = _keep_columns(block_mask, w.shape[1], dy.device, block_n)
+    return (dy.float()[:, keep] @ w.float()[:, keep].T).to(dy.dtype)
+
+
+def masked_matmul_dw_ref(x, dy, block_mask, *, block_n: int = 128):
+    """``dw = x.T @ dy`` in f32 with the pruned column blocks written as
+    exact zeros, cast to ``x.dtype``.  x [M,K], dy [M,N] -> [K,N]."""
+    keep = _keep_columns(block_mask, dy.shape[1], x.device, block_n)
+    out = torch.zeros((x.shape[1], dy.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    out[:, keep] = x.float().T @ dy.float()[:, keep]
+    return out.to(x.dtype)

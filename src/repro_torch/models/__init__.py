@@ -1,1 +1,1 @@
-"""Models: decode-path layers and the dense LM."""
+"""Models: transformer layers and the dense LM (training forward, decode)."""

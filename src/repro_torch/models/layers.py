@@ -1,7 +1,8 @@
-"""Transformer building blocks for decode, as plain functions on tensors.
+"""Transformer building blocks, as plain functions on tensors.
 
 Counterpart of the reference's ``models/layers.py``, limited to what the
-dense decode path needs.  Layouts follow the reference: ``wq [d,H,hd]``,
+dense family needs: the full-sequence forward of training and the decode
+step of serving.  Layouts follow the reference: ``wq [d,H,hd]``,
 ``wk/wv [d,KV,hd]``, ``wo [H,hd,d]``, cache ``[B,S,KV,hd]``, FFN
 ``wi/wg [d,ff]``, ``wo [ff,d]``.  The compute dtype is the input dtype;
 norms, rope and softmax run in f32.
@@ -94,13 +95,50 @@ def default_positions(batch: int, seq: int, kind: str, offset: int = 0, *,
 
 
 # ---------------------------------------------------------------------------
-# attention decode against the KV cache
+# full-sequence attention (training / prefill)
 # ---------------------------------------------------------------------------
 
 def _heads(x, w):
     """einsum('bsd,dhk->bshk') as one matmul."""
     d, h, k = w.shape
     return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+
+
+def attention(q, k, v, *, causal: bool = True):
+    """Plain GQA attention, the reference's ``attention_ref``: q [B,Sq,H,hd],
+    k/v [B,Skv,KV,hd] -> [B,Sq,H,hd] in q's dtype.  Query head ``h = g * KV +
+    kv`` attends kv head ``kv`` (the [g, kv] grouping); with ``causal`` key
+    ``s`` is visible to query ``t`` iff ``s <= t``.  Scores and softmax run
+    in f32.  (The reference switches to tree or blocked forms of the same
+    math above 1024 query rows, to bound XLA's memory.)"""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, h // kvh, kvh, hd).float()
+    scores = torch.einsum("bqgkd,bskd->bgkqs", qg, k.float()) / math.sqrt(hd)
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        scores = scores.masked_fill(kpos > qpos, -math.inf)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgkqs,bskd->bqgkd", w, v.float())
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def attention_block(params, x, positions, cfg: ModelConfig):
+    """Causal self-attention over a whole sequence: q/k/v projections, rope,
+    :func:`attention`, the output projection.  x [B,S,d] -> [B,S,d]."""
+    b, s, _ = x.shape
+    q = apply_rope(_heads(x, params["wq"]), positions, cfg.rope)
+    k = apply_rope(_heads(x, params["wk"]), positions, cfg.rope)
+    v = _heads(x, params["wv"])
+    out = attention(q, k, v, causal=True)
+    wo = params["wo"]
+    return out.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# attention decode against the KV cache
+# ---------------------------------------------------------------------------
 
 
 def attention_decode(params, x, cache_k, cache_v, cache_index, positions,
@@ -171,10 +209,11 @@ def apply_mlp(params, x, act: str, mask=None):
 def masked_dense(x, w, mask):
     """``(x @ w) * mask`` for x [M,K], w [K,N], mask [N] 0/1.
 
-    When K and N are multiples of 128 the product runs the ``masked_matmul``
-    kernel with ``block_mask = max`` of the mask over each 128-column block,
-    so fully pruned blocks are skipped; a partly kept block is computed and
-    re-masked elementwise.  Any M is taken as it is.  Unaligned K or N mask
+    When K and N are multiples of 128 the product runs the differentiable
+    ``masked_matmul`` (K1 forward, K2/K3 backward) with ``block_mask = max``
+    of the mask over each 128-column block, so fully pruned blocks are
+    skipped in both passes; a partly kept block is computed and re-masked
+    elementwise.  Any M is taken as it is.  Unaligned K or N mask
     the plain product.  The mask is applied in the activation dtype (0/1 are
     exact in bf16), so a bf16 stack stays bf16.
     """

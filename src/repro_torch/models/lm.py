@@ -1,10 +1,12 @@
 """The dense decoder LM, functional: params are dicts of tensors.
 
 Counterpart of the reference's ``models/lm.py`` for the ``dense`` family
-(llama-style decoder: GQA + RoPE 1d/2d + SwiGLU or GELU MLP), with the
-decode step, the KV cache and the FedAP pruning seam.  Layer params are
-stacked along a leading ``[L, ...]`` axis as in the reference, so a JAX
-param tree converts leaf for leaf (:mod:`repro_torch.interop`).
+(llama-style decoder: GQA + RoPE 1d/2d + SwiGLU or GELU MLP): the
+full-sequence forward, loss and token accuracy that federated training
+differentiates, the decode step and the KV cache of serving, and the FedAP
+pruning seam.  Layer params are stacked along a leading ``[L, ...]`` axis
+as in the reference, so a JAX param tree converts leaf for leaf
+(:mod:`repro_torch.interop`).
 
 Params: ``{"embed" [V,d], "unembed" [d,V] (untied only), "norm_out",
 "layers": {"attn": {wq, wk, wv, wo}, "norm_a", "norm_f",
@@ -15,17 +17,28 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _unstack(stacked) -> list:
+    """The per-layer trees of a stacked ``[L, ...]`` tree, as views (one
+    ``unbind`` per leaf, whose backward stacks the layers' gradients)."""
+    leaves = [t.unbind(0) for t in tree_leaves(stacked)]
+    return [tree_unflatten(stacked, [leaf[i] for leaf in leaves])
+            for i in range(len(leaves[0]))]
+
+
 class LM:
-    """``init``, ``init_cache`` and ``decode_step`` of a dense decoder, on
-    ``device`` (default ``"cuda"``, which raises when CUDA is missing)."""
+    """``init``, ``apply``/``loss``/``loss_and_acc``, ``init_cache`` and
+    ``decode_step`` of a dense decoder, on ``device`` (default ``"cuda"``,
+    which raises when CUDA is missing)."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda"):
         if cfg.family != "dense":
@@ -63,6 +76,74 @@ class LM:
         if cfg.tie_embeddings:
             return x @ params["embed"].T
         return x @ params["unembed"]
+
+    def _block(self, layer, x, positions, mask):
+        cfg = self.cfg
+        h = L.apply_norm(layer.get("norm_a", {}), x, cfg.norm)
+        x = x + L.attention_block(layer["attn"], h, positions, cfg)
+        h = L.apply_norm(layer.get("norm_f", {}), x, cfg.norm)
+        return x + L.apply_mlp(layer["mlp"], h, cfg.act, mask)
+
+    def apply(self, params, batch, *, masks=None):
+        """Full-sequence logits [B,S,V] for ``batch["tokens"]`` [B,S] (causal
+        attention over the whole sequence; ``batch["positions"]`` [P,B,S]
+        overrides the default ``arange`` positions).
+
+        ``masks`` (optional) ``{"mlp": [L, d_ff] 0/1}`` gives each layer its
+        FedAP filter keep-mask row: masked units are zeroed at the FFN
+        pre-activation (the logits equal the shrunk model's) and the up/gate
+        products run the differentiable ``masked_matmul`` kernels, which
+        skip fully pruned 128-column blocks forward and backward.
+
+        The stacked ``[L, ...]`` layer params are unbound once, so the
+        backward writes each layer's gradient into one stacked tensor.
+        ``cfg.remat == "block"`` recomputes each layer in the backward
+        (``torch.utils.checkpoint``), launching its forward kernels twice.
+        The dense family has no auxiliary loss, so only the logits return.
+        """
+        cfg = self.cfg
+        if cfg.remat not in ("none", "block"):
+            raise ValueError(f"remat={cfg.remat!r} is not ported (the port "
+                             f"takes 'none' and 'block')")
+        x = params["embed"][batch["tokens"]]
+        b, s = x.shape[0], x.shape[1]
+        pos = batch.get("positions")
+        if pos is None:
+            pos = L.default_positions(b, s, cfg.rope, device=x.device)
+        layers = _unstack(params["layers"])
+        rows = (masks["mlp"].unbind(0) if masks is not None
+                else (None,) * len(layers))
+        for i, layer in enumerate(layers):
+            if cfg.remat == "block":
+                x = checkpoint(self._block, layer, x, pos, rows[i],
+                               use_reentrant=False)
+            else:
+                x = self._block(layer, x, pos, rows[i])
+        return self._head(params, x)
+
+    def loss(self, params, batch, *, masks=None):
+        """Mean next-token cross-entropy of :meth:`apply` against
+        ``batch["labels"]`` [B,S], over ``batch["loss_mask"]`` when given
+        (log-softmax in f32)."""
+        return self._loss_acc(params, batch, masks)[0]
+
+    def loss_and_acc(self, params, x, y, *, masks=None):
+        """The federated trainer's model contract: ``(x, y)`` = (tokens [B,S],
+        labels [B,S]) -> (loss, token accuracy), from one forward — the
+        port's copy of the reference's ``launch.steps.loss_and_accuracy``."""
+        return self._loss_acc(params, {"tokens": x, "labels": y}, masks)
+
+    def _loss_acc(self, params, batch, masks):
+        logits = self.apply(params, batch, masks=masks)
+        labels = batch["labels"].long()
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+        ok = (logits.argmax(-1) == labels).float()
+        mask = batch.get("loss_mask")
+        if mask is None:
+            return nll.sum() / nll.numel(), ok.mean()
+        denom = mask.sum().clamp_min(1.0)
+        return (nll * mask).sum() / denom, (ok * mask).sum() / denom
 
     # -- FedAP seam -------------------------------------------------------------
     def decide_kept(self, params, p_star, *, align=128) -> dict:

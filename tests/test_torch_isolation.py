@@ -18,6 +18,9 @@ import torch
 
 from repro_torch import interop
 from repro_torch.configs import get_config
+from repro_torch.core.rounds import FederatedTrainer, feddumap_config
+from repro_torch.data.pipeline import build_lm_federated_data
+from repro_torch.data.synthetic import TokenSpec
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import decode_attention as k5
 from repro_torch.kernels import masked_matmul as k1
@@ -72,12 +75,28 @@ def no_cuda():
 
 
 @pytest.mark.parametrize("entry", ["LM", "DecodeEngine", "load_servable",
-                                   "params_from_jax"])
+                                   "params_from_jax", "LM.apply",
+                                   "FederatedTrainer", "device_arrays",
+                                   "round_state_from_jax"])
 def test_default_device_raises_without_cuda(no_cuda, entry):
     params = LM(TINY, device="cpu").init(torch.Generator().manual_seed(0))
+    data = build_lm_federated_data(
+        num_clients=2, spec=TokenSpec(vocab_size=256, num_topics=4,
+                                      seq_len=9, num_sequences=32))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if entry == "LM":
             LM(TINY)
+        elif entry == "LM.apply":
+            LM(TINY).apply(params, {"tokens": torch.zeros((1, 4),
+                                                          dtype=torch.int32)})
+        elif entry == "FederatedTrainer":
+            FederatedTrainer(LM(TINY, device="cpu"), data,
+                             feddumap_config(num_clients=2,
+                                             clients_per_round=1))
+        elif entry == "device_arrays":
+            data.device_arrays()
+        elif entry == "round_state_from_jax":
+            interop.round_state_from_jax({"round": np.zeros((), np.float32)})
         elif entry == "DecodeEngine":
             DecodeEngine(LM(TINY, device="cpu"), params,
                          ServeConfig(slots=1, cache_len=8, max_prompt=4,
@@ -109,15 +128,31 @@ def test_dispatch_raises_on_a_non_cpu_tensor():
         ops.masked_matmul(torch.empty((8, 128), device="meta"),
                           torch.empty((128, 256), device="meta"),
                           torch.ones(2, device="meta"))
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.masked_matmul_dx(torch.empty((8, 256), device="meta"),
+                             torch.empty((128, 256), device="meta"),
+                             torch.ones(2, device="meta"))
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.masked_matmul_dw(torch.empty((8, 128), device="meta"),
+                             torch.empty((8, 256), device="meta"),
+                             torch.ones(2, device="meta"))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The CUDA wrappers never compute on the CPU (and count nothing)."""
-    before = (k5.launches, k1.launches)
+    counts = lambda: (k5.launches, k1.launches, k1.dx_launches,  # noqa: E731
+                      k1.dw_launches)
+    before = counts()
     q, kv = torch.zeros(2, 1, 4, 32), torch.zeros(2, 16, 2, 32)
     with pytest.raises(ValueError, match="CUDA device"):
         k5.decode_attention(q, kv, kv)
     with pytest.raises(ValueError, match="CUDA device"):
         k1.masked_matmul(torch.zeros(8, 128), torch.zeros(128, 256),
                          torch.ones(2))
-    assert (k5.launches, k1.launches) == before
+    with pytest.raises(ValueError, match="CUDA device"):
+        k1.masked_matmul_dx(torch.zeros(8, 256), torch.zeros(128, 256),
+                            torch.ones(2))
+    with pytest.raises(ValueError, match="CUDA device"):
+        k1.masked_matmul_dw(torch.zeros(8, 128), torch.zeros(8, 256),
+                            torch.ones(2))
+    assert counts() == before

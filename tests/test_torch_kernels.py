@@ -1,5 +1,8 @@
 """The port's kernels on CPU tensors against the JAX Pallas kernels.
 
+K1-K3 (``masked_matmul`` forward and its differentiable backward) and K5
+(``decode_attention``).
+
 On a CPU tensor ``repro_torch.kernels.ops`` runs the plain PyTorch version
 (``repro_torch.kernels.ref``); the same numpy inputs go through the JAX
 Pallas kernels in interpret mode and through ``repro.kernels.ref``.
@@ -7,6 +10,7 @@ Tolerance 1e-5 in f32: the two sides sum in another order.  The CUDA
 kernels themselves are held against the same plain versions on the card by
 ``chip_smoke.py``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -195,3 +199,92 @@ class TestOpsDispatch:
                         _rand((2, 16, 2, 32), 30))
         assert torch.equal(ops.decode_attention(q, k, v),
                            ref.decode_attention_ref(q, k, v))
+
+
+class TestMaskedMatmulVJP:
+    """The differentiable op: K1 forward, K2 ``dx`` and K3 ``dw`` backward
+    (their plain versions on the CPU), against ``jax.vjp`` of the Pallas
+    ``masked_matmul`` (interpret mode; the JAX side pads M to 8 rows, whose
+    zero rows add nothing to ``dw``) and the float64 oracle
+    ``masked_matmul_vjp_ref64``.  Tolerance 1e-5 relative to max(1, max
+    |reference|): f32 sums over up to 512 terms in another order."""
+
+    K, N = 256, 512
+
+    @staticmethod
+    def _close(got, want):
+        want = np.asarray(want)
+        scale = max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(got, want, atol=1e-5 * scale, rtol=0)
+
+    @pytest.mark.parametrize("m", [5, 17, 64])
+    @pytest.mark.parametrize("mask", [[1, 0, 1, 0], [1, 1, 1, 1],
+                                      [0, 0, 0, 0]])
+    def test_gradients_match_jax_vjp_and_f64(self, m, mask):
+        x, w = _rand((m, self.K), 31), _rand((self.K, self.N), 32) / 16
+        dy = _rand((m, self.N), 33)
+        bm = np.asarray(mask, np.float32)
+        mp = -(-m // 8) * 8
+        xp, dyp = np.zeros((mp, self.K), np.float32), np.zeros(
+            (mp, self.N), np.float32)
+        xp[:m], dyp[:m] = x, dy
+        y_j, vjp = jax.vjp(lambda a, b: pallas_mm(
+            a, b, jnp.asarray(bm), block_m=8, interpret=True),
+            jnp.asarray(xp), jnp.asarray(w))
+        dx_j, dw_j = vjp(jnp.asarray(dyp))
+        dx64, dw64 = jref.masked_matmul_vjp_ref64(x, w, bm, dy)
+
+        xt, wt = (t.requires_grad_(True) for t in _port(x, w))
+        y = ops.masked_matmul(xt, wt, torch.from_numpy(bm))
+        y.backward(torch.from_numpy(dy))
+        self._close(y.detach().numpy(), np.asarray(y_j)[:m])
+        for got, want_j, want64 in ((xt.grad, np.asarray(dx_j)[:m], dx64),
+                                    (wt.grad, dw_j, dw64)):
+            self._close(got.numpy(), want_j)
+            self._close(got.numpy(), want64)
+        # the plain versions themselves, called directly
+        dyt, wd = _port(dy, w)
+        self._close(ref.masked_matmul_dx_ref(dyt, wd, torch.from_numpy(bm))
+                    .numpy(), dx64)
+        self._close(ref.masked_matmul_dw_ref(xt.detach(), dyt,
+                                             torch.from_numpy(bm)).numpy(),
+                    dw64)
+        # a pruned filter gets an exactly-zero gradient
+        pruned = np.repeat(bm, 128) == 0
+        assert np.all(wt.grad.numpy()[:, pruned] == 0.0)
+
+    def test_pruned_blocks_are_never_read_backward(self):
+        """K2 skips pruned blocks of ``w`` and K3 writes their ``dw`` without
+        reading ``dy`` there: garbage in those blocks reaches nothing."""
+        x, w, dy = _rand((8, 128), 34), _rand((128, 256), 35), _rand((8, 256),
+                                                                    36)
+        w[:, 128:] = np.nan
+        dy[:, 128:] = np.nan
+        bm = torch.tensor([1.0, 0.0])
+        dx = ops.masked_matmul_dx(*_port(dy, w), bm)
+        dw = ops.masked_matmul_dw(*_port(x, dy), bm)
+        assert torch.isfinite(dx).all()
+        assert torch.all(dw[:, 128:] == 0.0) and torch.isfinite(dw).all()
+
+    def test_block_mask_gets_no_gradient(self):
+        x, w = (t.requires_grad_(True) for t in _port(_rand((4, 128), 37),
+                                                      _rand((128, 256), 38)))
+        bm = torch.ones(2, requires_grad=True)
+        ops.masked_matmul(x, w, bm).sum().backward()
+        assert bm.grad is None and x.grad is not None and w.grad is not None
+
+    def test_value_errors(self):
+        w = torch.zeros(256, 512)
+        with pytest.raises(ValueError, match="masked_matmul_dx expects"):
+            ops.masked_matmul_dx(torch.zeros(4, 256), w, torch.ones(4))
+        with pytest.raises(ValueError, match="block_mask"):
+            ops.masked_matmul_dx(torch.zeros(4, 512), w, torch.ones(3))
+        with pytest.raises(ValueError, match="masked_matmul_dw expects"):
+            ops.masked_matmul_dw(torch.zeros(4, 256), torch.zeros(5, 512),
+                                 torch.ones(4))
+        with pytest.raises(ValueError, match="block-aligned"):
+            ops.masked_matmul_dw(torch.zeros(4, 100), torch.zeros(4, 512),
+                                 torch.ones(4))
+        with pytest.raises(ValueError, match=r"\(5, 100\)"):
+            ops.masked_matmul(torch.zeros(5, 100, requires_grad=True),
+                              torch.zeros(100, 256), torch.ones(2))

@@ -1,4 +1,5 @@
-"""The port's dense LM decode and FedAP pruning against the JAX package.
+"""The port's dense LM (training forward and gradients, decode) and FedAP
+pruning against the JAX package.
 
 JAX ``LM.init`` -> ``interop.params_from_jax`` -> the port on the CPU, on
 the tiny dense config of ``tests/test_serving.py`` and on olmo-1b's reduced
@@ -262,6 +263,93 @@ class TestLayers:
                                        jnp.asarray(mask))
         got = layers.masked_dense(torch.from_numpy(x), torch.from_numpy(w),
                                   torch.from_numpy(mask))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+class TestFullSequence:
+    """``LM.apply`` / ``loss_and_acc`` and their gradients, the path
+    federated training differentiates, against the JAX LM (the masked FFN
+    through the Pallas kernels in interpret mode on the JAX side, through
+    ``MaskedMatmul`` over the plain versions here)."""
+
+    @pytest.mark.parametrize("masked", [False, True])
+    def test_logits_loss_and_grads_match_jax(self, world, masked):
+        from repro_torch.core import engine
+
+        cfg, jparams, model, params = world
+        jm = JaxLM(cfg)
+        rng = np.random.default_rng(7)
+        x = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+        y = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+        jmasks = masks = None
+        if masked:
+            jmasks = jm.filter_masks(jparams, jm.decide_kept(jparams, 0.5))
+            masks = interop.masks_from_jax(_np_tree(jmasks), "cpu")
+        jlogits, _ = jm.apply(jparams, {"tokens": jnp.asarray(x)},
+                              masks=jmasks)
+        logits = model.apply(params, {"tokens": torch.from_numpy(x)},
+                             masks=masks)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+
+        def jloss(p):
+            return jm.loss_and_acc(p, jnp.asarray(x), jnp.asarray(y),
+                                   masks=jmasks)
+
+        (jl, ja), jg = jax.value_and_grad(jloss, has_aux=True)(jparams)
+        (loss, acc), grads = engine.value_and_grad_aux(
+            lambda p: model.loss_and_acc(p, torch.from_numpy(x),
+                                         torch.from_numpy(y), masks=masks),
+            params)
+        np.testing.assert_allclose(float(loss), float(jl), **TOL)
+        assert float(acc) == pytest.approx(float(ja))
+        for got, want in zip(jax.tree.leaves(interop.params_to_numpy(grads)),
+                             jax.tree.leaves(_np_tree(jg))):
+            np.testing.assert_allclose(got, want, **TOL)
+
+    def test_loss_mask_and_labels(self, world):
+        cfg, jparams, model, params = world
+        rng = np.random.default_rng(8)
+        b = {"tokens": rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32),
+             "loss_mask": (rng.random((2, 8)) > 0.3).astype(np.float32)}
+        want = JaxLM(cfg).loss(jparams, jax.tree.map(jnp.asarray, b))
+        got = model.loss(params, {k: torch.from_numpy(v) for k, v in b.items()})
+        np.testing.assert_allclose(float(got), float(want), **TOL)
+
+    def test_remat_block_equals_none(self):
+        from repro_torch.core import engine
+
+        cfg = _port_cfg(TINY)
+        plain = LM(cfg, device="cpu")
+        remat = LM(dataclasses.replace(cfg, remat="block"), device="cpu")
+        params = plain.init(torch.Generator().manual_seed(3))
+        masks = plain.filter_masks(params, plain.decide_kept(params, 0.5))
+        x = torch.randint(0, cfg.vocab_size, (2, 8),
+                          generator=torch.Generator().manual_seed(4))
+
+        def run(model):
+            return engine.value_and_grad_aux(
+                lambda p: model.loss_and_acc(p, x, x, masks=masks), params)
+
+        (l0, _), g0 = run(plain)
+        (l1, _), g1 = run(remat)
+        assert float(l0) == float(l1)
+        for a, b in zip(jax.tree.leaves(interop.params_to_numpy(g0)),
+                        jax.tree.leaves(interop.params_to_numpy(g1))):
+            np.testing.assert_allclose(a, b, atol=1e-7, rtol=0)
+        with pytest.raises(ValueError, match="remat='dots'"):
+            LM(dataclasses.replace(cfg, remat="dots"), device="cpu").apply(
+                params, {"tokens": x})
+
+    @pytest.mark.parametrize("h,kv", [(4, 2), (4, 4), (8, 1)])
+    def test_attention_equals_attention_ref(self, h, kv):
+        rng = np.random.default_rng(9)
+        q = rng.standard_normal((2, 12, h, 16)).astype(np.float32)
+        k = rng.standard_normal((2, 12, kv, 16)).astype(np.float32)
+        v = rng.standard_normal((2, 12, kv, 16)).astype(np.float32)
+        want = jax_layers.attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), causal=True)
+        got = layers.attention(*(torch.from_numpy(a) for a in (q, k, v)))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
