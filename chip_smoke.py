@@ -10,7 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
               (one process per source, in parallel) into ``build/``;
 3. kernels  — each CUDA kernel against its plain PyTorch version on the card
               at its paths' shapes (serving: K5, K1 at M = 8; training: K1,
-              K2, K3 at M = 512 and 500, K = 2048, N = 8192), in float32 and
+              K2, K3 at M = 512 and 500, K = 2048, N = 8192; scoring: K4 at
+              olmo-1b's and zamba2's attention shapes, ragged and GQA cases,
+              K6 at zamba2's SSD shapes and a ragged S), in float32 and
               bfloat16, with CUDA-event times of the kernel, the plain
               version and one library call of the same function, beside the
               bound;
@@ -30,7 +32,20 @@ Phases, in order; any failure raises and the script exits non-zero:
               continuous-batching DecodeEngine over ``load_servable`` in
               dense, masked@0.5 and shrunk@0.5 modes, with each kernel's
               launch count checked against the decode steps taken, and one
-              wave run under ``torch.cuda.set_sync_debug_mode("error")``.
+              wave run under ``torch.cuda.set_sync_debug_mode("error")``;
+8. score-parity — float32 logits of ``attn_impl="pallas"`` (K4, K6)
+              against ``attn_impl="xla"`` (plain attention, chunked scan) on
+              the card: zamba2-1.2b at full width, 12 layers, S = 8192, and
+              olmo-1b at full width, 2 layers, S = 2048, beside the logits'
+              own response to one f32 rounding of the embeddings;
+9. scoring  — full-sequence scoring (``loss_and_acc`` under no_grad)
+              through ``load_servable(..., attn_impl="pallas")``: olmo-1b,
+              all 16 layers, bf16, B = 4 x S = 2048, dense / masked@0.5 /
+              shrunk@0.5, then zamba2-1.2b, all 38 layers, bf16, B = 1 x
+              S = 8192; tokens/s, the device's busy share and time per
+              kernel (torch.profiler), peak memory, and the launch counts
+              (K4 16 per olmo forward, K1 32 in masked mode; K4 7 and K6 38
+              per zamba2 forward).
 
 Each phase after the build prints its peak device memory.
 
@@ -284,6 +299,7 @@ def phase_kernels(torch, timer) -> dict:
                         "library_ms": lib_ms}
     for name, rec in _training_kernels(torch, timer, gen).items():
         records.setdefault(name, {}).update(rec)
+    records.update(_scoring_kernels(torch, timer, gen))
     return records
 
 
@@ -371,6 +387,169 @@ def _training_kernels(torch, timer, gen) -> dict:
                             "replaces": "src/repro/kernels/masked_matmul.py:"
                                         f"{line}", **rec}
     return records
+
+
+# K4/K6 tolerances: max |kernel - plain| relative to max(1, max |plain|), the
+# reference tests' own numbers (tests/test_kernels.py: flash f32 2e-5, ssd
+# 2e-4, bf16 2e-2).  The f32 sums run in another order (K6 also in 32-step
+# sub-chunks against the sequential definition); bf16 outputs round once.
+SCORE_TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
+             "ssd_scan": {"float32": 2e-4, "bfloat16": 2e-2}}
+
+
+def _k4_bound(b, sq, skv, h, kvh, hd, causal, window, elt, dtype_name):
+    """(bound ms, "bytes" or "operations", flops): q, k, v read once and the
+    output written once; 4 flops per visible (query, key, head-dim) triple
+    (QK^T and PV), the pairs counted from this mask."""
+    from repro_torch.kernels import ref
+
+    pairs = int(ref.visible(sq, skv, causal=causal, window=window,
+                            device="cuda").sum())
+    flops = 4 * b * h * hd * pairs
+    nbytes = elt * (2 * b * sq * h * hd + 2 * b * skv * kvh * hd)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), flops
+
+
+def _k6_bound(b, s, nh, p, n, chunk, elt, dtype_name):
+    """(bound ms, "bytes" or "operations", flops): x, B, C, dt read and y
+    written once; the flops of the Pallas kernel's square chunk form at
+    ``chunk`` (C B^T, the decay weighting, the intra-chunk product, the
+    carried-state term and the state update)."""
+    c = min(chunk, s)
+    nc = -(-s // c)
+    flops = b * nc * (2 * c * c * n + c * c * nh + 2 * c * c * nh * p
+                      + 4 * c * nh * p * n)
+    nbytes = elt * (2 * b * s * nh * p + 2 * b * s * n + b * s * nh) \
+        + 3 * 4 * nh
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), flops
+
+
+def _scoring_kernels(torch, timer, gen) -> dict:
+    """K4 and K6 at the scoring path's shapes against their plain versions:
+    K4 at olmo-1b's (B=4, S=2048, 16 heads of 128, causal; f32 and bf16) and
+    zamba2's (B=1, S=8192, 32 heads of 64, window 4096; bf16), a ragged S
+    and a GQA case; K6 at zamba2's (B=1, S=8192, nh=64, p=64, N=64, chunk
+    256; f32 and bf16) and a ragged S.  The bf16 olmo-1b K4 case and the
+    bf16 K6 case give the records; zamba2's K4 adds ``zamba_*`` keys."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as k6
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def check(name, label, dname, got, want):
+        torch.cuda.synchronize()
+        err, rel = max_rel_err(torch, got, want)
+        tol = SCORE_TOL[name][dname]
+        log(f"[kernels] {name} {label} {dname}: max_abs_err={err:.3e} "
+            f"rel={rel:.3e} (tol {tol:.0e})")
+        require(bool(torch.isfinite(got).all()), f"{name} {label}: "
+                f"non-finite output")
+        require(got.dtype == want.dtype and got.shape == want.shape,
+                f"{name} {label}: {got.dtype} {tuple(got.shape)} against "
+                f"{want.dtype} {tuple(want.shape)}")
+        require(rel <= tol, f"{name} {label} {dname}: error {rel:.3e} over "
+                f"tolerance")
+        return err
+
+    records = {}
+    # label, B, S, H, KV, hd, window, dtypes, timed
+    k4_cases = [("olmo-1b", 4, 2048, 16, 16, 128, None,
+                 (torch.float32, torch.bfloat16), True),
+                ("zamba2-1.2b", 1, 8192, 32, 32, 64, 4096, (torch.bfloat16,),
+                 True),
+                ("ragged-S=1000", 2, 1000, 16, 16, 128, None,
+                 (torch.float32, torch.bfloat16), False),
+                ("gqa-16:4", 2, 1024, 16, 4, 128, None,
+                 (torch.float32, torch.bfloat16), False)]
+    for label, b, s, h, kvh, hd, window, dtypes, timed in k4_cases:
+        for dtype in dtypes:
+            dname = str(dtype).split(".")[-1]
+            q = randn(b, s, h, hd, dtype=dtype)
+            k = randn(b, s, kvh, hd, dtype=dtype)
+            v = randn(b, s, kvh, hd, dtype=dtype)
+            got = k4.flash_attention(q, k, v, causal=True, window=window)
+            want = ref.flash_attention_ref(q, k, v, causal=True,
+                                           window=window)
+            err = check("flash_attention",
+                        f"{label} B={b} S={s} H={h} KV={kvh} hd={hd} "
+                        f"window={window}", dname, got, want)
+            del got, want
+            if not timed or dtype != torch.bfloat16:
+                continue
+            ms = timer(lambda: k4.flash_attention(q, k, v, causal=True,
+                                                  window=window))
+            plain_ms = timer(lambda: ref.flash_attention_ref(
+                q, k, v, causal=True, window=window))
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            if window is None:
+                lib_ms = timer(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True))
+            else:
+                mask = ref.visible(s, s, causal=True, window=window,
+                                   device="cuda")
+                lib_ms = timer(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask))
+            bound, by, flops = _k4_bound(b, s, s, h, kvh, hd, True, window,
+                                         q.element_size(), dname)
+            log(f"[kernels] flash_attention {label} {dname}: kernel {ms:.4f} "
+                f"ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} "
+                f"ms, sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+            rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+            if label == "olmo-1b":
+                records["flash_attention"] = {
+                    "name": "flash_attention", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/"
+                              "flash_attention.cu",
+                    "replaces": "src/repro/kernels/flash_attention.py:102",
+                    **rec}
+            else:
+                records["flash_attention"].update(
+                    {f"zamba_{key}": val for key, val in rec.items()})
+            del qt, kt, vt
+
+    # label, B, S, dtypes, timed; nh, p, N of zamba2 and its chunk
+    nh, p, n, chunk = 64, 64, 64, 256
+    for label, b, s, dtypes, timed in (
+            ("zamba2-1.2b", 1, 8192, (torch.float32, torch.bfloat16), True),
+            ("ragged-S=1000", 2, 1000, (torch.float32, torch.bfloat16),
+             False)):
+        for dtype in dtypes:
+            dname = str(dtype).split(".")[-1]
+            args = (randn(b, s, nh, p, dtype=dtype), randn(b, s, n, dtype=dtype),
+                    randn(b, s, n, dtype=dtype), randn(b, s, nh, dtype=dtype),
+                    0.1 * randn(nh, dtype=torch.float32),
+                    randn(nh, dtype=torch.float32),
+                    randn(nh, dtype=torch.float32))
+            got = k6.ssd_scan(*args, chunk=chunk)
+            want = ref.ssd_scan_ref(*args)
+            err = check("ssd_scan", f"{label} B={b} S={s} nh={nh} p={p} "
+                        f"N={n} chunk={chunk}", dname, got, want)
+            del got, want
+            if not timed or dtype != torch.bfloat16:
+                continue
+            ms = timer(lambda: k6.ssd_scan(*args, chunk=chunk))
+            plain_ms = timer(lambda: ref.ssd_scan_ref(*args))
+            bound, by, flops = _k6_bound(b, s, nh, p, n, chunk,
+                                         args[0].element_size(), dname)
+            log(f"[kernels] ssd_scan {label} {dname}: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, library none (no single PyTorch "
+                f"call computes it), bound {bound:.4f} ms ({by}; "
+                f"{flops / 1e9:.2f} GFLOP in the Pallas square chunk form)")
+            records["ssd_scan"] = {
+                "name": "ssd_scan", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                "replaces": "src/repro/kernels/ssd_scan.py:84",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": None}
     return records
 
 
@@ -837,6 +1016,183 @@ def _sync_free_wave(torch, sv, scfg, prompts) -> None:
         f"set_sync_debug_mode('error') without a host sync")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the scoring path's kernels against its plain path, on the card
+# ---------------------------------------------------------------------------
+
+# f32 logits, relative to max(1, max |xla|).  olmo-1b (2 layers): K4 sums
+# in another order than the plain attention, 1e-4.  zamba2-1.2b (12 layers):
+# 1e-3, because this random-weight model amplifies f32 rounding.  Its
+# Mamba2 scans sum C.B terms of both signs that mostly cancel, so one layer
+# turns a relative input change of ~1e-7 into ~1e-5 at its output, and 12
+# layers turn one f32 rounding into ~1e-4 to 1e-3 of the logits.  The
+# phase prints that floor: the plain path's own logits moved by one f32
+# rounding (2^-24, random sign) of every embedding entry.
+SCORE_PARITY_TOL = {"olmo-1b": 1e-4, "zamba2-1.2b": 1e-3}
+
+
+def phase_score_parity(torch) -> None:
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.kernels import ssd_scan as k6
+    from repro_torch.models.lm import LM
+
+    cases = (("zamba2-1.2b", 12, 1, 8192), ("olmo-1b", 2, 2, 2048))
+    for arch, n_layers, b, s_len in cases:
+        cfg = dataclasses.replace(get_config(arch), num_layers=n_layers,
+                                  param_dtype="float32")
+        pallas = LM(cfg, attn_impl="pallas", device="cuda")
+        xla = LM(cfg, attn_impl="xla", device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        params = pallas.init(gen)
+        tokens = torch.randint(0, cfg.vocab_size, (b, s_len), device="cuda",
+                               generator=gen)
+        k4.launches = k6.launches = 0
+        with torch.no_grad():
+            got = pallas.apply(params, {"tokens": tokens})
+            n4, n6 = k4.launches, k6.launches
+            want = xla.apply(params, {"tokens": tokens})
+            sign = torch.randint(0, 2, params["embed"].shape, device="cuda",
+                                 generator=gen) * 2.0 - 1.0
+            nudged = {**params, "embed": params["embed"]
+                      * (1.0 + 2.0 ** -24 * sign)}
+            floor = max_rel_err(torch, xla.apply(nudged, {"tokens": tokens}),
+                                want)[1]
+        del nudged, sign
+        err, rel = max_rel_err(torch, got, want)
+        tol = SCORE_PARITY_TOL[arch]
+        groups = len(pallas.hybrid_groups()) if pallas.hybrid else n_layers
+        log(f"[score-parity] {arch} full width, {n_layers} layers, f32, "
+            f"B={b} S={s_len}: pallas (K4 x{n4}, K6 x{n6}) against xla logits "
+            f"max_abs_err={err:.3e} rel={rel:.3e} (tol {tol:.0e}); one f32 "
+            f"rounding of the embeddings moves the xla logits by {floor:.3e}")
+        require(bool(torch.isfinite(got).all()), f"score-parity {arch}: "
+                f"non-finite logits")
+        require(rel <= tol, f"score-parity {arch}: {rel:.3e} over tolerance")
+        require(n4 == groups and n6 == (n_layers if pallas.hybrid else 0),
+                f"score-parity {arch}: launches K4 {n4}, K6 {n6}")
+        del params, got, want
+
+
+# ---------------------------------------------------------------------------
+# phase 9: full-sequence scoring through attn_impl="pallas" on the card
+# ---------------------------------------------------------------------------
+
+def phase_scoring(torch) -> dict:
+    """Returns {kernel name: launches over the timed scoring forwards}."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.kernels import masked_matmul as k1
+    from repro_torch.kernels import ssd_scan as k6
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import load_servable
+    from repro_torch.utils.tree import tree_size
+
+    launches = {"flash_attention": 0, "ssd_scan": 0, "masked_matmul": 0}
+    losses = {}
+    rng = np.random.default_rng(0)
+    for arch, b, s_len, modes in (("olmo-1b", 4, 2048,
+                                   ("dense", "masked", "shrunk")),
+                                  ("zamba2-1.2b", 1, 8192, ("dense",))):
+        cfg = get_config(arch)
+        model = LM(cfg, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        kept = model.decide_kept(params, 0.5) if len(modes) > 1 else None
+        log(f"[scoring] {arch} full width: {cfg.num_layers} layers, "
+            f"{tree_size(params) / 1e9:.3f} B params, {cfg.param_dtype}; "
+            f"B={b} x S={s_len} tokens per forward")
+        seq = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                            (b, s_len + 1)).astype(np.int64))
+        x, y = seq[:, :-1].cuda(), seq[:, 1:].cuda()
+        source = {"params": params, "kept": kept, "mode": "mask",
+                  "model_config": cfg}
+        del model
+        for mode in modes:
+            sv = load_servable(source, mode, attn_impl="pallas",
+                               device="cuda")
+            groups = (len(sv.model.hybrid_groups()) if sv.model.hybrid
+                      else cfg.num_layers)
+            want = {"flash_attention": groups,
+                    "ssd_scan": cfg.num_layers if sv.model.hybrid else 0,
+                    "masked_matmul": 2 * cfg.num_layers if mode == "masked"
+                    else 0}
+
+            def forward():
+                return sv.model.loss_and_acc(sv.params, x, y, masks=sv.masks)
+
+            with torch.no_grad():
+                forward()                                      # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                k4.launches = k6.launches = k1.launches = 0
+                t0 = time.perf_counter()
+                loss, acc = forward()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got = {"flash_attention": k4.launches,
+                       "ssd_scan": k6.launches, "masked_matmul": k1.launches}
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                log(f"[scoring] {arch} {mode}: loss {float(loss):.6f} acc "
+                    f"{float(acc):.6f}; {b * s_len} tokens in {wall:.4f} s "
+                    f"-> {b * s_len / wall:.1f} tokens/s, peak {peak:.2f} GiB;"
+                    f" launches flash_attention={got['flash_attention']} "
+                    f"ssd_scan={got['ssd_scan']} "
+                    f"masked_matmul={got['masked_matmul']} (expected "
+                    f"{want['flash_attention']}, {want['ssd_scan']}, "
+                    f"{want['masked_matmul']})")
+                require(got == want, f"scoring {arch} {mode}: launches {got}, "
+                        f"expected {want}")
+                require(math.isfinite(float(loss)) and 0.0 < float(loss)
+                        < 2 * math.log(cfg.vocab_size) and
+                        0.0 <= float(acc) <= 1.0,
+                        f"scoring {arch} {mode}: loss {float(loss)}, acc "
+                        f"{float(acc)}")
+                for name, n in got.items():
+                    launches[name] += n
+                losses[(arch, mode)] = float(loss)
+                _profile_forward(torch, f"{arch} {mode}", forward, wall)
+            del sv
+        del params, source
+    # masked and shrunk score the same pruned model (bf16 products differ)
+    lm, ls = losses[("olmo-1b", "masked")], losses[("olmo-1b", "shrunk")]
+    log(f"[scoring] olmo-1b masked and shrunk losses differ by "
+        f"{abs(lm - ls):.3e} (tol 2e-2 relative)")
+    require(abs(lm - ls) <= 2e-2 * abs(ls), "scoring: masked and shrunk "
+            "olmo-1b losses disagree")
+    return launches
+
+
+def _profile_forward(torch, label, forward, wall) -> None:
+    """The device time of one scoring forward's kernels under
+    torch.profiler, against the host-clock time of an unprofiled one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        forward()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA"
+               and e.self_device_time_total > 0]
+    if not kernels:
+        log(f"[profile] scoring {label}: device time not measured (the "
+            f"profiler saw no CUDA kernels)")
+        return
+    dev_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    busy = 100 * dev_s / wall
+    log(f"[profile] scoring {label}: forward {wall:.4f} s on the host clock, "
+        f"kernels {dev_s:.4f} s on the device -> busy {busy:.1f}%, idle "
+        f"{100 - busy:.1f}%")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[profile] scoring {label}:   "
+            f"{e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+            f"{e.key[:90]}")
+
+
 def _phase(torch, name, fn, *args):
     """Run one phase with the device's peak memory measured around it."""
     torch.cuda.synchronize()
@@ -868,6 +1224,9 @@ def main() -> int:
     _phase(torch, "train-parity", phase_train_parity, torch)
     launches = _phase(torch, "training", phase_training, torch)
     for name, n in _phase(torch, "serving", phase_serving, torch).items():
+        launches[name] = launches.get(name, 0) + n
+    _phase(torch, "score-parity", phase_score_parity, torch)
+    for name, n in _phase(torch, "scoring", phase_scoring, torch).items():
         launches[name] = launches.get(name, 0) + n
     for name, rec in records.items():
         rec["launches"] = launches[name]

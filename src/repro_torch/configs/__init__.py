@@ -1,6 +1,6 @@
 """Config registry: ``get_config('<arch-id>')``.
 
-Only the architectures the port serves so far are registered; the others
+Only the architectures the port runs so far are registered; the others
 arrive with the slices that port their model families.
 """
 from __future__ import annotations
@@ -11,6 +11,7 @@ from repro_torch.configs.base import ModelConfig
 
 _ARCHS = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1p2b",
 }
 
 ARCH_NAMES = tuple(_ARCHS)

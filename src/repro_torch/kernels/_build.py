@@ -37,6 +37,12 @@ SIGNATURES = {
                          _MM_ARGS),
     "masked_matmul_dw": ("masked_matmul", "masked_matmul_dw_launch",
                          _MM_ARGS),
+    "flash_attention": ("flash_attention", "flash_attention_launch",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _F, _P]),
+    "ssd_scan": ("ssd_scan", "ssd_scan_launch",
+                 [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                  _P]),
 }
 
 _lock = threading.Lock()

@@ -9,8 +9,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import masked_matmul as _mm
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ss
 
 
 def _route(name: str, t) -> bool:
@@ -30,6 +32,42 @@ def decode_attention(q, k, v, lengths=None):
     if _route("decode_attention", q):
         return _da.decode_attention(q, k, v, lengths)
     return ref.decode_attention_ref(q, k, v, lengths)
+
+
+def _forward_only(name: str, *tensors) -> None:
+    """K4 and K6 have no backward, as the reference's Pallas kernels have no
+    VJP: refuse an input that autograd would differentiate."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward-only (attn_impl='pallas' scores and "
+            f"evaluates); training differentiates the plain path, "
+            f"attn_impl='xla'")
+
+
+def flash_attention(q, k, v, *, causal=True, window=None):
+    """K4: q [B,Sq,H,hd] attends k/v [B,Skv,KV,hd] (query head h reads kv
+    head h % KV) with a causal mask and an optional sliding ``window``;
+    forward only.  Any Sq and Skv."""
+    _fa.check_shapes(q, k, v, window)
+    _forward_only("flash_attention", q, k, v)
+    if _route("flash_attention", q):
+        return _fa.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal,
+                                   window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
+def ssd_scan(x, bmat, cmat, dt, a_log, d, dt_bias, *, chunk=128):
+    """K6: the Mamba2 SSD scan, x [B,S,nh,p], bmat/cmat [B,S,N], dt
+    [B,S,nh], a_log/d/dt_bias [nh] -> y [B,S,nh,p]; forward only.  Any S;
+    ``chunk`` is the reference's argument (the kernel walks its own
+    sub-chunks, the plain version one step at a time)."""
+    _ss.check_shapes(x, bmat, cmat, dt, a_log, d, dt_bias, chunk)
+    _forward_only("ssd_scan", x, bmat, cmat, dt, a_log, d, dt_bias)
+    if _route("ssd_scan", x):
+        return _ss.ssd_scan(*(t.contiguous() for t in (
+            x, bmat, cmat, dt, a_log, d, dt_bias)), chunk=chunk)
+    return ref.ssd_scan_ref(x, bmat, cmat, dt, a_log, d, dt_bias)
 
 
 def masked_matmul_fwd(x, w, block_mask):

@@ -1,11 +1,13 @@
 """Transformer building blocks, as plain functions on tensors.
 
 Counterpart of the reference's ``models/layers.py``, limited to what the
-dense family needs: the full-sequence forward of training and the decode
-step of serving.  Layouts follow the reference: ``wq [d,H,hd]``,
-``wk/wv [d,KV,hd]``, ``wo [H,hd,d]``, cache ``[B,S,KV,hd]``, FFN
-``wi/wg [d,ff]``, ``wo [ff,d]``.  The compute dtype is the input dtype;
-norms, rope and softmax run in f32.
+dense and hybrid families need: the full-sequence forward of training and
+scoring, the Mamba2 mixer, and the decode step of serving.  Layouts follow
+the reference: ``wq [d,H,hd]``, ``wk/wv [d,KV,hd]``, ``wo [H,hd,d]``,
+cache ``[B,S,KV,hd]``, FFN ``wi/wg [d,ff]``, ``wo [ff,d]``, Mamba2
+``in_proj [d, 2 d_in + 2 N + nh]``, ``conv [W, d_in + 2 N]``,
+``out_proj [d_in, d]``.  The compute dtype is the input dtype; norms, rope,
+softmax and the SSM state run in f32.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.masked_matmul import BLOCK_N
 
 
@@ -104,34 +106,58 @@ def _heads(x, w):
     return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
 
 
-def attention(q, k, v, *, causal: bool = True):
+_BLOCK_Q = 1024   # query rows per block of the plain attention
+
+
+def attention(q, k, v, *, causal: bool = True, window=None, q_offset=0):
     """Plain GQA attention, the reference's ``attention_ref``: q [B,Sq,H,hd],
     k/v [B,Skv,KV,hd] -> [B,Sq,H,hd] in q's dtype.  Query head ``h = g * KV +
-    kv`` attends kv head ``kv`` (the [g, kv] grouping); with ``causal`` key
-    ``s`` is visible to query ``t`` iff ``s <= t``.  Scores and softmax run
-    in f32.  (The reference switches to tree or blocked forms of the same
-    math above 1024 query rows, to bound XLA's memory.)"""
-    b, sq, h, hd = q.shape
+    kv`` attends kv head ``kv`` (the [g, kv] grouping); key ``s`` is visible
+    to query ``t`` (at position ``q_offset + t``) iff ``s <= t`` when
+    ``causal`` and ``s > t - window`` when a window is given.  Scores and
+    softmax run in f32.  Above ``_BLOCK_Q`` query rows the rows are taken a
+    block at a time (the same math per row), to bound the scores' memory as
+    the reference's blocked form does."""
+    sq = q.shape[1]
+    if sq > _BLOCK_Q:
+        return torch.cat([
+            attention(q[:, i:i + _BLOCK_Q], k, v, causal=causal, window=window,
+                      q_offset=q_offset + i)
+            for i in range(0, sq, _BLOCK_Q)], dim=1)
+    b, _, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     qg = q.reshape(b, sq, h // kvh, kvh, hd).float()
     scores = torch.einsum("bqgkd,bskd->bgkqs", qg, k.float()) / math.sqrt(hd)
-    if causal:
-        qpos = torch.arange(sq, device=q.device)[:, None]
-        kpos = torch.arange(skv, device=q.device)[None, :]
-        scores = scores.masked_fill(kpos > qpos, -math.inf)
+    if causal or window is not None:
+        ok = ref.visible(sq, skv, causal=causal, window=window,
+                         q_offset=q_offset, device=q.device)
+        scores = scores.masked_fill(~ok, -math.inf)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgkqs,bskd->bqgkd", w, v.float())
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
-def attention_block(params, x, positions, cfg: ModelConfig):
+ATTN_IMPLS = ("xla", "pallas")
+
+
+def attention_block(params, x, positions, cfg: ModelConfig, *, window=None,
+                    attn_impl: str = "xla"):
     """Causal self-attention over a whole sequence: q/k/v projections, rope,
-    :func:`attention`, the output projection.  x [B,S,d] -> [B,S,d]."""
+    attention (optionally over a sliding ``window``), the output projection.
+    x [B,S,d] -> [B,S,d].  ``attn_impl="xla"`` runs the plain
+    :func:`attention` (differentiable); ``"pallas"`` runs the
+    ``flash_attention`` kernel (K4), forward only."""
     b, s, _ = x.shape
     q = apply_rope(_heads(x, params["wq"]), positions, cfg.rope)
     k = apply_rope(_heads(x, params["wk"]), positions, cfg.rope)
     v = _heads(x, params["wv"])
-    out = attention(q, k, v, causal=True)
+    if attn_impl == "pallas":
+        out = ops.flash_attention(q, k, v, causal=True, window=window)
+    elif attn_impl == "xla":
+        out = attention(q, k, v, causal=True, window=window)
+    else:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
+                         f"{attn_impl!r}")
     wo = params["wo"]
     return out.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
 
@@ -231,30 +257,58 @@ def _init_normal(shape, scale, dtype, generator, device):
                         device=device) * scale).to(dtype)
 
 
-def init_layer_stack(cfg: ModelConfig, n_layers: int, dtype, generator,
-                     device) -> dict:
-    """Stacked [L, ...] params of ``n_layers`` dense blocks (attention, two
-    norms, FFN), drawn from ``generator``."""
+def init_attention(cfg: ModelConfig, dtype, generator, device,
+                   n_layers=None) -> dict:
+    """Attention params ``{wq, wk, wv, wo}`` (stacked ``[L, ...]`` when
+    ``n_layers`` is given), drawn from ``generator``."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
         cfg.resolved_head_dim
     if cfg.pad_heads_to and h % cfg.pad_heads_to:
         raise ValueError("pad_heads_to is not ported yet")
+    lead = () if n_layers is None else (n_layers,)
     s = 1.0 / math.sqrt(d)
 
     def normal(shape, scale):
-        return _init_normal((n_layers,) + shape, scale, dtype, generator,
-                            device)
+        return _init_normal(lead + shape, scale, dtype, generator, device)
 
-    attn = {"wq": normal((d, h, hd), s), "wk": normal((d, kv, hd), s),
+    return {"wq": normal((d, h, hd), s), "wk": normal((d, kv, hd), s),
             "wv": normal((d, kv, hd), s),
             "wo": normal((h, hd, d), 1.0 / math.sqrt(h * hd))}
+
+
+def init_mlp_stack(cfg: ModelConfig, n_layers: int, dtype, generator,
+                   device) -> dict:
+    """Stacked [L, ...] FFN params ``{wi, [wg], wo}``."""
+    d = cfg.d_model
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(cfg.d_ff)
-    mlp = {"wi": normal((d, cfg.d_ff), s_in)}
+    mlp = {"wi": _init_normal((n_layers, d, cfg.d_ff), s_in, dtype,
+                              generator, device)}
     if cfg.act == "silu":
-        mlp["wg"] = normal((d, cfg.d_ff), s_in)
-    mlp["wo"] = normal((cfg.d_ff, d), s_out)
+        mlp["wg"] = _init_normal((n_layers, d, cfg.d_ff), s_in, dtype,
+                                 generator, device)
+    mlp["wo"] = _init_normal((n_layers, cfg.d_ff, d), s_out, dtype,
+                             generator, device)
+    return mlp
+
+
+def init_layer_stack(cfg: ModelConfig, n_layers: int, dtype, generator,
+                     device) -> dict:
+    """Stacked [L, ...] params of ``n_layers`` dense blocks (attention, two
+    norms, FFN), drawn from ``generator``."""
+    attn = init_attention(cfg, dtype, generator, device, n_layers)
     return {"attn": attn, "norm_a": init_norm(cfg, dtype, device, n_layers),
-            "mlp": mlp, "norm_f": init_norm(cfg, dtype, device, n_layers)}
+            "mlp": init_mlp_stack(cfg, n_layers, dtype, generator, device),
+            "norm_f": init_norm(cfg, dtype, device, n_layers)}
+
+
+def init_hybrid_stack(cfg: ModelConfig, n_layers: int, dtype, generator,
+                      device) -> dict:
+    """Stacked [L, ...] params of ``n_layers`` zamba2 blocks (Mamba2 mixer,
+    two norms, FFN), drawn from ``generator``."""
+    return {"mamba": init_mamba2(cfg, n_layers, dtype, generator, device),
+            "norm_m": init_norm(cfg, dtype, device, n_layers),
+            "mlp": init_mlp_stack(cfg, n_layers, dtype, generator, device),
+            "norm_f": init_norm(cfg, dtype, device, n_layers)}
 
 
 def init_norm(cfg: ModelConfig, dtype, device, n_layers=None) -> dict:
@@ -268,3 +322,117 @@ def init_norm(cfg: ModelConfig, dtype, device, n_layers=None) -> dict:
     if cfg.norm == "nonparam":
         return {}
     raise ValueError(cfg.norm)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD) mixer
+# ---------------------------------------------------------------------------
+
+def mamba2_meta(cfg: ModelConfig) -> dict:
+    """Shapes of the Mamba2 mixer: inner width ``d_in``, ``nh`` heads of
+    ``p`` channels, state size ``n``."""
+    m = cfg.ssm
+    d_in = m.expand * cfg.d_model
+    nh = m.num_ssm_heads or max(1, d_in // 64)
+    return {"d_in": d_in, "nh": nh, "p": d_in // nh, "n": m.state_dim}
+
+
+def init_mamba2(cfg: ModelConfig, n_layers: int, dtype, generator,
+                device) -> dict:
+    """Stacked [L, ...] Mamba2 params with the reference's scales; A_log,
+    D and dt_bias are float32 whatever the model's dtype, as there."""
+    meta = mamba2_meta(cfg)
+    d, d_in, nh, n = cfg.d_model, meta["d_in"], meta["nh"], meta["n"]
+    lead = (n_layers,)
+
+    def full(value, shape, dt):
+        return torch.full(lead + shape, value, dtype=dt, device=device)
+
+    return {
+        # fused input projection: [z | x | B | C | dt]
+        "in_proj": _init_normal(lead + (d, 2 * d_in + 2 * n + nh),
+                                1.0 / math.sqrt(d), dtype, generator, device),
+        "conv": _init_normal(lead + (cfg.ssm.conv_width, d_in + 2 * n), 0.5,
+                             dtype, generator, device),
+        "A_log": full(0.0, (nh,), torch.float32),
+        "D": full(1.0, (nh,), torch.float32),
+        "dt_bias": full(0.0, (nh,), torch.float32),
+        "norm_scale": full(1.0, (d_in,), dtype),
+        "out_proj": _init_normal(lead + (d_in, d), 1.0 / math.sqrt(d_in),
+                                 dtype, generator, device),
+    }
+
+
+def _ssd_chunk_scan(x, bmat, cmat, dt, a_log, d, dt_bias, chunk: int):
+    """The chunked SSD scan in plain tensors, the reference's XLA path:
+    x [B,S,nh,p], bmat/cmat [B,S,N], dt [B,S,nh] -> y [B,S,nh,p] in x's
+    dtype, S a multiple of ``chunk``.  Per chunk: the intra-chunk term
+    ``(C B^T o decay) @ (dt x)`` with the causal mask inside the exp, the
+    carried state's ``exp(cum) C H``, and the state update; the log-decay
+    is ``log(clip(a, 1e-20))`` as there.  (The carried term multiplies
+    ``exp(cum)`` after the ``C . H`` product, which the reference forms
+    before it: the same value without a [B, chunk, nh, p, N] temporary.)"""
+    bsz, s, nh, p = x.shape
+    n = bmat.shape[-1]
+    dtv = ref.softplus(dt.float() + dt_bias)
+    a = torch.exp(-dtv * torch.exp(a_log))
+    nc = s // chunk
+    xs = (x.float() * dtv[..., None]).reshape(bsz, nc, chunk, nh, p)
+    bm = bmat.float().reshape(bsz, nc, chunk, n)
+    cm = cmat.float().reshape(bsz, nc, chunk, n)
+    al = torch.log(a.clamp_min(1e-20)).reshape(bsz, nc, chunk, nh)
+    tril = torch.ones((chunk, chunk), dtype=torch.bool,
+                      device=x.device).tril()[None, :, :, None]
+    h = torch.zeros((bsz, nh, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(nc):
+        cum = al[:, c].cumsum(1)                                  # [B,L,nh]
+        total = cum[:, -1]                                        # [B,nh]
+        diff = cum[:, :, None, :] - cum[:, None, :, :]            # [B,i,j,nh]
+        decay = torch.exp(torch.where(tril, diff, -1e30))
+        inner = torch.einsum("bin,bjn->bij", cm[:, c], bm[:, c])
+        y_intra = torch.einsum("bijh,bjhp->bihp", inner[..., None] * decay,
+                               xs[:, c])
+        y_carry = torch.einsum("bin,bhpn->bihp", cm[:, c], h) \
+            * torch.exp(cum)[..., None]
+        decay_end = torch.exp(total[:, None, :] - cum)            # [B,L,nh]
+        h = h * torch.exp(total)[..., None, None] + torch.einsum(
+            "bjhp,bjn->bhpn", xs[:, c] * decay_end[..., None], bm[:, c])
+        ys.append(y_intra + y_carry)
+    y = torch.stack(ys, 1).reshape(bsz, s, nh, p)
+    return (y + x.float() * d[:, None]).to(x.dtype)
+
+
+def apply_mamba2(params, x, meta: dict, cfg: ModelConfig, *,
+                 impl: str = "xla"):
+    """The Mamba2/SSD mixer, x [B,S,d] -> [B,S,d]: the fused ``in_proj``
+    split into z | x | B | C | dt, a causal depthwise conv with silu over
+    [x | B | C], the SSD scan (``impl="xla"``: :func:`_ssd_chunk_scan`;
+    ``"pallas"``: the ``ssd_scan`` kernel, K6, forward only) at the
+    reference's chunk (``min(chunk, S)``, else the gcd with S), and the
+    gated RMSNorm before ``out_proj``."""
+    m = cfg.ssm
+    d_in, nh, p, n = meta["d_in"], meta["nh"], meta["p"], meta["n"]
+    bsz, s, _ = x.shape
+    proj = x @ params["in_proj"]
+    z, xi, bmat, cmat, dt = torch.split(proj, [d_in, d_in, n, n, nh], dim=-1)
+    conv_in = torch.cat([xi, bmat, cmat], dim=-1)                 # [B,S,C]
+    w = params["conv"]                                            # [W, C]
+    pad = F.pad(conv_in, (0, 0, m.conv_width - 1, 0))
+    conv = sum(pad[:, i:i + s] * w[i] for i in range(m.conv_width))
+    xi, bmat, cmat = torch.split(F.silu(conv), [d_in, n, n], dim=-1)
+    xi = xi.reshape(bsz, s, nh, p)
+    chunk = min(m.chunk, s)
+    if s % chunk:
+        chunk = math.gcd(s, chunk)
+    if impl == "pallas":
+        y = ops.ssd_scan(xi, bmat, cmat, dt, params["A_log"], params["D"],
+                         params["dt_bias"], chunk=chunk)
+    elif impl == "xla":
+        y = _ssd_chunk_scan(xi, bmat, cmat, dt, params["A_log"], params["D"],
+                            params["dt_bias"], chunk)
+    else:
+        raise ValueError(f"impl must be one of {ATTN_IMPLS}, got {impl!r}")
+    y = y.reshape(bsz, s, d_in)
+    y = apply_norm({"scale": params["norm_scale"]}, y * F.silu(z), "rmsnorm")
+    return y @ params["out_proj"]

@@ -1,16 +1,30 @@
-"""The dense decoder LM, functional: params are dicts of tensors.
+"""The decoder LM, functional: params are dicts of tensors.
 
-Counterpart of the reference's ``models/lm.py`` for the ``dense`` family
-(llama-style decoder: GQA + RoPE 1d/2d + SwiGLU or GELU MLP): the
-full-sequence forward, loss and token accuracy that federated training
-differentiates, the decode step and the KV cache of serving, and the FedAP
-pruning seam.  Layer params are stacked along a leading ``[L, ...]`` axis
-as in the reference, so a JAX param tree converts leaf for leaf
-(:mod:`repro_torch.interop`).
+Counterpart of the reference's ``models/lm.py`` for two families:
+
+* ``dense`` (llama-style decoder: GQA + RoPE 1d/2d + SwiGLU or GELU MLP):
+  the full-sequence forward, loss and token accuracy that federated
+  training differentiates and scoring evaluates, the decode step and the
+  KV cache of serving;
+* ``hybrid`` (zamba2: a Mamba2 backbone with one shared attention block
+  applied before each group of ``attn_every`` layers): the full-sequence
+  forward, loss and token accuracy (its decode is a later slice);
+
+and the FedAP pruning seam of both.  Layer params are stacked along a
+leading ``[L, ...]`` axis as in the reference, so a JAX param tree
+converts leaf for leaf (:mod:`repro_torch.interop`).
 
 Params: ``{"embed" [V,d], "unembed" [d,V] (untied only), "norm_out",
-"layers": {"attn": {wq, wk, wv, wo}, "norm_a", "norm_f",
-"mlp": {wi, wg, wo}}}``.
+"layers": {...}}`` with ``layers = {"attn": {wq, wk, wv, wo}, "norm_a",
+"norm_f", "mlp": {wi, wg, wo}}`` (dense) or ``{"mamba": {in_proj, conv,
+A_log, D, dt_bias, norm_scale, out_proj}, "norm_m", "norm_f", "mlp"}`` plus
+``"shared_attn": {"attn", "norm"}`` (hybrid).
+
+``attn_impl="pallas"`` sends full-sequence attention through the
+``flash_attention`` kernel (K4) and the Mamba2 scan through ``ssd_scan``
+(K6), both forward only: it scores and evaluates.  ``"xla"`` (the default,
+as in the reference) runs their plain, differentiable forms, which is what
+training uses.
 """
 from __future__ import annotations
 
@@ -25,6 +39,7 @@ from repro_torch.models import layers as L
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+FAMILIES = ("dense", "hybrid")
 
 
 def _unstack(stacked) -> list:
@@ -36,21 +51,35 @@ def _unstack(stacked) -> list:
 
 
 class LM:
-    """``init``, ``apply``/``loss``/``loss_and_acc``, ``init_cache`` and
-    ``decode_step`` of a dense decoder, on ``device`` (default ``"cuda"``,
-    which raises when CUDA is missing)."""
+    """``init``, ``apply``/``loss``/``loss_and_acc`` of a dense or hybrid
+    decoder, and ``init_cache``/``decode_step`` of a dense one, on
+    ``device`` (default ``"cuda"``, which raises when CUDA is missing)."""
 
-    def __init__(self, cfg: ModelConfig, *, device="cuda"):
-        if cfg.family != "dense":
+    def __init__(self, cfg: ModelConfig, *, attn_impl: str = "xla",
+                 device="cuda"):
+        if cfg.family not in FAMILIES:
             raise ValueError(
-                f"repro_torch.models.LM ports the 'dense' family only so far, "
+                f"repro_torch.models.LM ports the {FAMILIES} families so far, "
                 f"not {cfg.family!r} ({cfg.name})")
         if cfg.param_dtype not in DTYPES:
             raise ValueError(f"param_dtype must be one of {sorted(DTYPES)}, "
                              f"got {cfg.param_dtype!r}")
+        if attn_impl not in L.ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {L.ATTN_IMPLS}, got "
+                             f"{attn_impl!r}")
         self.cfg = cfg
+        self.attn_impl = attn_impl
         self.device = _device.resolve(device)
         self.dtype = DTYPES[cfg.param_dtype]
+        self.hybrid = cfg.family == "hybrid"
+        self._meta = L.mamba2_meta(cfg) if self.hybrid else None
+
+    def hybrid_groups(self) -> list:
+        """zamba2 layer groups ``(start, stop)``: the shared attention runs
+        before each group of ``attn_every`` Mamba2 layers."""
+        k = self.cfg.hybrid.attn_every
+        n = self.cfg.num_layers
+        return [(a, min(a + k, n)) for a in range(0, n, k)]
 
     # -- init -----------------------------------------------------------------
     def init(self, generator: torch.Generator) -> dict:
@@ -65,8 +94,15 @@ class LM:
                 (cfg.d_model, cfg.vocab_size), 1.0 / math.sqrt(cfg.d_model),
                 self.dtype, generator, self.device)
         params["norm_out"] = L.init_norm(cfg, self.dtype, self.device)
-        params["layers"] = L.init_layer_stack(cfg, cfg.num_layers, self.dtype,
-                                              generator, self.device)
+        if not self.hybrid:
+            params["layers"] = L.init_layer_stack(
+                cfg, cfg.num_layers, self.dtype, generator, self.device)
+            return params
+        params["layers"] = L.init_hybrid_stack(cfg, cfg.num_layers, self.dtype,
+                                               generator, self.device)
+        params["shared_attn"] = {
+            "attn": L.init_attention(cfg, self.dtype, generator, self.device),
+            "norm": L.init_norm(cfg, self.dtype, self.device)}
         return params
 
     # -- forward pieces ---------------------------------------------------------
@@ -77,17 +113,25 @@ class LM:
             return x @ params["embed"].T
         return x @ params["unembed"]
 
-    def _block(self, layer, x, positions, mask):
+    def _block(self, layer, x, positions, mask, window):
         cfg = self.cfg
-        h = L.apply_norm(layer.get("norm_a", {}), x, cfg.norm)
-        x = x + L.attention_block(layer["attn"], h, positions, cfg)
+        if self.hybrid:
+            h = L.apply_norm(layer["norm_m"], x, cfg.norm)
+            x = x + L.apply_mamba2(layer["mamba"], h, self._meta, cfg,
+                                   impl=self.attn_impl)
+        else:
+            h = L.apply_norm(layer.get("norm_a", {}), x, cfg.norm)
+            x = x + L.attention_block(layer["attn"], h, positions, cfg,
+                                      window=window, attn_impl=self.attn_impl)
         h = L.apply_norm(layer.get("norm_f", {}), x, cfg.norm)
         return x + L.apply_mlp(layer["mlp"], h, cfg.act, mask)
 
-    def apply(self, params, batch, *, masks=None):
+    def apply(self, params, batch, *, window="auto", masks=None):
         """Full-sequence logits [B,S,V] for ``batch["tokens"]`` [B,S] (causal
         attention over the whole sequence; ``batch["positions"]`` [P,B,S]
-        overrides the default ``arange`` positions).
+        overrides the default ``arange`` positions).  ``window`` bounds the
+        dense family's attention ("auto" and None: full); the hybrid
+        family's shared attention always uses ``cfg.sliding_window``.
 
         ``masks`` (optional) ``{"mlp": [L, d_ff] 0/1}`` gives each layer its
         FedAP filter keep-mask row: masked units are zeroed at the FFN
@@ -99,12 +143,14 @@ class LM:
         backward writes each layer's gradient into one stacked tensor.
         ``cfg.remat == "block"`` recomputes each layer in the backward
         (``torch.utils.checkpoint``), launching its forward kernels twice.
-        The dense family has no auxiliary loss, so only the logits return.
+        Neither family has an auxiliary loss, so only the logits return.
         """
         cfg = self.cfg
         if cfg.remat not in ("none", "block"):
             raise ValueError(f"remat={cfg.remat!r} is not ported (the port "
                              f"takes 'none' and 'block')")
+        if window == "auto":
+            window = None
         x = params["embed"][batch["tokens"]]
         b, s = x.shape[0], x.shape[1]
         pos = batch.get("positions")
@@ -113,12 +159,25 @@ class LM:
         layers = _unstack(params["layers"])
         rows = (masks["mlp"].unbind(0) if masks is not None
                 else (None,) * len(layers))
-        for i, layer in enumerate(layers):
+
+        def block(i, x):
             if cfg.remat == "block":
-                x = checkpoint(self._block, layer, x, pos, rows[i],
-                               use_reentrant=False)
-            else:
-                x = self._block(layer, x, pos, rows[i])
+                return checkpoint(self._block, layers[i], x, pos, rows[i],
+                                  window, use_reentrant=False)
+            return self._block(layers[i], x, pos, rows[i], window)
+
+        if not self.hybrid:
+            for i in range(len(layers)):
+                x = block(i, x)
+            return self._head(params, x)
+        shared = params["shared_attn"]
+        for a, stop in self.hybrid_groups():
+            h = L.apply_norm(shared["norm"], x, cfg.norm)
+            x = x + L.attention_block(shared["attn"], h, pos, cfg,
+                                      window=cfg.sliding_window,
+                                      attn_impl=self.attn_impl)
+            for i in range(a, stop):
+                x = block(i, x)
         return self._head(params, x)
 
     def loss(self, params, batch, *, masks=None):
@@ -176,9 +235,17 @@ class LM:
         return params if idx is None else pruning_lm.shrink_ffn_at(params, idx)
 
     # -- decode -----------------------------------------------------------------
+    def _dense_decode_only(self) -> None:
+        if self.hybrid:
+            raise ValueError(
+                f"{self.cfg.name}: hybrid (zamba2) decode, mamba2_decode and "
+                f"its conv/state cache, is a later slice of the port; this "
+                f"slice scores the hybrid family with apply/loss_and_acc")
+
     def init_cache(self, batch_size: int, cache_len: int) -> dict:
         """``{"k", "v": [L, B, S, KV, hd], "index": 0-d int32}`` zeros, with
         S = ``cache_len`` (a ring buffer once the index passes S)."""
+        self._dense_decode_only()
         cfg = self.cfg
         shape = (cfg.num_layers, batch_size, cache_len,
                  cfg.padded_num_kv_heads, cfg.resolved_head_dim)
@@ -200,7 +267,12 @@ class LM:
         ``masks`` (optional) ``{"mlp": [L, d_ff] 0/1}`` routes every layer's
         FFN through the block-skipping masked path; the logits equal the
         shrunk model's.
+
+        Attention runs the ``decode_attention`` kernel (K5) for either
+        ``attn_impl``, as the reference's Pallas path does; there is no
+        plain-attention decode on the card.
         """
+        self._dense_decode_only()
         cfg = self.cfg
         x = params["embed"][batch["tokens"]]
         idx = cache["index"]

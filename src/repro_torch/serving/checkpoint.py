@@ -51,7 +51,7 @@ def _port_config(cfg) -> ModelConfig:
 
 
 def load_servable(source, serve_mode: str = "auto", *, model_config=None,
-                  device="cuda") -> Servable:
+                  attn_impl: str = "pallas", device="cuda") -> Servable:
     """Build a servable on ``device`` from ``source``: a checkpoint
     directory (``repro-checkpoint-v1``, as either package saves it), a
     :func:`repro_torch.core.plan.load_artifact`-shaped dict, or a
@@ -61,6 +61,9 @@ def load_servable(source, serve_mode: str = "auto", *, model_config=None,
     ``shrunk`` for a shrink-mode one, ``dense`` otherwise.  ``model_config``
     overrides (or supplies) the recorded config; its ``d_ff`` is re-derived
     from the param shapes, so a config recorded before a shrink still loads.
+    ``attn_impl`` goes to every ``LM`` built: the default ``"pallas"`` scores
+    through the ``flash_attention``/``ssd_scan`` kernels, as the reference's
+    does (decode runs ``decode_attention`` either way).
     """
     from repro_torch.models.lm import LM
 
@@ -104,7 +107,7 @@ def load_servable(source, serve_mode: str = "auto", *, model_config=None,
         cfg = dataclasses.replace(cfg, d_ff=d_ff)
 
     if mode == "dense":
-        return Servable(LM(cfg, device=dev), params, None, mode)
+        return Servable(LM(cfg, attn_impl=attn_impl, device=dev), params, None, mode)
 
     if kept is None:
         raise ValueError(
@@ -113,7 +116,7 @@ def load_servable(source, serve_mode: str = "auto", *, model_config=None,
             f"or serve dense)")
 
     if mode == "masked":
-        model = LM(cfg, device=dev)
+        model = LM(cfg, attn_impl=attn_impl, device=dev)
         masks = art.get("filter_masks")
         if masks is None:
             masks = model.filter_masks(params, kept)
@@ -130,4 +133,4 @@ def load_servable(source, serve_mode: str = "auto", *, model_config=None,
     if width != d_ff:
         params = pruning_lm.shrink_ffn_at(params, idx)
         cfg = dataclasses.replace(cfg, d_ff=width)
-    return Servable(LM(cfg, device=dev), params, None, mode)
+    return Servable(LM(cfg, attn_impl=attn_impl, device=dev), params, None, mode)

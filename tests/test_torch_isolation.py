@@ -23,7 +23,9 @@ from repro_torch.data.pipeline import build_lm_federated_data
 from repro_torch.data.synthetic import TokenSpec
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import decode_attention as k5
+from repro_torch.kernels import flash_attention as k4
 from repro_torch.kernels import masked_matmul as k1
+from repro_torch.kernels import ssd_scan as k6
 from repro_torch.models.lm import LM
 from repro_torch.serving import DecodeEngine, ServeConfig, load_servable
 
@@ -77,7 +79,7 @@ def no_cuda():
 @pytest.mark.parametrize("entry", ["LM", "DecodeEngine", "load_servable",
                                    "params_from_jax", "LM.apply",
                                    "FederatedTrainer", "device_arrays",
-                                   "round_state_from_jax"])
+                                   "round_state_from_jax", "hybrid LM"])
 def test_default_device_raises_without_cuda(no_cuda, entry):
     params = LM(TINY, device="cpu").init(torch.Generator().manual_seed(0))
     data = build_lm_federated_data(
@@ -86,6 +88,8 @@ def test_default_device_raises_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if entry == "LM":
             LM(TINY)
+        elif entry == "hybrid LM":
+            LM(get_config("zamba2-1.2b"), attn_impl="pallas")
         elif entry == "LM.apply":
             LM(TINY).apply(params, {"tokens": torch.zeros((1, 4),
                                                           dtype=torch.int32)})
@@ -156,3 +160,42 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         k1.masked_matmul_dw(torch.zeros(8, 128), torch.zeros(8, 256),
                             torch.ones(2))
     assert counts() == before
+
+
+def _ssd_args(device):
+    return (torch.zeros((1, 8, 2, 4), device=device),
+            torch.zeros((1, 8, 16), device=device),
+            torch.zeros((1, 8, 16), device=device),
+            torch.zeros((1, 8, 2), device=device),
+            torch.zeros(2, device=device), torch.ones(2, device=device),
+            torch.zeros(2, device=device))
+
+
+def test_full_sequence_dispatch_raises_on_a_non_cpu_tensor():
+    """K4 and K6 serve CPU tensors with their plain versions and nothing
+    else: a meta tensor finds no kernel."""
+    q = torch.empty((1, 8, 4, 32), device="meta")
+    kv = torch.empty((1, 8, 2, 32), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.ssd_scan(*_ssd_args("meta"))
+
+
+def test_full_sequence_kernel_wrappers_refuse_cpu_tensors():
+    """The K4 and K6 wrappers never compute on the CPU (and count
+    nothing)."""
+    before = (k4.launches, k6.launches)
+    q, kv = torch.zeros(1, 8, 4, 32), torch.zeros(1, 8, 2, 32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        k4.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="CUDA device"):
+        k6.ssd_scan(*_ssd_args("cpu"))
+    assert (k4.launches, k6.launches) == before
+
+
+def test_every_kernel_source_has_a_signature():
+    """Each ``csrc/*.cu`` is built into a library named in SIGNATURES."""
+    libs = {lib for lib, _, _ in _build.SIGNATURES.values()}
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == libs
+    assert {"flash_attention", "ssd_scan"} <= set(_build.SIGNATURES)
