@@ -389,12 +389,14 @@ def _training_kernels(torch, timer, gen) -> dict:
     return records
 
 
-# K4/K6 tolerances: max |kernel - plain| relative to max(1, max |plain|), the
-# reference tests' own numbers (tests/test_kernels.py: flash f32 2e-5, ssd
-# 2e-4, bf16 2e-2).  The f32 sums run in another order (K6 also in 32-step
-# sub-chunks against the sequential definition); bf16 outputs round once.
-SCORE_TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
-             "ssd_scan": {"float32": 2e-4, "bfloat16": 2e-2}}
+# K4/K6 f32 tolerances: max |kernel - plain| relative to max(1, max |plain|),
+# the reference tests' own numbers (tests/test_kernels.py: flash 2e-5, ssd
+# 2e-4); the f32 sums run in another order (K6 also in 32-step sub-chunks
+# against the sequential definition).  bf16 is held per element: both sides
+# compute in f32 from the same bf16 inputs and round once to bf16, so
+# |kernel - plain| <= 2^-7 |plain| (one bf16 step) + the f32 allowance.
+SCORE_TOL = {"flash_attention": 2e-5, "ssd_scan": 2e-4}
+BF16_STEP = 2.0 ** -7
 
 
 def _k4_bound(b, sq, skv, h, kvh, hd, causal, window, elt, dtype_name):
@@ -431,9 +433,10 @@ def _k6_bound(b, s, nh, p, n, chunk, elt, dtype_name):
 def _scoring_kernels(torch, timer, gen) -> dict:
     """K4 and K6 at the scoring path's shapes against their plain versions:
     K4 at olmo-1b's (B=4, S=2048, 16 heads of 128, causal; f32 and bf16) and
-    zamba2's (B=1, S=8192, 32 heads of 64, window 4096; bf16), a ragged S
-    and a GQA case; K6 at zamba2's (B=1, S=8192, nh=64, p=64, N=64, chunk
-    256; f32 and bf16) and a ragged S.  The bf16 olmo-1b K4 case and the
+    zamba2's (B=1, S=8192, 32 heads of 64, window 4096; f32 and bf16), a
+    ragged S and a GQA case; K6 at zamba2's (B=1, S=8192, nh=64, p=64,
+    N=64, chunk 256; f32 and bf16), a slow-decay f32 case whose state spans
+    hundreds of steps, and a ragged S.  The bf16 olmo-1b K4 case and the
     bf16 K6 case give the records; zamba2's K4 adds ``zamba_*`` keys."""
     import torch.nn.functional as F
 
@@ -447,24 +450,34 @@ def _scoring_kernels(torch, timer, gen) -> dict:
     def check(name, label, dname, got, want):
         torch.cuda.synchronize()
         err, rel = max_rel_err(torch, got, want)
-        tol = SCORE_TOL[name][dname]
-        log(f"[kernels] {name} {label} {dname}: max_abs_err={err:.3e} "
-            f"rel={rel:.3e} (tol {tol:.0e})")
+        tol = SCORE_TOL[name]
+        if dname == "float32":
+            worst = rel / tol
+            text = f"rel={rel:.3e} (tol {tol:.0e})"
+        else:
+            wantf = want.float()
+            allowed = BF16_STEP * wantf.abs() + tol * max(
+                1.0, float(wantf.abs().max()))
+            worst = float(((got.float() - wantf).abs() / allowed).max())
+            text = (f"rel={rel:.3e}; per element |err| / (2^-7 |plain| + "
+                    f"{tol:.0e} max(1, max |plain|)) <= {worst:.3f} (limit 1)")
+            del wantf, allowed
+        log(f"[kernels] {name} {label} {dname}: max_abs_err={err:.3e} {text}")
         require(bool(torch.isfinite(got).all()), f"{name} {label}: "
                 f"non-finite output")
         require(got.dtype == want.dtype and got.shape == want.shape,
                 f"{name} {label}: {got.dtype} {tuple(got.shape)} against "
                 f"{want.dtype} {tuple(want.shape)}")
-        require(rel <= tol, f"{name} {label} {dname}: error {rel:.3e} over "
-                f"tolerance")
+        require(worst <= 1.0, f"{name} {label} {dname}: error over "
+                f"tolerance ({text})")
         return err
 
     records = {}
     # label, B, S, H, KV, hd, window, dtypes, timed
     k4_cases = [("olmo-1b", 4, 2048, 16, 16, 128, None,
                  (torch.float32, torch.bfloat16), True),
-                ("zamba2-1.2b", 1, 8192, 32, 32, 64, 4096, (torch.bfloat16,),
-                 True),
+                ("zamba2-1.2b", 1, 8192, 32, 32, 64, 4096,
+                 (torch.float32, torch.bfloat16), True),
                 ("ragged-S=1000", 2, 1000, 16, 16, 128, None,
                  (torch.float32, torch.bfloat16), False),
                 ("gqa-16:4", 2, 1024, 16, 4, 128, None,
@@ -516,19 +529,27 @@ def _scoring_kernels(torch, timer, gen) -> dict:
                     {f"zamba_{key}": val for key, val in rec.items()})
             del qt, kt, vt
 
-    # label, B, S, dtypes, timed; nh, p, N of zamba2 and its chunk
+    # label, B, S, dtypes, timed; nh, p, N of zamba2 and its chunk.  With
+    # dt and dt_bias ~ N(0, 1) most heads forget within a few steps; the
+    # slow-decay case (a_log 0, dt_bias from -7 to -3 over the heads,
+    # softplus 1e-3..5e-2 a step, dt 0.5 N(0, 1)) keeps the state for 20 to
+    # 1000 steps, so the state carried across sub-chunks and chunks counts.
     nh, p, n, chunk = 64, 64, 64, 256
     for label, b, s, dtypes, timed in (
             ("zamba2-1.2b", 1, 8192, (torch.float32, torch.bfloat16), True),
+            ("zamba2-1.2b slow-decay", 1, 8192, (torch.float32,), False),
             ("ragged-S=1000", 2, 1000, (torch.float32, torch.bfloat16),
              False)):
+        slow = "slow-decay" in label
         for dtype in dtypes:
             dname = str(dtype).split(".")[-1]
             args = (randn(b, s, nh, p, dtype=dtype), randn(b, s, n, dtype=dtype),
-                    randn(b, s, n, dtype=dtype), randn(b, s, nh, dtype=dtype),
-                    0.1 * randn(nh, dtype=torch.float32),
+                    randn(b, s, n, dtype=dtype),
+                    (0.5 if slow else 1.0) * randn(b, s, nh, dtype=dtype),
+                    (0.0 if slow else 0.1) * randn(nh, dtype=torch.float32),
                     randn(nh, dtype=torch.float32),
-                    randn(nh, dtype=torch.float32))
+                    torch.linspace(-7.0, -3.0, nh, device="cuda") if slow
+                    else randn(nh, dtype=torch.float32))
             got = k6.ssd_scan(*args, chunk=chunk)
             want = ref.ssd_scan_ref(*args)
             err = check("ssd_scan", f"{label} B={b} S={s} nh={nh} p={p} "
@@ -1022,13 +1043,57 @@ def _sync_free_wave(torch, sv, scfg, prompts) -> None:
 
 # f32 logits, relative to max(1, max |xla|).  olmo-1b (2 layers): K4 sums
 # in another order than the plain attention, 1e-4.  zamba2-1.2b (12 layers):
-# 1e-3, because this random-weight model amplifies f32 rounding.  Its
-# Mamba2 scans sum C.B terms of both signs that mostly cancel, so one layer
-# turns a relative input change of ~1e-7 into ~1e-5 at its output, and 12
-# layers turn one f32 rounding into ~1e-4 to 1e-3 of the logits.  The
-# phase prints that floor: the plain path's own logits moved by one f32
-# rounding (2^-24, random sign) of every embedding entry.
-SCORE_PARITY_TOL = {"olmo-1b": 1e-4, "zamba2-1.2b": 1e-3}
+# 3e-4, 2.5x the largest of three H100 readings (1.12e-4, 1.15e-4,
+# 1.22e-4), because this random-weight model amplifies f32 rounding: one
+# rounding (2^-24, random sign) of every embedding entry alone moves the
+# plain path's logits by ~1e-4, a floor the phase prints.  The per-layer
+# witness below has no such amplification and is held at the kernels' own
+# limits: one Mamba2 mixer (K6, 2e-4) and the shared attention block (K4,
+# 2e-5), full width, f32, pallas against xla on the same input.
+SCORE_PARITY_TOL = {"olmo-1b": 1e-4, "zamba2-1.2b": 3e-4}
+LAYER_TOL = {"apply_mamba2": 2e-4, "attention_block": 2e-5}
+
+
+def _layer_witness(torch, cfg, model, params, tokens) -> None:
+    """Layer 0's Mamba2 mixer (as initialised, and with slow-decay dt_bias
+    from -7 to -3 over the heads, whose state spans 20 to 1000 steps) and
+    the shared attention block at ``cfg.sliding_window``, each run with
+    ``impl="pallas"`` and ``"xla"`` on the model's own normed embeddings."""
+    from repro_torch.models import layers as L
+
+    def first(tree):
+        return {k: v[0] for k, v in tree.items()}
+
+    emb = params["embed"][tokens]
+    b, s_len = tokens.shape
+    mamba = first(params["layers"]["mamba"])
+    slow = {**mamba, "dt_bias": torch.linspace(
+        -7.0, -3.0, model._meta["nh"], device="cuda")}
+    h_m = L.apply_norm(first(params["layers"]["norm_m"]), emb, cfg.norm)
+    shared = params["shared_attn"]
+    h_a = L.apply_norm(shared["norm"], emb, cfg.norm)
+    pos = L.default_positions(b, s_len, cfg.rope, device="cuda")
+    cases = [("apply_mamba2", "layer 0", lambda impl: L.apply_mamba2(
+                  mamba, h_m, model._meta, cfg, impl=impl)),
+             ("apply_mamba2", "layer 0 slow-decay", lambda impl:
+                  L.apply_mamba2(slow, h_m, model._meta, cfg, impl=impl)),
+             ("attention_block", f"shared, window {cfg.sliding_window}",
+              lambda impl: L.attention_block(
+                  shared["attn"], h_a, pos, cfg, window=cfg.sliding_window,
+                  attn_impl=impl))]
+    for name, label, run in cases:
+        with torch.no_grad():
+            got, want = run("pallas"), run("xla")
+        err, rel = max_rel_err(torch, got, want)
+        tol = LAYER_TOL[name]
+        log(f"[score-parity] {name} {label}, full width f32 B={b} "
+            f"S={s_len}: pallas against xla max_abs_err={err:.3e} "
+            f"rel={rel:.3e} (tol {tol:.0e})")
+        require(bool(torch.isfinite(got).all()),
+                f"score-parity {name} {label}: non-finite output")
+        require(rel <= tol, f"score-parity {name} {label}: {rel:.3e} over "
+                f"tolerance")
+        del got, want
 
 
 def phase_score_parity(torch) -> None:
@@ -1073,7 +1138,10 @@ def phase_score_parity(torch) -> None:
         require(rel <= tol, f"score-parity {arch}: {rel:.3e} over tolerance")
         require(n4 == groups and n6 == (n_layers if pallas.hybrid else 0),
                 f"score-parity {arch}: launches K4 {n4}, K6 {n6}")
-        del params, got, want
+        del got, want
+        if pallas.hybrid:
+            _layer_witness(torch, cfg, pallas, params, tokens)
+        del params
 
 
 # ---------------------------------------------------------------------------

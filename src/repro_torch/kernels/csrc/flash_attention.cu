@@ -294,7 +294,6 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int B, int
               int Skv, int H, int KV, int hd, int causal, int window, float scale,
               cudaStream_t s) {
   switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, out, B, Sq, Skv, H, KV, causal, window, scale, s);
     case 64: return launch<T, 64>(q, k, v, out, B, Sq, Skv, H, KV, causal, window, scale, s);
     case 128: return launch<T, 128>(q, k, v, out, B, Sq, Skv, H, KV, causal, window, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -303,7 +302,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int B, int
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd in {32, 64, 128}; window <= 0 means
+// dtype: 0 = float32, 1 = bfloat16; hd in {64, 128}; window <= 0 means
 // none.  Returns the cudaError_t of the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* out, int B, int Sq, int Skv, int H,

@@ -306,18 +306,15 @@ int launch_n(const void* x, const void* bm, const void* cm, const void* dt,
              const void* a_log, const void* d, const void* dt_bias, void* y, int B,
              int S, int nh, int P, int N, cudaStream_t s) {
   switch (N) {
-    case 16: return launch<T, 16>(x, bm, cm, dt, a_log, d, dt_bias, y, B, S, nh, P, s);
-    case 32: return launch<T, 32>(x, bm, cm, dt, a_log, d, dt_bias, y, B, S, nh, P, s);
     case 64: return launch<T, 64>(x, bm, cm, dt, a_log, d, dt_bias, y, B, S, nh, P, s);
-    case 128: return launch<T, 128>(x, bm, cm, dt, a_log, d, dt_bias, y, B, S, nh, P, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, bmat, cmat, dt and y); N in
-// {16, 32, 64, 128}.  Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16 (x, bmat, cmat, dt and y); N = 64
+// (zamba2's).  Returns the cudaError_t of the launch.
 extern "C" int ssd_scan_launch(const void* x, const void* bmat, const void* cmat,
                                const void* dt, const void* a_log, const void* d,
                                const void* dt_bias, void* y, int B, int S, int nh,
