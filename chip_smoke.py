@@ -7,15 +7,19 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device   — require CUDA, print the card's name and power limit, TF32 off;
 2. build    — compile ``src/repro_torch/kernels/csrc/*.cu`` with nvcc
-              (one process per source, in parallel) into ``build/``;
+              (one process per source, in parallel) into ``build/``; print
+              ptxas's registers and spills and each library's count of
+              tensor-core (``HGMMA``) and TMA-load (``UTMALDG``) SASS
+              instructions, which must be above 0 for masked_matmul and
+              flash_attention, and require no spills in the wgmma kernels;
 3. kernels  — each CUDA kernel against its plain PyTorch version on the card
               at its paths' shapes (serving: K5, K1 at M = 8; training: K1,
-              K2, K3 at M = 512 and 500, K = 2048, N = 8192; scoring: K4 at
-              olmo-1b's and zamba2's attention shapes, ragged and GQA cases,
-              K6 at zamba2's SSD shapes and a ragged S), in float32 and
-              bfloat16, with CUDA-event times of the kernel, the plain
-              version and one library call of the same function, beside the
-              bound;
+              K2, K3 at M = 512 and 500, K = 2048, N = 8192; scoring: K1 in
+              bf16 at M = 8192, 8000 and 100, K4 at olmo-1b's and zamba2's
+              attention shapes, ragged and GQA cases, K6 at zamba2's SSD
+              shapes and a ragged S), in float32 and bfloat16, with
+              CUDA-event times of the kernel, the plain version and one
+              library call of the same function, beside the bound;
 4. parity   — olmo-1b at full width, 2 layers, float32: teacher-forced
               decode steps on the card (kernels) against the CPU (plain
               versions), dense and masked at prune rate 0.5, plus the
@@ -140,7 +144,13 @@ def phase_device(torch) -> str:
     return card
 
 
+# libraries whose bf16 paths must run on the tensor cores through TMA
+TENSOR_CORE_LIBS = ("masked_matmul", "flash_attention")
+
+
 def phase_build() -> None:
+    import re
+
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -148,9 +158,33 @@ def phase_build() -> None:
     log(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.2f} s "
         f"(sm_90a, nvcc, one process per source)")
     for name, text in sorted(_build.build_logs().items()):
+        kernel = label = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"[build] {name}: {line.strip()}")
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                kernel = entry.group(1)
+                # the kernel's name and template arguments in the symbol
+                short = re.search(r"\d+([a-z][a-z_]*_kernel)(I\w*?EE)?", kernel)
+                label = "".join(short.groups("")) if short else kernel
+            if ("registers" in line or "spill" in line or "error" in line
+                    or "Performance Loss" in line):
+                log(f"[build] {name}: {label}: {line.strip()}")
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+            if spill and "wgmma" in kernel:
+                require(spill.groups() == ("0", "0"), f"build: {kernel} "
+                        f"spills ({line.strip()})")
+    for name, path in sorted(_build.library_paths().items()):
+        sass = subprocess.run([_build.tool("cuobjdump"), "-sass", str(path)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        counts = {op: len(re.findall(rf"\b{op}\b", sass))
+                  for op in ("HGMMA", "UTMALDG")}
+        log(f"[build] {name} SASS: HGMMA {counts['HGMMA']}, UTMALDG "
+            f"{counts['UTMALDG']}")
+        if name in TENSOR_CORE_LIBS:
+            require(min(counts.values()) > 0, f"build: {name} has no "
+                    f"wgmma or no TMA load in its SASS ({counts})")
 
 
 # ---------------------------------------------------------------------------
@@ -299,8 +333,73 @@ def phase_kernels(torch, timer) -> dict:
                         "library_ms": lib_ms}
     for name, rec in _training_kernels(torch, timer, gen).items():
         records.setdefault(name, {}).update(rec)
+    records["masked_matmul"].update(_scoring_k1(torch, timer, gen))
     records.update(_scoring_kernels(torch, timer, gen))
     return records
+
+
+SCORE_M = 8192      # masked scoring: B x S = 4 x 2048 tokens into the FFN
+
+
+def _scoring_k1(torch, timer, gen) -> dict:
+    """K1 in bfloat16 at masked scoring's FFN shape (M = 8192, K = 2048,
+    N = 8192), a ragged M = 8000 and an M = 100 just past the decode tile,
+    with all-ones, rate-0.5 and all-zeros block masks.  The all-ones case at
+    M = 8192 is the path's (FedAP at rate 0.5 prunes no whole block) and
+    gives the ``scoring_*`` keys of K1's record."""
+    from repro_torch.kernels import masked_matmul as k1
+    from repro_torch.kernels import ref
+
+    kdim, n, dname = TRAIN_K, TRAIN_N, "bfloat16"
+    nb = n // 128
+    half = torch.zeros(nb, device="cuda")
+    half[torch.randperm(nb, generator=gen, device="cuda")[: nb // 2]] = 1.0
+    masks = [("ones", torch.ones(nb, device="cuda")), ("rate0.5", half),
+             ("zeros", torch.zeros(nb, device="cuda"))]
+    w = (torch.randn((kdim, n), generator=gen, device="cuda")
+         / kdim ** 0.5).to(torch.bfloat16)
+    rec = {}
+    for m in (SCORE_M, 8000, 100):
+        x = torch.randn((m, kdim), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        for label, bm in masks:
+            got = k1.masked_matmul(x, w, bm)
+            want = ref.masked_matmul_ref(x, w, bm)
+            torch.cuda.synchronize()
+            err, rel = max_rel_err(torch, got, want)
+            log(f"[kernels] masked_matmul {label} {dname} M={m} K={kdim} "
+                f"N={n}: max_abs_err={err:.3e} rel={rel:.3e} "
+                f"(tol {TOL[dname]:.3e})")
+            require(bool(torch.isfinite(got).all()),
+                    "masked_matmul: non-finite output")
+            require(rel <= TOL[dname], f"masked_matmul {label} {dname} "
+                    f"M={m}: error {rel:.3e} over tolerance")
+            if label == "zeros":
+                require(float(got.float().abs().max()) == 0.0,
+                        "masked_matmul: pruned blocks not exactly zero")
+            del got, want
+            if m != SCORE_M or label == "zeros":
+                continue
+            ms = timer(lambda: k1.masked_matmul(x, w, bm))
+            kept = int((bm > 0).sum())
+            bound, by = _mm_bound("fwd", m, kdim, n, kept, x.element_size(),
+                                  dname)
+            flops = 2 * m * kdim * 128 * kept
+            if label != "ones":
+                log(f"[kernels] masked_matmul {dname} M={m} kept {kept}/{nb} "
+                    f"blocks: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                    f"TFLOP/s), bound {bound:.4f} ms ({by})")
+                continue
+            plain_ms = timer(lambda: ref.masked_matmul_ref(x, w, bm))
+            lib_ms = timer(lambda: torch.matmul(x, w))
+            log(f"[kernels] masked_matmul {dname} M={m} kept {kept}/{nb} "
+                f"blocks: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                f"TFLOP/s), plain {plain_ms:.4f} ms, torch.matmul "
+                f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+            rec = {"scoring_ms": ms, "scoring_plain_ms": plain_ms,
+                   "scoring_bound_ms": bound, "scoring_bound_by": by,
+                   "scoring_library_ms": lib_ms, "scoring_max_abs_err": err}
+    return rec
 
 
 TRAIN_M, TRAIN_K, TRAIN_N = 512, 2048, 8192   # B x S, d_model, d_ff

@@ -1,8 +1,10 @@
 """Build the CUDA kernels in ``csrc/`` with ``nvcc`` and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exports plain C launchers (one per kernel, listed
-in :data:`SIGNATURES`) and becomes its own shared library, ``build/repro_torch/<hash>/lib<name>.so`` at the repository
-root; ``<hash>`` covers the sources and the flags, so an edited kernel is
+in :data:`SIGNATURES`) and becomes its own shared library,
+``build/repro_torch/<hash>/lib<name>.so`` at the repository root; the
+sources may include the shared headers ``csrc/*.cuh``.  ``<hash>`` covers
+the sources, the headers and the flags, so an edited kernel or header is
 rebuilt and an unchanged one is reused.  All sources compile in parallel,
 one ``nvcc`` process each, at the first call that needs a kernel — never at
 import, so the CPU-only tests can import every module.
@@ -48,6 +50,7 @@ SIGNATURES = {
 _lock = threading.Lock()
 _loaded: dict = {}      # kernel name -> configured ctypes function
 _logs: dict = {}        # library name -> nvcc/ptxas output of its build
+_libs: dict = {}        # library name -> path of the built shared library
 
 
 def _nvcc() -> str:
@@ -61,11 +64,16 @@ def _nvcc() -> str:
                        "/usr/local/cuda): the CUDA kernels cannot be built")
 
 
-def _digest(sources) -> str:
+def tool(name: str) -> str:
+    """Path of a CUDA toolkit program that sits beside nvcc (cuobjdump)."""
+    return os.path.join(os.path.dirname(_nvcc()), name)
+
+
+def _digest(files) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+    for f in files:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -80,13 +88,16 @@ def build_all() -> dict:
         if _loaded:
             return dict(_loaded)
         sources = sorted(CSRC.glob("*.cu"))
-        out_dir = BUILD_ROOT / _digest(sources)
+        out_dir = BUILD_ROOT / _digest(sources + sorted(CSRC.glob("*.cuh")))
         out_dir.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
         jobs = []
         for src in sources:
             lib = out_dir / f"lib{src.stem}.so"
             if lib.exists():
+                log = out_dir / f"{src.stem}.log"
+                if log.exists():
+                    _logs[src.stem] = log.read_text()
                 continue
             tmp = out_dir / f".lib{src.stem}.so.tmp-{os.getpid()}"
             proc = subprocess.Popen(
@@ -106,6 +117,7 @@ def build_all() -> dict:
                 os.replace(tmp, lib)
         if failures:
             raise RuntimeError("\n".join(failures))
+        _libs.update({src.stem: out_dir / f"lib{src.stem}.so" for src in sources})
         libs = {src.stem for src in sources}
         missing = libs - {lib for lib, _, _ in SIGNATURES.values()}
         if missing:
@@ -125,8 +137,15 @@ def launcher(name: str):
 
 
 def build_logs() -> dict:
-    """nvcc/ptxas output of the libraries built by this process."""
+    """nvcc/ptxas output of the libraries built (or reused) by this
+    process."""
     return dict(_logs)
+
+
+def library_paths() -> dict:
+    """{library name: path} of the libraries :func:`build_all` built or
+    reused in this process."""
+    return dict(_libs)
 
 
 def check(err: int, name: str) -> None:

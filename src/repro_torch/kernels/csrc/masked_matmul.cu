@@ -18,24 +18,44 @@
 //   K3: pruned column blocks of dw are written as exact zeros; x and dy are
 //       not read for them.
 //
-// What bounds them on an H100.
-//   * K1 at decode (M = serving slots, <= 64): bytes.  Each w element read
-//     feeds at most M multiply-adds, so the decode tile below streams the kept
-//     blocks of w once and keeps many 16-byte loads in flight.
-//   * K1, K2, K3 at training shapes (M = batch x sequence = 512, K = 2048,
-//     N = 8192): operations.  2*M*K*N_kept flops over (M*K + K*N + M*N)
-//     elements is ~230 flops per f32 element, above the 20 flops per byte at
-//     which 67 TFLOP/s of f32 (no TF32: the products are held to f32) meets
-//     3.35 TB/s.  The tiled body below is a SIMT f32 GEMM: a 128x128 (or
-//     64x64, when that gives too few blocks to fill 132 SMs) output tile per
-//     256-thread block, 8x8 (or 4x4) outputs per thread in registers, the
-//     A and B tiles staged through a two-stage shared-memory ring with the
-//     next tile's global loads in flight while the current one is used.
-//     Tensor cores are not used: TF32 would round the f32 operands, and a
-//     bf16 wgmma path is later work.
+// What bounds them on an H100, and the three bodies below.
+//   * K1 at decode (M = serving slots, <= 64), either type: bytes.  Each w
+//     element read feeds at most M multiply-adds, so the decode tile streams
+//     the kept blocks of w once and keeps many 16-byte loads in flight.
+//   * K1 in bf16 at M > 64 (masked scoring: M = 8192, K = 2048, N = 8192):
+//     operations, 2*M*K*N_kept flops over 2 bytes per element is ~2700
+//     flops per byte, far above the ~295 at which 989 TFLOP/s of bf16
+//     tensor cores meet 3.35 TB/s.  Only wgmma reaches that rate, so this
+//     path is a warp-specialised wgmma GEMM: 256x128 output tiles (one mask
+//     block per tile column), a producer warpgroup whose one thread keeps
+//     TMA loads of x [256 x 64] and w [64 x 128] in a 4-stage mbarrier ring,
+//     two consumer warpgroups of 128 rows each issuing m64n128k16 wgmmas
+//     for two 64-row halves (w read MN-major with the transpose bit) into
+//     f32 registers, and a persistent grid of one block per SM walking the
+//     tiles so that one tile's stores overlap the next tile's loads.  A
+//     256-row tile uses each w tile for twice the rows a 128-row tile
+//     does, so fewer bytes cross from L2 per flop: at M = 8192 it ran
+//     faster than 128x128 tiles with the same ring.  A pruned tile writes
+//     zeros and loads nothing; rows past M arrive as TMA's zero fill and
+//     are not stored.
+//   * K1 in f32 at M > 64, K2 and K3 (training shapes M = 512, K = 2048,
+//     N = 8192; K2 and K3 also in bf16): operations.  2*M*K*N_kept flops
+//     over (M*K + K*N + M*N) elements is ~230 flops per f32 element, above
+//     the 20 flops per byte at which 67 TFLOP/s of f32 (no TF32: the
+//     products are held to f32) meets 3.35 TB/s.  The tiled body below is a
+//     SIMT f32 GEMM: a 128x128 (or 64x64, when that gives too few blocks to
+//     fill 132 SMs) output tile per 256-thread block, 8x8 (or 4x4) outputs
+//     per thread in registers, the A and B tiles staged through a two-stage
+//     shared-memory ring with the next tile's global loads in flight while
+//     the current one is used.  Tensor cores are not used: TF32 would round
+//     the f32 operands.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -380,14 +400,172 @@ int launch_tiled(const void* a, const void* b, const void* mask, void* c,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// K1 in bf16 at M > 64: the wgmma GEMM (see the notes at the top).
+// Warpgroup 0 is the producer (thread 0 issues every TMA load); warpgroups 1
+// and 2 compute rows 0-127 and 128-255 of each 256x128 tile, each as two
+// 64-row accumulators.  Ring slot s holds x [256 rows][64 K] (32 KB, one
+// swizzle box) and w [64 K][128 cols] (two 64-column boxes of 8 KB).
+// full[s] completes when the slot's bytes have landed; empty[s] when all 8
+// consumer warps are done reading it.
+// ---------------------------------------------------------------------------
+
+constexpr int kTcBM = 256;              // rows of a tile
+constexpr int kTcBN = 128;              // columns of a tile = one mask block
+constexpr int kTcBK = 64;               // contraction depth of a ring slot
+constexpr int kTcStages = 4;
+constexpr int kTcThreads = 384;         // 3 warpgroups
+constexpr uint32_t kTcABytes = kTcBM * kTcBK * 2;
+constexpr uint32_t kTcBBox = kTcBK * 64 * 2;       // one 64-column box of w
+constexpr uint32_t kTcStageBytes = kTcABytes + 2 * kTcBBox;
+constexpr size_t kTcSmem = 1024 + kTcStages * kTcStageBytes + 2 * kTcStages * sizeof(uint64_t);
+
+__global__ void __launch_bounds__(kTcThreads, 1)
+masked_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                           const __grid_constant__ CUtensorMap wmap,
+                           const float* __restrict__ block_mask,
+                           __nv_bfloat16* __restrict__ y, int M, int K, int N) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kTcStages * kTcStageBytes);
+  uint64_t* empty = full + kTcStages;
+
+  const int m_tiles = (M + kTcBM - 1) / kTcBM;
+  const int tiles = m_tiles * (N / kTcBN);
+  const int kblocks = K / kTcBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int nt = t / m_tiles, mt = t % m_tiles;
+        if (!(block_mask[nt] > 0.f)) continue;   // pruned: nothing to load
+        for (int kb = 0; kb < kblocks; ++kb) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          uint8_t* a = ring + stage * kTcStageBytes;
+          uint8_t* b = a + kTcABytes;
+          mbar_expect_tx(&full[stage], kTcStageBytes);
+          tma_load_2d(a, &xmap, &full[stage], kb * kTcBK, mt * kTcBM);
+          tma_load_2d(b, &wmap, &full[stage], nt * kTcBN, kb * kTcBK);
+          tma_load_2d(b + kTcBBox, &wmap, &full[stage], nt * kTcBN + 64, kb * kTcBK);
+          if (++stage == kTcStages) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+  } else {
+    reg_alloc<232>();
+    const int half = wg - 1;                       // rows 128*half.. of a tile
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid / 32, lane = tid % 32;
+    int stage = 0;
+    uint32_t phase = 0;
+    float acc[2][64];                              // rows 128*half + 64*i + ...
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[i][e] = 0.f;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int nt = t / m_tiles, mt = t % m_tiles;
+      const int row = mt * kTcBM + half * 128 + warp * 16 + lane / 4;
+      __nv_bfloat16* out = y + nt * kTcBN + 2 * (lane % 4);
+      if (!(block_mask[nt] > 0.f)) {             // pruned: exact zeros
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              if (row + 64 * i + 8 * r < M)
+                *reinterpret_cast<uint32_t*>(
+                    out + static_cast<size_t>(row + 64 * i + 8 * r) * N + 8 * j) = 0u;
+        continue;
+      }
+      int prev = 0;
+      for (int kb = 0; kb < kblocks; ++kb) {
+        mbar_wait(&full[stage], phase);
+        const uint32_t a = smem_u32(ring + stage * kTcStageBytes) + half * 128 * 128;
+        const uint32_t b = smem_u32(ring + stage * kTcStageBytes + kTcABytes);
+        fence_regs<64>(acc[0]);
+        fence_regs<64>(acc[1]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kTcBK / 16; ++kk)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            wgmma_ss_m64n128k16<1>(acc[i], desc_sw128(a + 64 * 128 * i + 32 * kk, 16, 1024),
+                                   desc_sw128(b + 2048 * kk, kTcBBox, 1024), kb + kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();                           // the previous slot's group is done
+        fence_regs<64>(acc[0]);
+        fence_regs<64>(acc[1]);
+        if (kb > 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == kTcStages) { stage = 0; phase ^= 1; }
+      }
+      wgmma_wait<0>();
+      fence_regs<64>(acc[0]);
+      fence_regs<64>(acc[1]);
+      if (lane == 0) mbar_arrive(&empty[prev]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            if (row + 64 * i + 8 * r < M)
+              *reinterpret_cast<uint32_t*>(
+                  out + static_cast<size_t>(row + 64 * i + 8 * r) * N + 8 * j) =
+                  pack_bf16(acc[i][4 * j + 2 * r], acc[i][4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+int launch_fwd_wgmma(const void* x, const void* w, const void* block_mask, void* y, int M,
+                     int K, int N, cudaStream_t stream) {
+  CUtensorMap xmap, wmap;
+  const uint64_t xdims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
+  const uint64_t xstrides[1] = {static_cast<uint64_t>(K) * 2};
+  const uint32_t xbox[2] = {kTcBK, kTcBM};
+  const uint64_t wdims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K)};
+  const uint64_t wstrides[1] = {static_cast<uint64_t>(N) * 2};
+  const uint32_t wbox[2] = {64, kTcBK};
+  int e = hopper::make_map(&xmap, x, 2, xdims, xstrides, xbox);
+  if (e == 0) e = hopper::make_map(&wmap, w, 2, wdims, wstrides, wbox);
+  if (e == 0) e = hopper::allow_smem(masked_matmul_wgmma_kernel, kTcSmem);
+  if (e != 0) return e;
+  const int tiles = ((M + kTcBM - 1) / kTcBM) * (N / kTcBN);
+  const int grid = tiles < hopper::num_sms() ? tiles : hopper::num_sms();
+  masked_matmul_wgmma_kernel<<<grid, kTcThreads, kTcSmem, stream>>>(
+      xmap, wmap, static_cast<const float*>(block_mask), static_cast<__nv_bfloat16*>(y), M,
+      K, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
 constexpr int kDecodeMaxM = 64;         // K1 takes the decode tile up to here
 
 template <typename T>
 int launch_fwd(const void* x, const void* w, const void* block_mask, void* y,
                int M, int K, int N, cudaStream_t stream) {
-  if (M > kDecodeMaxM)   // y[M,N] = x[M,K] @ w[K,N]
-    return launch_tiled<T, false, false, 0>(x, w, block_mask, y, M, N, K, K, N,
-                                            stream);
+  if (M > kDecodeMaxM) {  // y[M,N] = x[M,K] @ w[K,N]
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      return launch_fwd_wgmma(x, w, block_mask, y, M, K, N, stream);
+    else
+      return launch_tiled<T, false, false, 0>(x, w, block_mask, y, M, N, K, K, N,
+                                              stream);
+  }
   const dim3 grid((M + kBM - 1) / kBM, N / kCW);
   masked_matmul_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),

@@ -1,15 +1,26 @@
 """Flash attention on the card: the wrapper of ``csrc/flash_attention.cu``.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::_flash_kernel``
-(its ``pallas_call`` in ``flash_attention``): blocked online-softmax GQA
-attention over a whole sequence, forward only.  On an H100 the kernel is
-bound by operations (4 flops per visible (query, key, head-dim) triple,
-each K/V tile reused by 64 query rows); this first version runs them in f32
-outside the tensor cores.  Its design (one block per (query tile, head,
-batch), kv tiles hidden by the causal mask or the window skipped, 16-byte
-shared-memory vectors without bank conflicts) is described in the source.
-Unlike the Pallas kernel it takes any Sq and Skv: there are no block sizes
-to divide them, the ragged tails are masked.
+(its ``pallas_call`` in ``flash_attention``,
+``repro/kernels/flash_attention.py:102``): blocked online-softmax GQA
+attention over a whole sequence, forward only.  On an H100 it is bound by
+operations (4 flops per visible (query, key, head-dim) triple, each K/V
+tile reused by every row of a query tile).  Two paths:
+
+* bf16 (scoring): a warp-specialised ``wgmma`` kernel.  TMA brings Q once
+  and K/V tiles of 128 keys through an ``mbarrier`` ring straight from the
+  [B,S,KV,hd] layout; two consumer warpgroups of 64 query rows run
+  S = Q K^T on the tensor cores, mask only the kv tiles that the causal
+  diagonal, the window's edge or the ragged end cut, and add P V as two
+  bf16 products (P split into P_hi + P_lo, so P keeps ~16 bits) into one
+  f32 accumulator.
+* f32: f32 has no tensor-core path without TF32 rounding, so a SIMT f32
+  kernel (64-row query tiles, 32-key kv tiles, conflict-free 16-byte
+  shared-memory vectors).
+
+Both skip the kv tiles that the causal mask or the window hides, and take
+any Sq and Skv: there are no block sizes to divide them, the ragged tails
+are masked.  The designs are described in the source.
 """
 from __future__ import annotations
 
@@ -68,9 +79,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel: head_dim must be one of "
                          f"{HEAD_DIMS}, got {hd}")
+    # 16-byte vector loads, and TMA for the bf16 wgmma path
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("flash_attention kernel: q/k/v must be 16-byte "
                          "aligned")
+    if any(t.stride(i) * t.element_size() % 16 for t in tensors
+           for i in range(3)):
+        raise ValueError("flash_attention kernel: q/k/v rows must be a "
+                         "multiple of 16 bytes apart")
     out = torch.empty_like(q)
     fn = _build.launcher("flash_attention")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,

@@ -3,21 +3,31 @@
 Three kernels, one per TPU kernel of ``repro/kernels/masked_matmul.py``:
 
 * K1 :func:`masked_matmul` — ``y = x @ w``, replacing ``_masked_mm_kernel``
-  (``_fwd_call``).  Decode shapes (M <= 64) are bound by bytes and take an
-  8-row GEMV-like tile that streams the kept blocks of ``w`` once; larger M
-  takes the tiled body.
+  (``_fwd_call``, ``repro/kernels/masked_matmul.py:122``).  Three paths:
+
+  - decode (M <= 64, either type): bound by bytes, each element of ``w``
+    feeding at most M multiply-adds.  An 8-row GEMV-like tile streams the
+    kept blocks of ``w`` once with many 16-byte loads in flight.
+  - bf16 at M > 64 (masked scoring, M = 8192): bound by operations, ~2700
+    flops per byte against the ~295 at which the bf16 tensor cores meet
+    device memory.  A warp-specialised ``wgmma`` GEMM fed by TMA through a
+    4-stage ``mbarrier`` ring (256x128 tiles, a persistent grid), so the
+    products run on the tensor cores with f32 sums.
+  - f32 at M > 64 (training): bound by operations, but f32 has no
+    tensor-core path without TF32 rounding, so the tiled SIMT f32 GEMM
+    below.
 * K2 :func:`masked_matmul_dx` — ``dx = dy @ w.T`` over the kept N-blocks,
   replacing ``_masked_dx_kernel`` (``_dx_call``).
 * K3 :func:`masked_matmul_dw` — ``dw = x.T @ dy`` with pruned column
   blocks written as exact zeros, replacing ``_masked_dw_kernel``
   (``_dw_call``).
 
-At training shapes (M = 512, K = 2048, N = 8192) all three are bound by
-operations; their tiled body is a SIMT f32 GEMM (register micro-tiles, a
-two-stage shared-memory ring), described in the source.  Pruned blocks are
-never read, so FedAP's saving shows up as work not done.  Any M is taken:
-the wrappers pad nothing.  The differentiable op over the three is
-:class:`repro_torch.kernels.ops.MaskedMatmul`.
+At training shapes (M = 512, K = 2048, N = 8192) K2 and K3 are bound by
+operations too and share K1's f32 tiled body, a SIMT GEMM (register
+micro-tiles, a two-stage shared-memory ring), in f32 and bf16.  Pruned
+blocks are never read, so FedAP's saving shows up as work not done.  Any M
+is taken: the wrappers pad nothing.  The differentiable op over the three
+is :class:`repro_torch.kernels.ops.MaskedMatmul`.
 """
 from __future__ import annotations
 
@@ -102,8 +112,12 @@ def _check_operands(name, a, b, block_mask) -> None:
             f"{block_mask.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} kernel: inputs must be contiguous")
+    # 16-byte vector loads, and TMA for the bf16 wgmma path
     if a.data_ptr() % 16 or b.data_ptr() % 16:
         raise ValueError(f"{name} kernel: operands must be 16-byte aligned")
+    if any(t.stride(0) * t.element_size() % 16 for t in (a, b)):
+        raise ValueError(f"{name} kernel: operand rows must be a multiple of "
+                         f"16 bytes apart")
 
 
 def _launch(name, a, b, block_mask, out, m, kdim, n) -> None:
