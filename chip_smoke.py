@@ -11,15 +11,19 @@ Phases, in order; any failure raises and the script exits non-zero:
               ptxas's registers and spills and each library's count of
               tensor-core (``HGMMA``) and TMA-load (``UTMALDG``) SASS
               instructions, which must be above 0 for masked_matmul and
-              flash_attention, and require no spills in the wgmma kernels;
+              flash_attention, and require no spills in the wgmma kernels
+              and in K2's split and sum kernels and K5's split kernel;
 3. kernels  — each CUDA kernel against its plain PyTorch version on the card
-              at its paths' shapes (serving: K5, K1 at M = 8; training: K1,
-              K2, K3 at M = 512 and 500, K = 2048, N = 8192; scoring: K1 in
-              bf16 at M = 8192, 8000 and 100, K4 at olmo-1b's and zamba2's
-              attention shapes, ragged and GQA cases, K6 at zamba2's SSD
-              shapes and a ragged S), in float32 and bfloat16, with
-              CUDA-event times of the kernel, the plain version and one
-              library call of the same function, beside the bound;
+              at its paths' shapes (serving: K5, with a serving wave's
+              lengths, lengths at its split boundaries and 0, K1 at M = 8;
+              training: K1, K2, K3 at M = 512 and 500, K = 2048, N = 8192,
+              K2 also with one kept block and seven; scoring: K1 in bf16 at M = 8192, 8000 and 100, K4 at
+              olmo-1b's and zamba2's attention shapes, ragged and GQA cases,
+              K6 at zamba2's SSD shapes and a ragged S), in float32 and
+              bfloat16, K2 and K5 also bitwise equal over two launches, with
+              CUDA-event times of the kernel (K2's and K5's split count and
+              grid printed), the plain version and one library call of the
+              same function, beside the bound;
 4. parity   — olmo-1b at full width, 2 layers, float32: teacher-forced
               decode steps on the card (kernels) against the CPU (plain
               versions), dense and masked at prune rate 0.5, plus the
@@ -112,6 +116,14 @@ class Timer:
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
+    def turns(self, fn, other) -> tuple[float, float]:
+        """Times of ``fn`` and ``other`` taken in turns (fn, other, other,
+        fn): the mean of each one's two medians, so that a drift of the
+        card's speed during the four runs falls on both alike."""
+        a1, b1 = self(fn), self(other)
+        b2, a2 = self(other), self(fn)
+        return (a1 + a2) / 2, (b1 + b2) / 2
+
 
 def max_rel_err(torch, got, want) -> tuple[float, float]:
     """(max |got - want|, that divided by max(1, max |want|))."""
@@ -146,6 +158,9 @@ def phase_device(torch) -> str:
 
 # libraries whose bf16 paths must run on the tensor cores through TMA
 TENSOR_CORE_LIBS = ("masked_matmul", "flash_attention")
+# kernels whose ptxas report must show no spill: the wgmma kernels, K2's
+# split and sum kernels, K5's split kernel
+NO_SPILL = ("wgmma", "masked_dx_", "decode_split_")
 
 
 def phase_build() -> None:
@@ -171,7 +186,7 @@ def phase_build() -> None:
                 log(f"[build] {name}: {label}: {line.strip()}")
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                               r"loads", line)
-            if spill and "wgmma" in kernel:
+            if spill and any(k in kernel for k in NO_SPILL):
                 require(spill.groups() == ("0", "0"), f"build: {kernel} "
                         f"spills ({line.strip()})")
     for name, path in sorted(_build.library_paths().items()):
@@ -243,14 +258,26 @@ def phase_kernels(torch, timer) -> dict:
     b, s, kvh, hd = 8, 512, 16, 128
     lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda",
                          dtype=torch.int32)
-    cases = [("main", kvh, 1, s, lens), ("gqa-g4", 4, 4, s, lens),
-             ("no-lengths", kvh, 1, s, None),
+    # a serving wave's lengths: prompts of 1-64 tokens plus up to 64 new
+    serve_lens = torch.randint(1, 129, (b,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+    cases = [("main", kvh, 1, s, lens), ("serving-lengths", kvh, 1, s,
+                                         serve_lens),
+             ("gqa-g4", 4, 4, s, lens), ("no-lengths", kvh, 1, s, None),
              ("S=500", kvh, 1, 500, torch.clamp(lens, max=500))]
+    # lengths at the edges of the split schedule: 0, one split, one row into
+    # the next, one short of two splits, S, 1
+    for s_ in (s, 500, 301):
+        rows = -(-s_ // k5.decode_splits(s_))                # rows a split
+        edge = torch.tensor([0, rows, rows + 1, 2 * rows - 1, s_, 1, 0,
+                             3 * rows], dtype=torch.int32, device="cuda")
+        cases.append((f"edges-S={s_}", kvh, 1, s_, edge))
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for label, kv_, g, s_, ln in cases:
             q, k, v = _k5_case(torch, gen, b, s_, kv_, g, hd, dtype, ln)
             got = k5.decode_attention(q, k, v, ln)
+            again = k5.decode_attention(q, k, v, ln)
             want = ref.decode_attention_ref(q, k, v, ln)
             torch.cuda.synchronize()
             err, rel = max_rel_err(torch, got, want)
@@ -261,23 +288,37 @@ def phase_kernels(torch, timer) -> dict:
                     "non-finite output (stale rows leaked)")
             require(rel <= TOL[dname], f"decode_attention {label} {dname}: "
                     f"error {rel:.3e} over tolerance")
-            if label != "main":
+            require(torch.equal(got, again), f"decode_attention {label} "
+                    f"{dname}: two launches differ")
+            if ln is not None and not bool(ln.bool().all()):
+                require(float(got[ln == 0].float().abs().max()) == 0.0,
+                        "decode_attention: a length of 0 must give 0")
+            if label not in ("main", "serving-lengths") or (
+                    label != "main" and dtype != torch.bfloat16):
                 continue
-            ms = timer(lambda: k5.decode_attention(q, k, v, ln))
+            splits = k5.decode_splits(s_)
+            gb, lanes, nb_ = k5.decode_layout(hd, q.element_size(), g)
+            log(f"[kernels] decode_attention {label} {dname} timed call: "
+                f"{splits} splits of {-(-s_ // splits)} rows, grid "
+                f"({kv_ * -(-g // gb)}, {b}, {splits}) x 128 threads, "
+                f"{lanes} lanes a row, {nb_} row steps in flight a warp; "
+                f"lengths {int(ln.min())}..{int(ln.max())}")
             plain_ms = timer(lambda: ref.decode_attention_ref(q, k, v, ln))
             qt = q.transpose(1, 2).contiguous()                  # [B,H,1,hd]
             kt = k.transpose(1, 2).contiguous().nan_to_num()     # [B,KV,S,hd]
             vt = v.transpose(1, 2).contiguous()
             mask = (torch.arange(s_, device="cuda")[None, :]
                     < ln[:, None])[:, None, None, :]
-            lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask))
+            ms, lib_ms = timer.turns(
+                lambda: k5.decode_attention(q, k, v, ln),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       attn_mask=mask))
             bound = _k5_bound_ms(b, kv_ * g, kv_, hd, int(ln.sum()),
                                  q.element_size(), dname)
-            log(f"[kernels] decode_attention {dname} kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+            log(f"[kernels] decode_attention {label} {dname} kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
                 f"bound {bound:.4f} ms (bytes)")
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and label == "main":
                 records["decode_attention"] = {
                     "name": "decode_attention", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -417,10 +458,15 @@ def _training_kernels(torch, timer, gen) -> dict:
 
     kdim, n = TRAIN_K, TRAIN_N
     nb = n // 128
+    perm = torch.randperm(nb, generator=gen, device="cuda")
     half = torch.zeros(nb, device="cuda")
-    half[torch.randperm(nb, generator=gen, device="cuda")[: nb // 2]] = 1.0
+    half[perm[: nb // 2]] = 1.0
+    one, seven = torch.zeros(nb, device="cuda"), torch.zeros(nb, device="cuda")
+    one[perm[:1]] = 1.0                   # fewer kept blocks than K2's splits
+    seven[perm[:7]] = 1.0                 # a kept count the splits do not divide
     masks = [("ones", torch.ones(nb, device="cuda")), ("rate0.5", half),
-             ("zeros", torch.zeros(nb, device="cuda"))]
+             ("zeros", torch.zeros(nb, device="cuda")), ("one-kept", one),
+             ("seven-kept", seven)]
     kernels = {
         "masked_matmul": ("fwd", 122, k1.masked_matmul, ref.masked_matmul_ref,
                           lambda a, b: torch.matmul(a, b)),
@@ -443,6 +489,8 @@ def _training_kernels(torch, timer, gen) -> dict:
             for name, (kind, line, fn, plain, lib) in kernels.items():
                 a, b = operands[kind]
                 for label, bm in masks:
+                    if label.endswith("-kept") and kind != "dx":
+                        continue
                     got = fn(a, b, bm)
                     want = plain(a, b, bm)
                     torch.cuda.synchronize()
@@ -457,11 +505,22 @@ def _training_kernels(torch, timer, gen) -> dict:
                     if label == "zeros":
                         require(float(got.float().abs().max()) == 0.0,
                                 f"{name}: pruned blocks not exactly zero")
-                    if m != TRAIN_M or label == "zeros":
+                    if kind == "dx":
+                        require(torch.equal(got, fn(a, b, bm)), f"{name} "
+                                f"{label} {dname} M={m}: two launches differ")
+                    if m != TRAIN_M or label not in ("ones", "rate0.5"):
                         continue
-                    ms = timer(lambda: fn(a, b, bm))
+                    if kind == "dx":
+                        splits = k1.dx_splits(
+                            m, kdim, n, torch.cuda.get_device_properties(
+                                0).multi_processor_count)
+                        log(f"[kernels] {name} {dname} timed call: {splits} "
+                            f"splits, grid ({kdim // k1.DX_COLS}, "
+                            f"{-(-m // k1.DX_ROWS)}, {splits}) x 256 threads "
+                            f"+ split sum")
+                    ms, lib_ms = timer.turns(lambda: fn(a, b, bm),
+                                             lambda: lib(a, b))
                     plain_ms = timer(lambda: plain(a, b, bm))
-                    lib_ms = timer(lambda: lib(a, b))
                     kept = int((bm > 0).sum())
                     bound, by = _mm_bound(kind, m, kdim, n, kept,
                                           a.element_size(), dname)
@@ -1117,7 +1176,9 @@ def _profile_wave(torch, mode, sv, scfg, prompts) -> None:
         f"kernels {dev_ms:.3f} ms/step on the device -> busy {busy:.1f}%, "
         f"idle {100 - busy:.1f}%")
     n = scfg.steps_per_wave
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    k5_kernels = [e for e in ranked[6:] if "decode_" in e.key]
+    for e in ranked[:6] + k5_kernels:
         log(f"[profile] {mode}:   {e.self_device_time_total / 1e3 / n:8.4f} "
             f"ms/step  {e.count // n:4d}/step  {e.key[:90]}")
 

@@ -12,6 +12,7 @@ import, so the CPU-only tests can import every module.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -32,11 +33,12 @@ _MM_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
 # argtypes); every launcher returns the cudaError_t of its launch as an int.
 SIGNATURES = {
     "decode_attention": ("decode_attention", "decode_attention_launch",
-                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                          _P]),
+                         [_P] * 7 + [_I] * 7 + [_F, _P]),
+    "decode_attention_layout": ("decode_attention",
+                                "decode_attention_layout_check", [_I] * 6),
     "masked_matmul": ("masked_matmul", "masked_matmul_launch", _MM_ARGS),
     "masked_matmul_dx": ("masked_matmul", "masked_matmul_dx_launch",
-                         _MM_ARGS),
+                         [_P] * 5 + [_I] * 7 + [_P]),
     "masked_matmul_dw": ("masked_matmul", "masked_matmul_dw_launch",
                          _MM_ARGS),
     "flash_attention": ("flash_attention", "flash_attention_launch",
@@ -146,6 +148,15 @@ def library_paths() -> dict:
     """{library name: path} of the libraries :func:`build_all` built or
     reused in this process."""
     return dict(_libs)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``, read once (the
+    launch paths ask on every call)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, name: str) -> None:

@@ -38,17 +38,32 @@
 //     faster than 128x128 tiles with the same ring.  A pruned tile writes
 //     zeros and loads nothing; rows past M arrive as TMA's zero fill and
 //     are not stored.
-//   * K1 in f32 at M > 64, K2 and K3 (training shapes M = 512, K = 2048,
-//     N = 8192; K2 and K3 also in bf16): operations.  2*M*K*N_kept flops
-//     over (M*K + K*N + M*N) elements is ~230 flops per f32 element, above
-//     the 20 flops per byte at which 67 TFLOP/s of f32 (no TF32: the
-//     products are held to f32) meets 3.35 TB/s.  The tiled body below is a
-//     SIMT f32 GEMM: a 128x128 (or 64x64, when that gives too few blocks to
-//     fill 132 SMs) output tile per 256-thread block, 8x8 (or 4x4) outputs
-//     per thread in registers, the A and B tiles staged through a two-stage
+//   * K1 in f32 at M > 64 and K3 (training shapes M = 512, K = 2048,
+//     N = 8192; K3 also in bf16): operations.  2*M*K*N_kept flops over
+//     (M*K + K*N + M*N) elements is ~230 flops per f32 element, above the
+//     20 flops per byte at which 67 TFLOP/s of f32 (no TF32: the products
+//     are held to f32) meets 3.35 TB/s.  The tiled body below is a SIMT f32
+//     GEMM: a 128x128 (or 64x64, when that gives too few blocks to fill 132
+//     SMs) output tile per 256-thread block, 8x8 (or 4x4) outputs per
+//     thread in registers, the A and B tiles staged through a two-stage
 //     shared-memory ring with the next tile's global loads in flight while
 //     the current one is used.  Tensor cores are not used: TF32 would round
 //     the f32 operands.
+//   * K2 (training: dx [512, 2048] from a contraction over N = 8192; also
+//     bf16): operations, as K1 in f32.  Its long dimension is the
+//     contraction and its output is small: 32 tiles of 256x128 for 132 SMs.
+//     So the split kernel further down divides the kept N-blocks of the
+//     contraction among `splits` blocks per output tile (4 at the training
+//     shape: 128 blocks, one wave at one block per SM).  Each block counts
+//     the kept blocks of the mask itself (no host read) and takes its
+//     balanced share by rank, so pruning never leaves a split idle while
+//     another works.  Both operands have the contraction contiguous, so
+//     they are copied untransposed with 16-byte cp.async into a 3-stage ring
+//     of 32-deep tiles whose padded rows keep the inner loop's shared loads
+//     conflict-free; each thread keeps 8x16 f32 sums.  The splits' f32
+//     partial tiles go to a workspace and a second kernel sums them in split
+//     order (bitwise reproducible, no atomics) and casts once to the output
+//     type.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -207,15 +222,13 @@ masked_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// The tiled body shared by K1 (M > 64), K2 and K3:
+// The tiled body shared by K1 (f32, M > 64) and K3:
 //   C[P,Q] = sum_r A(p,r) B(r,q), C row-major,
 // where A(p,r) is a[p*lda + r] (kATrans false) or a[r*lda + p] (true), and
-// B(r,q) is b[r*ldb + q] (kBTrans false) or b[q*ldb + r] (true).
-//   kMode 0: the mask gates 128-column blocks of C (K1, K3): a pruned tile
-//            writes zeros and reads nothing.
-//   kMode 1: the mask gates 128-row blocks of the contraction r (K2).
-// Ragged sizes: only P (K1, K2: M) and R (K3: M) may be any size; the
-// launcher checks the other alignments.
+// B(r,q) is b[r*ldb + q] (kBTrans false) or b[q*ldb + r] (true).  The mask
+// gates 128-column blocks of C: a pruned tile writes zeros and reads nothing.
+// Ragged sizes: only P (K1: M) and R (K3: M) may be any size; the launcher
+// checks the other alignments.
 // ---------------------------------------------------------------------------
 
 constexpr int kTK = 8;                  // contraction depth of one stage
@@ -262,15 +275,7 @@ template <> struct Lds<2> {
   }
 };
 
-// First contraction offset >= r whose 128-block is kept (kMode 1), or r.
-template <int kMode>
-__device__ __forceinline__ int next_kept(int r, int R, const float* mask) {
-  if (kMode == 1)
-    while (r < R && !(mask[r / kBlockN] > 0.f)) r = (r / kBlockN + 1) * kBlockN;
-  return r;
-}
-
-template <typename T, int TM, bool kATrans, bool kBTrans, int kMode>
+template <typename T, int TM, bool kATrans, bool kBTrans>
 __global__ void __launch_bounds__(kThreads)
 tiled_kernel(const T* __restrict__ a, const T* __restrict__ b,
              const float* __restrict__ mask, T* __restrict__ c,
@@ -286,7 +291,7 @@ tiled_kernel(const T* __restrict__ a, const T* __restrict__ b,
   const int q0 = blockIdx.x * BT;
   const int p0 = blockIdx.y * BT;
 
-  if (kMode == 0 && !(mask[q0 / kBlockN] > 0.f)) {   // pruned output block
+  if (!(mask[q0 / kBlockN] > 0.f)) {   // pruned output block
     for (int i = tid; i < BT * BT; i += kThreads) {
       const int r = i / BT, col = i % BT;
       if (p0 + r < P) store(c + static_cast<size_t>(p0 + r) * Q + q0 + col, 0.f);
@@ -339,15 +344,12 @@ tiled_kernel(const T* __restrict__ a, const T* __restrict__ b,
 #pragma unroll
     for (int j = 0; j < TM; ++j) acc[i][j] = 0.f;
 
-  int r0 = next_kept<kMode>(0, R, mask);
-  if (r0 < R) {
-    load(r0);
-    stash(0);
-  }
+  load(0);                              // R > 0: the launcher checks M
+  stash(0);
   __syncthreads();
   int buf = 0;
-  while (r0 < R) {
-    const int rn = next_kept<kMode>(r0 + kTK, R, mask);
+  for (int r0 = 0; r0 < R; r0 += kTK) {
+    const int rn = r0 + kTK;
     if (rn < R) load(rn);               // next stage's loads in flight
 #pragma unroll
     for (int k = 0; k < kTK; ++k) {
@@ -364,7 +366,6 @@ tiled_kernel(const T* __restrict__ a, const T* __restrict__ b,
     if (rn < R) stash(buf ^ 1);
     __syncthreads();
     buf ^= 1;
-    r0 = rn;
   }
 
 #pragma unroll
@@ -382,22 +383,256 @@ tiled_kernel(const T* __restrict__ a, const T* __restrict__ b,
 // 128x128 tiles when they give at least one block per SM, else 64x64.
 constexpr int kNumSMs = 132;
 
-template <typename T, bool kATrans, bool kBTrans, int kMode>
+template <typename T, bool kATrans, bool kBTrans>
 int launch_tiled(const void* a, const void* b, const void* mask, void* c,
                  int P, int Q, int R, int lda, int ldb, cudaStream_t stream) {
   const long big_tiles = static_cast<long>(Q / 128) * ((P + 127) / 128);
   if (big_tiles >= kNumSMs) {
     const dim3 grid(Q / 128, (P + 127) / 128);
-    tiled_kernel<T, 8, kATrans, kBTrans, kMode><<<grid, kThreads, 0, stream>>>(
+    tiled_kernel<T, 8, kATrans, kBTrans><<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(a), static_cast<const T*>(b),
         static_cast<const float*>(mask), static_cast<T*>(c), P, Q, R, lda, ldb);
   } else {
     const dim3 grid(Q / 64, (P + 63) / 64);
-    tiled_kernel<T, 4, kATrans, kBTrans, kMode><<<grid, kThreads, 0, stream>>>(
+    tiled_kernel<T, 4, kATrans, kBTrans><<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(a), static_cast<const T*>(b),
         static_cast<const float*>(mask), static_cast<T*>(c), P, Q, R, lda, ldb);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// K2: dx[M,K] = dy[M,N] @ w[K,N]^T over the kept N-blocks, split over them.
+// Grid (K/128, ceil(M/256), splits); block (x, y, z) owns the 256x128 tile
+// of dx at rows 256y, columns 128x, and the z-th share of the kept blocks:
+// ranks [z*kept/splits, (z+1)*kept/splits) in mask order.  Its 8 warps each
+// take 32 rows of the tile and all 128 columns; lane = 8*lr + lc holds rows
+// 32*warp + lr + 4i (i < 8) and columns lc + 8j (j < 16), 128 f32 sums.
+// Per pair of contraction steps a thread loads its 8 A values once (8-byte
+// shared loads, kept in registers) and then, column by column, 2 B values
+// for 16 multiply-adds; one shared load of A reads 4 distinct rows and one
+// of B 8, each in its own banks thanks to the row pitch (36 floats, 40
+// bf16).  A ring stage is 32 deep (a 128-byte line of each operand row), 3
+// stages deep.  The 8x16 thread tile needs ~250 registers, so one block
+// runs per SM and `splits` (the wrapper's dx_splits) fills the SMs with
+// blocks.  Rows of dy past M are zero-filled by cp.async (never read) and
+// never stored.  An empty share (kept < splits, or every block pruned)
+// writes a zero tile, so the sum below never meets uninitialised workspace.
+// ---------------------------------------------------------------------------
+
+constexpr int kDxRows = 256;            // dx tile rows (rows of dy)
+constexpr int kDxCols = 128;            // dx tile columns (rows of w)
+constexpr int kDxBK = 32;               // contraction depth of a ring stage
+constexpr int kDxStages = 3;            // ring stages: 2 in flight while one is used
+constexpr int kDxThreads = 256;
+constexpr int kDxTI = 8, kDxTJ = 16;    // rows x columns of dx per thread
+
+template <typename T> struct DxTile {
+  static constexpr int kLd = std::is_same<T, float>::value ? kDxBK + 4 : kDxBK + 8;  // pitch
+  static constexpr int kVec = 16 / sizeof(T);        // elements of one 16-byte copy
+  static constexpr int kCopies = kDxBK / kVec;       // copies per tile row
+  static constexpr int kStep = kDxThreads / kCopies; // rows between one thread's copies
+  static constexpr int kA = kDxRows * kLd;           // elements of a stage's dy tile
+  static constexpr int kStage = (kDxRows + kDxCols) * kLd;
+  static constexpr size_t kSmem = static_cast<size_t>(kDxStages) * kStage * sizeof(T);
+};
+
+// 16-byte global -> shared copy, zero-filled (nothing read) when !valid.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The first block index >= j whose mask entry is > 0 (NaN is pruned), or nb.
+__device__ __forceinline__ int kept_from(int j, int nb, const float* mask) {
+  while (j < nb && !(mask[j] > 0.f)) ++j;
+  return j;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kDxThreads, 1)
+masked_dx_split_kernel(const T* __restrict__ dy, const T* __restrict__ w,
+                       const float* __restrict__ mask, T* __restrict__ dx,
+                       float* __restrict__ ws, int M, int K, int N) {
+  using Tile = DxTile<T>;
+  extern __shared__ __align__(16) unsigned char dx_smem[];
+  T* ring = reinterpret_cast<T*>(dx_smem);    // stage s: dy tile, then w tile
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * kDxCols;        // columns of dx = rows of w
+  const int p0 = blockIdx.y * kDxRows;        // rows of dx = rows of dy
+  const int split = blockIdx.z, splits = gridDim.z;
+  const int nb = N / kBlockN;
+
+  int kept = 0;
+  for (int base = 0; base < nb; base += kDxThreads) {
+    const int j = base + tid;
+    kept += __syncthreads_count(j < nb && mask[j] > 0.f);
+  }
+  const int lo = static_cast<int>(static_cast<long long>(split) * kept / splits);
+  const int hi = static_cast<int>(static_cast<long long>(split + 1) * kept / splits);
+  const int nst = (hi - lo) * (kBlockN / kDxBK);   // ring stages of this share
+
+  // the kept block of rank lo, found in parallel: each thread ranks its own
+  // mask entry from warp ballots (a serial walk would cost the last split
+  // lo dependent loads)
+  __shared__ int warp_kept[kDxThreads / 32];
+  __shared__ int first;
+  if (tid == 0) first = nb;
+  for (int base = 0, seen = 0; base < nb; base += kDxThreads) {
+    const int j = base + tid;
+    const bool keep = j < nb && mask[j] > 0.f;
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    if (tid % 32 == 0) warp_kept[tid / 32] = __popc(ballot);
+    __syncthreads();
+    int rank = seen + __popc(ballot & ((1u << (tid % 32)) - 1u));
+    for (int w = 0; w < kDxThreads / 32; ++w) {
+      if (w < tid / 32) rank += warp_kept[w];
+      seen += warp_kept[w];
+    }
+    if (keep && rank == lo) first = j;
+    __syncthreads();
+  }
+  int blk = first;                                 // producer cursor: kept block of rank lo
+  int sub = 0;                                     // and its stage within that block
+
+  // this thread's copies: rows lrow + n * kStep of each operand tile, at lcol
+  const int lrow = tid / Tile::kCopies, lcol = (tid % Tile::kCopies) * Tile::kVec;
+  const T* a_src = dy + static_cast<size_t>(p0 + lrow) * N + lcol;
+  const T* b_src = w + static_cast<size_t>(q0 + lrow) * N + lcol;
+  const size_t step = static_cast<size_t>(Tile::kStep) * N;
+  const int a_rows = M - p0 - lrow;                // copy n reads a row < M iff n * kStep < a_rows
+  auto load = [&](int slot) {
+    T* as = ring + slot * Tile::kStage + lrow * Tile::kLd + lcol;
+    T* bs = as + Tile::kA;
+    const int r0 = blk * kBlockN + sub * kDxBK;
+#pragma unroll
+    for (int n = 0; n < kDxRows / Tile::kStep; ++n) {
+      const bool valid = n * Tile::kStep < a_rows;
+      cp_async16(as + n * Tile::kStep * Tile::kLd, valid ? a_src + n * step + r0 : dy, valid);
+    }
+#pragma unroll
+    for (int n = 0; n < kDxCols / Tile::kStep; ++n)
+      cp_async16(bs + n * Tile::kStep * Tile::kLd, b_src + n * step + r0, true);
+    if (++sub == kBlockN / kDxBK) {
+      sub = 0;
+      blk = kept_from(blk + 1, nb, mask);
+    }
+  };
+
+  const int lane = tid % 32;
+  const int arow = (tid / 32) * (4 * kDxTI) + lane / 8;   // + 4i
+  const int bcol = lane % 8;                               // + 8j
+
+  float acc[kDxTI][kDxTJ];
+#pragma unroll
+  for (int i = 0; i < kDxTI; ++i)
+#pragma unroll
+    for (int j = 0; j < kDxTJ; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kDxStages - 1; ++s) {
+    if (s < nst) load(s);
+    cp_async_commit();
+  }
+  for (int t = 0; t < nst; ++t) {
+    cp_async_wait<kDxStages - 2>();
+    __syncthreads();                               // stage t landed; stage t-1 consumed
+    if (t + kDxStages - 1 < nst) load((t + kDxStages - 1) % kDxStages);
+    cp_async_commit();
+    const T* as = ring + (t % kDxStages) * Tile::kStage;
+    const T* bs = as + Tile::kA;
+#pragma unroll 8
+    for (int kq = 0; kq < kDxBK; kq += 2) {
+      float av[kDxTI][2];
+#pragma unroll
+      for (int i = 0; i < kDxTI; ++i) Load<T, 2>::run(as + (arow + 4 * i) * Tile::kLd + kq, av[i]);
+#pragma unroll
+      for (int j = 0; j < kDxTJ; ++j) {
+        float bv[2];
+        Load<T, 2>::run(bs + (bcol + 8 * j) * Tile::kLd + kq, bv);
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+          for (int i = 0; i < kDxTI; ++i) acc[i][j] = fmaf(av[i][kk], bv[kk], acc[i][j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* part = ws == nullptr ? nullptr : ws + static_cast<size_t>(split) * M * K;
+#pragma unroll
+  for (int i = 0; i < kDxTI; ++i) {
+    const int p = p0 + arow + 4 * i;
+    if (p >= M) continue;
+#pragma unroll
+    for (int j = 0; j < kDxTJ; ++j) {
+      const size_t at = static_cast<size_t>(p) * K + q0 + bcol + 8 * j;
+      if (part != nullptr) part[at] = acc[i][j];
+      else store(dx + at, acc[i][j]);
+    }
+  }
+}
+
+// dx = sum over s = 0..splits-1, in that order, of ws[s] (each [M,K] f32).
+// Launched as a programmatic dependent of the split kernel: its blocks are
+// set up while the split kernel drains and wait here for all of its writes.
+template <typename T>
+__global__ void __launch_bounds__(256)
+masked_dx_reduce_kernel(const float* __restrict__ ws, T* __restrict__ dx, size_t n4,
+                        int splits) {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const float4* src = reinterpret_cast<const float4*>(ws);
+  for (size_t i = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x; i < n4;
+       i += static_cast<size_t>(gridDim.x) * 256) {
+    float4 s = src[i];
+    for (int sp = 1; sp < splits; ++sp) {
+      const float4 v = src[static_cast<size_t>(sp) * n4 + i];
+      s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+    }
+    T* out = dx + 4 * i;
+    store(out, s.x); store(out + 1, s.y); store(out + 2, s.z); store(out + 3, s.w);
+  }
+}
+
+template <typename T>
+int launch_dx(const void* dy, const void* w, const void* mask, void* dx, void* ws, int M,
+              int K, int N, int splits, cudaStream_t stream) {
+  constexpr size_t smem = DxTile<T>::kSmem;
+  int e = hopper::allow_smem(masked_dx_split_kernel<T>, smem);
+  if (e == 0)
+    e = static_cast<int>(cudaFuncSetAttribute(masked_dx_split_kernel<T>,
+                                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                                              cudaSharedmemCarveoutMaxShared));
+  if (e != 0) return e;
+  float* part = splits > 1 ? static_cast<float*>(ws) : nullptr;
+  const dim3 grid(K / kDxCols, (M + kDxRows - 1) / kDxRows, splits);
+  masked_dx_split_kernel<T><<<grid, kDxThreads, smem, stream>>>(
+      static_cast<const T*>(dy), static_cast<const T*>(w), static_cast<const float*>(mask),
+      static_cast<T*>(dx), part, M, K, N);
+  e = static_cast<int>(cudaGetLastError());
+  if (e != 0 || splits == 1) return e;
+  const size_t n4 = static_cast<size_t>(M) * K / 4;   // K is a multiple of 128
+  const size_t want = (n4 + 255) / 256;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(want < 8 * 132 ? want : 8 * 132));
+  cfg.blockDim = dim3(256);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = static_cast<int>(cudaLaunchKernelEx(&cfg, masked_dx_reduce_kernel<T>,
+                                          static_cast<const float*>(part), static_cast<T*>(dx),
+                                          n4, splits));
+  return e != 0 ? e : static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -563,7 +798,7 @@ int launch_fwd(const void* x, const void* w, const void* block_mask, void* y,
     if constexpr (std::is_same<T, __nv_bfloat16>::value)
       return launch_fwd_wgmma(x, w, block_mask, y, M, K, N, stream);
     else
-      return launch_tiled<T, false, false, 0>(x, w, block_mask, y, M, N, K, K, N,
+      return launch_tiled<T, false, false>(x, w, block_mask, y, M, N, K, K, N,
                                               stream);
   }
   const dim3 grid((M + kBM - 1) / kBM, N / kCW);
@@ -593,18 +828,22 @@ extern "C" int masked_matmul_launch(const void* x, const void* w, const void* bl
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K2: dx[M,K] = dy[M,N] @ w[K,N]^T over the kept N-blocks only.
+// K2: dx[M,K] = dy[M,N] @ w[K,N]^T over the kept N-blocks only, their
+// contraction split `splits` ways; with splits > 1, `ws` is an f32
+// workspace of splits*M*K elements (unused, and may be null, at 1).
+// tile_rows x tile_cols is the dx tile the host counted its splits with;
+// any other than kDxRows x kDxCols is refused.
 extern "C" int masked_matmul_dx_launch(const void* dy, const void* w, const void* block_mask,
-                                       void* dx, int M, int K, int N, int dtype,
+                                       void* dx, void* ws, int M, int K, int N, int splits,
+                                       int tile_rows, int tile_cols, int dtype,
                                        void* stream) {
-  if (bad_shape(M, K, N)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(M, K, N) || splits < 1 || (splits > 1 && ws == nullptr) ||
+      tile_rows != kDxRows || tile_cols != kDxCols)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // P = M, Q = K, R = N; A(p,r) = dy[p*N + r], B(r,q) = w[q*N + r]
-  if (dtype == 0)
-    return launch_tiled<float, false, true, 1>(dy, w, block_mask, dx, M, K, N, N, N, s);
+  if (dtype == 0) return launch_dx<float>(dy, w, block_mask, dx, ws, M, K, N, splits, s);
   if (dtype == 1)
-    return launch_tiled<__nv_bfloat16, false, true, 1>(dy, w, block_mask, dx, M, K, N,
-                                                       N, N, s);
+    return launch_dx<__nv_bfloat16>(dy, w, block_mask, dx, ws, M, K, N, splits, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -616,9 +855,9 @@ extern "C" int masked_matmul_dw_launch(const void* x, const void* dy, const void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // P = K, Q = N, R = M; A(p,r) = x[r*K + p], B(r,q) = dy[r*N + q]
   if (dtype == 0)
-    return launch_tiled<float, true, false, 0>(x, dy, block_mask, dw, K, N, M, K, N, s);
+    return launch_tiled<float, true, false>(x, dy, block_mask, dw, K, N, M, K, N, s);
   if (dtype == 1)
-    return launch_tiled<__nv_bfloat16, true, false, 0>(x, dy, block_mask, dw, K, N, M,
+    return launch_tiled<__nv_bfloat16, true, false>(x, dy, block_mask, dw, K, N, M,
                                                        K, N, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

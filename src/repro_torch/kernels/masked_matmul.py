@@ -17,17 +17,24 @@ Three kernels, one per TPU kernel of ``repro/kernels/masked_matmul.py``:
     tensor-core path without TF32 rounding, so the tiled SIMT f32 GEMM
     below.
 * K2 :func:`masked_matmul_dx` — ``dx = dy @ w.T`` over the kept N-blocks,
-  replacing ``_masked_dx_kernel`` (``_dx_call``).
+  replacing ``_masked_dx_kernel`` (``_dx_call``).  At training's shape
+  (M = 512, K = 2048, N = 8192, f32) it is bound by operations like K1, but
+  dx is small (32 tiles of 256x128 for 132 SMs) while its contraction is
+  the long dimension.  So the kept N-blocks are split :func:`dx_splits`
+  ways (4 there: 128 blocks, one per SM): each block counts the kept
+  blocks on the device, takes its balanced share by rank, runs a SIMT f32
+  GEMM (8x16 sums per thread, a 3-stage cp.async ring of untransposed
+  32-deep tiles) and writes an f32 partial tile to a workspace; a second
+  kernel sums the partials in split order (bitwise reproducible) and casts
+  once.  What bounds it is the f32 SIMT rate, plus a fixed cost per call
+  for the partial stores and the sum (``PERF.md``).
 * K3 :func:`masked_matmul_dw` — ``dw = x.T @ dy`` with pruned column
   blocks written as exact zeros, replacing ``_masked_dw_kernel``
-  (``_dw_call``).
+  (``_dw_call``).  It shares K1's f32 tiled body, in f32 and bf16.
 
-At training shapes (M = 512, K = 2048, N = 8192) K2 and K3 are bound by
-operations too and share K1's f32 tiled body, a SIMT GEMM (register
-micro-tiles, a two-stage shared-memory ring), in f32 and bf16.  Pruned
-blocks are never read, so FedAP's saving shows up as work not done.  Any M
-is taken: the wrappers pad nothing.  The differentiable op over the three
-is :class:`repro_torch.kernels.ops.MaskedMatmul`.
+Pruned blocks are never read, so FedAP's saving shows up as work not done.
+Any M is taken: the wrappers pad nothing.  The differentiable op over the
+three is :class:`repro_torch.kernels.ops.MaskedMatmul`.
 """
 from __future__ import annotations
 
@@ -40,7 +47,19 @@ dx_launches = 0  # K2 launches since the caller last reset it
 dw_launches = 0  # K3 launches since the caller last reset it
 
 BLOCK_N = 128   # mask granularity: one mask entry per 128 columns of w
+DX_ROWS, DX_COLS = 256, 128   # K2's dx tile (the launcher checks it)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def dx_splits(m: int, k: int, n: int, sms: int) -> int:
+    """How many ways K2 splits its contraction: enough blocks of
+    ``DX_ROWS x DX_COLS`` dx tiles for one per SM, at most one split per
+    N-block.  A function of the shapes and the SM count only, never of the
+    mask (4 at M = 512, K = 2048, N = 8192 on 132 SMs: 128 blocks).  Split
+    ``z`` contracts over the kept N-blocks of ranks ``[z * kept // splits,
+    (z + 1) * kept // splits)`` in mask order, counted on the device."""
+    tiles = -(-m // DX_ROWS) * (k // DX_COLS)
+    return max(1, min(n // BLOCK_N, sms // max(tiles, 1)))
 
 
 def _check_blocks(kdim: int, n: int, block_mask) -> None:
@@ -152,8 +171,16 @@ def masked_matmul_dx(dy, w, block_mask):
     _check_operands("masked_matmul_dx", dy, w, block_mask)
     m, n = dy.shape
     kdim = w.shape[0]
+    splits = dx_splits(m, kdim, n, _build.sm_count(dy.device.index))
     dx = torch.empty((m, kdim), dtype=dy.dtype, device=dy.device)
-    _launch("masked_matmul_dx", dy, w, block_mask, dx, m, kdim, n)
+    ws = (torch.empty((splits, m, kdim), dtype=torch.float32,
+                      device=dy.device) if splits > 1 else None)
+    err = _build.launcher("masked_matmul_dx")(
+        dy.data_ptr(), w.data_ptr(), block_mask.data_ptr(), dx.data_ptr(),
+        None if ws is None else ws.data_ptr(), m, kdim, n, splits, DX_ROWS,
+        DX_COLS, _DTYPES[dy.dtype],
+        torch.cuda.current_stream(dy.device).cuda_stream)
+    _build.check(err, "masked_matmul_dx")
     dx_launches += 1
     return dx
 
