@@ -11,8 +11,9 @@ Phases, in order; any failure raises and the script exits non-zero:
               ptxas's registers and spills and each library's count of
               tensor-core (``HGMMA``) and TMA-load (``UTMALDG``) SASS
               instructions, which must be above 0 for masked_matmul and
-              flash_attention, and require no spills in the wgmma kernels
-              and in K2's split and sum kernels and K5's split kernel;
+              flash_attention, and require no spills in the wgmma kernels,
+              K1's decode GEMV and the GEMM body of K1 (f32) and K3, K2's
+              split and sum kernels and K5's split kernel;
 3. kernels  — each CUDA kernel against its plain PyTorch version on the card
               at its paths' shapes (serving: K5, with a serving wave's
               lengths, lengths at its split boundaries and 0, K1 at M = 8;
@@ -20,10 +21,13 @@ Phases, in order; any failure raises and the script exits non-zero:
               K2 also with one kept block and seven; scoring: K1 in bf16 at M = 8192, 8000 and 100, K4 at
               olmo-1b's and zamba2's attention shapes, ragged and GQA cases,
               K6 at zamba2's SSD shapes and a ragged S), in float32 and
-              bfloat16, K2 and K5 also bitwise equal over two launches, with
-              CUDA-event times of the kernel (K2's and K5's split count and
-              grid printed), the plain version and one library call of the
-              same function, beside the bound;
+              bfloat16, K1 (decode and f32), K2, K3 and K5 also bitwise
+              equal over two launches, with CUDA-event times of the kernel
+              (K1's decode, K2's and K5's split count and grid printed), the
+              plain version and one library call of the same function,
+              beside the bound (K1 at decode with every block kept, serving's
+              mask, and with half kept, each timed in turns with
+              torch.matmul);
 4. parity   — olmo-1b at full width, 2 layers, float32: teacher-forced
               decode steps on the card (kernels) against the CPU (plain
               versions), dense and masked at prune rate 0.5, plus the
@@ -39,8 +43,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. serving  — olmo-1b at full width, all 16 layers, bfloat16: the
               continuous-batching DecodeEngine over ``load_servable`` in
               dense, masked@0.5 and shrunk@0.5 modes, with each kernel's
-              launch count checked against the decode steps taken, and one
-              wave run under ``torch.cuda.set_sync_debug_mode("error")``;
+              launch count checked against the decode steps taken, one
+              wave run under ``torch.cuda.set_sync_debug_mode("error")``,
+              and the modes' device kernel time per step on adjacent lines;
 8. score-parity — float32 logits of ``attn_impl="pallas"`` (K4, K6)
               against ``attn_impl="xla"`` (plain attention, chunked scan) on
               the card: zamba2-1.2b at full width, 12 layers, S = 8192, and
@@ -106,7 +111,7 @@ class Timer:
             fn()
         pairs = []
         for _ in range(self.reps):
-            self.flush.zero_()
+            self._flush()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -115,6 +120,9 @@ class Timer:
             pairs.append((start, end))
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+    def _flush(self) -> None:
+        self.flush.zero_()
 
     def turns(self, fn, other) -> tuple[float, float]:
         """Times of ``fn`` and ``other`` taken in turns (fn, other, other,
@@ -158,9 +166,11 @@ def phase_device(torch) -> str:
 
 # libraries whose bf16 paths must run on the tensor cores through TMA
 TENSOR_CORE_LIBS = ("masked_matmul", "flash_attention")
-# kernels whose ptxas report must show no spill: the wgmma kernels, K2's
-# split and sum kernels, K5's split kernel
-NO_SPILL = ("wgmma", "masked_dx_", "decode_split_")
+# kernels whose ptxas report must show no spill: the wgmma kernels, K1's
+# decode GEMV (both bodies), the GEMM body of K1 (f32) and K3, K2's split and
+# sum kernels, K5's split kernel
+NO_SPILL = ("wgmma", "masked_gemv", "masked_gemm_", "masked_dx_",
+            "decode_split_")
 
 
 def phase_build() -> None:
@@ -327,13 +337,15 @@ def phase_kernels(torch, timer) -> dict:
                     "bound_ms": bound, "bound_by": "bytes",
                     "library_ms": lib_ms}
 
-    # K1 masked_matmul: the FFN up/gate products at decode (M = slots)
+    # K1 masked_matmul: the FFN up/gate products at decode (M = slots); every
+    # block kept is serving's mask (FedAP at rate 0.5 prunes no whole block)
     kdim, n = 2048, 8192
     nb = n // 128
     half = torch.zeros(nb, device="cuda")
     half[torch.randperm(nb, generator=gen, device="cuda")[: nb // 2]] = 1.0
-    masks = [("rate0.5", half), ("ones", torch.ones(nb, device="cuda")),
+    masks = [("ones", torch.ones(nb, device="cuda")), ("rate0.5", half),
              ("zeros", torch.zeros(nb, device="cuda"))]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         w = (torch.randn((kdim, n), generator=gen, device="cuda")
@@ -342,6 +354,7 @@ def phase_kernels(torch, timer) -> dict:
             x = torch.randn((m, kdim), generator=gen, device="cuda").to(dtype)
             for label, bm in masks:
                 got = k1.masked_matmul(x, w, bm)
+                again = k1.masked_matmul(x, w, bm)
                 want = ref.masked_matmul_ref(x, w, bm)
                 torch.cuda.synchronize()
                 err, rel = max_rel_err(torch, got, want)
@@ -350,28 +363,41 @@ def phase_kernels(torch, timer) -> dict:
                     f"(tol {TOL[dname]:.3e})")
                 require(rel <= TOL[dname], f"masked_matmul {label} {dname} "
                         f"M={m}: error {rel:.3e} over tolerance")
+                require(torch.equal(got, again), f"masked_matmul {label} "
+                        f"{dname} M={m}: two launches differ")
                 if label == "zeros":
                     require(float(got.float().abs().max()) == 0.0,
                             "masked_matmul: pruned blocks not exactly zero")
-                if m != 8 or label != "rate0.5":
+                if m != 8 or label == "zeros":
                     continue
-                ms = timer(lambda: k1.masked_matmul(x, w, bm))
+                splits, per = k1.decode_plan(m, kdim, n, sms)
+                ms, lib_ms = timer.turns(lambda: k1.masked_matmul(x, w, bm),
+                                         lambda: torch.matmul(x, w))
                 plain_ms = timer(lambda: ref.masked_matmul_ref(x, w, bm))
-                lib_ms = timer(lambda: torch.matmul(x, w))
                 kept = int((bm > 0).sum())
                 bound, by = _mm_bound("fwd", m, kdim, n, kept,
                                       x.element_size(), dname)
-                log(f"[kernels] masked_matmul {dname} kept {kept}/{nb} blocks: "
-                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, dense "
-                    f"matmul {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
-                if dtype == torch.bfloat16:
+                log(f"[kernels] masked_matmul {dname} M={m} kept {kept}/{nb} "
+                    f"blocks: {splits} splits of {per * k1.GV_BK} rows, grid "
+                    f"({n // k1.GV_COLS}, {splits}) x 256 threads; kernel "
+                    f"{ms:.4f} ms ({x.element_size() * kdim * 128 * kept / ms / 1e9:.2f}"
+                    f" TB/s of w), plain {plain_ms:.4f} ms, torch.matmul "
+                    f"(all blocks) {lib_ms:.4f} ms ({ms / lib_ms:.3f}x), "
+                    f"bound {bound:.4f} ms ({by})")
+                if dtype != torch.bfloat16:
+                    continue
+                rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound, "bound_by": by,
+                       "library_ms": lib_ms}
+                if label == "ones":
                     records["masked_matmul"] = {
                         "name": "masked_matmul", "route": "cuda",
                         "source": "src/repro_torch/kernels/csrc/masked_matmul.cu",
                         "replaces": "src/repro/kernels/masked_matmul.py:122",
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound, "bound_by": by,
-                        "library_ms": lib_ms}
+                        **rec}
+                else:
+                    records["masked_matmul"].update(
+                        {f"half_{k}": v for k, v in rec.items()})
     for name, rec in _training_kernels(torch, timer, gen).items():
         records.setdefault(name, {}).update(rec)
     records["masked_matmul"].update(_scoring_k1(torch, timer, gen))
@@ -505,9 +531,8 @@ def _training_kernels(torch, timer, gen) -> dict:
                     if label == "zeros":
                         require(float(got.float().abs().max()) == 0.0,
                                 f"{name}: pruned blocks not exactly zero")
-                    if kind == "dx":
-                        require(torch.equal(got, fn(a, b, bm)), f"{name} "
-                                f"{label} {dname} M={m}: two launches differ")
+                    require(torch.equal(got, fn(a, b, bm)), f"{name} {label} "
+                            f"{dname} M={m}: two launches differ")
                     if m != TRAIN_M or label not in ("ones", "rate0.5"):
                         continue
                     if kind == "dx":
@@ -1080,6 +1105,7 @@ def phase_serving(torch) -> dict:
               "model_config": cfg}
     launches = {"decode_attention": 0, "masked_matmul": 0}
     tokens_by_mode = {}
+    kernel_ms = {}
     for mode in ("dense", "masked", "shrunk"):
         src = source if mode != "dense" else {**source, "kept": None}
         sv = load_servable(src, mode, device="cuda")
@@ -1122,7 +1148,7 @@ def phase_serving(torch) -> dict:
         launches["decode_attention"] += n5
         launches["masked_matmul"] += n1
         tokens_by_mode[mode] = [c.tokens for c in done]
-        _profile_wave(torch, mode, sv, scfg, prompts)
+        kernel_ms[mode] = _profile_wave(torch, mode, sv, scfg, prompts)
         if mode == "masked":
             _sync_free_wave(torch, sv, scfg, prompts)
         del sv, eng
@@ -1130,6 +1156,12 @@ def phase_serving(torch) -> dict:
                                                    tokens_by_mode["shrunk"])])
     log(f"[serving] masked and shrunk agree on {100 * same:.1f}% of tokens "
         f"(bf16 rounding differs between the two products)")
+    for mode, ms in kernel_ms.items():
+        log(f"[profile] kernel time per step: {mode} "
+            + ("not measured" if ms is None else f"{ms:.3f} ms")
+            + (f" ({100 * (ms / kernel_ms['dense'] - 1):+.1f}% against dense)"
+               if ms is not None and kernel_ms["dense"] and mode != "dense"
+               else ""))
     return launches
 
 
@@ -1146,10 +1178,11 @@ def _full_engine(torch, sv, scfg, prompts):
     return eng
 
 
-def _profile_wave(torch, mode, sv, scfg, prompts) -> None:
+def _profile_wave(torch, mode, sv, scfg, prompts):
     """Where a decode step's time goes: the host-clock time of one wave
     (no profiler), and the device time of the kernels of another wave under
-    torch.profiler — their ratio is the device's busy share."""
+    torch.profiler — their ratio is the device's busy share.  Returns the
+    kernel ms per step, or None where the profiler saw no kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     eng = _full_engine(torch, sv, scfg, prompts)
@@ -1170,17 +1203,18 @@ def _profile_wave(torch, mode, sv, scfg, prompts) -> None:
         log(f"[profile] {mode}: wave {wall_ms:.3f} ms/step on the host "
             f"clock; device time not measured (the profiler saw no CUDA "
             f"kernels)")
-        return
+        return None
     busy = 100 * dev_ms / wall_ms
     log(f"[profile] {mode}: wave {wall_ms:.3f} ms/step on the host clock, "
         f"kernels {dev_ms:.3f} ms/step on the device -> busy {busy:.1f}%, "
         f"idle {100 - busy:.1f}%")
     n = scfg.steps_per_wave
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
-    k5_kernels = [e for e in ranked[6:] if "decode_" in e.key]
-    for e in ranked[:6] + k5_kernels:
+    own = [e for e in ranked[6:] if "decode_" in e.key or "masked_" in e.key]
+    for e in ranked[:6] + own:
         log(f"[profile] {mode}:   {e.self_device_time_total / 1e3 / n:8.4f} "
             f"ms/step  {e.count // n:4d}/step  {e.key[:90]}")
+    return dev_ms
 
 
 def _sync_free_wave(torch, sv, scfg, prompts) -> None:

@@ -36,7 +36,10 @@ SIGNATURES = {
                          [_P] * 7 + [_I] * 7 + [_F, _P]),
     "decode_attention_layout": ("decode_attention",
                                 "decode_attention_layout_check", [_I] * 6),
-    "masked_matmul": ("masked_matmul", "masked_matmul_launch", _MM_ARGS),
+    "masked_matmul": ("masked_matmul", "masked_matmul_launch",
+                      [_P] * 5 + [_I] * 4 + [_P]),
+    "masked_matmul_decode_splits": ("masked_matmul",
+                                    "masked_matmul_decode_splits", [_I] * 4),
     "masked_matmul_dx": ("masked_matmul", "masked_matmul_dx_launch",
                          [_P] * 5 + [_I] * 7 + [_P]),
     "masked_matmul_dw": ("masked_matmul", "masked_matmul_dw_launch",

@@ -18,10 +18,30 @@
 //   K3: pruned column blocks of dw are written as exact zeros; x and dy are
 //       not read for them.
 //
-// What bounds them on an H100, and the three bodies below.
+// What bounds them on an H100, and the bodies below.
 //   * K1 at decode (M = serving slots, <= 64), either type: bytes.  Each w
-//     element read feeds at most M multiply-adds, so the decode tile streams
-//     the kept blocks of w once and keeps many 16-byte loads in flight.
+//     element read feeds at most M multiply-adds, so the best the kernel can
+//     do is read the kept blocks of w once at the memory's rate.  The decode
+//     body is a streaming split-K GEMV: a block owns 64 columns (half a mask
+//     block) and one of `splits` shares of the contraction, with `splits` a
+//     function of the shapes and the SM count only, never of the mask (5 at
+//     K = 2048, N = 8192 on 132 SMs: 640 blocks with every block kept, 320
+//     with half kept, at least 2 per SM either way).  The block's w slice
+//     streams through a ring of 32-row stages in shared memory filled by
+//     16-byte cp.async, the next stages in flight while one is used (6
+//     stages of bf16, 3 of f32).  In bf16 the products run on the tensor
+//     cores (mma.sync m16n8k16, bf16 operands, f32 sums; x staged once by
+//     cp.async as bf16): with f32 FMAs, the issue time of 8 multiply-adds
+//     per 2 bytes read did not overlap the stream.  In f32
+//     (4 per 4 bytes) the body is SIMT, x staged once as f32 with 16-byte
+//     loads.  The warps' sums meet in shared memory in a fixed order.  With
+//     more than one split each block writes an f32 partial to a workspace,
+//     and the last block of a column tile to arrive (an arrival counter,
+//     left at zero for the next call) sums the partials in split order and
+//     writes y: no atomic add of a partial sum, bitwise reproducible, no
+//     allocation and no host sync per call.  What is left is the read
+//     itself: under chip_smoke.py's timer (L2 flushed by a write) a bare
+//     read of the same bytes takes ~2x the byte bound (PERF.md).
 //   * K1 in bf16 at M > 64 (masked scoring: M = 8192, K = 2048, N = 8192):
 //     operations, 2*M*K*N_kept flops over 2 bytes per element is ~2700
 //     flops per byte, far above the ~295 at which 989 TFLOP/s of bf16
@@ -42,13 +62,19 @@
 //     N = 8192; K3 also in bf16): operations.  2*M*K*N_kept flops over
 //     (M*K + K*N + M*N) elements is ~230 flops per f32 element, above the
 //     20 flops per byte at which 67 TFLOP/s of f32 (no TF32: the products
-//     are held to f32) meets 3.35 TB/s.  The tiled body below is a SIMT f32
-//     GEMM: a 128x128 (or 64x64, when that gives too few blocks to fill 132
-//     SMs) output tile per 256-thread block, 8x8 (or 4x4) outputs per
-//     thread in registers, the A and B tiles staged through a two-stage
-//     shared-memory ring with the next tile's global loads in flight while
-//     the current one is used.  Tensor cores are not used: TF32 would round
-//     the f32 operands.
+//     are held to f32) meets 3.35 TB/s.  The GEMM body below is a SIMT f32
+//     GEMM with 256x128 output tiles and 8x16 sums per thread, both operands
+//     MN-major (K3's x^T and dy, K1's w; K1's x is first transposed by a
+//     small launch, as the body read it K-major more slowly), streamed
+//     untransposed into [k][m] rows through a 2-stage cp.async ring of
+//     64-deep stages and read with 16-byte loads.  Rows past P or R are
+//     zero-filled; C is stored 16 bytes at a time.  The grid is persistent,
+//     one block per SM, each block taking kept tiles by rank so that
+//     pruning shortens every walk alike, and the ring runs on across tile
+//     boundaries, so a tile's stores overlap the next tile's first loads:
+//     that hides the fill and drain of K3's short (512-deep) contraction
+//     over its 512 tiles.  Tensor cores are not used: TF32 would round the
+//     f32 operands.
 //   * K2 (training: dx [512, 2048] from a contraction over N = 8192; also
 //     bf16): operations, as K1 in f32.  Its long dimension is the
 //     contraction and its output is small: 32 tiles of 256x128 for 132 SMs.
@@ -74,166 +100,10 @@
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// K1 decode tile (M <= 64): one thread block per (8-row M tile, 32-column
-// slice of a 128-column block); a pruned block's slices exit after writing
-// zeros.  256 threads = 64 K-groups x 4 column groups; each thread owns 8
-// columns and reads 8 rows of w per 512-deep K chunk as 16-byte vectors, all
-// in flight before any is used; the x chunk [8, 512] is staged in shared
-// memory as f32.  Partial sums over the K-groups are reduced with warp
-// shuffles and then across the 8 warps in shared memory.  An M tile re-reads
-// w, so larger M goes to the tiled body further down.
-// ---------------------------------------------------------------------------
-
-constexpr int kBM = 8;                  // rows of x per block
 constexpr int kBlockN = 128;            // mask granularity (columns)
-constexpr int kCW = 32;                 // columns per block
-constexpr int kVec = 8;                 // columns per thread
-constexpr int kTPR = kCW / kVec;        // threads across one row slice (4)
-constexpr int kThreads = 256;
-constexpr int kKG = kThreads / kTPR;    // K-groups (64)
-constexpr int kKC = 512;                // K chunk staged in shared memory
-constexpr int kRows = kKC / kKG;        // w rows per thread per chunk (8)
-constexpr int kWarps = kThreads / 32;
 
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int kU4 = 2;         // 8 floats = 2 x 16 bytes
-  __device__ static void unpack(const uint4* u, float* f) {
-    const float4 a = *reinterpret_cast<const float4*>(&u[0]);
-    const float4 b = *reinterpret_cast<const float4*>(&u[1]);
-    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int kU4 = 1;         // 8 bf16 = 16 bytes
-  __device__ static void unpack(const uint4* u, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  }
-};
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-masked_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                     const float* __restrict__ block_mask, T* __restrict__ y,
-                     int M, int K, int N) {
-  const int m0 = blockIdx.x * kBM;
-  const int col0 = blockIdx.y * kCW;
-  const int tid = threadIdx.x;
-
-  if (!(block_mask[col0 / kBlockN] > 0.f)) {  // pruned (NaN counts as pruned)
-    for (int i = tid; i < kBM * kCW; i += kThreads) {
-      const int r = i / kCW, c = i % kCW;
-      if (m0 + r < M) store(y + static_cast<size_t>(m0 + r) * N + col0 + c, 0.f);
-    }
-    return;
-  }
-
-  __shared__ float xs[kBM][kKC];
-  __shared__ float red[kWarps][kBM][kCW];
-
-  const int cg = tid % kTPR;
-  const int kg = tid / kTPR;
-  const int c0 = col0 + cg * kVec;
-  constexpr int kU4 = Vec<T>::kU4;
-
-  float acc[kBM][kVec];
-#pragma unroll
-  for (int r = 0; r < kBM; ++r)
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) acc[r][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kKC) {
-    const int kn = min(kKC, K - k0);
-    __syncthreads();  // previous chunk of xs consumed
-    for (int i = tid; i < kBM * kKC; i += kThreads) {
-      const int r = i / kKC, kk = i % kKC;
-      xs[r][kk] = (m0 + r < M && kk < kn)
-                      ? to_f32(x[static_cast<size_t>(m0 + r) * K + k0 + kk]) : 0.f;
-    }
-    uint4 raw[kRows][kU4];
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      const int kk = kg + j * kKG;
-      if (kk < kn) {
-        const uint4* src = reinterpret_cast<const uint4*>(
-            w + static_cast<size_t>(k0 + kk) * N + c0);
-#pragma unroll
-        for (int u = 0; u < kU4; ++u) raw[j][u] = src[u];
-      } else {
-#pragma unroll
-        for (int u = 0; u < kU4; ++u) raw[j][u] = make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-    __syncthreads();  // xs chunk staged
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      const int kk = kg + j * kKG;
-      float wf[kVec];
-      Vec<T>::unpack(raw[j], wf);
-#pragma unroll
-      for (int r = 0; r < kBM; ++r) {
-        const float xv = xs[r][kk];
-#pragma unroll
-        for (int c = 0; c < kVec; ++c) acc[r][c] += xv * wf[c];
-      }
-    }
-  }
-
-  // lanes of one warp hold 8 K-groups of the same 4 column groups:
-  // lane = (kg % 8) * kTPR + cg, so xor over lane bits 2..4 sums them
-#pragma unroll
-  for (int r = 0; r < kBM; ++r)
-#pragma unroll
-    for (int c = 0; c < kVec; ++c) {
-      float s = acc[r][c];
-      s += __shfl_xor_sync(0xffffffffu, s, 4);
-      s += __shfl_xor_sync(0xffffffffu, s, 8);
-      s += __shfl_xor_sync(0xffffffffu, s, 16);
-      acc[r][c] = s;
-    }
-  const int lane = tid & 31, warp = tid >> 5;
-  if (lane < kTPR) {
-#pragma unroll
-    for (int r = 0; r < kBM; ++r)
-#pragma unroll
-      for (int c = 0; c < kVec; ++c) red[warp][r][cg * kVec + c] = acc[r][c];
-  }
-  __syncthreads();
-  for (int i = tid; i < kBM * kCW; i += kThreads) {
-    const int r = i / kCW, c = i % kCW;
-    float s = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) s += red[wi][r][c];
-    if (m0 + r < M) store(y + static_cast<size_t>(m0 + r) * N + col0 + c, s);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The tiled body shared by K1 (f32, M > 64) and K3:
-//   C[P,Q] = sum_r A(p,r) B(r,q), C row-major,
-// where A(p,r) is a[p*lda + r] (kATrans false) or a[r*lda + p] (true), and
-// B(r,q) is b[r*ldb + q] (kBTrans false) or b[q*ldb + r] (true).  The mask
-// gates 128-column blocks of C: a pruned tile writes zeros and reads nothing.
-// Ragged sizes: only P (K1: M) and R (K3: M) may be any size; the launcher
-// checks the other alignments.
-// ---------------------------------------------------------------------------
-
-constexpr int kTK = 8;                  // contraction depth of one stage
-
-template <typename T, int E> struct Load;   // E consecutive elements -> f32
+// E consecutive elements (global or shared memory) -> f32
+template <typename T, int E> struct Load;
 template <> struct Load<float, 4> {
   __device__ static void run(const float* p, float* r) {
     const float4 v = *reinterpret_cast<const float4*>(p);
@@ -261,144 +131,678 @@ template <> struct Load<__nv_bfloat16, 2> {
   }
 };
 
-template <int H> struct Lds;                // H consecutive floats of smem
-template <> struct Lds<4> {
-  __device__ static void run(const float* p, float* r) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    r[0] = v.x; r[1] = v.y; r[2] = v.z; r[3] = v.w;
-  }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = hopper::pack_bf16(a, b);
+}
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(hopper::pack_bf16(v[0], v[1]), hopper::pack_bf16(v[2], v[3]));
+}
+
+// 16-byte global -> shared copy, zero-filled (nothing read) when !valid.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// K1 at decode (M <= 64): the streaming split-K GEMV (see the notes at the
+// top).  Grid (N/64, splits): block (x, y) owns columns [64x, 64x + 64) and
+// ring stages [y*per, min((y+1)*per, K/32)) of the contraction (a stage is
+// 32 rows of w), for 8*MT staged rows of x (rows past M are zeros).  Only
+// split 0 of a pruned column tile writes its zeros; no block of it reads
+// anything.  Two bodies share the schedule, the ring and the merge:
+//   bf16: tensor cores.  The stage's w and the block's x stay bf16 in
+//     shared memory (both copied by cp.async, rows padded by 16 bytes so
+//     that ldmatrix reads them without bank conflicts).  Warp wp takes
+//     columns 16*(wp%4).. and contraction rows 16*(wp/4).. of each stage:
+//     one ldmatrix.x4.trans gives it w^T as the A operand of
+//     mma.m16n8k16 (16 columns x 16 k), one ldmatrix.x2 per 8 rows of x
+//     the B operand, and the f32 sums stay in the accumulator.  Products
+//     of bf16 are exact in f32, so this differs from f32 FMAs only in how
+//     the additions round.
+//   f32: SIMT.  x is staged as f32 [k][8*MT], so that two 16-byte shared
+//     loads give the whole warp 8 rows of x at one k; warp wp, lane l sums
+//     rows wp + 8j (j < 4) of each stage into columns 2l and 2l + 1.
+// The warps' sums meet in shared memory in warp order; with more than one
+// split each block writes an f32 partial, and the last of the column
+// tile's splits to arrive adds them in split order and writes y.
+// ---------------------------------------------------------------------------
+
+constexpr int kGvCols = 64;             // columns of w a block
+constexpr int kGvBK = 32;               // rows of w a ring stage
+constexpr int kGvThreads = 256;
+constexpr int kGvXBytes = 65536;        // the most staged x a block holds (as f32)
+constexpr int kDecodeMaxM = 64;         // K1 runs this body up to here
+constexpr int kGvRedLd = kGvCols + 4;   // row pitch of the warp sums (floats)
+
+template <typename T> struct GvTile;
+template <> struct GvTile<float> {
+  static constexpr int kLdW = kGvCols;                          // w row pitch
+  static constexpr int kStages = 3;                              // 24 KB
 };
-template <> struct Lds<2> {
-  __device__ static void run(const float* p, float* r) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    r[0] = v.x; r[1] = v.y;
-  }
+template <> struct GvTile<__nv_bfloat16> {
+  static constexpr int kLdW = kGvCols + 8;                       // +16 bytes
+  static constexpr int kStages = 6;                              // 27 KB
+};
+template <typename T> struct GvRing {
+  static constexpr int kStage = kGvBK * GvTile<T>::kLdW;        // elements
+  static constexpr int kBytes = GvTile<T>::kStages * kStage * static_cast<int>(sizeof(T));
+  static constexpr int kVec = 16 / sizeof(T);                    // elements a copy
+  static constexpr int kRowCopies = kGvCols / kVec;              // copies a w row
+  static constexpr int kStep = kGvThreads / kRowCopies;          // rows between a thread's copies
+  static constexpr int kCopies = kGvBK / kStep;                  // a thread's copies a stage
 };
 
-template <typename T, int TM, bool kATrans, bool kBTrans>
-__global__ void __launch_bounds__(kThreads)
-tiled_kernel(const T* __restrict__ a, const T* __restrict__ b,
-             const float* __restrict__ mask, T* __restrict__ c,
-             int P, int Q, int R, int lda, int ldb) {
-  constexpr int BT = 16 * TM;           // output tile edge (128 or 64)
-  constexpr int H = TM / 2;             // outputs per thread per half-tile
-  constexpr int E = BT * kTK / kThreads;  // elements a thread loads per operand
-  __shared__ __align__(16) float As[2][kTK][BT];
-  __shared__ __align__(16) float Bs[2][kTK][BT];
+struct GvPlan {
+  int mt;      // 8-row groups of x staged (1, 2, 4 or 8)
+  int splits;  // shares of the contraction
+  int per;     // ring stages a share (the last one may have fewer)
+};
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * BT;
-  const int p0 = blockIdx.y * BT;
+// The decode body's schedule, from the shapes and the SM count only: the
+// K/32 ring stages are cut into splits of `per` stages, as deep as lets 4
+// blocks run per SM with every column block kept (so 2 with half kept),
+// shallower where a split's staged x would pass kGvXBytes.
+// masked_matmul.decode_plan is its copy on the host.
+inline GvPlan gv_plan(int M, int K, int N, int sms) {
+  GvPlan g;
+  g.mt = M <= 8 ? 1 : M <= 16 ? 2 : M <= 32 ? 4 : 8;
+  const int stages = K / kGvBK;
+  const int tiles = N / kGvCols;
+  const int cap = kGvXBytes / (kGvBK * 8 * g.mt * 4);   // stages whose x fits
+  int want = (4 * sms + tiles - 1) / tiles;
+  const int need = (stages + cap - 1) / cap;
+  if (want < need) want = need;
+  if (want > stages) want = stages;
+  if (want < 1) want = 1;
+  g.per = (stages + want - 1) / want;
+  g.splits = (stages + g.per - 1) / g.per;
+  return g;
+}
 
-  if (!(mask[q0 / kBlockN] > 0.f)) {   // pruned output block
-    for (int i = tid; i < BT * BT; i += kThreads) {
-      const int r = i / BT, col = i % BT;
-      if (p0 + r < P) store(c + static_cast<size_t>(p0 + r) * Q + q0 + col, 0.f);
-    }
-    return;
+// int32 arrival counters at the head of the workspace (one a column tile,
+// rounded up to 16 bytes); the f32 partials [splits][M][N] follow.
+inline int gv_counters(int N) { return (N / kGvCols + 3) / 4 * 4; }
+
+// Shared memory of a decode block: the ring, then x (bf16 [8*MT][kc + 8],
+// or f32 [kc][8*MT]), kc = 32*per.
+template <typename T>
+size_t gv_smem(int mt, int per) {
+  const size_t kc = static_cast<size_t>(per) * kGvBK;
+  const size_t x = std::is_same<T, float>::value ? kc * 8 * mt * sizeof(float)
+                                                 : 8 * mt * (kc + 8) * sizeof(T);
+  return GvRing<T>::kBytes + x;
+}
+
+// A stage's w copies: rows lrow + n * kStep of the block's 64 columns.
+template <typename T>
+__device__ __forceinline__ void gv_load(T* ring, const T* src, int t, int N, int lrow,
+                                        int lcol) {
+  using R = GvRing<T>;
+  T* dst = ring + (t % GvTile<T>::kStages) * R::kStage + lrow * GvTile<T>::kLdW + lcol;
+  const T* s = src + static_cast<size_t>(t) * kGvBK * N;
+#pragma unroll
+  for (int n = 0; n < R::kCopies; ++n)
+    cp_async16(dst + n * R::kStep * GvTile<T>::kLdW, s + static_cast<size_t>(n) * R::kStep * N,
+               true);
+}
+
+// The block's sum s for row m of x, columns col0 + rc, rc + 1: to y (one
+// split) or to this split's partial.
+template <typename T>
+__device__ __forceinline__ void gv_emit(float2 s, T* y, float* part, int M, int N, int col0,
+                                        int m, int rc, int split, int splits) {
+  if (m >= M) return;
+  const size_t at = static_cast<size_t>(m) * N + col0 + rc;
+  if (splits == 1)
+    store2(y + at, s.x, s.y);
+  else
+    *reinterpret_cast<float2*>(part + static_cast<size_t>(split) * M * N + at) = s;
+}
+
+// Count this split in; the last of the column tile's splits to arrive adds
+// their partials in split order and writes y.  The arrival is a release
+// (after the block's barrier) and an acquire for the last block, so the
+// partials it reads are the others' finished ones; it resets the counter.
+template <typename T>
+__device__ __forceinline__ void gv_merge(const float* part, int* arrivals, T* y, int M, int N,
+                                         int col0, int tile, int splits, int tid, int* last) {
+  __syncthreads();                             // this block's partial is written
+  if (tid == 0) {
+    int old;
+    asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;\n"
+                 : "=r"(old) : "l"(arrivals + tile) : "memory");
+    *last = old == splits - 1;
+    if (*last) arrivals[tile] = 0;             // every split of the tile has arrived
   }
-
-  // where this thread's loads land: (row, col) within the stage's tile
-  // non-transposed A / transposed B: BT rows of kTK contiguous elements
-  constexpr int kRowThreads = kTK / E;
-  const int ld_row = tid / kRowThreads, ld_col = (tid % kRowThreads) * E;
-  // transposed A / non-transposed B: kTK rows of BT contiguous elements
-  constexpr int kColThreads = BT / E;
-  const int st_row = tid / kColThreads, st_col = (tid % kColThreads) * E;
-
-  float ra[E], rb[E];
-  auto load = [&](int r0) {
-    if (!kATrans) {
-      const int p = p0 + ld_row;
-      if (p < P) Load<T, E>::run(a + static_cast<size_t>(p) * lda + r0 + ld_col, ra);
-      else for (int e = 0; e < E; ++e) ra[e] = 0.f;
-    } else {
-      const int r = r0 + st_row;
-      if (r < R) Load<T, E>::run(a + static_cast<size_t>(r) * lda + p0 + st_col, ra);
-      else for (int e = 0; e < E; ++e) ra[e] = 0.f;
-    }
-    if (!kBTrans) {
-      const int r = r0 + st_row;
-      if (r < R) Load<T, E>::run(b + static_cast<size_t>(r) * ldb + q0 + st_col, rb);
-      else for (int e = 0; e < E; ++e) rb[e] = 0.f;
-    } else {
-      const int q = q0 + ld_row;
-      if (q < Q) Load<T, E>::run(b + static_cast<size_t>(q) * ldb + r0 + ld_col, rb);
-      else for (int e = 0; e < E; ++e) rb[e] = 0.f;
-    }
-  };
-  auto stash = [&](int buf) {
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      if (!kATrans) As[buf][ld_col + e][ld_row] = ra[e];
-      else As[buf][st_row][st_col + e] = ra[e];
-      if (!kBTrans) Bs[buf][st_row][st_col + e] = rb[e];
-      else Bs[buf][ld_col + e][ld_row] = rb[e];
-    }
-  };
-
-  float acc[TM][TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TM; ++j) acc[i][j] = 0.f;
-
-  load(0);                              // R > 0: the launcher checks M
-  stash(0);
   __syncthreads();
-  int buf = 0;
-  for (int r0 = 0; r0 < R; r0 += kTK) {
-    const int rn = r0 + kTK;
-    if (rn < R) load(rn);               // next stage's loads in flight
-#pragma unroll
-    for (int k = 0; k < kTK; ++k) {
-      float av[TM], bv[TM];
-      Lds<H>::run(&As[buf][k][ty * H], av);
-      Lds<H>::run(&As[buf][k][BT / 2 + ty * H], av + H);
-      Lds<H>::run(&Bs[buf][k][tx * H], bv);
-      Lds<H>::run(&Bs[buf][k][BT / 2 + tx * H], bv + H);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TM; ++j) acc[i][j] += av[i] * bv[j];
+  if (!*last) return;
+  for (int i = tid; i < M * (kGvCols / 2); i += kGvThreads) {
+    const size_t at = static_cast<size_t>(i / (kGvCols / 2)) * N + col0 + 2 * (i % (kGvCols / 2));
+    float2 s = __ldcg(reinterpret_cast<const float2*>(part + at));
+    for (int sp = 1; sp < splits; ++sp) {
+      const float2 o =
+          __ldcg(reinterpret_cast<const float2*>(part + static_cast<size_t>(sp) * M * N + at));
+      s.x += o.x;
+      s.y += o.y;
     }
-    if (rn < R) stash(buf ^ 1);
-    __syncthreads();
-    buf ^= 1;
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int p = p0 + (i < H ? ty * H + i : BT / 2 + ty * H + i - H);
-    if (p >= P) continue;
-#pragma unroll
-    for (int j = 0; j < TM; ++j) {
-      const int q = q0 + (j < H ? tx * H + j : BT / 2 + tx * H + j - H);
-      store(c + static_cast<size_t>(p) * Q + q, acc[i][j]);
-    }
+    store2(y + at, s.x, s.y);
   }
 }
 
-// 128x128 tiles when they give at least one block per SM, else 64x64.
-constexpr int kNumSMs = 132;
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s) : "memory");
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(s) : "memory");
+}
+// d[16 x 8] += a[16 x 16] b[16 x 8], bf16 operands, f32 sums.
+__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
-template <typename T, bool kATrans, bool kBTrans>
-int launch_tiled(const void* a, const void* b, const void* mask, void* c,
-                 int P, int Q, int R, int lda, int ldb, cudaStream_t stream) {
-  const long big_tiles = static_cast<long>(Q / 128) * ((P + 127) / 128);
-  if (big_tiles >= kNumSMs) {
-    const dim3 grid(Q / 128, (P + 127) / 128);
-    tiled_kernel<T, 8, kATrans, kBTrans><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(a), static_cast<const T*>(b),
-        static_cast<const float*>(mask), static_cast<T*>(c), P, Q, R, lda, ldb);
+template <int MT>
+__global__ void __launch_bounds__(kGvThreads, MT <= 2 ? 5 : 2)
+masked_gemv_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                      const float* __restrict__ block_mask, __nv_bfloat16* __restrict__ y,
+                      float* __restrict__ part, int* __restrict__ arrivals, int M, int K, int N,
+                      int per) {
+  using T = __nv_bfloat16;
+  using R = GvRing<T>;
+  constexpr int NS = GvTile<T>::kStages;
+  constexpr int LDW = GvTile<T>::kLdW;
+  extern __shared__ __align__(16) unsigned char gv_smem_raw[];
+  T* ring = reinterpret_cast<T*>(gv_smem_raw);
+  T* xs = reinterpret_cast<T*>(gv_smem_raw + R::kBytes);
+  __shared__ int last;
+
+  const int tid = threadIdx.x, lane = tid % 32, wp = tid / 32;
+  const int tile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
+  const int col0 = tile * kGvCols;
+
+  if (!(block_mask[col0 / kBlockN] > 0.f)) {    // pruned (NaN counts as pruned)
+    if (split == 0)
+      for (int i = tid; i < M * (kGvCols / 2); i += kGvThreads)
+        store2(y + static_cast<size_t>(i / (kGvCols / 2)) * N + col0 + 2 * (i % (kGvCols / 2)),
+               0.f, 0.f);
+    return;
+  }
+
+  const int s0 = split * per;
+  const int nst = min(per, K / kGvBK - s0);    // ring stages of this split (>= 1)
+  const int k0 = s0 * kGvBK;
+  const int kc = nst * kGvBK;
+  const int ldx = per * kGvBK + 8;             // x row pitch (elements)
+
+  // x[:, k0 : k0 + kc] as bf16 rows, zero rows past M: part of group 0
+  for (int i = tid; i < 8 * MT * (kc / 8); i += kGvThreads) {
+    const int m = i / (kc / 8), v = i % (kc / 8);
+    const bool ok = m < M;
+    cp_async16(xs + m * ldx + 8 * v, ok ? x + static_cast<size_t>(m) * K + k0 + 8 * v : x, ok);
+  }
+  const int lrow = tid / R::kRowCopies, lcol = (tid % R::kRowCopies) * R::kVec;
+  const T* src = w + static_cast<size_t>(k0 + lrow) * N + col0 + lcol;
+#pragma unroll
+  for (int t = 0; t < NS - 1; ++t) {
+    if (t < nst) gv_load(ring, src, t, N, lrow, lcol);
+    cp_async_commit();
+  }
+
+  // warp wp: columns 16*cg.., contraction rows 16*ks.. of each stage
+  const int cg = wp % 4, ks = wp / 4;
+  const int lr = lane % 8, lj = lane / 8;
+  // ldmatrix row addresses: A (w^T) matrix lj = (k half lj/2, column half lj%2)
+  const int a_off = (16 * ks + lr + 8 * (lj / 2)) * LDW + 16 * cg + 8 * (lj % 2);
+  // B (x^T) matrix lj%2 = k half, row lr of x (lanes 16.. repeat 0..15)
+  const int b_off = lr * ldx + 16 * ks + 8 * (lj % 2);
+  float acc[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.f;
+
+  for (int t = 0; t < nst; ++t) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();                           // stage t (and x) landed; stage t-1 consumed
+    if (t + NS - 1 < nst) gv_load(ring, src, t + NS - 1, N, lrow, lcol);
+    cp_async_commit();
+    uint32_t a[4];
+    ldsm_x4_trans(a, ring + (t % NS) * R::kStage + a_off);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      uint32_t b[2];
+      ldsm_x2(b, xs + 8 * mt * ldx + b_off + t * kGvBK);
+      mma_bf16_16816(acc[mt], a, b);
+    }
+  }
+  cp_async_wait<0>();
+
+  // acc[mt]: (column 16cg + g (+8), row 8mt + 2t4 (+1)) with g = lane/4,
+  // t4 = lane%4; the two k halves' warps add in order through red
+  float* red = reinterpret_cast<float*>(gv_smem_raw);    // [2][8][kGvRedLd]
+  const int g = lane / 4, t4 = lane % 4;
+  const int rr = tid / 32, rc = 2 * (tid % 32);          // this thread's sum: row rr, 2 columns
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    __syncthreads();                           // the ring (or the last group) is read
+    float* r = red + ks * 8 * kGvRedLd + 16 * cg + g;
+    r[(2 * t4) * kGvRedLd] = acc[mt][0];
+    r[(2 * t4 + 1) * kGvRedLd] = acc[mt][1];
+    r[(2 * t4) * kGvRedLd + 8] = acc[mt][2];
+    r[(2 * t4 + 1) * kGvRedLd + 8] = acc[mt][3];
+    __syncthreads();
+    float2 s = *reinterpret_cast<const float2*>(red + rr * kGvRedLd + rc);
+    const float2 o = *reinterpret_cast<const float2*>(red + (8 + rr) * kGvRedLd + rc);
+    s.x += o.x;
+    s.y += o.y;
+    gv_emit(s, y, part, M, N, col0, 8 * mt + rr, rc, split, splits);
+  }
+  if (splits > 1) gv_merge(part, arrivals, y, M, N, col0, tile, splits, tid, &last);
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kGvThreads, MT == 1 ? 5 : MT == 2 ? 3 : MT == 4 ? 2 : 1)
+masked_gemv_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ block_mask, float* __restrict__ y,
+                   float* __restrict__ part, int* __restrict__ arrivals, int M, int K, int N,
+                   int per) {
+  using T = float;
+  using R = GvRing<T>;
+  constexpr int XS = 8 * MT;                   // rows of x staged (floats a k)
+  constexpr int NS = GvTile<T>::kStages;
+  extern __shared__ __align__(16) unsigned char gv_smem_raw[];
+  T* ring = reinterpret_cast<T*>(gv_smem_raw);
+  float* xs = reinterpret_cast<float*>(gv_smem_raw + R::kBytes);
+  __shared__ int last;
+
+  const int tid = threadIdx.x, lane = tid % 32, wp = tid / 32;
+  const int tile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
+  const int col0 = tile * kGvCols;
+
+  if (!(block_mask[col0 / kBlockN] > 0.f)) {    // pruned (NaN counts as pruned)
+    if (split == 0)
+      for (int i = tid; i < M * (kGvCols / 2); i += kGvThreads)
+        store2(y + static_cast<size_t>(i / (kGvCols / 2)) * N + col0 + 2 * (i % (kGvCols / 2)),
+               0.f, 0.f);
+    return;
+  }
+
+  const int s0 = split * per;
+  const int nst = min(per, K / kGvBK - s0);    // ring stages of this split (>= 1)
+  const int k0 = s0 * kGvBK;
+
+  const int lrow = tid / R::kRowCopies, lcol = (tid % R::kRowCopies) * R::kVec;
+  const T* src = w + static_cast<size_t>(k0 + lrow) * N + col0 + lcol;
+#pragma unroll
+  for (int t = 0; t < NS - 1; ++t) {
+    if (t < nst) gv_load(ring, src, t, N, lrow, lcol);
+    cp_async_commit();
+  }
+
+  // x[:, k0 : k0 + 32*nst] -> xs[k][m] with 16-byte loads, while the first
+  // stages of w are in flight
+  const int vecs = nst * kGvBK / 4;            // 16-byte vectors of one x row
+  for (int i = tid; i < XS * vecs; i += kGvThreads) {
+    const int m = i % XS, v = i / XS;
+    float f[4] = {0.f, 0.f, 0.f, 0.f};
+    if (m < M) Load<float, 4>::run(x + static_cast<size_t>(m) * K + k0 + 4 * v, f);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) xs[(4 * v + e) * XS + m] = f[e];
+  }
+
+  float acc[MT][8][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[mt][i][0] = acc[mt][i][1] = 0.f;
+
+  for (int t = 0; t < nst; ++t) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();                           // stage t (and x) landed; stage t-1 consumed
+    if (t + NS - 1 < nst) gv_load(ring, src, t + NS - 1, N, lrow, lcol);
+    cp_async_commit();
+    const T* wt = ring + (t % NS) * R::kStage + 2 * lane;
+    const float* xt = xs + t * kGvBK * XS;
+#pragma unroll
+    for (int j = 0; j < kGvBK / 8; ++j) {
+      const int r = wp + 8 * j;
+      float wv[2];
+      Load<T, 2>::run(wt + r * kGvCols, wv);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        float xv[8];
+        Load<float, 4>::run(xt + r * XS + 8 * mt, xv);
+        Load<float, 4>::run(xt + r * XS + 8 * mt + 4, xv + 4);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc[mt][i][0] = fmaf(xv[i], wv[0], acc[mt][i][0]);
+          acc[mt][i][1] = fmaf(xv[i], wv[1], acc[mt][i][1]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // the 8 warps' sums, 8 rows of x at a time, in warp order through the
+  // (now free) ring: red[warp][row][column]
+  float* red = reinterpret_cast<float*>(gv_smem_raw);
+  const int rr = tid / 32, rc = 2 * (tid % 32);          // this thread's sum: row rr, 2 columns
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    __syncthreads();                           // the ring (or the last group) is read
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<float2*>(red + (wp * 8 + i) * kGvRedLd + 2 * lane) =
+          make_float2(acc[mt][i][0], acc[mt][i][1]);
+    __syncthreads();
+    float2 s = *reinterpret_cast<const float2*>(red + rr * kGvRedLd + rc);
+#pragma unroll
+    for (int v = 1; v < kGvThreads / 32; ++v) {
+      const float2 o = *reinterpret_cast<const float2*>(red + (v * 8 + rr) * kGvRedLd + rc);
+      s.x += o.x;
+      s.y += o.y;
+    }
+    gv_emit(s, y, part, M, N, col0, 8 * mt + rr, rc, split, splits);
+  }
+  if (splits > 1) gv_merge(part, arrivals, y, M, N, col0, tile, splits, tid, &last);
+}
+
+template <typename T, int MT>
+int launch_gemv_mt(const void* x, const void* w, const void* mask, void* y, void* ws, int M,
+                   int K, int N, const GvPlan& g, cudaStream_t stream) {
+  const size_t smem = gv_smem<T>(MT, g.per);
+  int* arrivals = static_cast<int*>(ws);
+  float* part = ws == nullptr ? nullptr : reinterpret_cast<float*>(arrivals + gv_counters(N));
+  const dim3 grid(N / kGvCols, g.splits);
+  if constexpr (std::is_same<T, float>::value) {
+    if (smem > 48 * 1024) {
+      const int e = hopper::allow_smem(masked_gemv_kernel<MT>, smem);
+      if (e != 0) return e;
+    }
+    masked_gemv_kernel<MT><<<grid, kGvThreads, smem, stream>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w),
+        static_cast<const float*>(mask), static_cast<float*>(y), part, arrivals, M, K, N, g.per);
   } else {
-    const dim3 grid(Q / 64, (P + 63) / 64);
-    tiled_kernel<T, 4, kATrans, kBTrans><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(a), static_cast<const T*>(b),
-        static_cast<const float*>(mask), static_cast<T*>(c), P, Q, R, lda, ldb);
+    if (smem > 48 * 1024) {
+      const int e = hopper::allow_smem(masked_gemv_tc_kernel<MT>, smem);
+      if (e != 0) return e;
+    }
+    masked_gemv_tc_kernel<MT><<<grid, kGvThreads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(mask),
+        static_cast<T*>(y), part, arrivals, M, K, N, g.per);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_gemv(const void* x, const void* w, const void* mask, void* y, void* ws, int M,
+                int K, int N, cudaStream_t stream) {
+  const GvPlan g = gv_plan(M, K, N, hopper::num_sms());
+  if (g.splits > 1 && ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  switch (g.mt) {
+    case 1: return launch_gemv_mt<T, 1>(x, w, mask, y, ws, M, K, N, g, stream);
+    case 2: return launch_gemv_mt<T, 2>(x, w, mask, y, ws, M, K, N, g, stream);
+    case 4: return launch_gemv_mt<T, 4>(x, w, mask, y, ws, M, K, N, g, stream);
+    default: return launch_gemv_mt<T, 8>(x, w, mask, y, ws, M, K, N, g, stream);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The GEMM body of K1 (f32, M > 64) and K3:
+//   C[P,Q] = sum_r A(p,r) B(r,q),  A(p,r) = a[r*lda + p], B(r,q) = b[r*ldb + q],
+// C row-major: both operands MN-major (K3: x^T and dy; K1: x^T, written by
+// transpose_kernel below, and w).  256x128 tiles of C, one mask block per
+// tile column: a pruned tile writes zeros and reads nothing.  A persistent
+// grid of min(tiles, SMs) blocks, fixed by the shapes: each block ranks the
+// kept column blocks itself (warp ballots, into shared memory), and block b
+// takes the kept tiles of ranks b, b + grid, ... (kept tile r is row tile
+// r % ptiles of the (r / ptiles)-th kept column block), so pruning shortens
+// every block's walk alike.  One 2-stage cp.async ring of 64-deep stages
+// runs through all of a block's tiles, A and B copied untransposed into
+// [k][p] and [k][q] rows.  Warp w computes rows 32w.. of a tile; lane
+// 8*lr + lc the columns 4lc + 32j + e (j, e < 4) and the rows 4lr + 16h + e
+// (h < 2, e < 4): a contraction step is two 16-byte shared loads of A and
+// four of B (the 8 lanes of a quarter-warp share A's, so neither conflicts)
+// and 128 multiply-adds.  Only P (K1: M) and R (K3: M) may be ragged: rows
+// past them are zero-filled by cp.async and never stored.
+// ---------------------------------------------------------------------------
+
+constexpr int kGmRows = 256;            // C tile rows (P)
+constexpr int kGmCols = 128;            // C tile columns (Q) = one mask block
+constexpr int kGmThreads = 256;
+// Ring stage depth, stages, and contraction steps unrolled into one loop
+// body, chosen on the H100 at the training shapes (tools/mm_variants.py,
+// PERF.md): 3 stages of 32 ran slower, and unrolling the whole 64-deep
+// stage overflowed the instruction cache.  The body's speed also moves
+// with ptxas's register allocation, by several percent for edits that do
+// not change what it computes (the variant "loader_inline"): re-time K1
+// and K3 (tools/mm_ab.py) after any edit of the body.
+constexpr int kGmBK = 64;
+constexpr int kGmStages = 2;
+constexpr int kGmUnroll = 16;
+
+template <typename T> struct GmTile {
+  static constexpr int kVec = 16 / sizeof(T);                   // elements a copy
+  static constexpr int kA = kGmBK * kGmRows;                    // A elements a stage
+  static constexpr int kStage = kA + kGmBK * kGmCols;
+  static constexpr size_t kSmem = static_cast<size_t>(kGmStages) * kStage * sizeof(T);
+  static constexpr int kACpr = kGmRows / kVec;                  // copies an A row
+  static constexpr int kAStep = kGmThreads / kACpr;
+  static constexpr int kAN = kGmBK / kAStep;
+  static constexpr int kBCpr = kGmCols / kVec;                  // copies a B row
+  static constexpr int kBStep = kGmThreads / kBCpr;
+  static constexpr int kBN = kGmBK / kBStep;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kGmThreads, 1)
+masked_gemm_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                   const float* __restrict__ mask, T* __restrict__ c, int P, int Q, int R,
+                   int lda, int ldb) {
+  using Tile = GmTile<T>;
+  constexpr int BM = kGmRows, TN = 16, BK = kGmBK, NS = kGmStages, U = kGmUnroll;
+  extern __shared__ __align__(16) unsigned char gm_smem[];
+  T* ring = reinterpret_cast<T*>(gm_smem);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int lr = lane / 8, lc = lane % 8;
+  const int wrow = 32 * warp;                         // the warp tile's first row
+  const int wcol = 4 * lc;                            // + 32j + e
+  const int ptiles = (P + BM - 1) / BM;
+  const int nb = Q / kGmCols;                         // column blocks = mask entries
+  const int tiles = ptiles * nb;
+  const int nst = (R + BK - 1) / BK;                  // ring stages a tile
+
+  // kcol[c]: the c-th kept column block (NaN is pruned), ranked in parallel
+  int* kcol = reinterpret_cast<int*>(gm_smem + Tile::kSmem);
+  __shared__ int warp_kept[kGmThreads / 32];
+  int nkept = 0;
+  for (int base = 0; base < nb; base += kGmThreads) {
+    const int j = base + tid;
+    const bool keep = j < nb && mask[j] > 0.f;
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) warp_kept[warp] = __popc(ballot);
+    __syncthreads();
+    int rank = nkept + __popc(ballot & ((1u << lane) - 1u));
+    for (int w = 0; w < kGmThreads / 32; ++w) {
+      if (w < warp) rank += warp_kept[w];
+      nkept += warp_kept[w];
+    }
+    if (keep) kcol[rank] = j;
+    __syncthreads();
+  }
+
+  // the pruned tiles, round robin: zeros, 16 bytes a store, nothing read
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    if (mask[t / ptiles] > 0.f) continue;
+    const int p0 = (t % ptiles) * BM, q0 = (t / ptiles) * kGmCols;
+    const float z[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int i = tid; i < BM * kGmCols / 4; i += kGmThreads) {
+      const int p = p0 + i / (kGmCols / 4);
+      if (p < P) store4(c + static_cast<size_t>(p) * Q + q0 + 4 * (i % (kGmCols / 4)), z);
+    }
+  }
+  const int ktiles = nkept * ptiles;
+  const int mine = blockIdx.x < ktiles ? (ktiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int total = mine * nst;                       // ring stages of this block
+
+  // the producer's cursor: the next stage to load is stage ls of the kept
+  // tile of rank lt
+  int lt = blockIdx.x, ls = 0;
+  const int arow = tid / Tile::kACpr, acol = (tid % Tile::kACpr) * Tile::kVec;
+  const int brow = tid / Tile::kBCpr, bcol = (tid % Tile::kBCpr) * Tile::kVec;
+  auto load = [&](int slot) {
+    const int p0 = (lt % ptiles) * BM, q0 = kcol[lt / ptiles] * kGmCols;
+    const int r0 = ls * BK;
+    T* as = ring + slot * Tile::kStage;
+    T* bs = as + Tile::kA;
+#pragma unroll
+    for (int n = 0; n < Tile::kAN; ++n) {
+      const int row = arow + n * Tile::kAStep;
+      const int p = p0 + acol;
+      const int r = r0 + row;
+      const bool ok = p < P && r < R;
+      const T* src = a + (static_cast<size_t>(r) * lda + p);   // see kGmUnroll
+      cp_async16(as + row * BM + acol, ok ? src : a, ok);
+    }
+#pragma unroll
+    for (int n = 0; n < Tile::kBN; ++n) {
+      const int row = brow + n * Tile::kBStep;
+      const bool ok = r0 + row < R;
+      cp_async16(bs + row * kGmCols + bcol,
+                 ok ? b + static_cast<size_t>(r0 + row) * ldb + q0 + bcol : b, ok);
+    }
+    if (++ls == nst) {
+      ls = 0;
+      lt += gridDim.x;
+    }
+  };
+
+  float acc[8][TN];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < total) load(s);
+    cp_async_commit();
+  }
+  int ct = blockIdx.x, cs = 0;                        // the tile being summed, its stage
+  for (int g = 0; g < total; ++g) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();                                  // stage g landed; stage g-1 consumed
+    if (g + NS - 1 < total) load((g + NS - 1) % NS);
+    cp_async_commit();
+    const T* as = ring + (g % NS) * Tile::kStage;
+    const T* bs = as + Tile::kA + wcol;
+    const T* ap = as + wrow + 4 * lr;
+#pragma unroll 1
+    for (int k0 = 0; k0 < BK; k0 += U) {
+#pragma unroll
+      for (int k = k0; k < k0 + U; ++k) {
+        float av[8], bv[TN];
+        Load<T, 4>::run(ap + k * BM, av);
+        Load<T, 4>::run(ap + k * BM + 16, av + 4);
+#pragma unroll
+        for (int j = 0; j < TN / 4; ++j) Load<T, 4>::run(bs + k * kGmCols + 32 * j, bv + 4 * j);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+    if (++cs < nst) continue;
+    // tile ct is summed: store it (the next tile's first stages are in flight)
+    const int p0 = (ct % ptiles) * BM, q0 = kcol[ct / ptiles] * kGmCols;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int p = p0 + wrow + 4 * lr + 16 * (i / 4) + i % 4;
+      if (p < P) {
+#pragma unroll
+        for (int j = 0; j < TN / 4; ++j)
+          store4(c + static_cast<size_t>(p) * Q + q0 + wcol + 32 * j, &acc[i][4 * j]);
+      }
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    }
+    cs = 0;
+    ct += gridDim.x;
+  }
+  cp_async_wait<0>();
+}
+
+template <typename T>
+int launch_gemm(const void* a, const void* b, const void* mask, void* c, int P, int Q, int R,
+                int lda, int ldb, cudaStream_t stream) {
+  using Tile = GmTile<T>;
+  const size_t smem = Tile::kSmem + sizeof(int) * (Q / kGmCols);   // the ring, kcol
+  const int e = hopper::allow_smem(masked_gemm_kernel<T>, smem);
+  if (e != 0) return e;
+  const int tiles = ((P + kGmRows - 1) / kGmRows) * (Q / kGmCols);
+  const int grid = tiles < hopper::num_sms() ? tiles : hopper::num_sms();
+  masked_gemm_kernel<T><<<grid, kGmThreads, smem, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const float*>(mask),
+      static_cast<T*>(c), P, Q, R, lda, ldb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1 in f32 at M > 64: x [M,K] -> xt [K][ldx], ldx = M rounded up to 4 (so
+// that the GEMM body's 16-byte copies of xt rows stay aligned; columns M..
+// are zeros), through a 32x33 shared tile so that both the reads of x and
+// the writes of xt are coalesced.  With x^T the GEMM body reads K1's A
+// MN-major as it does K3's; reading x K-major from padded rows instead was
+// slower than this launch and the MN-major body together (PERF.md).
+inline int xt_pitch(int M) { return (M + 3) / 4 * 4; }
+
+__global__ void __launch_bounds__(256)
+transpose_kernel(const float* __restrict__ x, float* __restrict__ xt, int M, int K, int ldx) {
+  __shared__ float tile[32][33];
+  const int k0 = blockIdx.x * 32, m0 = blockIdx.y * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+#pragma unroll
+  for (int r = ty; r < 32; r += 8) {
+    const int m = m0 + r;
+    tile[r][tx] = m < M ? x[static_cast<size_t>(m) * K + k0 + tx] : 0.f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = ty; r < 32; r += 8)
+    if (m0 + tx < ldx) xt[static_cast<size_t>(k0 + r) * ldx + m0 + tx] = tile[tx][r];
+}
+
+int launch_fwd_f32(const void* x, const void* w, const void* mask, void* y, void* ws, int M,
+                   int K, int N, cudaStream_t stream) {
+  if (ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int ldx = xt_pitch(M);
+  float* xt = static_cast<float*>(ws);
+  transpose_kernel<<<dim3(K / 32, (ldx + 31) / 32), 256, 0, stream>>>(
+      static_cast<const float*>(x), xt, M, K, ldx);
+  const int e = static_cast<int>(cudaGetLastError());
+  if (e != 0) return e;
+  return launch_gemm<float>(xt, w, mask, y, M, N, K, ldx, N, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -437,17 +841,6 @@ template <typename T> struct DxTile {
   static constexpr size_t kSmem = static_cast<size_t>(kDxStages) * kStage * sizeof(T);
 };
 
-// 16-byte global -> shared copy, zero-filled (nothing read) when !valid.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // The first block index >= j whose mask entry is > 0 (NaN is pruned), or nb.
 __device__ __forceinline__ int kept_from(int j, int nb, const float* mask) {
@@ -789,23 +1182,15 @@ int launch_fwd_wgmma(const void* x, const void* w, const void* block_mask, void*
   return static_cast<int>(cudaGetLastError());
 }
 
-constexpr int kDecodeMaxM = 64;         // K1 takes the decode tile up to here
-
 template <typename T>
-int launch_fwd(const void* x, const void* w, const void* block_mask, void* y,
+int launch_fwd(const void* x, const void* w, const void* block_mask, void* y, void* ws,
                int M, int K, int N, cudaStream_t stream) {
-  if (M > kDecodeMaxM) {  // y[M,N] = x[M,K] @ w[K,N]
-    if constexpr (std::is_same<T, __nv_bfloat16>::value)
-      return launch_fwd_wgmma(x, w, block_mask, y, M, K, N, stream);
-    else
-      return launch_tiled<T, false, false>(x, w, block_mask, y, M, N, K, K, N,
-                                              stream);
-  }
-  const dim3 grid((M + kBM - 1) / kBM, N / kCW);
-  masked_matmul_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const float*>(block_mask), static_cast<T*>(y), M, K, N);
-  return static_cast<int>(cudaGetLastError());
+  if (M <= kDecodeMaxM) return launch_gemv<T>(x, w, block_mask, y, ws, M, K, N, stream);
+  // y[M,N] = x[M,K] @ w[K,N]
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return launch_fwd_wgmma(x, w, block_mask, y, M, K, N, stream);
+  else
+    return launch_fwd_f32(x, w, block_mask, y, ws, M, K, N, stream);
 }
 
 bool bad_shape(int M, int K, int N) {
@@ -814,18 +1199,31 @@ bool bad_shape(int M, int K, int N) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Each returns the cudaError_t of its
-// launch.
+// dtype: 0 = float32, 1 = bfloat16.  Each launcher returns the cudaError_t
+// of its launch.
 
 // K1: y[M,N] = x[M,K] @ w[K,N], pruned column blocks of y written as zeros.
+// `ws` is a workspace: for M <= 64 with more than one split
+// (masked_matmul_decode_splits), int32 arrival counters, zero, for the N/64
+// column tiles (rounded up to a multiple of 4), then splits*M*N f32
+// partials, the counters left at zero; in f32 at M > 64, K * (M rounded up
+// to 4) floats for x^T.  Otherwise it is unused and may be null.
 extern "C" int masked_matmul_launch(const void* x, const void* w, const void* block_mask,
-                                    void* y, int M, int K, int N, int dtype,
+                                    void* y, void* ws, int M, int K, int N, int dtype,
                                     void* stream) {
   if (bad_shape(M, K, N)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_fwd<float>(x, w, block_mask, y, M, K, N, s);
-  if (dtype == 1) return launch_fwd<__nv_bfloat16>(x, w, block_mask, y, M, K, N, s);
+  if (dtype == 0) return launch_fwd<float>(x, w, block_mask, y, ws, M, K, N, s);
+  if (dtype == 1) return launch_fwd<__nv_bfloat16>(x, w, block_mask, y, ws, M, K, N, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K1 at M <= 64: how many ways the decode body splits the contraction on a
+// card of `sms` SMs (a function of the shapes and `sms` only), or -1 for
+// shapes it does not take.  The host sizes the workspace with it.
+extern "C" int masked_matmul_decode_splits(int M, int K, int N, int sms) {
+  if (bad_shape(M, K, N) || M > kDecodeMaxM || sms < 1) return -1;
+  return gv_plan(M, K, N, sms).splits;
 }
 
 // K2: dx[M,K] = dy[M,N] @ w[K,N]^T over the kept N-blocks only, their
@@ -854,10 +1252,7 @@ extern "C" int masked_matmul_dw_launch(const void* x, const void* dy, const void
   if (bad_shape(M, K, N)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // P = K, Q = N, R = M; A(p,r) = x[r*K + p], B(r,q) = dy[r*N + q]
-  if (dtype == 0)
-    return launch_tiled<float, true, false>(x, dy, block_mask, dw, K, N, M, K, N, s);
-  if (dtype == 1)
-    return launch_tiled<__nv_bfloat16, true, false>(x, dy, block_mask, dw, K, N, M,
-                                                       K, N, s);
+  if (dtype == 0) return launch_gemm<float>(x, dy, block_mask, dw, K, N, M, K, N, s);
+  if (dtype == 1) return launch_gemm<__nv_bfloat16>(x, dy, block_mask, dw, K, N, M, K, N, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,16 +6,30 @@ Three kernels, one per TPU kernel of ``repro/kernels/masked_matmul.py``:
   (``_fwd_call``, ``repro/kernels/masked_matmul.py:122``).  Three paths:
 
   - decode (M <= 64, either type): bound by bytes, each element of ``w``
-    feeding at most M multiply-adds.  An 8-row GEMV-like tile streams the
-    kept blocks of ``w`` once with many 16-byte loads in flight.
+    feeding at most M multiply-adds.  A streaming split-K GEMV: a block owns
+    64 columns and one of :func:`decode_plan`'s shares of the contraction
+    (5 at K = 2048, N = 8192 on 132 SMs: 640 blocks, 320 with half the
+    column blocks kept), a number fixed by the shapes and the SM count,
+    never by the mask.  Its slice of ``w`` streams through a ring of 32-row
+    stages filled by 16-byte ``cp.async``, its slice of ``x`` is staged
+    once, and in bf16 the products run on the tensor cores (``mma.sync``,
+    f32 sums); the last block of a column tile to finish sums the shares'
+    f32 partials in split order (bitwise reproducible).  The partials and the
+    arrival counters live in a workspace kept across calls per (device,
+    stream, N), so a call allocates nothing but its output and never syncs.
   - bf16 at M > 64 (masked scoring, M = 8192): bound by operations, ~2700
     flops per byte against the ~295 at which the bf16 tensor cores meet
     device memory.  A warp-specialised ``wgmma`` GEMM fed by TMA through a
     4-stage ``mbarrier`` ring (256x128 tiles, a persistent grid), so the
     products run on the tensor cores with f32 sums.
   - f32 at M > 64 (training): bound by operations, but f32 has no
-    tensor-core path without TF32 rounding, so the tiled SIMT f32 GEMM
-    below.
+    tensor-core path without TF32 rounding, so a SIMT f32 GEMM: 256x128
+    tiles, 8x16 sums per thread, a 2-stage ``cp.async`` ring of 64-deep
+    untransposed tiles, and a persistent grid (fixed by the shapes) whose
+    blocks take the kept tiles by rank and run one ring across them.  Its
+    operands are read MN-major, so a first launch writes x^T into a
+    workspace (:func:`xt_pitch`): x read K-major from padded rows made the
+    same kind of body slower (``PERF.md``).
 * K2 :func:`masked_matmul_dx` — ``dx = dy @ w.T`` over the kept N-blocks,
   replacing ``_masked_dx_kernel`` (``_dx_call``).  At training's shape
   (M = 512, K = 2048, N = 8192, f32) it is bound by operations like K1, but
@@ -30,13 +44,18 @@ Three kernels, one per TPU kernel of ``repro/kernels/masked_matmul.py``:
   for the partial stores and the sum (``PERF.md``).
 * K3 :func:`masked_matmul_dw` — ``dw = x.T @ dy`` with pruned column
   blocks written as exact zeros, replacing ``_masked_dw_kernel``
-  (``_dw_call``).  It shares K1's f32 tiled body, in f32 and bf16.
+  (``_dw_call``).  It runs K1's f32 GEMM body on ``x`` as it lies (``x.T``
+  read MN-major), in f32 and bf16; the persistent walk over its 512 tiles
+  (at training's shape) hides its short 512-deep contraction's fill and
+  drain.
 
 Pruned blocks are never read, so FedAP's saving shows up as work not done.
 Any M is taken: the wrappers pad nothing.  The differentiable op over the
 three is :class:`repro_torch.kernels.ops.MaskedMatmul`.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -48,7 +67,74 @@ dw_launches = 0  # K3 launches since the caller last reset it
 
 BLOCK_N = 128   # mask granularity: one mask entry per 128 columns of w
 DX_ROWS, DX_COLS = 256, 128   # K2's dx tile (the launcher checks it)
+DECODE_MAX_M = 64   # K1 runs its decode body up to this M
+GV_COLS = 64        # columns of w a decode block owns
+GV_BK = 32          # rows of w a decode ring stage holds
+GV_X_BYTES = 65536  # the most f32 x a decode block stages
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# (device index, stream, N) -> int32 decode workspace: arrival counters, then
+# f32 partials
+_scratch: dict = {}
+
+
+def decode_plan(m: int, k: int, n: int, sms: int) -> tuple[int, int]:
+    """(splits, stages per split) of K1's decode body (M <= 64), from the
+    shapes and the SM count only, never from the mask: the K/``GV_BK``
+    ring stages are cut into splits of ``per`` stages, as deep as lets 4
+    blocks of ``GV_COLS`` columns run per SM with every column block kept
+    (2 with half kept), shallower where a split's staged x (``8 * mt``
+    rows of f32, ``mt`` = 1, 2, 4 or 8) would pass ``GV_X_BYTES``.  Split ``s`` contracts over the rows
+    ``[s * per * GV_BK, min((s + 1) * per * GV_BK, K))``; the grid is
+    ``(N // GV_COLS, splits)``.  (5, 13) at M = 8, K = 2048, N = 8192 on
+    132 SMs.  The library's ``gv_plan`` is the same rule."""
+    mt = 1 if m <= 8 else 2 if m <= 16 else 4 if m <= 32 else 8
+    stages = k // GV_BK
+    cap = GV_X_BYTES // (GV_BK * 8 * mt * 4)
+    want = -(-4 * sms // (n // GV_COLS))
+    want = max(1, min(stages, max(want, -(-stages // cap))))
+    per = -(-stages // want)
+    return -(-stages // per), per
+
+
+def xt_pitch(m: int) -> int:
+    """Row pitch (elements) of the x^T workspace [K, pitch] of K1 in f32 at
+    M > 64: M rounded up to 4, so that 16-byte copies of its rows stay
+    aligned."""
+    return -(-m // 4) * 4
+
+
+def decode_counters(n: int) -> int:
+    """int32 arrival counters at the head of the decode workspace: one per
+    ``GV_COLS``-column tile, rounded up to 16 bytes."""
+    return -(-(n // GV_COLS) // 4) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_splits(m: int, k: int, n: int, index: int) -> int:
+    """:func:`decode_plan`'s split count on device ``index``, confirmed
+    once per shape against the library's own."""
+    sms = _build.sm_count(index)
+    splits = decode_plan(m, k, n, sms)[0]
+    lib = _build.launcher("masked_matmul_decode_splits")(m, k, n, sms)
+    if lib != splits:
+        raise RuntimeError(f"masked_matmul: the library splits M={m} K={k} "
+                           f"N={n} on {sms} SMs {lib} ways, the host "
+                           f"{splits}")
+    return splits
+
+
+def _workspace(device, stream: int, n: int, elems: int):
+    """The decode workspace for N = ``n`` (at least ``elems`` int32
+    elements, zero at allocation), kept across calls on ``stream`` so that
+    no launch allocates; stream order keeps two launches apart, and the
+    kernel leaves the counters at zero.  One per N, so that the counters
+    always sit where no partial was ever written."""
+    key = (device.index, stream, n)
+    have = _scratch.get(key)
+    if have is None or have.numel() < elems:
+        have = torch.zeros(elems, dtype=torch.int32, device=device)
+        _scratch[key] = have
+    return have
 
 
 def dx_splits(m: int, k: int, n: int, sms: int) -> int:
@@ -139,14 +225,6 @@ def _check_operands(name, a, b, block_mask) -> None:
                          f"16 bytes apart")
 
 
-def _launch(name, a, b, block_mask, out, m, kdim, n) -> None:
-    err = _build.launcher(name)(
-        a.data_ptr(), b.data_ptr(), block_mask.data_ptr(), out.data_ptr(),
-        m, kdim, n, _DTYPES[a.dtype],
-        torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(err, name)
-
-
 def masked_matmul(x, w, block_mask):
     """K1: x [M,K] @ w [K,N] on one CUDA device, float32 or bfloat16,
     contiguous, with ``block_mask`` float32 [N/128] (column block j is
@@ -158,7 +236,21 @@ def masked_matmul(x, w, block_mask):
     m, kdim = x.shape
     n = w.shape[1]
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    _launch("masked_matmul", x, w, block_mask, y, m, kdim, n)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ws = None
+    if m <= DECODE_MAX_M:
+        splits = _decode_splits(m, kdim, n, x.device.index)
+        if splits > 1:
+            ws = _workspace(x.device, stream, n,
+                            decode_counters(n) + splits * m * n)
+    elif x.dtype == torch.float32:
+        ws = torch.empty(kdim * xt_pitch(m), dtype=torch.float32,
+                         device=x.device)
+    err = _build.launcher("masked_matmul")(
+        x.data_ptr(), w.data_ptr(), block_mask.data_ptr(), y.data_ptr(),
+        None if ws is None else ws.data_ptr(), m, kdim, n, _DTYPES[x.dtype],
+        stream)
+    _build.check(err, "masked_matmul")
     launches += 1
     return y
 
@@ -194,6 +286,10 @@ def masked_matmul_dw(x, dy, block_mask):
     m, kdim = x.shape
     n = dy.shape[1]
     dw = torch.empty((kdim, n), dtype=x.dtype, device=x.device)
-    _launch("masked_matmul_dw", x, dy, block_mask, dw, m, kdim, n)
+    err = _build.launcher("masked_matmul_dw")(
+        x.data_ptr(), dy.data_ptr(), block_mask.data_ptr(), dw.data_ptr(), m,
+        kdim, n, _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "masked_matmul_dw")
     dw_launches += 1
     return dw

@@ -180,11 +180,11 @@ class LM:
                 x = block(i, x)
         return self._head(params, x)
 
-    def loss(self, params, batch, *, masks=None):
-        """Mean next-token cross-entropy of :meth:`apply` against
-        ``batch["labels"]`` [B,S], over ``batch["loss_mask"]`` when given
-        (log-softmax in f32)."""
-        return self._loss_acc(params, batch, masks)[0]
+    def loss(self, params, batch, *, window="auto", masks=None):
+        """Mean next-token cross-entropy of :meth:`apply` (with its
+        ``window``) against ``batch["labels"]`` [B,S], over
+        ``batch["loss_mask"]`` when given (log-softmax in f32)."""
+        return self._loss_acc(params, batch, masks, window)[0]
 
     def loss_and_acc(self, params, x, y, *, masks=None):
         """The federated trainer's model contract: ``(x, y)`` = (tokens [B,S],
@@ -192,8 +192,8 @@ class LM:
         port's copy of the reference's ``launch.steps.loss_and_accuracy``."""
         return self._loss_acc(params, {"tokens": x, "labels": y}, masks)
 
-    def _loss_acc(self, params, batch, masks):
-        logits = self.apply(params, batch, masks=masks)
+    def _loss_acc(self, params, batch, masks, window="auto"):
+        logits = self.apply(params, batch, window=window, masks=masks)
         labels = batch["labels"].long()
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
@@ -242,12 +242,15 @@ class LM:
                 f"its conv/state cache, is a later slice of the port; this "
                 f"slice scores the hybrid family with apply/loss_and_acc")
 
-    def init_cache(self, batch_size: int, cache_len: int) -> dict:
+    def init_cache(self, batch_size: int, cache_len: int, *,
+                   window=None) -> dict:
         """``{"k", "v": [L, B, S, KV, hd], "index": 0-d int32}`` zeros, with
-        S = ``cache_len`` (a ring buffer once the index passes S)."""
+        S = ``cache_len``, or ``min(cache_len, window)`` when a ``window`` is
+        given (a ring buffer once the index passes S)."""
         self._dense_decode_only()
         cfg = self.cfg
-        shape = (cfg.num_layers, batch_size, cache_len,
+        rows = cache_len if window is None else min(cache_len, window)
+        shape = (cfg.num_layers, batch_size, rows,
                  cfg.padded_num_kv_heads, cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
                 "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
