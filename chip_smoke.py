@@ -11,20 +11,24 @@ Phases, in order; any failure raises and the script exits non-zero:
               ptxas's registers and spills and each library's count of
               tensor-core (``HGMMA``) and TMA-load (``UTMALDG``) SASS
               instructions, which must be above 0 for masked_matmul and
-              flash_attention, and require no spills in the wgmma kernels,
-              K1's decode GEMV and the GEMM body of K1 (f32) and K3, K2's
-              split and sum kernels and K5's split kernel;
+              flash_attention, and the count of mma.sync (``HMMA``)
+              instructions, which must be above 0 for ssd_scan, and require
+              no spills in the wgmma kernels, K1's decode GEMV and the GEMM
+              body of K1 (f32) and K3, K2's split and sum kernels, K5's split
+              kernel and K6's three passes;
 3. kernels  — each CUDA kernel against its plain PyTorch version on the card
               at its paths' shapes (serving: K5, with a serving wave's
               lengths, lengths at its split boundaries and 0, K1 at M = 8;
               training: K1, K2, K3 at M = 512 and 500, K = 2048, N = 8192,
               K2 also with one kept block and seven; scoring: K1 in bf16 at M = 8192, 8000 and 100, K4 at
               olmo-1b's and zamba2's attention shapes, ragged and GQA cases,
-              K6 at zamba2's SSD shapes and a ragged S), in float32 and
-              bfloat16, K1 (decode and f32), K2, K3 and K5 also bitwise
-              equal over two launches, with CUDA-event times of the kernel
-              (K1's decode, K2's and K5's split count and grid printed), the
-              plain version and one library call of the same function,
+              K6 at zamba2's SSD shapes, a ragged S, an S below its chunk,
+              head dims 32 and 96, and on apply_mamba2's split views), in
+              float32 and bfloat16, K1 (decode and f32), K2, K3, K5 and K6
+              also bitwise equal over two launches, with CUDA-event times of
+              the kernel (K1's decode, K2's and K5's split count and grid
+              printed), the plain version and one library call of the same
+              function,
               beside the bound (K1 at decode with every block kept, serving's
               mask, and with half kept, each timed in turns with
               torch.matmul);
@@ -166,11 +170,14 @@ def phase_device(torch) -> str:
 
 # libraries whose bf16 paths must run on the tensor cores through TMA
 TENSOR_CORE_LIBS = ("masked_matmul", "flash_attention")
+# libraries whose products must run on mma.sync tensor-core instructions
+MMA_LIBS = ("ssd_scan",)
 # kernels whose ptxas report must show no spill: the wgmma kernels, K1's
 # decode GEMV (both bodies), the GEMM body of K1 (f32) and K3, K2's split and
-# sum kernels, K5's split kernel
+# sum kernels, K5's split kernel, K6's three passes
 NO_SPILL = ("wgmma", "masked_gemv", "masked_gemm_", "masked_dx_",
-            "decode_split_")
+            "decode_split_", "ssd_chunk_state", "ssd_state_pass",
+            "ssd_chunk_scan")
 
 
 def phase_build() -> None:
@@ -204,12 +211,16 @@ def phase_build() -> None:
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
         counts = {op: len(re.findall(rf"\b{op}\b", sass))
-                  for op in ("HGMMA", "UTMALDG")}
+                  for op in ("HGMMA", "UTMALDG", "HMMA")}
         log(f"[build] {name} SASS: HGMMA {counts['HGMMA']}, UTMALDG "
-            f"{counts['UTMALDG']}")
+            f"{counts['UTMALDG']}, HMMA {counts['HMMA']}")
         if name in TENSOR_CORE_LIBS:
-            require(min(counts.values()) > 0, f"build: {name} has no "
-                    f"wgmma or no TMA load in its SASS ({counts})")
+            require(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+                    f"build: {name} has no wgmma or no TMA load in its SASS "
+                    f"({counts})")
+        if name in MMA_LIBS:
+            require(counts["HMMA"] > 0, f"build: {name} has no mma.sync "
+                    f"tensor-core instruction in its SASS ({counts})")
 
 
 # ---------------------------------------------------------------------------
@@ -574,10 +585,11 @@ def _training_kernels(torch, timer, gen) -> dict:
 
 # K4/K6 f32 tolerances: max |kernel - plain| relative to max(1, max |plain|),
 # the reference tests' own numbers (tests/test_kernels.py: flash 2e-5, ssd
-# 2e-4); the f32 sums run in another order (K6 also in 32-step sub-chunks
-# against the sequential definition).  bf16 is held per element: both sides
-# compute in f32 from the same bf16 inputs and round once to bf16, so
-# |kernel - plain| <= 2^-7 |plain| (one bf16 step) + the f32 allowance.
+# 2e-4); the f32 sums run in another order (K6 also in chunks, against the
+# sequential definition, its products in 3xTF32 or split bf16 hi + lo).  bf16
+# is held per element: both sides compute in f32 from the same bf16 inputs
+# and round once to bf16, so |kernel - plain| <= 2^-7 |plain| (one bf16
+# step) + the f32 allowance.
 SCORE_TOL = {"flash_attention": 2e-5, "ssd_scan": 2e-4}
 BF16_STEP = 2.0 ** -7
 
@@ -712,17 +724,31 @@ def _scoring_kernels(torch, timer, gen) -> dict:
                     {f"zamba_{key}": val for key, val in rec.items()})
             del qt, kt, vt
 
-    # label, B, S, dtypes, timed; nh, p, N of zamba2 and its chunk.  With
-    # dt and dt_bias ~ N(0, 1) most heads forget within a few steps; the
-    # slow-decay case (a_log 0, dt_bias from -7 to -3 over the heads,
-    # softplus 1e-3..5e-2 a step, dt 0.5 N(0, 1)) keeps the state for 20 to
-    # 1000 steps, so the state carried across sub-chunks and chunks counts.
-    nh, p, n, chunk = 64, 64, 64, 256
-    for label, b, s, dtypes, timed in (
-            ("zamba2-1.2b", 1, 8192, (torch.float32, torch.bfloat16), True),
-            ("zamba2-1.2b slow-decay", 1, 8192, (torch.float32,), False),
-            ("ragged-S=1000", 2, 1000, (torch.float32, torch.bfloat16),
-             False)):
+    # label, B, S, nh, p, dtypes, timed; N of zamba2 and the reference's
+    # chunk (the kernel runs its own, ssd_scan.KERNEL_CHUNK, which the CPU
+    # replay of its schedule uses).  With dt and dt_bias ~ N(0, 1) most
+    # heads forget within a few steps; the slow-decay case (a_log 0,
+    # dt_bias from -7 to -3 over the heads, softplus 1e-3..5e-2 a step, dt
+    # 0.5 N(0, 1)) keeps the state for 20 to 1000 steps, so the state
+    # carried across chunks counts.  S = 100 is one partial chunk (no state
+    # passed).  p = 32 and 96 run the sub-heads of 64 columns of p with a
+    # zero-filled part.  Each case runs twice: the kernel sums in a fixed
+    # order, so the two agree bit for bit.
+    for dtype, q in k6.KERNEL_CHUNK.items():
+        require(k6.library_chunk(dtype) == q, f"ssd_scan: the library runs "
+                f"{dtype} in chunks of {k6.library_chunk(dtype)}, the CPU "
+                f"replay in chunks of {q}")
+    n, chunk = 64, 256
+    both = (torch.float32, torch.bfloat16)
+    f32_ms = None
+    for label, b, s, nh, p, dtypes, timed in (
+            ("zamba2-1.2b", 1, 8192, 64, 64, both, True),
+            ("zamba2-1.2b slow-decay", 1, 8192, 64, 64, (torch.float32,),
+             False),
+            ("ragged-S=1000", 2, 1000, 64, 64, both, False),
+            ("S=100 < chunk", 2, 100, 64, 64, both, False),
+            ("head dim 32", 2, 1000, 8, 32, both, False),
+            ("head dim 96", 2, 1000, 8, 96, both, False)):
         slow = "slow-decay" in label
         for dtype in dtypes:
             dname = str(dtype).split(".")[-1]
@@ -736,24 +762,57 @@ def _scoring_kernels(torch, timer, gen) -> dict:
             got = k6.ssd_scan(*args, chunk=chunk)
             want = ref.ssd_scan_ref(*args)
             err = check("ssd_scan", f"{label} B={b} S={s} nh={nh} p={p} "
-                        f"N={n} chunk={chunk}", dname, got, want)
-            del got, want
-            if not timed or dtype != torch.bfloat16:
+                        f"N={n} chunk {k6.KERNEL_CHUNK[dtype]}", dname, got,
+                        want)
+            again = k6.ssd_scan(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            require(torch.equal(got, again), f"ssd_scan {label} {dname}: two "
+                    f"launches differ")
+            del got, want, again
+            if not timed:
                 continue
             ms = timer(lambda: k6.ssd_scan(*args, chunk=chunk))
-            plain_ms = timer(lambda: ref.ssd_scan_ref(*args))
+            if dtype == torch.float32:
+                f32_ms = ms
+                log(f"[kernels] ssd_scan {label} {dname}: kernel {ms:.4f} ms")
+                continue
             bound, by, flops = _k6_bound(b, s, nh, p, n, chunk,
                                          args[0].element_size(), dname)
-            log(f"[kernels] ssd_scan {label} {dname}: kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, library none (no single PyTorch "
-                f"call computes it), bound {bound:.4f} ms ({by}; "
-                f"{flops / 1e9:.2f} GFLOP in the Pallas square chunk form)")
+            plain_ms = timer(lambda: ref.ssd_scan_ref(*args))
+            log(f"[kernels] ssd_scan {label} {dname}: kernel {ms:.4f} ms "
+                f"(float32 {f32_ms:.4f}), plain {plain_ms:.4f} ms, library "
+                f"none (no single PyTorch call computes it), bound "
+                f"{bound:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP in the Pallas "
+                f"square chunk form)")
             records["ssd_scan"] = {
                 "name": "ssd_scan", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
                 "replaces": "src/repro/kernels/ssd_scan.py:84",
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound, "bound_by": by, "library_ms": None}
+                "bound_ms": bound, "bound_by": by, "library_ms": None,
+                "f32_ms": f32_ms}
+    # apply_mamba2's inputs: torch.split views of its conv output (x, B, C)
+    # and fused projection (dt), read in place, bit for bit as contiguous
+    # copies
+    b, s, nh, p = 2, 1000, 64, 64
+    for dtype in both:
+        xi, bm, cm = torch.split(randn(b, s, nh * p + 2 * n, dtype=dtype),
+                                 [nh * p, n, n], dim=-1)
+        dt = randn(b, s, 2 * nh * p + 2 * n + nh, dtype=dtype)[..., -nh:]
+        views = (xi.reshape(b, s, nh, p), bm, cm, dt)
+        rows = k6.row_strides(*views)
+        require(rows is not None, "ssd_scan: the split views are not read in "
+                "place")
+        rest = (0.1 * randn(nh, dtype=torch.float32),
+                randn(nh, dtype=torch.float32), randn(nh, dtype=torch.float32))
+        got = k6.ssd_scan(*views, *rest)
+        want = k6.ssd_scan(*(t.contiguous() for t in views), *rest)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"ssd_scan {dtype}: split views and "
+                f"contiguous copies differ")
+        log(f"[kernels] ssd_scan split views {str(dtype).split('.')[-1]} "
+            f"B={b} S={s}: row strides {rows}, equal to contiguous inputs")
+        del got, want, views, xi, bm, cm, dt
     return records
 
 
@@ -1430,7 +1489,8 @@ def phase_scoring(torch) -> dict:
 
 def _profile_forward(torch, label, forward, wall) -> None:
     """The device time of one scoring forward's kernels under
-    torch.profiler, against the host-clock time of an unprofiled one."""
+    torch.profiler, against the host-clock time of an unprofiled one: the
+    eight largest, then the port's own kernels below them."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1449,7 +1509,10 @@ def _profile_forward(torch, label, forward, wall) -> None:
     log(f"[profile] scoring {label}: forward {wall:.4f} s on the host clock, "
         f"kernels {dev_s:.4f} s on the device -> busy {busy:.1f}%, idle "
         f"{100 - busy:.1f}%")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    ours = ("ssd_", "flash_attention", "masked_")    # the port's kernels
+    for e in ranked[:8] + [e for e in ranked[8:]
+                           if any(k in e.key for k in ours)]:
         log(f"[profile] scoring {label}:   "
             f"{e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
             f"{e.key[:90]}")

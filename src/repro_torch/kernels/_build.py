@@ -47,9 +47,8 @@ SIGNATURES = {
     "flash_attention": ("flash_attention", "flash_attention_launch",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _P]),
-    "ssd_scan": ("ssd_scan", "ssd_scan_launch",
-                 [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                  _P]),
+    "ssd_scan": ("ssd_scan", "ssd_scan_launch", [_P] * 10 + [_I] * 10 + [_P]),
+    "ssd_scan_chunk": ("ssd_scan", "ssd_scan_chunk", [_I]),
 }
 
 _lock = threading.Lock()

@@ -60,13 +60,16 @@ def flash_attention(q, k, v, *, causal=True, window=None):
 def ssd_scan(x, bmat, cmat, dt, a_log, d, dt_bias, *, chunk=128):
     """K6: the Mamba2 SSD scan, x [B,S,nh,p], bmat/cmat [B,S,N], dt
     [B,S,nh], a_log/d/dt_bias [nh] -> y [B,S,nh,p]; forward only.  Any S;
-    ``chunk`` is the reference's argument (the kernel walks its own
-    sub-chunks, the plain version one step at a time)."""
+    ``chunk`` is the reference's argument (the kernel runs its own chunk,
+    the plain version one step at a time).  The kernel reads x, B, C and dt
+    in place when their steps are rows of one stride, as the ``torch.split``
+    views of a fused projection are; any other layout is copied first."""
     _ss.check_shapes(x, bmat, cmat, dt, a_log, d, dt_bias, chunk)
     _forward_only("ssd_scan", x, bmat, cmat, dt, a_log, d, dt_bias)
     if _route("ssd_scan", x):
-        return _ss.ssd_scan(*(t.contiguous() for t in (
-            x, bmat, cmat, dt, a_log, d, dt_bias)), chunk=chunk)
+        return _ss.ssd_scan(*_ss.readable(x, bmat, cmat, dt),
+                            *(t.contiguous() for t in (a_log, d, dt_bias)),
+                            chunk=chunk)
     return ref.ssd_scan_ref(x, bmat, cmat, dt, a_log, d, dt_bias)
 
 
