@@ -19,6 +19,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. kernels  — each CUDA kernel against its plain PyTorch version on the card
               at its paths' shapes (serving: K5, with a serving wave's
               lengths, lengths at its split boundaries and 0, K1 at M = 8;
+              zamba2's decode: K5 at 32 kv heads of 64, G = 1, ragged
+              lengths over 512 rows and every length past a 4096-row ring;
               training: K1, K2, K3 at M = 512 and 500, K = 2048, N = 8192,
               K2 also with one kept block and seven; scoring: K1 in bf16 at M = 8192, 8000 and 100, K4 at
               olmo-1b's and zamba2's attention shapes, ragged and GQA cases,
@@ -36,26 +38,35 @@ Phases, in order; any failure raises and the script exits non-zero:
               decode steps on the card (kernels) against the CPU (plain
               versions), dense and masked at prune rate 0.5, plus the
               masked model against its shrunk twin;
-5. train-parity — olmo-1b at full width, 2 layers, float32: the masked loss
-              and every gradient, then one kernel-mode FedDUMAP round, on the
-              card against the CPU;
-6. training — olmo-1b at full width, all 16 layers, float32: a FedDUMAP
-              ``FederatedTrainer`` run of ``fedap_plan(4, prune_round=2,
-              mode="mask")`` in kernel mode, with each masked_matmul kernel's
-              launch count checked against the gradient evaluations, then
-              timed and profiled rounds;
-7. serving  — olmo-1b at full width, all 16 layers, bfloat16: the
+5. hybrid-parity — zamba2 at full width, 6 layers (one group), float32:
+              80 teacher-forced decode steps on the card against the CPU,
+              with the model's window, with a 64-row window (the steps
+              cross into the ring buffer) and masked on that ring;
+6. train-parity — olmo-1b and zamba2 at full width, 2 layers, float32: the
+              masked loss and every gradient, then one kernel-mode FedDUMAP
+              round, on the card against the CPU;
+7. training — a FedDUMAP ``FederatedTrainer`` run of ``fedap_plan(4,
+              prune_round=2, mode="mask")`` in kernel mode, float32, at full
+              width: olmo-1b (all 16 layers), then zamba2 (12 layers, two
+              groups), with each masked_matmul kernel's launch count
+              checked against the gradient evaluations, then timed and
+              profiled rounds;
+8. serving  — olmo-1b at full width, all 16 layers, bfloat16: the
               continuous-batching DecodeEngine over ``load_servable`` in
               dense, masked@0.5 and shrunk@0.5 modes, with each kernel's
               launch count checked against the decode steps taken, one
               wave run under ``torch.cuda.set_sync_debug_mode("error")``,
               and the modes' device kernel time per step on adjacent lines;
-8. score-parity — float32 logits of ``attn_impl="pallas"`` (K4, K6)
+              then zamba2-1.2b, all 38 layers, bfloat16, through
+              ``lockstep_decode`` (8 prompts of 448 tokens, 64 new) in the
+              same three modes: tokens/s, ms/step, K5 7 and K1 76 (masked)
+              launches a step, a profiled window and a sync-checked one;
+9. score-parity — float32 logits of ``attn_impl="pallas"`` (K4, K6)
               against ``attn_impl="xla"`` (plain attention, chunked scan) on
               the card: zamba2-1.2b at full width, 12 layers, S = 8192, and
               olmo-1b at full width, 2 layers, S = 2048, beside the logits'
               own response to one f32 rounding of the embeddings;
-9. scoring  — full-sequence scoring (``loss_and_acc`` under no_grad)
+10. scoring — full-sequence scoring (``loss_and_acc`` under no_grad)
               through ``load_servable(..., attn_impl="pallas")``: olmo-1b,
               all 16 layers, bf16, B = 4 x S = 2048, dense / masked@0.5 /
               shrunk@0.5, then zamba2-1.2b, all 38 layers, bf16, B = 1 x
@@ -64,7 +75,8 @@ Phases, in order; any failure raises and the script exits non-zero:
               (K4 16 per olmo forward, K1 32 in masked mode; K4 7 and K6 38
               per zamba2 forward).
 
-Each phase after the build prints its peak device memory.
+Each phase after the build prints its peak device memory; ``[time]`` lines
+give each phase's wall seconds and the total.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -348,6 +360,8 @@ def phase_kernels(torch, timer) -> dict:
                     "bound_ms": bound, "bound_by": "bytes",
                     "library_ms": lib_ms}
 
+    records["decode_attention"].update(_hybrid_k5(torch, timer, gen))
+
     # K1 masked_matmul: the FFN up/gate products at decode (M = slots); every
     # block kept is serving's mask (FedAP at rate 0.5 prunes no whole block)
     kdim, n = 2048, 8192
@@ -414,6 +428,68 @@ def phase_kernels(torch, timer) -> dict:
     records["masked_matmul"].update(_scoring_k1(torch, timer, gen))
     records.update(_scoring_kernels(torch, timer, gen))
     return records
+
+
+def _hybrid_k5(torch, timer, gen) -> dict:
+    """K5 at zamba2's shared attention (32 kv heads of 64, G = 1), where the
+    hybrid's lockstep decode runs it: B = 8 over a 512-row cache with ragged
+    lengths (stale NaN rows past them), and over a 4096-row ring (the
+    window) with every length past S (index + 1 = 4097..5000: all rows
+    valid), in f32 and bf16, each launched twice and compared bitwise.  The
+    bf16 S = 512 case is timed beside SDPA and gives the ``zamba_*`` keys of
+    K5's record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import ref
+
+    b, kvh, hd = 8, 32, 64
+    out = {}
+    for label, s_ in (("zamba2 ragged", 512), ("zamba2 ring", 4096)):
+        lo, hi = (1, s_) if s_ == 512 else (s_ + 1, 5000)
+        ln = torch.randint(lo, hi + 1, (b,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            q, k, v = _k5_case(torch, gen, b, s_, kvh, 1, hd, dtype,
+                               ln if s_ == 512 else None)
+            got = k5.decode_attention(q, k, v, ln)
+            again = k5.decode_attention(q, k, v, ln)
+            want = ref.decode_attention_ref(q, k, v, ln)
+            torch.cuda.synchronize()
+            err, rel = max_rel_err(torch, got, want)
+            log(f"[kernels] decode_attention {label} {dname} B={b} S={s_} "
+                f"KV={kvh} G=1 hd={hd} lengths {int(ln.min())}..{int(ln.max())}"
+                f": max_abs_err={err:.3e} rel={rel:.3e} (tol "
+                f"{TOL[dname]:.3e}); two launches bitwise equal: "
+                f"{bool(torch.equal(got, again))}")
+            require(bool(torch.isfinite(got).all()), f"decode_attention "
+                    f"{label}: non-finite output")
+            require(rel <= TOL[dname], f"decode_attention {label} {dname}: "
+                    f"error {rel:.3e} over tolerance")
+            require(torch.equal(got, again), f"decode_attention {label} "
+                    f"{dname}: two launches differ")
+            if s_ != 512 or dtype != torch.bfloat16:
+                continue
+            plain_ms = timer(lambda: ref.decode_attention_ref(q, k, v, ln))
+            qt = q.transpose(1, 2).contiguous()
+            kt = k.transpose(1, 2).contiguous().nan_to_num()
+            vt = v.transpose(1, 2).contiguous()
+            mask = (torch.arange(s_, device="cuda")[None, :]
+                    < ln[:, None])[:, None, None, :]
+            ms, lib_ms = timer.turns(
+                lambda: k5.decode_attention(q, k, v, ln),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       attn_mask=mask))
+            bound = _k5_bound_ms(b, kvh, kvh, hd, int(ln.sum()),
+                                 q.element_size(), dname)
+            log(f"[kernels] decode_attention {label} {dname} kernel {ms:.4f} "
+                f"ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+                f"{bound:.4f} ms (bytes), {100 * bound / ms:.1f}% of it")
+            out = {"zamba_max_abs_err": err, "zamba_ms": ms,
+                   "zamba_plain_ms": plain_ms, "zamba_bound_ms": bound,
+                   "zamba_bound_by": "bytes", "zamba_library_ms": lib_ms}
+    return out
 
 
 SCORE_M = 8192      # masked scoring: B x S = 4 x 2048 tokens into the FFN
@@ -609,15 +685,13 @@ def _k4_bound(b, sq, skv, h, kvh, hd, causal, window, elt, dtype_name):
                                        else "operations"), flops
 
 
-def _k6_bound(b, s, nh, p, n, chunk, elt, dtype_name):
-    """(bound ms, "bytes" or "operations", flops): x, B, C, dt read and y
-    written once; the flops of the Pallas kernel's square chunk form at
-    ``chunk`` (C B^T, the decay weighting, the intra-chunk product, the
-    carried-state term and the state update)."""
-    c = min(chunk, s)
-    nc = -(-s // c)
-    flops = b * nc * (2 * c * c * n + c * c * nh + 2 * c * c * nh * p
-                      + 4 * c * nh * p * n)
+def _k6_bound(b, s, nh, p, n, elt, dtype_name):
+    """(bound ms, "bytes" or "operations", flops) of the function, not of
+    one way to compute it: x, B, C, dt read and y written once; the
+    sequential recurrence's 4 B S nh p N flops (the state update dt x B^T
+    and decay, and y = C H: two multiply-adds per state element a step) at
+    the type's peak."""
+    flops = 4 * b * s * nh * p * n
     nbytes = elt * (2 * b * s * nh * p + 2 * b * s * n + b * s * nh) \
         + 3 * 4 * nh
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
@@ -740,7 +814,7 @@ def _scoring_kernels(torch, timer, gen) -> dict:
                 f"replay in chunks of {q}")
     n, chunk = 64, 256
     both = (torch.float32, torch.bfloat16)
-    f32_ms = None
+    f32 = {}
     for label, b, s, nh, p, dtypes, timed in (
             ("zamba2-1.2b", 1, 8192, 64, 64, both, True),
             ("zamba2-1.2b slow-decay", 1, 8192, 64, 64, (torch.float32,),
@@ -772,25 +846,23 @@ def _scoring_kernels(torch, timer, gen) -> dict:
             if not timed:
                 continue
             ms = timer(lambda: k6.ssd_scan(*args, chunk=chunk))
-            if dtype == torch.float32:
-                f32_ms = ms
-                log(f"[kernels] ssd_scan {label} {dname}: kernel {ms:.4f} ms")
-                continue
-            bound, by, flops = _k6_bound(b, s, nh, p, n, chunk,
+            bound, by, flops = _k6_bound(b, s, nh, p, n,
                                          args[0].element_size(), dname)
+            log(f"[kernels] ssd_scan {label} {dname}: kernel {ms:.4f} ms, "
+                f"bound {bound:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP of the "
+                f"sequential recurrence), {100 * bound / ms:.1f}% of it")
+            if dtype == torch.float32:
+                f32 = {"f32_ms": ms, "f32_bound_ms": bound, "f32_bound_by": by}
+                continue
             plain_ms = timer(lambda: ref.ssd_scan_ref(*args))
-            log(f"[kernels] ssd_scan {label} {dname}: kernel {ms:.4f} ms "
-                f"(float32 {f32_ms:.4f}), plain {plain_ms:.4f} ms, library "
-                f"none (no single PyTorch call computes it), bound "
-                f"{bound:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP in the Pallas "
-                f"square chunk form)")
+            log(f"[kernels] ssd_scan {label} {dname}: plain {plain_ms:.4f} "
+                f"ms, library none (no single PyTorch call computes it)")
             records["ssd_scan"] = {
                 "name": "ssd_scan", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
                 "replaces": "src/repro/kernels/ssd_scan.py:84",
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound, "bound_by": by, "library_ms": None,
-                "f32_ms": f32_ms}
+                "bound_ms": bound, "bound_by": by, "library_ms": None, **f32}
     # apply_mamba2's inputs: torch.split views of its conv output (x, B, C)
     # and fused projection (dt), read in place, bit for bit as contiguous
     # copies
@@ -885,6 +957,100 @@ def phase_parity(torch) -> None:
                         f"{rel:.3e} over tolerance")
 
 
+HYBRID_STEPS = 80   # decode steps of the hybrid parity: past a 64-row ring
+
+
+def phase_hybrid_parity(torch) -> None:
+    """zamba2 at full width, 6 layers (one group: the shared attention and
+    six Mamba2 layers), f32, B = 2: teacher-forced decode of 80 seeded
+    tokens on the card (K5, K1 when masked) against the same port code on
+    the CPU (plain versions), logits at every step, in three runs: dense
+    with the model's 4096-token window (80 cache rows); dense with
+    ``sliding_window=64`` in a copy of the config, so that the steps cross
+    into the ring (a correctness check of the ring regime, not a
+    measurement); and masked at rate 0.5 on that ring, beside the shrunk
+    model on the card."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import masked_matmul as k1
+    from repro_torch.models.lm import LM
+
+    base = dataclasses.replace(get_config("zamba2-1.2b"), num_layers=6,
+                               param_dtype="float32")
+    cpu = LM(base, device="cpu")
+    params_c = cpu.init(torch.Generator().manual_seed(6))
+    params_g = interop.params_from_jax(params_c, "cuda")
+    kept = cpu.decide_kept(params_c, 0.5)
+    masks_c = cpu.filter_masks(params_c, kept)
+    masks_g = interop.masks_from_jax(masks_c, "cuda")
+    b = 2
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, base.vocab_size, (b, HYBRID_STEPS)).astype(np.int32))
+    ring = dataclasses.replace(base, sliding_window=64)
+    shrunk = LM(dataclasses.replace(ring, d_ff=int(kept["mlp"].shape[1])),
+                device="cuda")
+    shrunk_g = shrunk.shrink_params(params_g, kept)
+    for label, cfg, masked in (("dense window 4096", base, False),
+                               ("dense ring 64", ring, False),
+                               ("masked ring 64", ring, True)):
+        cpu, gpu = LM(cfg, device="cpu"), LM(cfg, device="cuda")
+        # the masked run also decodes the shrunk model on the card
+        twin = shrunk if masked else None
+        caches = {"cpu": cpu.init_cache(b, HYBRID_STEPS),
+                  "card": gpu.init_cache(b, HYBRID_STEPS),
+                  "twin": twin.init_cache(b, HYBRID_STEPS) if twin else None}
+        rows = caches["card"]["shared_attn"]["k"].shape[2]
+        worst = {"card~cpu": (0.0, 0.0, -1), "masked~shrunk card":
+                 (0.0, 0.0, -1)}
+        counts = [0, 0]
+        with torch.inference_mode():
+            for t in range(HYBRID_STEPS):
+                tok = tokens[:, t:t + 1]
+                want, caches["cpu"] = cpu.decode_step(
+                    params_c, caches["cpu"], {"tokens": tok},
+                    masks=masks_c if masked else None)
+                k5.launches = k1.launches = 0
+                got, caches["card"] = gpu.decode_step(
+                    params_g, caches["card"], {"tokens": tok.cuda()},
+                    masks=masks_g if masked else None)
+                counts[0] += k5.launches
+                counts[1] += k1.launches
+                pairs = [("card~cpu", got.cpu(), want)]
+                if twin is not None:
+                    other, caches["twin"] = twin.decode_step(
+                        shrunk_g, caches["twin"], {"tokens": tok.cuda()})
+                    pairs.append(("masked~shrunk card", got.cpu(),
+                                  other.cpu()))
+                require(bool(torch.isfinite(got).all()),
+                        f"hybrid-parity {label}: non-finite logits")
+                for key, a, ref_ in pairs:
+                    err, rel = max_rel_err(torch, a, ref_)
+                    if rel >= worst[key][1]:
+                        worst[key] = (err, rel, t)
+        for key, (err, rel, t) in worst.items():
+            if t < 0:
+                continue
+            log(f"[hybrid-parity] zamba2 full width, {cfg.num_layers} "
+                f"layers, f32, B={b}, {label}, {key}: {HYBRID_STEPS} steps "
+                f"over {rows} cache rows (ring from step {rows}); worst step "
+                f"{t} max_abs_err={err:.3e} rel={rel:.3e} (tol "
+                f"{PARITY_TOL:.0e})")
+            require(rel <= PARITY_TOL, f"hybrid-parity {label} {key}: "
+                    f"{rel:.3e} over tolerance at step {t}")
+        groups = len(gpu.hybrid_groups())
+        log(f"[hybrid-parity] {label}: launches decode_attention={counts[0]} "
+            f"masked_matmul={counts[1]} (the card model's steps)")
+        require(counts == [HYBRID_STEPS * groups, HYBRID_STEPS * 2 *
+                           cfg.num_layers if masked else 0],
+                f"hybrid-parity {label}: launches K5, K1 {counts}")
+        del caches
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the training path on the card against the CPU, float32
 # ---------------------------------------------------------------------------
@@ -900,6 +1066,11 @@ TRAIN_TOL = 1e-4   # f32, relative to max |cpu| per leaf (a gradient or a
 ROUND_ULPS = 4
 
 
+def _ratio(err, scale):
+    """err / scale, where a zero scale allows only a zero error."""
+    return err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+
+
 def _leaf_errs(got, want):
     """[(max |got - want|, max |want|)] per leaf of two trees."""
     from repro_torch.utils.tree import tree_leaves
@@ -910,6 +1081,13 @@ def _leaf_errs(got, want):
 
 
 def phase_train_parity(torch) -> None:
+    """olmo-1b, then zamba2 (2 layers: one shared-attention group, its FFNs
+    through K1-K3), each at full width in f32."""
+    for arch, seed in (("olmo-1b", 3), ("zamba2-1.2b", 7)):
+        _train_parity(torch, arch, seed)
+
+
+def _train_parity(torch, arch, seed) -> None:
     import dataclasses
 
     import numpy as np
@@ -921,10 +1099,10 @@ def phase_train_parity(torch) -> None:
     from repro_torch.models.lm import LM
     from repro_torch.utils.tree import tree_leaves, tree_map
 
-    cfg = dataclasses.replace(get_config("olmo-1b"), num_layers=2,
+    cfg = dataclasses.replace(get_config(arch), num_layers=2,
                               param_dtype="float32", remat="none")
     cpu, gpu = LM(cfg, device="cpu"), LM(cfg, device="cuda")
-    params_c = cpu.init(torch.Generator().manual_seed(3))
+    params_c = cpu.init(torch.Generator().manual_seed(seed))
     params_g = interop.params_from_jax(params_c, "cuda")
     # layer 0 keeps its first 32 of 64 FFN blocks whole (the kernels skip
     # the other 32); layer 1 keeps FedAP's weight-norm choice at rate 0.5
@@ -939,7 +1117,7 @@ def phase_train_parity(torch) -> None:
                          .astype(np.int32))
     y = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s_len))
                          .astype(np.int32))
-    log(f"[train-parity] olmo-1b d_model={cfg.d_model} d_ff={cfg.d_ff} "
+    log(f"[train-parity] {arch} d_model={cfg.d_model} d_ff={cfg.d_ff} "
         f"L={cfg.num_layers} f32, B={b} S={s_len}; "
         f"{int((blocks == 0).sum())}/{blocks.numel()} FFN blocks fully pruned")
 
@@ -950,12 +1128,13 @@ def phase_train_parity(torch) -> None:
         params_g)
     errs = _leaf_errs(g_g, g_c)
     worst = max(e / m if m > 0 else e for e, m in errs)
-    log(f"[train-parity] masked loss card {float(l_g):.6f} cpu "
+    log(f"[train-parity] {arch} masked loss card {float(l_g):.6f} cpu "
         f"{float(l_c):.6f}; {len(errs)} gradient leaves, worst error "
         f"{worst:.3e} relative to the leaf's max |grad| (tol {TRAIN_TOL:.0e})")
     require(abs(float(l_g) - float(l_c)) <= TRAIN_TOL * max(1.0, abs(float(l_c))),
-            "train-parity: masked loss differs")
-    require(worst <= TRAIN_TOL, f"train-parity: gradient error {worst:.3e}")
+            f"train-parity {arch}: masked loss differs")
+    require(worst <= TRAIN_TOL,
+            f"train-parity {arch}: gradient error {worst:.3e}")
     del g_c, g_g
 
     # one round: 2 clients x 1 local step and 1 server step, each on B x S
@@ -989,30 +1168,33 @@ def phase_train_parity(torch) -> None:
             tree_map(lambda t: t.to(dev), batch_c))
         deltas[name] = tree_map(lambda a, b_: (a - b_).cpu(), state["params"],
                                 before)
-        log(f"[train-parity] one FedDUMAP round on the {name}: tau_eff "
-            f"{float(met['tau_eff']):.6f}, server acc "
+        log(f"[train-parity] {arch} one FedDUMAP round on the {name}: "
+            f"tau_eff {float(met['tau_eff']):.6f}, server acc "
             f"{float(met['server_acc']):.4f}")
         del state, before
     errs = _leaf_errs(deltas["card"], deltas["cpu"])
     rel = max(e / m if m > 0 else e for e, m in errs)
-    ulps = max(e / u for (e, _), u in zip(errs, ulp))
-    worst = max(e / (TRAIN_TOL * m + ROUND_ULPS * u)
+    # zamba2's A_log and dt_bias start at 0: no spacing to count there
+    ulps = max((e / u for (e, _), u in zip(errs, ulp) if u > 0), default=0)
+    worst = max(_ratio(e, TRAIN_TOL * m + ROUND_ULPS * u)
                 for (e, m), u in zip(errs, ulp))
-    log(f"[train-parity] round parameter updates ({len(errs)} leaves): worst "
-        f"error {rel:.3e} relative to the leaf's max |update|, {ulps:.2f} f32 "
-        f"spacings at the leaf's max |param|; worst error / allowance "
-        f"({TRAIN_TOL:.0e} x max |update| + {ROUND_ULPS} spacings) = "
-        f"{worst:.3f}")
-    require(worst <= 1.0, f"train-parity: round update error {worst:.3f} "
-            f"of its allowance")
+    log(f"[train-parity] {arch} round parameter updates ({len(errs)} "
+        f"leaves): worst error {rel:.3e} relative to the leaf's max |update|, "
+        f"{ulps:.2f} f32 spacings at the leaf's max |param|; worst error / "
+        f"allowance ({TRAIN_TOL:.0e} x max |update| + {ROUND_ULPS} spacings) "
+        f"= {worst:.3f}")
+    require(worst <= 1.0, f"train-parity {arch}: round update error "
+            f"{worst:.3f} of its allowance")
 
 
 # ---------------------------------------------------------------------------
-# phase 6: FedDUMAP training of olmo-1b at full width on the card
+# phase 6: FedDUMAP training of olmo-1b and zamba2 at full width on the card
 # ---------------------------------------------------------------------------
 
-def phase_training(torch) -> dict:
-    """Returns {kernel name: launches over the plan's run}."""
+def phase_training(torch, arch="olmo-1b", num_layers=None) -> dict:
+    """A FedDUMAP run of ``arch`` (at ``num_layers``, else all its layers),
+    full width, f32.  Returns {kernel name: launches over the plan's
+    run}."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1025,8 +1207,11 @@ def phase_training(torch) -> dict:
     from repro_torch.models.lm import LM
     from repro_torch.utils.tree import tree_size
 
-    cfg = dataclasses.replace(get_config("olmo-1b"), param_dtype="float32",
+    cfg = dataclasses.replace(get_config(arch), param_dtype="float32",
                               remat="none")
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    tag = f"[training] {arch.removesuffix('-1.2b')}"
     model = LM(cfg, device="cuda")
     data = build_lm_federated_data(
         num_clients=4, server_fraction=0.25,
@@ -1047,7 +1232,7 @@ def phase_training(torch) -> dict:
                               * kw["batch_size"]
                               + kw["server_tau"] * kw["server_batch"])
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    log(f"[training] olmo-1b full width f32: {cfg.num_layers} layers, "
+    log(f"{tag} full width f32: {cfg.num_layers} layers, "
         f"{tree_size(params) / 1e9:.3f} B params; n_k="
         f"{data.client_x.shape[1]}, n0={data.server_x.shape[0]}, S={seq}; "
         f"per round {kw['clients_per_round']} clients x {kw['local_steps']} "
@@ -1070,29 +1255,30 @@ def phase_training(torch) -> dict:
     h = res.history
     for r, loss, acc, tau, t in zip(h["round"], h["loss"], h["acc"],
                                     h["tau_eff"], h["time"]):
-        log(f"[training] round {r}: test loss {loss:.6f} acc {acc:.4f} "
+        log(f"{tag} round {r}: test loss {loss:.6f} acc {acc:.4f} "
             f"tau_eff {tau:.6f} at {t:.3f} s on the host clock")
     art = res.artifacts["prune"]
     fmask = res.state["filter_masks"]["mlp"]
     blocks = fmask.reshape(cfg.num_layers, -1, 128).amax(-1)
-    log(f"[training] prune at round 2: p*={art['p_star']:.6f}, kept "
+    log(f"{tag} prune at round 2: p*={art['p_star']:.6f}, kept "
         f"{art['kept_counts']} of {cfg.d_ff} units per layer, "
         f"{int((blocks == 0).sum())}/{blocks.numel()} FFN column blocks fully "
         f"pruned; plan ran in {wall:.3f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     want = rounds * grads_per_round * 2 * cfg.num_layers
-    log(f"[training] launches masked_matmul={launches['masked_matmul']} "
+    log(f"{tag} launches masked_matmul={launches['masked_matmul']} "
         f"dx={launches['masked_matmul_dx']} dw={launches['masked_matmul_dw']}"
         f" (expected {rounds} rounds x {grads_per_round} gradient evaluations"
-        f" x 2 products x {cfg.num_layers} layers = {want})")
+        f" x 2 products x {cfg.num_layers} layers = {want}: "
+        f"{want // rounds} each a round)")
     require(all(n == want for n in launches.values()),
-            f"training: kernel launches {launches}, expected {want} each")
+            f"{tag}: kernel launches {launches}, expected {want} each")
     require(len(h["loss"]) == rounds and all(
         math.isfinite(v) for k in ("loss", "acc", "tau_eff") for v in h[k]),
-        "training: history not finite")
+        f"{tag}: history not finite")
     kept = art["kept_counts"]["mlp"]
     require(kept < cfg.d_ff and bool(
-        (fmask.sum(1) == kept).all()), "training: the prune was not applied")
+        (fmask.sum(1) == kept).all()), f"{tag}: the prune was not applied")
 
     # steady-state rounds on the pruned state: two timed on the host clock,
     # one under the profiler
@@ -1101,15 +1287,16 @@ def phase_training(torch) -> dict:
     state, _ = backend.run_rounds(state, rounds, 2)
     torch.cuda.synchronize()
     round_s = (time.perf_counter() - t0) / 2
-    log(f"[training] steady state: {round_s:.3f} s/round -> "
+    log(f"{tag} steady state: {round_s:.3f} s/round -> "
         f"{1 / round_s:.3f} rounds/s, {tokens_per_round / round_s:.1f} "
         f"tokens/s trained")
-    _profile_round(torch, backend, state, rounds + 2, round_s)
+    _profile_round(torch, backend, state, rounds + 2, round_s,
+                   tag.replace("[training]", "training"))
     del res, state, trainer, backend
     return launches
 
 
-def _profile_round(torch, backend, state, t, round_s) -> None:
+def _profile_round(torch, backend, state, t, round_s, label) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1120,16 +1307,16 @@ def _profile_round(torch, backend, state, t, round_s) -> None:
                if e.device_type.name == "CUDA"
                and e.self_device_time_total > 0]
     if not kernels:
-        log("[profile] training: device time not measured (the profiler saw "
-            "no CUDA kernels)")
+        log(f"[profile] {label}: device time not measured (the profiler "
+            f"saw no CUDA kernels)")
         return
     dev_s = sum(e.self_device_time_total for e in kernels) / 1e6
     busy = 100 * dev_s / round_s
-    log(f"[profile] training: round {round_s:.3f} s on the host clock, "
+    log(f"[profile] {label}: round {round_s:.3f} s on the host clock, "
         f"kernels {dev_s:.3f} s on the device -> busy {busy:.1f}%, idle "
         f"{100 - busy:.1f}%")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"[profile] training:   {e.self_device_time_total / 1e6:8.4f} "
+        log(f"[profile] {label}:   {e.self_device_time_total / 1e6:8.4f} "
             f"s/round  {e.count:5d}/round  {e.key[:90]}")
 
 
@@ -1287,6 +1474,170 @@ def _sync_free_wave(torch, sv, scfg, prompts) -> None:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     log(f"[serving] one wave ({scfg.steps_per_wave} steps) ran under "
+        f"set_sync_debug_mode('error') without a host sync")
+
+
+# zamba2 serving: 8 sequences, prompts of 448 tokens, 64 new, 512 cache rows
+HYBRID_SERVE = dict(batch=8, prompt=448, new=64, cache_len=512)
+
+
+def phase_serving_hybrid(torch) -> dict:
+    """zamba2-1.2b at full width and depth (38 layers), bf16, random weights
+    from a seeded generator, served through ``load_servable(...,
+    attn_impl="pallas")`` and ``lockstep_decode`` (the reference serves the
+    hybrid with its lockstep loop; its engine refuses it) in dense,
+    masked@0.5 and shrunk@0.5 modes, with each kernel's launch count checked
+    against the steps (K5 once per shared-attention group, K1 twice per
+    layer when masked), a profiled window of steps and a short run under
+    ``torch.cuda.set_sync_debug_mode("error")``.  Returns {kernel name:
+    launches over the three timed runs}."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import masked_matmul as k1
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import load_servable, lockstep_decode
+    from repro_torch.utils.tree import tree_size
+
+    b, p_len, n_new, cache_len = (HYBRID_SERVE[k] for k in
+                                  ("batch", "prompt", "new", "cache_len"))
+    cfg = get_config("zamba2-1.2b")
+    model = LM(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    source = {"params": params, "kept": model.decide_kept(params, 0.5),
+              "mode": "mask", "model_config": cfg}
+    groups = len(model.hybrid_groups())
+    log(f"[serving] zamba2-1.2b full width: {cfg.num_layers} layers in "
+        f"{groups} groups, {tree_size(params) / 1e9:.3f} B params, "
+        f"{cfg.param_dtype}; B={b}, prompts of {p_len} tokens, {n_new} new, "
+        f"{cache_len} cache rows")
+    del model, params
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, p_len)).astype(np.int32))
+    launches = {"decode_attention": 0, "masked_matmul": 0}
+    tokens = {}
+    for mode in ("dense", "masked", "shrunk"):
+        src = source if mode != "dense" else {**source, "kept": None}
+        sv = load_servable(src, mode, attn_impl="pallas", device="cuda")
+        lockstep_decode(sv.model, sv.params, prompt[:, :4], 4,
+                        masks=sv.masks, cache_len=cache_len)      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k5.launches = k1.launches = 0
+        timings = {}
+        t0 = time.perf_counter()
+        got, steps = lockstep_decode(sv.model, sv.params, prompt, n_new,
+                                     masks=sv.masks, cache_len=cache_len,
+                                     timings=timings)
+        wall = time.perf_counter() - t0
+        n5, n1 = k5.launches, k1.launches
+        pre, dec = timings["prefill_s"], timings["decode_s"]
+        log(f"[serving] zamba2 {mode}: {steps} decode steps in {wall:.3f} s "
+            f"(prefill {pre:.3f} s, {1e3 * pre / p_len:.3f} ms/step; decode "
+            f"{dec:.3f} s, {1e3 * dec / n_new:.3f} ms/step) -> "
+            f"{b * n_new / dec:.1f} tokens/s generated, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+            f"decode_attention={n5} ({n5 / steps:g}/step) masked_matmul={n1} "
+            f"({n1 / steps:g}/step)")
+        require(steps == p_len + n_new and tuple(got.shape) == (b, n_new)
+                and int(got.min()) >= 0 and int(got.max()) < cfg.vocab_size,
+                f"serving zamba2 {mode}: malformed tokens")
+        require(n5 == steps * groups, f"serving zamba2 {mode}: "
+                f"decode_attention launched {n5} times, expected {steps} "
+                f"steps x {groups} groups")
+        want1 = steps * 2 * cfg.num_layers if mode == "masked" else 0
+        require(n1 == want1, f"serving zamba2 {mode}: masked_matmul launched "
+                f"{n1} times, expected {want1}")
+        launches["decode_attention"] += n5
+        launches["masked_matmul"] += n1
+        tokens[mode] = got
+        _profile_lockstep(torch, mode, sv, prompt, cache_len)
+        _sync_free_lockstep(torch, mode, sv, prompt, cache_len)
+        del sv
+    same = (tokens["masked"] == tokens["shrunk"]).float()
+    log(f"[serving] zamba2 masked and shrunk agree on "
+        f"{100 * float(same.mean()):.1f}% of tokens, "
+        f"{100 * float(same[:, 0].mean()):.1f}% of the first (bf16 rounding "
+        f"differs between the two products, and a greedy stream that "
+        f"differs once goes its own way; [hybrid-parity] holds the two in "
+        f"f32)")
+    return launches
+
+
+WINDOW = (4, 4)     # prefill and decode steps of a profiled or checked window
+
+
+def _lockstep_window(torch, sv, prompt, cache_len):
+    """A fresh cache and the first prompt tokens on the card: a window of 8
+    steps (4 prefill, 4 decode) for the profile and the sync check (a
+    profile of ~3100 launches a step costs the profiler ~2 s a step)."""
+    cache = sv.model.init_cache(prompt.shape[0], cache_len)
+    return cache, prompt[:, :WINDOW[0]].cuda()
+
+
+def _profile_lockstep(torch, mode, sv, prompt, cache_len) -> None:
+    """The host-clock time of a window of lockstep steps (no profiler)
+    against the device time of the kernels of another under torch.profiler:
+    their ratio is the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.lockstep import run_steps
+
+    n = sum(WINDOW)
+    with torch.inference_mode():
+        cache, p = _lockstep_window(torch, sv, prompt, cache_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_steps(sv.model, sv.params, cache, p, WINDOW[1],
+                  masks=sv.masks)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n
+        cache, p = _lockstep_window(torch, sv, prompt, cache_len)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run_steps(sv.model, sv.params, cache, p, WINDOW[1],
+                      masks=sv.masks)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA"
+               and e.self_device_time_total > 0]
+    if not kernels:
+        log(f"[profile] zamba2 {mode}: {wall_ms:.3f} ms/step on the host "
+            f"clock; device time not measured (the profiler saw no CUDA "
+            f"kernels)")
+        return
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    busy = 100 * dev_ms / wall_ms
+    log(f"[profile] zamba2 {mode}: {wall_ms:.3f} ms/step on the host clock, "
+        f"kernels {dev_ms:.3f} ms/step on the device -> busy {busy:.1f}%, "
+        f"idle {100 - busy:.1f}%; launches "
+        f"{sum(e.count for e in kernels) // n}/step")
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    own = [e for e in ranked[8:] if "decode_" in e.key or "masked_" in e.key]
+    for e in ranked[:8] + own:
+        per_step = e.self_device_time_total / 1e3 / n
+        log(f"[profile] zamba2 {mode}:   {per_step:8.4f} ms/step  "
+            f"{e.count // n:4d}/step  {e.key[:90]}")
+
+
+def _sync_free_lockstep(torch, mode, sv, prompt, cache_len) -> None:
+    """A window of lockstep steps under sync-debug "error": any host sync
+    inside the steps raises."""
+    from repro_torch.serving.lockstep import run_steps
+
+    with torch.inference_mode():
+        cache, p = _lockstep_window(torch, sv, prompt, cache_len)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run_steps(sv.model, sv.params, cache, p, WINDOW[1],
+                      masks=sv.masks)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    log(f"[serving] zamba2 {mode}: {sum(WINDOW)} steps ran under "
         f"set_sync_debug_mode('error') without a host sync")
 
 
@@ -1518,16 +1869,21 @@ def _profile_forward(torch, label, forward, wall) -> None:
             f"{e.key[:90]}")
 
 
+PHASE_SECONDS: dict = {}    # phase -> wall seconds, for the [time] lines
+
+
 def _phase(torch, name, fn, *args):
-    """Run one phase with the device's peak memory measured around it."""
+    """Run one phase with the device's peak memory and its wall time
+    measured around it."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = fn(*args)
     torch.cuda.synchronize()
+    PHASE_SECONDS[name] = time.perf_counter() - t0
     log(f"[memory] {name}: peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-        f" GiB, {time.perf_counter() - t0:.1f} s")
+        f" GiB, {PHASE_SECONDS[name]:.1f} s")
     return out
 
 
@@ -1540,19 +1896,31 @@ def main() -> int:
         return 2
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    start = time.perf_counter()
     phase_device(torch)
+    t0 = time.perf_counter()
     phase_build()
+    PHASE_SECONDS["build"] = time.perf_counter() - t0
     timer = Timer(torch)
     records = _phase(torch, "kernels", phase_kernels, torch, timer)
     del timer
     _phase(torch, "parity", phase_parity, torch)
+    _phase(torch, "hybrid-parity", phase_hybrid_parity, torch)
     _phase(torch, "train-parity", phase_train_parity, torch)
-    launches = _phase(torch, "training", phase_training, torch)
-    for name, n in _phase(torch, "serving", phase_serving, torch).items():
-        launches[name] = launches.get(name, 0) + n
-    _phase(torch, "score-parity", phase_score_parity, torch)
-    for name, n in _phase(torch, "scoring", phase_scoring, torch).items():
-        launches[name] = launches.get(name, 0) + n
+    launches = {}
+    for label, path in (
+            ("training", lambda: phase_training(torch)),
+            ("training zamba2", lambda: phase_training(
+                torch, "zamba2-1.2b", num_layers=12)),
+            ("serving", lambda: phase_serving(torch)),
+            ("serving zamba2", lambda: phase_serving_hybrid(torch)),
+            ("score-parity", lambda: phase_score_parity(torch) or {}),
+            ("scoring", lambda: phase_scoring(torch))):
+        for name, n in _phase(torch, label, path).items():
+            launches[name] = launches.get(name, 0) + n
+    for name, sec in PHASE_SECONDS.items():
+        log(f"[time] {name}: {sec:.1f} s")
+    log(f"[time] total: {time.perf_counter() - start:.1f} s (limit 1200 s)")
     for name, rec in records.items():
         rec["launches"] = launches[name]
         rec.update(tpu_kernel=rec["replaces"], max_err=rec["max_abs_err"],

@@ -36,6 +36,17 @@ def params_from_jax(tree, device="cuda", dtype=None) -> dict:
     return tree_map(lambda leaf: _leaf_to_torch(leaf, dev, dtype), tree)
 
 
+def cache_from_jax(cache, device="cuda") -> dict:
+    """A JAX decode cache (``LM.init_cache``'s tree as numpy or JAX arrays,
+    e.g. one taken mid-stream) as the port's, leaf for leaf on ``device``,
+    every leaf keeping its dtype: dense ``{"k", "v", "index"}`` or hybrid
+    ``{"mamba": {"conv", "h"}, "shared_attn": {"k", "v"}, "index"}``."""
+    if not isinstance(cache, dict) or "index" not in cache:
+        raise ValueError(f"not a decode cache (a dict with an 'index' leaf): "
+                         f"{type(cache).__name__}")
+    return params_from_jax(cache, device)
+
+
 def params_to_numpy(tree) -> dict:
     """The inverse of :func:`params_from_jax`: tensors -> host numpy
     (bfloat16 as float32, exact)."""

@@ -436,3 +436,47 @@ def apply_mamba2(params, x, meta: dict, cfg: ModelConfig, *,
     y = y.reshape(bsz, s, d_in)
     y = apply_norm({"scale": params["norm_scale"]}, y * F.silu(z), "rmsnorm")
     return y @ params["out_proj"]
+
+
+def mamba2_init_state(batch: int, meta: dict, cfg: ModelConfig, dtype,
+                      device) -> tuple:
+    """Zero decode state of one Mamba2 layer: the conv buffer ``[B, W-1,
+    d_in + 2N]`` (the last W-1 conv inputs) in ``dtype`` and the SSM state
+    ``[B, nh, p, N]`` in f32."""
+    d_in, nh, p, n = meta["d_in"], meta["nh"], meta["p"], meta["n"]
+    return (torch.zeros((batch, cfg.ssm.conv_width - 1, d_in + 2 * n),
+                        dtype=dtype, device=device),
+            torch.zeros((batch, nh, p, n), dtype=torch.float32,
+                        device=device))
+
+
+def mamba2_decode(params, x, state, meta: dict, cfg: ModelConfig):
+    """One-token Mamba2 recurrence, x [B,1,d] -> [B,1,d].  ``state`` is
+    ``(conv_buf [B,W-1,d_in+2N], h [B,nh,p,N])`` (:func:`mamba2_init_state`)
+    and is updated IN PLACE, where the reference returns a new state.
+
+    The reference's arithmetic: ``in_proj`` split into z | x | B | C | dt,
+    the depthwise conv over the window ``[conv_buf | x B C]`` as one
+    reduction over W, silu; ``dt = softplus(dt + dt_bias)`` and ``a =
+    exp(-dt exp(A_log))`` in f32; ``h = a h + dt x B^T`` and ``y = C h +
+    D x`` in f32, cast to x's dtype; the gated RMSNorm and ``out_proj``.
+    The conv buffer takes the window's last W-1 rows from the new window
+    (a shift of the buffer onto itself would be an overlapping copy)."""
+    d_in, nh, p, n = meta["d_in"], meta["nh"], meta["p"], meta["n"]
+    conv_buf, h = state
+    bsz = x.shape[0]
+    proj = x @ params["in_proj"]
+    z, xi, bmat, cmat, dt = torch.split(proj, [d_in, d_in, n, n, nh], dim=-1)
+    window = torch.cat([conv_buf, torch.cat([xi, bmat, cmat], dim=-1)], dim=1)
+    conv = F.silu(torch.einsum("bwc,wc->bc", window, params["conv"]))
+    conv_buf.copy_(window[:, 1:])
+    xi, bmat, cmat = torch.split(conv, [d_in, n, n], dim=-1)
+    xf = xi.float().reshape(bsz, nh, p)
+    dtv = ref.softplus(dt[:, 0].float() + params["dt_bias"])          # [B,nh]
+    a = torch.exp(-dtv * torch.exp(params["A_log"]))                  # [B,nh]
+    h.mul_(a[..., None, None]).add_(
+        (xf * dtv[..., None])[..., None] * bmat.float()[:, None, None, :])
+    y = torch.einsum("bn,bhpn->bhp", cmat.float(), h)
+    y = (y + xf * params["D"][:, None]).to(x.dtype).reshape(bsz, 1, d_in)
+    y = apply_norm({"scale": params["norm_scale"]}, y * F.silu(z), "rmsnorm")
+    return y @ params["out_proj"]

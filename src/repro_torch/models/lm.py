@@ -8,7 +8,8 @@ Counterpart of the reference's ``models/lm.py`` for two families:
   KV cache of serving;
 * ``hybrid`` (zamba2: a Mamba2 backbone with one shared attention block
   applied before each group of ``attn_every`` layers): the full-sequence
-  forward, loss and token accuracy (its decode is a later slice);
+  forward, loss and token accuracy, and the decode step over a per-layer
+  Mamba2 conv/SSM state and one KV cache per shared-attention application;
 
 and the FedAP pruning seam of both.  Layer params are stacked along a
 leading ``[L, ...]`` axis as in the reference, so a JAX param tree
@@ -51,9 +52,9 @@ def _unstack(stacked) -> list:
 
 
 class LM:
-    """``init``, ``apply``/``loss``/``loss_and_acc`` of a dense or hybrid
-    decoder, and ``init_cache``/``decode_step`` of a dense one, on
-    ``device`` (default ``"cuda"``, which raises when CUDA is missing)."""
+    """``init``, ``apply``/``loss``/``loss_and_acc`` and ``init_cache``/
+    ``decode_step`` of a dense or hybrid decoder, on ``device`` (default
+    ``"cuda"``, which raises when CUDA is missing)."""
 
     def __init__(self, cfg: ModelConfig, *, attn_impl: str = "xla",
                  device="cuda"):
@@ -235,27 +236,40 @@ class LM:
         return params if idx is None else pruning_lm.shrink_ffn_at(params, idx)
 
     # -- decode -----------------------------------------------------------------
-    def _dense_decode_only(self) -> None:
-        if self.hybrid:
-            raise ValueError(
-                f"{self.cfg.name}: hybrid (zamba2) decode, mamba2_decode and "
-                f"its conv/state cache, is a later slice of the port; this "
-                f"slice scores the hybrid family with apply/loss_and_acc")
-
     def init_cache(self, batch_size: int, cache_len: int, *,
                    window=None) -> dict:
-        """``{"k", "v": [L, B, S, KV, hd], "index": 0-d int32}`` zeros, with
-        S = ``cache_len``, or ``min(cache_len, window)`` when a ``window`` is
-        given (a ring buffer once the index passes S)."""
-        self._dense_decode_only()
+        """Zero decode cache with S = ``cache_len`` attention rows, or
+        ``min(cache_len, window)`` when a ``window`` is given (a ring buffer
+        once the index passes S); ``"index"`` is a 0-d int32 zero.
+
+        dense: ``{"k", "v": [L, B, S, KV, hd]}``.  hybrid: ``{"mamba":
+        {"conv": [L, B, W-1, d_in + 2N] (param dtype), "h": [L, B, nh, p, N]
+        (f32)}, "shared_attn": {"k", "v": [G, B, S', KV, hd]}}``, one KV cache
+        per application of the shared attention (G groups), with S' = S cut
+        to ``cfg.sliding_window``."""
         cfg = self.cfg
         rows = cache_len if window is None else min(cache_len, window)
+        index = torch.zeros((), dtype=torch.int32, device=self.device)
+        if self.hybrid:
+            rows = min(rows, cfg.sliding_window or rows)
+            conv, h = L.mamba2_init_state(batch_size, self._meta, cfg,
+                                          self.dtype, self.device)
+            lead = (cfg.num_layers,)
+            kv = (len(self.hybrid_groups()), batch_size, rows,
+                  cfg.padded_num_kv_heads, cfg.resolved_head_dim)
+            return {"mamba": {"conv": conv.new_zeros(lead + conv.shape),
+                              "h": h.new_zeros(lead + h.shape)},
+                    "shared_attn": {
+                        "k": torch.zeros(kv, dtype=self.dtype,
+                                         device=self.device),
+                        "v": torch.zeros(kv, dtype=self.dtype,
+                                         device=self.device)},
+                    "index": index}
         shape = (cfg.num_layers, batch_size, rows,
                  cfg.padded_num_kv_heads, cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
                 "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
-                "index": torch.zeros((), dtype=torch.int32,
-                                     device=self.device)}
+                "index": index}
 
     def decode_step(self, params, cache, batch, *, masks=None):
         """One-token decode.  ``batch["tokens"]`` [B,1].  Returns (logits
@@ -264,32 +278,65 @@ class LM:
         ``cache["index"]`` is a 0-d tensor (lockstep decode) or an int32 [B]
         tensor (continuous batching: per-slot fill levels, which the rope
         positions, the cache writes and the attended prefix all follow).
-        The K/V pages are updated in place and the returned cache holds the
-        same tensors with ``index + 1``.
+        Every cache tensor is updated in place and the returned cache holds
+        the same tensors with ``index + 1``.
 
         ``masks`` (optional) ``{"mlp": [L, d_ff] 0/1}`` routes every layer's
         FFN through the block-skipping masked path; the logits equal the
-        shrunk model's.
+        shrunk model's.  (The reference's hybrid decode drops ``masks``; on
+        a mask-mode checkpoint, whose pruned units are zero, both give the
+        same logits.)
 
         Attention runs the ``decode_attention`` kernel (K5) for either
         ``attn_impl``, as the reference's Pallas path does; there is no
-        plain-attention decode on the card.
+        plain-attention decode on the card.  The hybrid runs the shared
+        attention on its group's cache before each group of Mamba2 layers
+        (:func:`layers.mamba2_decode`, a plain recurrence: the reference has
+        no kernel there).
         """
-        self._dense_decode_only()
         cfg = self.cfg
         x = params["embed"][batch["tokens"]]
         idx = cache["index"]
         off = idx if idx.ndim == 0 else idx[None, :, None]
         pos = L.default_positions(x.shape[0], 1, cfg.rope,
                                   device=x.device) + off
-        lp = params["layers"]
-        for i in range(cfg.num_layers):
-            layer = {k: {n: t[i] for n, t in v.items()} for k, v in lp.items()}
-            h = L.apply_norm(layer.get("norm_a", {}), x, cfg.norm)
-            x = x + L.attention_decode(layer["attn"], h, cache["k"][i],
-                                       cache["v"][i], idx, pos, cfg)
-            h = L.apply_norm(layer.get("norm_f", {}), x, cfg.norm)
-            x = x + L.apply_mlp(layer["mlp"], h, cfg.act,
-                                None if masks is None else masks["mlp"][i])
+        rows = (masks["mlp"].unbind(0) if masks is not None
+                else (None,) * cfg.num_layers)
+        if self.hybrid:
+            x = self._hybrid_decode(params, cache, x, idx, pos, rows)
+        else:
+            lp = params["layers"]
+            for i in range(cfg.num_layers):
+                layer = {k: {n: t[i] for n, t in v.items()}
+                         for k, v in lp.items()}
+                h = L.apply_norm(layer.get("norm_a", {}), x, cfg.norm)
+                x = x + L.attention_decode(layer["attn"], h, cache["k"][i],
+                                           cache["v"][i], idx, pos, cfg)
+                h = L.apply_norm(layer.get("norm_f", {}), x, cfg.norm)
+                x = x + L.apply_mlp(layer["mlp"], h, cfg.act, rows[i])
         cache = {**cache, "index": idx + 1}
         return self._head(params, x), cache
+
+    def _hybrid_decode(self, params, cache, x, idx, pos, rows):
+        """The hybrid's layers for one token: per group, the shared
+        attention's norm and K5 over ``cache["shared_attn"]`` row ``gi`` (a
+        contiguous [B,S,KV,hd] view), then each Mamba2 layer's norm, mixer
+        step and FFN.  The attention window is the cache's row count: the
+        new K/V land at slot ``index mod S``."""
+        cfg = self.cfg
+        shared = params["shared_attn"]
+        sk, sv = cache["shared_attn"]["k"], cache["shared_attn"]["v"]
+        conv, ssm = cache["mamba"]["conv"], cache["mamba"]["h"]
+        layers = _unstack(params["layers"])
+        for gi, (a, stop) in enumerate(self.hybrid_groups()):
+            h = L.apply_norm(shared["norm"], x, cfg.norm)
+            x = x + L.attention_decode(shared["attn"], h, sk[gi], sv[gi], idx,
+                                       pos, cfg)
+            for i in range(a, stop):
+                layer = layers[i]
+                h = L.apply_norm(layer["norm_m"], x, cfg.norm)
+                x = x + L.mamba2_decode(layer["mamba"], h, (conv[i], ssm[i]),
+                                        self._meta, cfg)
+                h = L.apply_norm(layer["norm_f"], x, cfg.norm)
+                x = x + L.apply_mlp(layer["mlp"], h, cfg.act, rows[i])
+        return x

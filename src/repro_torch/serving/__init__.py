@@ -1,4 +1,5 @@
-"""Serving: the continuous-batching decode engine and checkpoint loading."""
+"""Serving: the continuous-batching decode engine, the lockstep decode loop
+and checkpoint loading."""
 from repro_torch.serving.checkpoint import SERVE_MODES, Servable, load_servable
 from repro_torch.serving.engine import (
     Completion,
@@ -6,6 +7,7 @@ from repro_torch.serving.engine import (
     QueueFull,
     ServeConfig,
 )
+from repro_torch.serving.lockstep import lockstep_decode
 
 __all__ = ["SERVE_MODES", "Completion", "DecodeEngine", "QueueFull",
-           "Servable", "ServeConfig", "load_servable"]
+           "Servable", "ServeConfig", "load_servable", "lockstep_decode"]

@@ -120,7 +120,9 @@ class DecodeEngine:
         if model.cfg.family not in _SERVABLE_FAMILIES:
             raise ValueError(
                 f"DecodeEngine serves the scanned-KV families "
-                f"{_SERVABLE_FAMILIES}, not {model.cfg.family!r}")
+                f"{_SERVABLE_FAMILIES}, not {model.cfg.family!r} (its decode "
+                f"state has no per-slot cache index; serve it with "
+                f"repro_torch.serving.lockstep_decode)")
         self.device = _device.resolve(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "

@@ -1,0 +1,76 @@
+"""Lockstep greedy decoding: every sequence at the same depth.
+
+Counterpart of the reference's ``examples/serve_decode.py::serve_lockstep``,
+the way the reference serves the families whose decode state has no
+per-slot cache index (the hybrid's Mamba2 state and ring-buffer attention
+caches; ``DecodeEngine`` refuses them).  The prompt is prefilled one token a
+step through ``model.decode_step``, then tokens are decoded greedily with
+argmax on the device.  Nothing inside the steps reads a tensor to the host:
+the generated tokens are read once, at the end.
+"""
+from __future__ import annotations
+
+import time
+
+import torch
+
+
+def lockstep_decode(model, params, prompt, n_new: int, *, masks=None,
+                    cache_len=None, timings=None):
+    """Greedy decode of ``n_new`` tokens after ``prompt`` (int tensor [B,P],
+    P >= 1) with ``model`` (an ``LM``) on its device.
+
+    The cache holds ``cache_len`` rows (default P + n_new); a hybrid's shared
+    attention cuts it to its window, past which it is a ring buffer.  As in
+    the reference's loop, the argmax after the last prompt token is the first
+    decode step's input, and the tokens returned are the argmax of each of
+    the ``n_new`` decode steps.  ``masks`` (``{"mlp": [L, d_ff] 0/1}``) route
+    every FFN through the block-skipping masked path.  ``timings`` (a dict),
+    when given, receives ``prefill_s`` and ``decode_s`` on the host clock,
+    the device synchronised after each loop, as the reference's loop times
+    them.
+
+    Returns (tokens [B, n_new] int64 on the host, decode steps run: P +
+    n_new)."""
+    if prompt.ndim != 2 or prompt.shape[1] < 1:
+        raise ValueError(f"prompt must be [B, P] with P >= 1, got "
+                         f"{tuple(prompt.shape)}")
+    if n_new < 1:
+        raise ValueError(f"n_new must be >= 1, got {n_new}")
+    b, p = prompt.shape
+    cache = model.init_cache(b, cache_len or p + n_new)
+    prompt = prompt.to(device=model.device, dtype=torch.int32)
+    with torch.inference_mode():
+        out = run_steps(model, params, cache, prompt, n_new, masks=masks,
+                        timings=timings)
+    return out.cpu(), p + n_new
+
+
+def run_steps(model, params, cache, prompt, n_new: int, *, masks=None,
+              timings=None):
+    """The loop's P + n_new decode steps from ``cache`` (updated in place),
+    ``prompt`` int32 [B,P] on the model's device.  Returns the generated
+    tokens [B, n_new] on the device; nothing is read to the host, and the
+    device is synchronised only when ``timings`` is given."""
+    def lap(key, t0):
+        if timings is not None:
+            if model.device.type == "cuda":
+                torch.cuda.synchronize(model.device)
+            timings[key] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    out = torch.empty((prompt.shape[0], n_new), dtype=torch.int64,
+                      device=model.device)
+    t0 = time.perf_counter()
+    for t in range(prompt.shape[1]):
+        logits, cache = model.decode_step(
+            params, cache, {"tokens": prompt[:, t:t + 1]}, masks=masks)
+    t0 = lap("prefill_s", t0)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    for i in range(n_new):
+        logits, cache = model.decode_step(
+            params, cache, {"tokens": tok.to(torch.int32)}, masks=masks)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        out[:, i:i + 1].copy_(tok)
+    lap("decode_s", t0)
+    return out

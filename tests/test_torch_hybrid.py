@@ -155,13 +155,12 @@ class TestHybridLM:
         assert torch.isfinite(p["layers"]["mamba"]["in_proj"].grad).all()
         assert p["shared_attn"]["attn"]["wq"].grad.abs().sum() > 0
 
-    def test_decode_is_a_later_slice(self, world):
+    def test_decode_engine_refuses_the_hybrid(self, world):
+        """As the reference's engine does: the hybrid's decode state has no
+        per-slot cache index (it is served by ``lockstep_decode``, held
+        against the reference in ``test_torch_hybrid_decode.py``)."""
         _, params, _, _, _ = world
         model = LM(_port_cfg(ZAMBA), device="cpu")
-        with pytest.raises(ValueError, match="later slice"):
-            model.init_cache(1, 8)
-        with pytest.raises(ValueError, match="later slice"):
-            model.decode_step(params, {}, {"tokens": torch.zeros((1, 1))})
         with pytest.raises(ValueError, match="scanned-KV"):
             DecodeEngine(model, params, ServeConfig(
                 slots=1, cache_len=8, max_prompt=4, max_new_tokens=4),

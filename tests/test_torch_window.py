@@ -96,8 +96,18 @@ def test_lockstep_decode_past_the_ring_matches_jax_xla(world):
 
 
 def test_hybrid_init_cache_still_raises():
-    from repro_torch.configs import get_config
+    """The hybrid's ``init_cache(window=)``: its shared attention keeps
+    ``min(cache_len, window, sliding_window)`` rows, and every leaf has the
+    reference's shape and dtype."""
+    from repro.configs import get_config as jax_get_config
 
-    model = LM(get_config("zamba2-1.2b").reduced(), device="cpu")
-    with pytest.raises(ValueError, match="later slice"):
-        model.init_cache(1, 16, window=8)
+    jcfg = jax_get_config("zamba2-1.2b").reduced()
+    model = LM(ModelConfig.from_dict(jcfg.to_dict()), device="cpu")
+    for cache_len, window, rows in ((16, 8, 8), (100, None, 64),
+                                    (100, 80, 64)):
+        got = model.init_cache(1, cache_len, window=window)
+        want = JaxLM(jcfg).init_cache(1, cache_len, window=window)
+        assert got["shared_attn"]["k"].shape[2] == rows
+        for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+            assert tuple(g.shape) == w.shape
+            assert str(g.dtype).split(".")[-1] == str(w.dtype)

@@ -9,9 +9,9 @@ S = 8192, nh = 64, p = 64, N = 64) in bf16 and f32 and at a ragged shape
 (B = 2, S = 1000) in bf16:
 
 * ``ms``: the median CUDA-event time of one call with L2 flushed before each
-  (``chip_smoke.Timer``), and in bf16 ``bound_ms`` (``chip_smoke._k6_bound``,
-  the bytes' time there; its flop count is the Pallas square chunk form's
-  at the SIMT peak, not what the f32 kernel runs, so f32 gets none);
+  (``chip_smoke.Timer``), and ``bound_ms`` (``chip_smoke._k6_bound``: the
+  larger of the bytes' time and the sequential recurrence's flops at the
+  type's peak);
 * ``passes_ms``: device time per launch of each of the call's kernels under
   ``torch.profiler`` (10 calls, L2 flushed before each), by kernel name;
 * ``err``: the largest error against the plain version
@@ -99,9 +99,9 @@ def kernel_numbers(torch, cs, k6, ref, timer) -> dict:
         out[label] = {"ms": timer(call),
                       "passes_ms": passes_ms(torch, call, timer.flush),
                       "err": err, "bitwise": bitwise, "peak_mib": peak}
-        if dtype == torch.bfloat16:
-            bound, by, _ = cs._k6_bound(b, s, NH, P, N, CHUNK, 2, "bfloat16")
-            out[label] |= {"bound_ms": bound, "bound_by": by}
+        bound, by, _ = cs._k6_bound(b, s, NH, P, N, args[0].element_size(),
+                                    str(dtype).split(".")[-1])
+        out[label] |= {"bound_ms": bound, "bound_by": by}
     return out
 
 
