@@ -73,7 +73,23 @@ Phases, in order; any failure raises and the script exits non-zero:
               S = 8192; tokens/s, the device's busy share and time per
               kernel (torch.profiler), peak memory, and the launch counts
               (K4 16 per olmo forward, K1 32 in masked mode; K4 7 and K6 38
-              per zamba2 forward).
+              per zamba2 forward);
+11. cnn-parity — the paper's CNNs at full width in float32 (TF32 off), card
+              against CPU from the same params: SimpleCNN (16x16x3), VGG11
+              (32x32x3) and ResNet18-GN (32x32x3, 100 classes) logits and
+              gradients on a batch of 32; SimpleCNN's HRank ranks over a
+              probe of 32 (per-sample differences counted, the kept sets at
+              rate 0.5 equal) and one FedDUMAP round with a mask prune;
+12. training cnn — the paper protocol through ``FederatedTrainer``:
+              ``SyntheticSpec()`` data, 100 clients of 400 samples, 2,000
+              server samples, 10 clients a round, E = 5, B = 10, FedAP with
+              a probe of 32 and 6 participants; SimpleCNN for 6 rounds with
+              a prune at round 3 (shrink, mask, mask then shrink at 4) and
+              VGG11 (32x32x3) for 2 rounds with a shrink at round 1: s/round,
+              local samples/s, peak memory, the busy share of a profiled
+              round, p*, kept counts, MFLOPs before and after, the accuracy
+              trajectory, and 0 launches of masked_matmul (no paper CNN
+              reaches a TPU kernel).
 
 Each phase after the build prints its peak device memory; ``[time]`` lines
 give each phase's wall seconds and the total.
@@ -1075,8 +1091,8 @@ def _leaf_errs(got, want):
     """[(max |got - want|, max |want|)] per leaf of two trees."""
     from repro_torch.utils.tree import tree_leaves
 
-    return [(float((g.detach().cpu().float() - w.float()).abs().max()),
-             float(w.float().abs().max()))
+    return [(float((g.detach().cpu().double() - w.double()).abs().max()),
+             float(w.double().abs().max()))
             for g, w in zip(tree_leaves(got), tree_leaves(want))]
 
 
@@ -1869,6 +1885,427 @@ def _profile_forward(torch, label, forward, wall) -> None:
             f"{e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phases 11-12: the paper's CNNs (no TPU kernel lies on their path)
+# ---------------------------------------------------------------------------
+
+CNN_TOL = 1e-4      # f32, TF32 off: logits relative to max(1, max |cpu|),
+                    # each gradient leaf relative to its max |cpu|; cuDNN
+                    # and the CPU's convolutions sum 27 to 4608 terms a
+                    # product in other orders (and other algorithms).
+# A ReLU input within ~1e-6 of 0 can take the other side of 0 on the card
+# than on the CPU; such a unit then passes its gradient on one device and
+# not the other, which moves a gradient element by that position's whole
+# contribution (VGG11's first layer alone holds 2 M units a batch of 32).
+# Where the feature maps show such flips, the float32 gradients are held as
+# the whole tree's relative L2 error, within CNN_TOL_FLIPS (H100 80GB HBM3,
+# 700 W: VGG11 6.4e-4 with 1 flip, ResNet18 4.2e-5 with 3; the worst leaf
+# 5.2e-3 and 1.7e-3 of its max, printed), and the same gradients are held
+# in float64 on both devices, leaf by leaf, where no unit sits that close
+# to 0.
+CNN_TOL_FLIPS = 5e-3
+CNN_TOL64 = 1e-9
+CNN_MODELS = (("SimpleCNN", {"num_classes": 10}, (16, 16, 3)),
+              ("VGG11", {"num_classes": 10}, (32, 32, 3)),
+              ("ResNet18", {"num_classes": 100}, (32, 32, 3)))
+
+
+def _cnn_pair(torch, cls, kw, shape, seed):
+    """One paper CNN on the CPU and on the card from the same params."""
+    from repro_torch.models import cnn
+    from repro_torch.utils.tree import tree_map
+
+    cpu = getattr(cnn, cls)(image_shape=shape, device="cpu", **kw)
+    gpu = getattr(cnn, cls)(image_shape=shape, device="cuda", **kw)
+    params_c = cpu.init(torch.Generator().manual_seed(seed))
+    return cpu, gpu, params_c, tree_map(lambda t: t.cuda(), params_c)
+
+
+def phase_cnn_parity(torch) -> None:
+    """Card against CPU in f32 at full width: each paper CNN's logits and
+    gradients on a batch of 32, SimpleCNN's HRank scores over a probe of 32
+    (the kept sets at rate 0.5 must be equal), and one FedDUMAP round of
+    SimpleCNN with a mask prune."""
+    import numpy as np
+
+    from repro_torch.core import engine
+    from repro_torch.utils.tree import tree_leaves, tree_size
+
+    rng = np.random.default_rng(11)
+    for i, (cls, kw, shape) in enumerate(CNN_MODELS):
+        cpu, gpu, params_c, params_g = _cnn_pair(torch, cls, kw, shape, i)
+        x = torch.from_numpy(rng.standard_normal((32,) + shape)
+                             .astype(np.float32))
+        y = torch.from_numpy(rng.integers(0, kw["num_classes"], 32)
+                             .astype(np.int32))
+        with torch.no_grad():
+            logits_g, maps_g = gpu.apply(params_g, x.cuda(), collect=True)
+            logits_c, maps_c = cpu.apply(params_c, x, collect=True)
+            err, rel = max_rel_err(torch, logits_g.cpu(), logits_c)
+            flips = sum(int(((maps_g[k].cpu() > 0) != (maps_c[k] > 0)).sum())
+                        for k in maps_c)
+            units = sum(t.numel() for t in maps_c.values())
+        del logits_g, maps_g, maps_c
+        (l_c, _), g_c = engine.value_and_grad_aux(
+            lambda p: cpu.loss_and_acc(p, x, y), params_c)
+        (l_g, _), g_g = engine.value_and_grad_aux(
+            lambda p: gpu.loss_and_acc(p, x.cuda(), y.cuda()), params_g)
+        errs = _leaf_errs(g_g, g_c)
+        worst = max(_ratio(e, m) for e, m in errs)
+        diff2 = sum(float((g.cpu() - w).square().sum())
+                    for g, w in zip(tree_leaves(g_g), tree_leaves(g_c)))
+        norm2 = sum(float(w.square().sum()) for w in tree_leaves(g_c))
+        l2 = math.sqrt(diff2 / norm2)
+        log(f"[cnn-parity] {cls} {shape[0]}x{shape[1]}x{shape[2]} "
+            f"{tree_size(params_c):,} params, B=32: logits max_abs_err "
+            f"{err:.3e} rel {rel:.3e}; loss card {float(l_g):.6f} cpu "
+            f"{float(l_c):.6f}; ReLU units on the other side of 0: {flips} "
+            f"of {units:,}; {len(errs)} gradient leaves, worst error "
+            f"{worst:.3e} of the leaf's max |grad|, tree relative L2 "
+            f"{l2:.3e} (tol: "
+            + (f"the tree {CNN_TOL_FLIPS:.0e})" if flips
+               else f"each leaf {CNN_TOL:.0e})"))
+        require(rel <= CNN_TOL, f"cnn-parity {cls}: logits {rel:.3e}")
+        require(abs(float(l_g) - float(l_c)) <= CNN_TOL * max(
+            1.0, abs(float(l_c))), f"cnn-parity {cls}: loss differs")
+        if flips:
+            require(l2 <= CNN_TOL_FLIPS, f"cnn-parity {cls}: gradient tree "
+                    f"relative L2 {l2:.3e} with {flips} ReLU flips")
+            _cnn_grad_parity64(torch, cls, cpu, gpu, params_c, x, y)
+        else:
+            require(worst <= CNN_TOL, f"cnn-parity {cls}: gradient "
+                    f"{worst:.3e} of a leaf's max")
+        if cls == "SimpleCNN":
+            _cnn_hrank_parity(torch, cpu, gpu, params_c, params_g, rng, shape)
+            _cnn_round_parity(torch, cpu, gpu, params_c, params_g, rng, shape)
+        del params_c, params_g, g_c, g_g
+
+
+def _cnn_grad_parity64(torch, cls, cpu, gpu, params_c, x, y) -> None:
+    """The gradients of one batch in float64 on the card and the CPU, each
+    leaf within CNN_TOL64 of its max |grad|."""
+    from repro_torch.core import engine
+    from repro_torch.utils.tree import tree_map
+
+    p_c = tree_map(lambda t: t.double(), params_c)
+    p_g = tree_map(lambda t: t.double().cuda(), params_c)
+    x64 = x.double()
+    _, g_c = engine.value_and_grad_aux(
+        lambda p: cpu.loss_and_acc(p, x64, y), p_c)
+    _, g_g = engine.value_and_grad_aux(
+        lambda p: gpu.loss_and_acc(p, x64.cuda(), y.cuda()), p_g)
+    worst = max(_ratio(e, m) for e, m in _leaf_errs(g_g, g_c))
+    log(f"[cnn-parity] {cls} float64 gradients card~cpu: worst error "
+        f"{worst:.3e} of the leaf's max |grad| (tol {CNN_TOL64:.0e})")
+    require(worst <= CNN_TOL64, f"cnn-parity {cls}: float64 gradient "
+            f"{worst:.3e}")
+
+
+def _cnn_hrank_parity(torch, cpu, gpu, params_c, params_g, rng, shape):
+    """HRank ranks (float32 singular values: cuSOLVER against LAPACK)
+    counted per sample, and the kept filters at rate 0.5."""
+    import numpy as np
+
+    from repro_torch.core import pruning
+
+    probe = torch.from_numpy(rng.standard_normal((32,) + shape)
+                             .astype(np.float32))
+    with torch.no_grad():
+        fm_c = cpu.feature_maps(params_c, probe)
+        fm_g = gpu.feature_maps(params_g, probe.cuda())
+    for l in cpu.prune_spec(params_c).layers:
+        s_c = pruning.feature_map_scores(fm_c[l.name])
+        s_g = pruning.feature_map_scores(fm_g[l.name]).cpu()
+        diff = int((s_c != s_g).sum())
+        kept_c = pruning.select_filters(pruning.feature_map_ranks(fm_c[l.name]),
+                                        0.5)
+        kept_g = pruning.select_filters(pruning.feature_map_ranks(fm_g[l.name]),
+                                        0.5)
+        same = bool(np.array_equal(kept_c, kept_g))
+        log(f"[cnn-parity] SimpleCNN HRank {l.name}: {diff} of "
+            f"{s_c.numel()} per-sample ranks differ card~cpu (max "
+            f"{int((s_c - s_g).abs().max())}); mean rank "
+            f"{float(s_c.mean()):.3f}; kept sets at rate 0.5 "
+            f"{'equal' if same else 'DIFFER'} ({len(kept_c)} of "
+            f"{s_c.shape[1]})")
+        require(same, f"cnn-parity: HRank kept sets of {l.name} differ")
+
+
+def _cnn_round_parity(torch, cpu, gpu, params_c, params_g, rng, shape):
+    """One FedDUMAP round (2 clients x 2 local steps of B=10 with restart
+    momentum, 2 server steps of 32, server momentum) on a state masked by
+    an HRank prune at rate 0.5, card against CPU."""
+    import numpy as np
+
+    from repro_torch.core import backend, engine, pruning
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    eng = EngineConfig(lr=0.1, lr_decay=0.99, use_server_update=True,
+                       local_momentum="restart", server_momentum=True,
+                       use_masks=True)
+    spec = cpu.prune_spec(params_c)
+    probe = torch.from_numpy(rng.standard_normal((32,) + shape)
+                             .astype(np.float32))
+    with torch.no_grad():
+        fm = cpu.feature_maps(params_c, probe)
+    kept = {l.name: pruning.select_filters(
+        pruning.feature_map_ranks(fm[l.name]), 0.5) for l in spec.layers}
+
+    def imgs(*lead):
+        return (torch.from_numpy(rng.standard_normal(lead + shape)
+                                 .astype(np.float32)),
+                torch.from_numpy(rng.integers(0, 10, lead).astype(np.int32)))
+
+    batch = {"client": imgs(2, 2, 10), "sizes": torch.tensor([400.0, 400.0]),
+             "server": imgs(2, 32), "d_round": torch.tensor(0.4),
+             "d_server": torch.tensor(0.01), "n0": torch.tensor(2000.0)}
+    eps = torch.finfo(torch.float32).eps
+    ulp = [eps * float(t.abs().max()) for t in tree_leaves(params_c)]
+    deltas = {}
+    for name, model, params in (("cpu", cpu, params_c), ("card", gpu,
+                                                        params_g)):
+        dev = "cpu" if name == "cpu" else "cuda"
+        state = engine.init_round_state(tree_map(torch.clone, params), eng)
+        backend.masked_round_state(state,
+                                   backend.param_masks_for(model, params,
+                                                           kept))
+        before = tree_map(torch.clone, state["params"])
+        grad_fn, la_fn = backend.model_fns(model, eng)
+        state, met = engine.round_core(eng, grad_fn, la_fn, state, tree_map(
+            lambda t: t.to(dev), batch))
+        deltas[name] = tree_map(lambda a, b_: (a - b_).cpu(), state["params"],
+                                before)
+        log(f"[cnn-parity] SimpleCNN one FedDUMAP round (mask prune at 0.5,"
+            f" kept {[len(v) for v in kept.values()]}) on the {name}: "
+            f"tau_eff {float(met['tau_eff']):.6f}, server acc "
+            f"{float(met['server_acc']):.4f}")
+    errs = _leaf_errs(deltas["card"], deltas["cpu"])
+    worst = max(_ratio(e, TRAIN_TOL * m + ROUND_ULPS * u)
+                for (e, m), u in zip(errs, ulp))
+    log(f"[cnn-parity] SimpleCNN round updates ({len(errs)} leaves): worst "
+        f"error / allowance ({TRAIN_TOL:.0e} x max |update| + {ROUND_ULPS} "
+        f"spacings) = {worst:.3f}")
+    require(worst <= 1.0, f"cnn-parity: round update error {worst:.3f} of "
+            f"its allowance")
+
+
+# The paper protocol's runs.  VGG11 (no normalisation) at the paper's lr
+# 0.1 reaches NaN within its first round, in the JAX reference as in the
+# port (tools/cnn_lr_witness.py; FedDU's server step is tau_eff ~55 times
+# lr), so it trains at 0.01.  At the paper's FedAP config the eigen-gap
+# rule gives SimpleCNN p* = 0 (nothing pruned): the mask run keeps that
+# config and prints it as a finding, and every other run takes the
+# quickstart's compression floor, min_rate 0.3, and must prune.
+CNN_RUNS = (
+    dict(model="SimpleCNN", shape=(16, 16, 3), rounds=6, prune_round=3,
+         mode="shrink", min_rate=0.3),
+    dict(model="SimpleCNN", shape=(16, 16, 3), rounds=6, prune_round=3,
+         mode="mask"),
+    dict(model="SimpleCNN", shape=(16, 16, 3), rounds=6, prune_round=3,
+         mode="mask", shrink_round=4, min_rate=0.3),
+    dict(model="VGG11", shape=(32, 32, 3), rounds=2, prune_round=1,
+         mode="shrink", lr=0.01, min_rate=0.3),
+)
+
+
+def phase_training_cnn(torch) -> dict:
+    """The paper protocol on the card: ``SyntheticSpec()`` data (50,000
+    training images), 100 clients by label shards, 400 samples each, 2,000
+    server samples; FedDUMAP with 10 clients a round, E = 5, B = 10, lr
+    decayed 0.99; FedAP with a probe of 32 and 6 participants (CNN_RUNS
+    says where a run departs from that).  Returns
+    {kernel name: launches}: none, since no paper CNN reaches a kernel."""
+    import numpy as np
+
+    from repro_torch.core import pruning
+    from repro_torch.core.plan import fedap_plan
+    from repro_torch.core.pruning import FedAPConfig
+    from repro_torch.core.rounds import FederatedTrainer, feddumap_config
+    from repro_torch.data.pipeline import build_federated_data
+    from repro_torch.data.synthetic import SyntheticSpec
+    from repro_torch.kernels import masked_matmul as k1
+    from repro_torch.models import cnn
+    from repro_torch.utils.tree import tree_size
+
+    worlds = {}
+    kept_by_run = {}
+    launches = {"masked_matmul": 0}
+    for run in CNN_RUNS:
+        cls, shape, rounds = run["model"], run["shape"], run["rounds"]
+        prune_round, mode = run["prune_round"], run["mode"]
+        shrink_round, lr = run.get("shrink_round"), run.get("lr", 0.1)
+        if shape not in worlds:
+            t0 = time.perf_counter()
+            worlds[shape] = build_federated_data(
+                spec=SyntheticSpec(image_shape=shape))
+            log(f"[training cnn] world {shape}: {worlds[shape].client_x.shape}"
+                f" client images, {worlds[shape].server_x.shape[0]} server, "
+                f"{worlds[shape].test_x.shape[0]} test; built in "
+                f"{time.perf_counter() - t0:.1f} s on the host")
+        data = worlds[shape]
+        fl = feddumap_config(clients_per_round=10, local_epochs=5,
+                             batch_size=10, lr=lr, lr_decay=0.99,
+                             fedap=FedAPConfig(
+                                 probe_size=32, participants=6,
+                                 min_rate=run.get("min_rate", 0.0)))
+        model = getattr(cnn, cls)(image_shape=shape, device="cuda")
+        trainer = FederatedTrainer(model, data, fl, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        plan = fedap_plan(rounds, prune_round=prune_round, mode=mode,
+                          shrink_round=shrink_round)
+        form = mode + (f"-then-shrink@{shrink_round}" if shrink_round else "")
+        tag = f"[training cnn] {cls} {form}"
+        backend = trainer.backend(use_masks=plan.uses_masks)
+        kw = backend.sample_kw
+        local = kw["clients_per_round"] * kw["local_steps"] * kw["batch_size"]
+        steps = (kw["clients_per_round"] * kw["local_steps"]
+                 + kw["server_tau"])
+        log(f"{tag}: {tree_size(params):,} params, lr {lr}, FedAP min_rate "
+            f"{fl.fedap.min_rate}, {rounds} rounds, prune at {prune_round}; "
+            f"a round is {steps} gradient "
+            f"evaluations ({kw['clients_per_round']} clients x "
+            f"{kw['local_steps']} local steps of B={kw['batch_size']} + "
+            f"tau={kw['server_tau']} server steps of B={kw['server_batch']}),"
+            f" {local} local samples")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1.launches = k1.dx_launches = k1.dw_launches = 0
+        t0 = time.perf_counter()
+        res = trainer.run(plan, params=params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_k1 = k1.launches + k1.dx_launches + k1.dw_launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        h = res.history
+        # every round ends in its Eval (a host read), so the gaps between
+        # Evals are rounds; a prune's gap also holds its decision or apply
+        gaps = [b - a for a, b in zip([0.0] + h["time"], h["time"])]
+        events = {prune_round, shrink_round}
+        plain = [g for r, g in zip(h["round"], gaps)
+                 if r > 1 and r - 1 not in events]
+        state = res.state
+        if plain:
+            round_s = statistics.median(plain)
+            how = f"median of rounds {[r for r in h['round'] if r > 1 and r - 1 not in events]}"
+        else:
+            t1 = time.perf_counter()
+            state, _ = backend.run_rounds(state, rounds, 1)
+            torch.cuda.synchronize()
+            round_s = time.perf_counter() - t1
+            how = "one more round on the final state"
+        for r, loss, acc, tau, g in zip(h["round"], h["loss"], h["acc"],
+                                        h["tau_eff"], gaps):
+            log(f"{tag} round {r}: test loss {loss:.6f} acc {acc:.4f} "
+                f"tau_eff {tau:.6f}, {g:.3f} s")
+        art = res.artifacts["prune"]
+        before = art.get("params_before", params)
+        after = res.params
+        if mode == "mask" and not shrink_round:
+            after = pruning.shrink_params(after, model.prune_spec(after),
+                                          art["kept"])
+        log(f"{tag}: {round_s:.3f} s/round on the host clock ({how}) -> "
+            f"{local / round_s:.1f} local samples/s; plan {wall:.3f} s; peak "
+            f"{peak:.3f} GiB")
+        note = (" (the kept filters; the masked model still computes all)"
+                if after is not res.params else "")
+        log(f"{tag}: FedAP p*={art['p_star']:.6f}, layer rates "
+            f"{ {k: round(v, 4) for k, v in art['layer_rates'].items()} }, "
+            f"kept {art['kept_counts']}; params {tree_size(before):,} -> "
+            f"{tree_size(after):,}, MFLOPs/example "
+            f"{model.flops_per_example(before) / 1e6:.3f} -> "
+            f"{model.flops_per_example(after) / 1e6:.3f}{note}")
+        log(f"{tag}: masked_matmul (K1-K3) launches {n_k1}: no paper CNN "
+            f"reaches the kernel (SimpleCNN never prunes fc1, LeNet5's "
+            f"120/84 widths are not multiples of 128, VGG11 and ResNet18 have "
+            f"no masked dense layer), and masked_compute='params' passes no "
+            f"masks to the model")
+        require(n_k1 == 0, f"{tag}: masked_matmul launched {n_k1} times")
+        require(len(h["loss"]) == rounds and all(
+            math.isfinite(v) for k in ("loss", "acc", "tau_eff")
+            for v in h[k]), f"{tag}: history not finite")
+        widths = {l.name: before[l.name]["w"].shape[0]
+                  for l in model.prune_spec(before).layers}
+        pruned = sum(widths.values()) - sum(art["kept_counts"].values())
+        if fl.fedap.min_rate:
+            require(pruned > 0, f"{tag}: min_rate {fl.fedap.min_rate} "
+                    f"pruned no filter")
+        else:
+            log(f"{tag}: finding: at the paper's FedAP config (min_rate 0) "
+                f"the eigen-gap rule gives p*={art['p_star']:.6f}, "
+                f"{pruned} of {sum(widths.values())} filters pruned")
+        require(all(c == max(widths[k] - math.floor(
+            art["layer_rates"][k] * widths[k]), 1)
+            for k, c in art["kept_counts"].items()),
+            f"{tag}: kept counts {art['kept_counts']} are not the layer "
+            f"rates' d - floor(rate d)")
+        if mode == "shrink" or shrink_round:
+            require(all(res.params[k]["w"].shape[0] == c
+                        for k, c in art["kept_counts"].items()),
+                    f"{tag}: the model was not shrunk")
+        kept_by_run[form, cls] = art["kept"]
+        _profile_one_client(torch, backend, state, rounds + 1,
+                            f"training cnn {cls} {form}")
+        launches["masked_matmul"] += n_k1
+        del res, state, trainer, backend, params, before, after
+    same = all(np.array_equal(kept_by_run["shrink", "SimpleCNN"][k], v)
+               for k, v in kept_by_run["mask-then-shrink@4",
+                                       "SimpleCNN"].items())
+    log(f"[training cnn] SimpleCNN's shrink and mask-then-shrink runs kept "
+        f"{'the same' if same else 'different'} filters at round 3 (same "
+        f"params, draws and min_rate; cuDNN's weight gradients sum in no "
+        f"fixed order)")
+    return launches
+
+
+PROFILE_LOCAL_STEPS = 40    # one local epoch of a paper client (400 / B=10)
+
+
+def _profile_one_client(torch, backend, state, t, label) -> None:
+    """The device busy share of a FedDUMAP round cut to its first client's
+    first local epoch (PROFILE_LOCAL_STEPS steps, then every server step),
+    unprofiled on the host clock and then under torch.profiler recording
+    device work only: a whole paper round launches ~2 x 10^5 kernels, and
+    the profiler spends ~13x the round's own time on them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import engine
+
+    batch = backend.round_batch(t)
+    batch["client"] = tuple(a[:1, :PROFILE_LOCAL_STEPS]
+                            for a in batch["client"])
+    batch["sizes"] = batch["sizes"][:1]
+    steps = batch["client"][0].shape[1] + batch["server"][0].shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.round_core(backend.eng, backend.grad_fn, backend.la_fn, state,
+                      batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.round_core(backend.eng, backend.grad_fn, backend.la_fn, state,
+                          batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA"
+               and e.self_device_time_total > 0]
+    if not kernels:
+        log(f"[profile] {label}: device time not measured (the profiler "
+            f"saw no CUDA kernels)")
+        return
+    dev_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    n = sum(e.count for e in kernels)
+    busy = 100 * dev_s / wall
+    log(f"[profile] {label}: a round of 1 client, 1 epoch ({steps} gradient "
+        f"evaluations) takes {wall:.3f} s on the host clock and {dev_s:.3f} s"
+        f" of kernels ({n} launches, {n / steps:.1f} a step, "
+        f"{1e6 * wall / n:.1f} us of host time each) -> busy {busy:.1f}%, "
+        f"idle {100 - busy:.1f}%")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"[profile] {label}:   {e.self_device_time_total / 1e6:8.4f} s "
+            f"{e.count:6d}x  {e.key[:90]}")
+
+
 PHASE_SECONDS: dict = {}    # phase -> wall seconds, for the [time] lines
 
 
@@ -1915,7 +2352,9 @@ def main() -> int:
             ("serving", lambda: phase_serving(torch)),
             ("serving zamba2", lambda: phase_serving_hybrid(torch)),
             ("score-parity", lambda: phase_score_parity(torch) or {}),
-            ("scoring", lambda: phase_scoring(torch))):
+            ("scoring", lambda: phase_scoring(torch)),
+            ("cnn-parity", lambda: phase_cnn_parity(torch) or {}),
+            ("training cnn", lambda: phase_training_cnn(torch))):
         for name, n in _phase(torch, label, path).items():
             launches[name] = launches.get(name, 0) + n
     for name, sec in PHASE_SECONDS.items():

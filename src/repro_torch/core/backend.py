@@ -10,8 +10,10 @@ Where the reference compiles a scan chunk, the port runs one eager round
 after another, and a ``Prune(mode="mask")`` writes the masks into the
 existing state tensors (``copy_``/``mul_``/``zero_``): every state tensor
 keeps its storage and shape, the eager analogue of the reference's "zero
-added programs".  Checkpoints, host faults, ``Snapshot``/``Callback``
-events and the mesh backend come with later slices.
+added programs".  A shrink gathers the kept indices into new tensors, so it
+reads the old state before anything is reused.  Checkpoints, host faults,
+``Snapshot``/``Callback`` events and the mesh backend come with later
+slices.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.core import engine
+from repro_torch.core import engine, pruning
 from repro_torch.core.engine import EngineConfig
 from repro_torch.core.plan import Eval, Prune, RunResult, Scan, TrainPlan
 from repro_torch.utils.tree import tree_map
@@ -62,6 +64,40 @@ def sim_sample_kw(cfg, data) -> dict:
         server_batch=cfg.server_batch_size,
         server_tau=max(1, n0 // cfg.server_batch_size) * cfg.server_epochs,
     )
+
+
+# The Prune apply goes through a small model seam: a model that publishes
+# its own mask and shrink builders (the scanned LM, whose stacked [L, ...]
+# layers are pruned by per-layer index rows) is called there; a PruneSpec
+# model (the paper's CNNs) takes the spec-driven builders of
+# ``core.pruning``.  ``kept`` is the decision's host-side index map.
+
+def param_masks_for(model, params, kept):
+    """Param-structured 0/1 masks for ``state["masks"]``."""
+    if hasattr(model, "param_masks"):
+        return model.param_masks(params, kept)
+    return pruning.param_masks(params, model.prune_spec(params), kept)
+
+
+def filter_masks_for(model, params, kept):
+    """Per-layer filter keep-masks (the model's ``masks=``)."""
+    if hasattr(model, "filter_masks"):
+        return model.filter_masks(params, kept)
+    return pruning.filter_masks(params, model.prune_spec(params), kept)
+
+
+def shrink_params_for(model, params, kept):
+    """A params-structured tree (params or a momentum buffer) gathered at
+    the kept indices, into new tensors."""
+    if hasattr(model, "shrink_params"):
+        return model.shrink_params(params, kept)
+    return pruning.shrink_params(params, model.prune_spec(params), kept)
+
+
+def init_filter_masks(model, params):
+    """All-ones filter masks (kernel mode): the state holds them from round
+    0, so a prune only changes their contents."""
+    return filter_masks_for(model, params, {})
 
 
 def masked_round_state(state: dict, masks: Any, filter_masks: Any = None
@@ -119,7 +155,7 @@ class LocalBackend:
     def init_state(self, params) -> dict:
         """A fresh round state over a COPY of ``params`` (kernel mode: with
         all-ones filter masks, whose contents a prune event replaces)."""
-        fmasks = (self.model.filter_masks(params, {})
+        fmasks = (init_filter_masks(self.model, params)
                   if self._kernel_masks else None)
         return engine.init_round_state(tree_map(torch.clone, params),
                                        self.eng, filter_masks=fmasks)
@@ -162,22 +198,32 @@ class LocalBackend:
             init_params=init_params,
             rng=np.random.default_rng(self.cfg.seed))
 
-    def apply_prune(self, state: dict, mode: str, kept):
+    def apply_prune(self, state: dict, mode: str, kept, *,
+                    compact_existing: bool = False):
         """mask: write keep-masks into the live state (momentum restarts);
-        shrink: a new state over the smaller model."""
+        shrink: a new state over the smaller model.  ``compact_existing``
+        (the mask-now-shrink-later follow-up) gathers the momentum buffers
+        at the kept indices too instead of restarting them, so masked then
+        shrunk training goes on as shrink-from-the-start training would on
+        a normalisation-free model."""
         params = state["params"]
         if mode == "mask":
-            masks = self.model.param_masks(params, kept)
-            fmasks = self.model.filter_masks(params, kept)
+            masks = param_masks_for(self.model, params, kept)
+            fmasks = filter_masks_for(self.model, params, kept)
             new_state = masked_round_state(
                 state, masks,
                 filter_masks=fmasks if self._kernel_masks else None)
             return new_state, {"filter_masks": fmasks}
-        new_params = self.model.shrink_params(params, kept)
-        fm = (self.model.filter_masks(new_params, {})
+        new_params = shrink_params_for(self.model, params, kept)
+        fm = (init_filter_masks(self.model, new_params)
               if self._kernel_masks else None)
         new_state = engine.init_round_state(new_params, self.eng,
                                             filter_masks=fm)
+        if compact_existing:
+            for k in ("server_m", "global_m"):
+                if k in state:
+                    new_state[k] = shrink_params_for(self.model, state[k],
+                                                     kept)
         new_state["round"] = state["round"]
         return new_state, {"params_before": params}
 
@@ -237,12 +283,35 @@ class PlanExecutor:
                          artifacts=artifacts, state=state)
 
     def _prune(self, ev: Prune, state: dict, init_params, artifacts: dict):
-        """Decision + apply of one Prune event -> (new state, artifact)."""
-        decision = self.backend.prune_decision(state, init_params)
-        art = decision.summary()
-        art["kept"] = decision.kept
-        art["mode"] = ev.mode
-        new_state, extra = self.backend.apply_prune(state, ev.mode,
-                                                    decision.kept)
-        art.update(extra)
+        """Decision + apply of one Prune event -> (new state, artifact).
+        ``Prune(reuse=name)`` compacts to the most recent artifact under
+        ``name`` (repeats are recorded as ``name#k``) with no second
+        decision."""
+        backend = self.backend
+        if ev.reuse is None:
+            decision = backend.prune_decision(state, init_params)
+            art = decision.summary()
+            art["kept"] = decision.kept
+            art["mode"] = ev.mode
+            new_state, extra = backend.apply_prune(state, ev.mode,
+                                                   decision.kept)
+            art.update(extra)
+            return new_state, art
+        src = None
+        for k, v in artifacts.items():
+            if (k.split("#", 1)[0] == ev.reuse and isinstance(v, dict)
+                    and "kept" in v):
+                src = v
+        if src is None:
+            raise ValueError(
+                f"Prune(reuse={ev.reuse!r}) found no earlier prune artifact "
+                f"named {ev.reuse!r} (have: {sorted(artifacts)})")
+        kept = src["kept"]
+        new_state, extra = backend.apply_prune(state, ev.mode, kept,
+                                               compact_existing=True)
+        art = {"mode": ev.mode, "reused": ev.reuse, "kept": kept,
+               "kept_counts": {k: int(np.asarray(v).shape[-1])
+                               for k, v in kept.items()},
+               "p_star": src.get("p_star"),
+               "layer_rates": src.get("layer_rates"), **extra}
         return new_state, art

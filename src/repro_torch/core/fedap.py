@@ -1,11 +1,14 @@
-"""FedAP as a plan event: the Algorithm 3 decision for the scanned LM.
+"""FedAP as a plan event: the Algorithm 3 decision.
 
 Counterpart of the host path of the reference's ``core/fedap.py``:
 per-participant expected rates from the empirical-Fisher eigen-gap (the
 server and ``cfg.participants`` sampled devices, one after another), the
-Formula 15 aggregate clipped to ``[min_rate, max_rate]``, and the kept FFN
-units chosen by the model's ``decide_kept`` seam.  The participant draw is
-numpy, so it equals the reference's for the same seed.
+Formula 15 aggregate clipped to ``[min_rate, max_rate]``, then the kept
+units: a model with a ``decide_kept`` seam (the scanned LM) picks them
+from the aggregate rate; a model that publishes a ``PruneSpec`` (the
+paper's CNNs) goes through the global magnitude threshold, per-layer
+rates and HRank filter selection on a server probe batch.  The participant
+draw is numpy, so it equals the reference's for the same seed.
 
 Per-sample gradients are computed one sample at a time (the reference
 vmaps them): at olmo-1b's width each is a 4.71 GB tree.
@@ -22,10 +25,15 @@ import torch
 from repro_torch.core import engine, niid
 from repro_torch.core.pruning import (
     FedAPConfig,
+    PruneSpec,
     aggregate_rates,
     expected_rate_from_spectrum,
+    feature_map_ranks,
     fisher_spectrum,
+    global_threshold,
     lipschitz_estimate,
+    per_layer_rates,
+    select_filters,
 )
 from repro_torch.utils.tree import tree_leaves
 
@@ -54,11 +62,12 @@ def participant_rate(model, params, init_params, x, y,
 
 @dataclasses.dataclass
 class FedAPDecision:
-    """The output of Algorithm 3: which units each prunable stack keeps."""
+    """The output of Algorithm 3: which units each prunable layer keeps."""
 
-    kept: dict[str, np.ndarray]        # stack -> [L, keep] kept-unit rows
+    kept: dict[str, np.ndarray]        # layer -> sorted kept indices [keep]
+                                       # (stacks: [L, keep] kept-unit rows)
     p_star: float                      # Formula-15 aggregate rate
-    layer_rates: dict[str, float]      # realized rate per stack
+    layer_rates: dict[str, float]      # per-layer rate
 
     def summary(self) -> dict[str, Any]:
         """JSON-friendly view (kept reduced to per-layer counts)."""
@@ -82,25 +91,49 @@ def _draw_participants(data, cfg: FedAPConfig, rng: np.random.Generator
     return rng.choice(num_clients, size=draw, replace=False)
 
 
-def _finish_decision(model, cfg: FedAPConfig, params: Any, rates, sizes,
-                     degrees) -> FedAPDecision:
-    """Algorithm 3 after step 1: Formula 15, the ``[min_rate, max_rate]``
-    clip, and the model's kept-unit choice (the ``decide_kept`` branch of
-    the reference)."""
-    if not hasattr(model, "decide_kept"):
-        raise NotImplementedError(
-            "the HRank filter selection of PruneSpec models comes with the "
-            "CNN slice; only models with a decide_kept seam are ported")
+def _finish_decision(model, data, cfg: FedAPConfig, params: Any, rates,
+                     sizes, degrees) -> FedAPDecision:
+    """Algorithm 3 after step 1: Formula 15 and the ``[min_rate,
+    max_rate]`` clip, then the model's ``decide_kept`` or, for a
+    ``PruneSpec`` model, the global magnitude threshold, per-layer rates and
+    HRank selection on the first ``cfg.probe_size`` server samples."""
     p_star = aggregate_rates(rates, sizes, degrees, cfg.eps)
     p_star = torch.clamp(p_star, cfg.min_rate, cfg.max_rate)
-    kept = {k: np.asarray(v) for k, v in
-            model.decide_kept(params, float(p_star), align=cfg.align).items()}
-    widths = {k: int(m.shape[-1])
-              for k, m in model.filter_masks(params, kept).items()}
-    return FedAPDecision(
-        kept=kept, p_star=float(p_star),
-        layer_rates={k: 1.0 - v.shape[-1] / widths[k]
-                     for k, v in kept.items()})
+    if hasattr(model, "decide_kept"):
+        kept = {k: np.asarray(v) for k, v in
+                model.decide_kept(params, float(p_star),
+                                  align=cfg.align).items()}
+        widths = {k: int(m.shape[-1])
+                  for k, m in model.filter_masks(params, kept).items()}
+        return FedAPDecision(
+            kept=kept, p_star=float(p_star),
+            layer_rates={k: 1.0 - v.shape[-1] / widths[k]
+                         for k, v in kept.items()})
+
+    spec: PruneSpec = model.prune_spec(params)
+    layer_rates = per_layer_rates(params, spec,
+                                  global_threshold(params, spec, p_star))
+    dev = tree_leaves(params)[0].device
+    probe_x = torch.as_tensor(np.asarray(data.server_x[: cfg.probe_size]),
+                              device=dev)
+    scores = _probe_scores(model, params, spec, probe_x)
+    kept = {l.name: select_filters(scores[l.name],
+                                   float(layer_rates[l.name]),
+                                   align=cfg.align)
+            for l in spec.layers}
+    return FedAPDecision(kept=kept, p_star=float(p_star),
+                         layer_rates={k: float(v)
+                                      for k, v in layer_rates.items()})
+
+
+def _probe_scores(model, params, spec: PruneSpec, probe_x
+                  ) -> dict[str, np.ndarray]:
+    """{layer name: [d_l] HRank scores} from one forward of the probe
+    batch, as host float32 arrays."""
+    with torch.no_grad():
+        fmaps = model.feature_maps(params, probe_x)
+        return {l.name: feature_map_ranks(fmaps[l.feature_key or l.name])
+                .cpu().numpy() for l in spec.layers}
 
 
 def fedap_decision(model, data, cfg: FedAPConfig, params: Any, *,
@@ -129,6 +162,6 @@ def fedap_decision(model, data, cfg: FedAPConfig, params: Any, *,
                                       on_dev(data.client_y[k]), cfg))
         sizes.append(float(data.sizes[k]))
         degrees.append(niid.non_iid_degree(data.client_dists[k], p_bar))
-    return _finish_decision(model, cfg, params,
+    return _finish_decision(model, data, cfg, params,
                             torch.stack([r.cpu() for r in rates]),
                             torch.tensor(sizes), torch.stack(degrees))

@@ -62,17 +62,27 @@ class Prune:
                    masked FFN products run the ``masked_matmul`` kernels.
     mode="shrink": the pruned model is re-materialized at its smaller
                    shapes.
-    Both restart the server momentum.  (The reference's ``reuse=``
-    mask-now-shrink-later form comes with the CNN slice.)
+    Both restart the server momentum.
+
+    ``reuse`` (mode="shrink" only) names an EARLIER Prune event whose
+    kept-index decision this event compacts the state to: no second FedAP
+    run, and the momentum buffers are gathered at the kept indices instead
+    of restarted.  This is the mask-now-shrink-later pattern
+    (``fedap_plan(..., shrink_round=K)``).
     """
 
     mode: str = "mask"
     name: str = "prune"
+    reuse: str | None = None
 
     def __post_init__(self):
         if self.mode not in ("mask", "shrink"):
             raise ValueError(f"Prune.mode must be 'mask' or 'shrink', "
                              f"got {self.mode!r}")
+        if self.reuse is not None and self.mode != "shrink":
+            raise ValueError(
+                "Prune.reuse compacts to an earlier event's decision and "
+                f"needs mode='shrink', got mode={self.mode!r}")
 
 
 Event = Union[Scan, Eval, Prune]
@@ -141,20 +151,38 @@ class TrainPlan:
 
 
 def fedap_plan(num_rounds: int, *, prune_round: int, mode: str = "mask",
-               eval_every: int = 1) -> TrainPlan:
+               eval_every: int = 1,
+               shrink_round: int | None = None) -> TrainPlan:
     """The paper's FedDUMAP schedule: train, FedAP once at ``prune_round``,
-    keep training, with an Eval every ``eval_every`` rounds."""
+    keep training, with an Eval every ``eval_every`` rounds.
+
+    ``shrink_round=K`` (mask mode only) is the mask-now-shrink-later form:
+    the decision at ``prune_round`` is applied as masks, and at round ``K``
+    ``Prune(mode="shrink", reuse="prune")`` compacts the state, momentum
+    included, to the same kept filters, so the rounds after ``K`` train the
+    smaller model."""
     if not 0 < prune_round <= num_rounds:
         raise ValueError(f"prune_round must be in (0, {num_rounds}], "
                          f"got {prune_round}")
     if eval_every < 1:
         raise ValueError(f"eval_every must be >= 1, got {eval_every}")
+    if shrink_round is not None:
+        if mode != "mask":
+            raise ValueError("shrink_round schedules a follow-up compaction "
+                             "of a MASK prune; use mode='mask' (got "
+                             f"mode={mode!r})")
+        if not prune_round < shrink_round <= num_rounds:
+            raise ValueError(
+                f"shrink_round must be in (prune_round={prune_round}, "
+                f"{num_rounds}], got {shrink_round}")
     events: list = []
     t = 0
     while t < num_rounds:
         stops = [t + eval_every - (t % eval_every), num_rounds]
         if t < prune_round:
             stops.append(prune_round)
+        if shrink_round is not None and t < shrink_round:
+            stops.append(shrink_round)
         stop = min(stops)
         events.append(Scan(stop - t))
         t = stop
@@ -162,6 +190,8 @@ def fedap_plan(num_rounds: int, *, prune_round: int, mode: str = "mask",
             events.append(Eval())
         if t == prune_round:
             events.append(Prune(mode=mode))
+        if shrink_round is not None and t == shrink_round:
+            events.append(Prune(mode="shrink", reuse="prune", name="shrink"))
     return TrainPlan(events)
 
 
@@ -174,7 +204,8 @@ class RunResult:
                "health" per round
     artifacts  per-event outputs keyed by event name (``#k`` suffixes on
                repeats): Prune -> {"p_star", "layer_rates", "kept",
-               "kept_counts", "mode", "filter_masks" | "params_before"}
+               "kept_counts", "mode", "filter_masks" | "params_before"},
+               and ``"reused"`` for a ``Prune(reuse=)`` compaction
     state      the final round state
     """
 

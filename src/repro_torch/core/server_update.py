@@ -14,10 +14,11 @@ nested dicts of tensors; :func:`feddu_apply` writes into ``out`` when given
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable, Sequence
 
 import torch
 
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 def _f32(x) -> torch.Tensor:
@@ -64,6 +65,39 @@ def tau_eff(cfg: FedDUConfig, *, acc, round_idx, n0, n_prime, d_round,
     gate = f_prime(acc, cfg.f_prime_kind, cfg.eps)
     t = _f32(round_idx).to(dev)
     return gate * (num / den) * cfg.C * (cfg.decay ** t) * _f32(tau).to(dev)
+
+
+def normalized_server_gradient(params: Any, server_batches: Sequence,
+                               grad_fn: Callable, eta: float) -> Any:
+    """g0_bar (Formula 6): ``tau = len(server_batches)`` SGD steps from
+    ``params`` on the server data, returned as the mean per-step gradient
+    ``(w_start - w_end) / (tau eta)`` in float32 (the telescoping identity,
+    exact for plain SGD, so no per-step gradient is kept).  ``params`` are
+    not modified."""
+    if len(server_batches) == 0:
+        return tree_map(lambda p: torch.zeros_like(p), params)
+    w = params
+    for batch in server_batches:
+        g = grad_fn(w, batch)
+        w = tree_map(lambda p, gi: (p - eta * gi).to(p.dtype), w, g)
+    return _mean_step(params, w, len(server_batches), eta)
+
+
+def normalized_server_gradient_scan(params: Any, server_batch_stack: Any,
+                                    grad_fn: Callable, eta: float) -> Any:
+    """:func:`normalized_server_gradient` over a stacked batch tree whose
+    leaves lead with the tau axis (the reference's ``lax.scan`` form)."""
+    tau = tree_leaves(server_batch_stack)[0].shape[0]
+    w = params
+    for i in range(tau):
+        g = grad_fn(w, tree_map(lambda t: t[i], server_batch_stack))
+        w = tree_map(lambda p, gi: (p - eta * gi).to(p.dtype), w, g)
+    return _mean_step(params, w, tau, eta)
+
+
+def _mean_step(w_start, w_end, tau: int, eta: float):
+    return tree_map(lambda a, b: (a.float() - b.float()) / (tau * eta),
+                    w_start, w_end)
 
 
 def feddu_apply(w_half, g0_bar, t_eff, eta, *, out=None):

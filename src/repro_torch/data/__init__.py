@@ -1,2 +1,3 @@
-"""Federated datasets: synthetic token corpora, non-IID partitioners and
-the device-resident container the round engine samples from."""
+"""Federated datasets: the synthetic image task and token corpora, non-IID
+partitioners and the device-resident container the round engine samples
+from."""

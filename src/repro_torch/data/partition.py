@@ -1,8 +1,8 @@
 """Non-IID partitioners (the paper's Section 4.1 protocol).
 
-The port's copy of the reference's ``data/partition.py`` for what LM
-training uses (the Dirichlet partition comes with the CNN slice).  Pure
-numpy: equal seeds give equal partitions in both packages.
+The port's copy of the reference's ``data/partition.py``: the paper's
+label-shard protocol, the Dirichlet(alpha) partition and the server-data
+draw.  Pure numpy: equal seeds give equal partitions in both packages.
 """
 from __future__ import annotations
 
@@ -25,6 +25,27 @@ def label_shard_partition(labels: np.ndarray, num_clients: int,
                         for i in range(shards_per_client)])
         for c in range(num_clients)
     ]
+
+
+def dirichlet_partition(labels: np.ndarray, num_clients: int,
+                        alpha: float = 0.5, seed: int = 0,
+                        min_size: int = 8):
+    """Dirichlet(alpha) label-proportion partition (smaller alpha = more
+    skew), redrawn until every client holds ``min_size`` samples.  Returns
+    one sorted index array per client."""
+    rng = np.random.default_rng(seed)
+    num_classes = int(labels.max()) + 1
+    while True:
+        idx_per_client = [[] for _ in range(num_clients)]
+        for c in range(num_classes):
+            idx_c = np.where(labels == c)[0]
+            rng.shuffle(idx_c)
+            props = rng.dirichlet([alpha] * num_clients)
+            cuts = (np.cumsum(props) * len(idx_c)).astype(int)[:-1]
+            for cid, part in enumerate(np.split(idx_c, cuts)):
+                idx_per_client[cid].extend(part.tolist())
+        if min(len(ix) for ix in idx_per_client) >= min_size:
+            return [np.asarray(sorted(ix)) for ix in idx_per_client]
 
 
 def server_subset(labels: np.ndarray, pool: np.ndarray, size: int,

@@ -1,10 +1,11 @@
-"""The federated dataset container and the LM dataset (paper Section 4.1
-protocol on a next-token corpus).
+"""The federated dataset container and its builders (paper Section 4.1
+protocol): the synthetic CIFAR substitute for the paper's CNNs and a
+next-token corpus for the LMs.
 
 Counterpart of the reference's ``data/pipeline.py``: the arrays are built
-in numpy exactly as the reference builds them, and
+in numpy exactly as the reference builds them (images stay NHWC), and
 :meth:`FederatedData.device_arrays` moves them to one device for the round
-engine.  The image-classification dataset comes with the CNN slice.
+engine.
 """
 from __future__ import annotations
 
@@ -16,7 +17,12 @@ import torch
 from repro_torch import device as _device
 from repro_torch.core import niid
 from repro_torch.data import partition as part
-from repro_torch.data.synthetic import TokenSpec, synthetic_tokens
+from repro_torch.data.synthetic import (
+    SyntheticSpec,
+    TokenSpec,
+    synthetic_classification,
+    synthetic_tokens,
+)
 
 
 @dataclasses.dataclass
@@ -66,6 +72,67 @@ def _dists(ys: np.ndarray, num_classes: int) -> np.ndarray:
     d = np.stack([np.bincount(y, minlength=num_classes)
                   for y in ys]).astype(np.float32)
     return d / np.clip(d.sum(1, keepdims=True), 1, None)
+
+
+def build_federated_data(
+    *,
+    num_clients: int = 100,
+    server_fraction: float = 0.05,     # p
+    server_niid: str = "iid",          # 'iid' | 'mild' | 'severe' (Fig. 6)
+    device_pool: int = 40000,
+    spec: SyntheticSpec | None = None,
+    partition: str = "label_shard",    # or 'dirichlet'
+    dirichlet_alpha: float = 0.5,
+    seed: int = 0,
+) -> FederatedData:
+    """The paper's CIFAR-10 protocol on the synthetic image task:
+
+    * the first ``device_pool`` training images are device data, partitioned
+      over ``num_clients`` by label shards (2 each) or Dirichlet(alpha)
+      proportions (cut to the smallest client's count: equal n_k);
+    * the server draws ``server_fraction * device_pool`` images from the
+      remaining training images with a controllable non-IID degree;
+    * the held-out test split scores the global model.
+    """
+    spec = spec or SyntheticSpec()
+    train_x, train_y, test_x, test_y = synthetic_classification(spec)
+    device_pool = min(device_pool, len(train_x) - 1000)
+    dev_x, dev_y = train_x[:device_pool], train_y[:device_pool]
+    rest = np.arange(device_pool, len(train_x))
+
+    if partition == "label_shard":
+        idxs = part.label_shard_partition(dev_y, num_clients, seed=seed)
+    elif partition == "dirichlet":
+        idxs = part.dirichlet_partition(dev_y, num_clients,
+                                        alpha=dirichlet_alpha, seed=seed)
+        m = min(len(ix) for ix in idxs)
+        idxs = [ix[:m] for ix in idxs]
+    else:
+        raise ValueError(partition)
+
+    client_x = np.stack([dev_x[ix] for ix in idxs])
+    client_y = np.stack([dev_y[ix] for ix in idxs])
+
+    n0 = max(1, int(server_fraction * device_pool))
+    n0 = min(n0, len(rest))
+    server_idx = part.server_subset(train_y, rest, n0,
+                                    niid_target=server_niid, seed=seed + 7)
+    server_y = train_y[server_idx]
+    server_dist = np.bincount(server_y, minlength=spec.num_classes
+                              ).astype(np.float32)
+    server_dist /= server_dist.sum()
+
+    return FederatedData(
+        client_x=client_x,
+        client_y=client_y,
+        sizes=np.full(num_clients, client_x.shape[1], np.float32),
+        client_dists=_dists(client_y, spec.num_classes),
+        server_x=train_x[server_idx],
+        server_y=server_y,
+        server_dist=server_dist,
+        test_x=test_x,
+        test_y=test_y,
+    )
 
 
 def build_lm_federated_data(

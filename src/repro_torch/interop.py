@@ -2,8 +2,10 @@
 
 Trees are nested dicts with numpy-convertible leaves on the JAX side (what
 ``np.asarray`` makes of a JAX array, or a checkpoint's ``arrays.npz``) and
-tensors on the port side, in the SAME layouts (``wq [d,H,hd]``,
-``wo [H,hd,d]``, stacked ``[L, ...]`` layers), so leaves compare one for one.
+tensors on the port side.  The LM keeps the SAME layouts (``wq [d,H,hd]``,
+``wo [H,hd,d]``, stacked ``[L, ...]`` layers), so leaves compare one for
+one; the paper's CNNs hold conv kernels as OIHW where the reference holds
+HWIO (:func:`cnn_params_from_jax`, :func:`cnn_params_to_numpy`).
 bfloat16 leaves cross bit-exactly in both directions (as raw 16-bit words
 into the port; as float32, which holds every bfloat16 value, out of it).
 """
@@ -34,6 +36,30 @@ def params_from_jax(tree, device="cuda", dtype=None) -> dict:
     ``device``, cast to ``dtype`` when given."""
     dev = _device.resolve(device)
     return tree_map(lambda leaf: _leaf_to_torch(leaf, dev, dtype), tree)
+
+
+def cnn_params_from_jax(tree, device="cuda") -> dict:
+    """A paper-CNN param tree of the reference (conv kernels HWIO) as the
+    port's on ``device``: every 4-D leaf, a conv kernel, is transposed to
+    OIHW; every other leaf (biases, GroupNorm scales, dense and ``fc1``'s
+    ``[spatial, C, out]`` weights) is copied as it is."""
+    dev = _device.resolve(device)
+
+    def leaf(x):
+        t = _leaf_to_torch(x, dev, None)
+        return t.permute(3, 2, 0, 1).contiguous() if t.ndim == 4 else t
+
+    return tree_map(leaf, tree)
+
+
+def cnn_params_to_numpy(tree) -> dict:
+    """The inverse of :func:`cnn_params_from_jax`: host numpy in the
+    reference's layouts (conv kernels OIHW -> HWIO)."""
+    def leaf(a):
+        return np.ascontiguousarray(a.transpose(2, 3, 1, 0)) if a.ndim == 4 \
+            else a
+
+    return tree_map(leaf, params_to_numpy(tree))
 
 
 def cache_from_jax(cache, device="cuda") -> dict:

@@ -1,1 +1,2 @@
-"""Models: transformer layers and the dense LM (training forward, decode)."""
+"""Models: transformer layers and the LMs (training forward, decode), and
+the paper's CNNs (SimpleCNN, LeNet5, VGG11, ResNet18-GN)."""

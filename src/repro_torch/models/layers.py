@@ -232,8 +232,9 @@ def apply_mlp(params, x, act: str, mask=None):
     return (h @ params["wo"]).reshape(shape)
 
 
-def masked_dense(x, w, mask):
-    """``(x @ w) * mask`` for x [M,K], w [K,N], mask [N] 0/1.
+def masked_dense(x, w, mask, b=None):
+    """``(x @ w [+ b]) * mask`` for x [M,K], w [K,N], b [N], mask [N] 0/1:
+    the bias is added before the mask, as the reference does.
 
     When K and N are multiples of 128 the product runs the differentiable
     ``masked_matmul`` (K1 forward, K2/K3 backward) with ``block_mask = max``
@@ -249,6 +250,8 @@ def masked_dense(x, w, mask):
         y = ops.masked_matmul(x.contiguous(), w.contiguous(), block_mask)
     else:
         y = x @ w
+    if b is not None:
+        y = y + b
     return y * mask.to(y.dtype)
 
 

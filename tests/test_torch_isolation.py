@@ -26,6 +26,7 @@ from repro_torch.kernels import decode_attention as k5
 from repro_torch.kernels import flash_attention as k4
 from repro_torch.kernels import masked_matmul as k1
 from repro_torch.kernels import ssd_scan as k6
+from repro_torch.models import cnn
 from repro_torch.models.lm import LM
 from repro_torch.serving import DecodeEngine, ServeConfig, load_servable
 
@@ -79,7 +80,9 @@ def no_cuda():
 @pytest.mark.parametrize("entry", ["LM", "DecodeEngine", "load_servable",
                                    "params_from_jax", "LM.apply",
                                    "FederatedTrainer", "device_arrays",
-                                   "round_state_from_jax", "hybrid LM"])
+                                   "round_state_from_jax", "hybrid LM",
+                                   "SimpleCNN", "ResNet18",
+                                   "cnn_params_from_jax", "CNN trainer"])
 def test_default_device_raises_without_cuda(no_cuda, entry):
     params = LM(TINY, device="cpu").init(torch.Generator().manual_seed(0))
     data = build_lm_federated_data(
@@ -99,6 +102,16 @@ def test_default_device_raises_without_cuda(no_cuda, entry):
                                              clients_per_round=1))
         elif entry == "device_arrays":
             data.device_arrays()
+        elif entry in ("SimpleCNN", "ResNet18"):
+            getattr(cnn, entry)(image_shape=(8, 8, 3))
+        elif entry == "cnn_params_from_jax":
+            interop.cnn_params_from_jax({"c": {"w": np.zeros((3, 3, 1, 2),
+                                                             np.float32)}})
+        elif entry == "CNN trainer":
+            FederatedTrainer(cnn.SimpleCNN(image_shape=(8, 8, 3),
+                                           device="cpu"), data,
+                             feddumap_config(num_clients=2,
+                                             clients_per_round=1))
         elif entry == "round_state_from_jax":
             interop.round_state_from_jax({"round": np.zeros((), np.float32)})
         elif entry == "DecodeEngine":
