@@ -89,7 +89,22 @@ Phases, in order; any failure raises and the script exits non-zero:
               local samples/s, peak memory, the busy share of a profiled
               round, p*, kept counts, MFLOPs before and after, the accuracy
               trajectory, and 0 launches of masked_matmul (no paper CNN
-              reaches a TPU kernel).
+              reaches a TPU kernel);
+13. paper-parity — SimpleCNN at the paper protocol's width (10x10x3), f32,
+              card against CPU from the same params and batches: one
+              FedProx round, two FedDyn rounds with client dropout (one
+              client dropped, then all: that round leaves the client state
+              and momentum bitwise unchanged on the card and moves the
+              params by exactly -h/alpha), and the FedDF and FedKT hooks;
+14. paper   — ``repro_torch.experiments.run_one`` for the 16 algorithms of
+              the paper's comparison at its protocol (4 rounds, prune or
+              hook at round 2, Eval every 2), then the scenario grid's
+              smoke cells (FedAvg, FedProx, FedDyn at dropout 0.25): a line
+              a run with s/round, local samples/s, the busy share of a
+              profiled one-client slice, peak memory, accuracy, MFLOPs and
+              p*/kept, and the baselines' own checks (IMC/PruneFL zeros,
+              HRank's shrink, Data-sharing's and Hybrid-FL's data, FedDyn's
+              h after round 1).
 
 Each phase after the build prints its peak device memory; ``[time]`` lines
 give each phase's wall seconds and the total.
@@ -1325,7 +1340,7 @@ def _profile_round(torch, backend, state, t, round_s, label) -> None:
     if not kernels:
         log(f"[profile] {label}: device time not measured (the profiler "
             f"saw no CUDA kernels)")
-        return
+        return None
     dev_s = sum(e.self_device_time_total for e in kernels) / 1e6
     busy = 100 * dev_s / round_s
     log(f"[profile] {label}: round {round_s:.3f} s on the host clock, "
@@ -2261,12 +2276,13 @@ def phase_training_cnn(torch) -> dict:
 PROFILE_LOCAL_STEPS = 40    # one local epoch of a paper client (400 / B=10)
 
 
-def _profile_one_client(torch, backend, state, t, label) -> None:
-    """The device busy share of a FedDUMAP round cut to its first client's
-    first local epoch (PROFILE_LOCAL_STEPS steps, then every server step),
+def _profile_one_client(torch, backend, state, t, label):
+    """The device busy share of a round cut to its first client's first
+    local epoch (PROFILE_LOCAL_STEPS steps, then every server step),
     unprofiled on the host clock and then under torch.profiler recording
     device work only: a whole paper round launches ~2 x 10^5 kernels, and
-    the profiler spends ~13x the round's own time on them."""
+    the profiler spends ~13x the round's own time on them.  Returns the
+    busy percentage, or None where the profiler saw no kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import engine
@@ -2274,7 +2290,9 @@ def _profile_one_client(torch, backend, state, t, label) -> None:
     batch = backend.round_batch(t)
     batch["client"] = tuple(a[:1, :PROFILE_LOCAL_STEPS]
                             for a in batch["client"])
-    batch["sizes"] = batch["sizes"][:1]
+    for k in ("sizes", "sel", "active"):
+        if k in batch:
+            batch[k] = batch[k][:1]
     steps = batch["client"][0].shape[1] + batch["server"][0].shape[0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2292,7 +2310,7 @@ def _profile_one_client(torch, backend, state, t, label) -> None:
     if not kernels:
         log(f"[profile] {label}: device time not measured (the profiler "
             f"saw no CUDA kernels)")
-        return
+        return None
     dev_s = sum(e.self_device_time_total for e in kernels) / 1e6
     n = sum(e.count for e in kernels)
     busy = 100 * dev_s / wall
@@ -2304,6 +2322,471 @@ def _profile_one_client(torch, backend, state, t, label) -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"[profile] {label}:   {e.self_device_time_total / 1e6:8.4f} s "
             f"{e.count:6d}x  {e.key[:90]}")
+    return busy
+
+
+# ---------------------------------------------------------------------------
+# phases 13-14: the paper's evaluation (no TPU kernel lies on its path)
+# ---------------------------------------------------------------------------
+
+PAPER_CLIENTS = (3, 3)      # paper-parity batches: 3 clients x 3 local steps
+PAPER_ALPHA = 0.01          # FedDyn's alpha (FedDynConfig's default)
+
+
+def _paper_state_errs(card, cpu, start, ulp_base=None):
+    """Each leaf's error (card against CPU) over its allowance: TRAIN_TOL
+    of the leaf's max |update| (the CPU's state minus ``start``, the
+    round's start) plus ROUND_ULPS spacings of f32 at the leaf's max
+    |start|, or at ``ulp_base`` when given."""
+    from repro_torch.utils.tree import tree_leaves
+
+    eps = 2.0 ** -23
+    out = []
+    for g, w, b in zip(tree_leaves(card), tree_leaves(cpu),
+                       tree_leaves(start)):
+        g, w, b = (t.detach().cpu().double() for t in (g, w, b))
+        base = float(b.abs().max()) if ulp_base is None else ulp_base
+        out.append(_ratio(float((g - w).abs().max()),
+                          TRAIN_TOL * float((w - b).abs().max())
+                          + ROUND_ULPS * eps * base))
+    return out
+
+
+def _tree_sub(a, b):
+    from repro_torch.utils.tree import tree_map
+
+    return tree_map(lambda x, y: x.detach().cpu().double()
+                    - y.detach().cpu().double(), a, b)
+
+
+def phase_paper_parity(torch) -> None:
+    """The paper's client algorithms and baseline hooks, card against CPU
+    in f32 (TF32 off) from the same params and batches: SimpleCNN at the
+    protocol's width (10x10x3 images, 32/64/64 filters, FC 64): one FedProx
+    round, two FedDyn rounds with client dropout (one client dropped, then
+    all of them: that round must leave the client state and momentum
+    bitwise unchanged on the card and move the params by exactly FedDyn's
+    server correction -h/alpha), and the FedDF and FedKT distillation
+    hooks.  Held as cnn-parity holds a round: each leaf of params,
+    server_m and FedDyn's h within TRAIN_TOL of its max change since the
+    first round's start plus ROUND_ULPS spacings; where that fails and
+    ReLU inputs of the first local step flip sides between the devices,
+    the change's relative L2 within CNN_TOL_FLIPS and that step's
+    gradients in float64 within CNN_TOL64."""
+    import numpy as np
+
+    from repro_torch.core import backend, baselines, engine
+    from repro_torch.core.engine import FedDynConfig, FedProxConfig
+    from repro_torch.core.rounds import engine_config
+    from repro_torch.experiments import SPEC
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    shape = SPEC.image_shape
+    cpu, gpu, params_c, params_g = _cnn_pair(torch, "SimpleCNN",
+                                             {"num_classes": 10}, shape, 21)
+    rng = np.random.default_rng(23)
+    clients, steps = PAPER_CLIENTS
+
+    def imgs(*lead):
+        return (torch.from_numpy(rng.standard_normal(lead + shape)
+                                 .astype(np.float32)),
+                torch.from_numpy(rng.integers(0, 10, lead).astype(np.int32)))
+
+    def batch(sel, active=None):
+        b = {"client": imgs(clients, steps, 10),
+             "sizes": torch.full((clients,), 100.0),
+             "server": imgs(2, 32), "d_round": torch.tensor(0.4),
+             "d_server": torch.tensor(0.01), "n0": torch.tensor(500.0),
+             "sel": torch.tensor(sel, dtype=torch.int32)}
+        if active is not None:
+            b["active"] = torch.tensor(active, dtype=torch.float32)
+        return b
+
+    runs = {
+        "fedprox": (baselines.fedprox_config(
+            fedprox=FedProxConfig(mu=0.01)), [batch([4, 17, 90])]),
+        "feddyn": (baselines.feddyn_config(
+            feddyn=FedDynConfig(alpha=PAPER_ALPHA)),
+            [batch([4, 17, 90], [1, 0, 1]), batch([17, 3, 55], [0, 0, 0])]),
+    }
+    for name, (fl, batches) in runs.items():
+        eng = engine_config(fl)
+        states, befores = {}, {}
+        for dev, model, params in (("cpu", cpu, params_c),
+                                   ("cuda", gpu, params_g)):
+            st = engine.init_round_state(tree_map(torch.clone, params), eng,
+                                         num_clients=100)
+            grad_fn, la_fn = backend.model_fns(model, eng)
+            for r, b in enumerate(batches):
+                befores[dev, r] = tree_map(torch.clone, st)
+                st, met = engine.round_core(eng, grad_fn, la_fn, st, tree_map(
+                    lambda t: t.to(dev), b))
+                states[dev, r] = tree_map(torch.clone, st)
+        # the devices share only the first round's start: each round's
+        # state is held against its whole change since then
+        start = befores["cpu", 0]
+        for r, b in enumerate(batches):
+            card, host = states["cuda", r], states["cpu", r]
+            keys = ["params", "server_m"] + (["client_state"]
+                                             if name == "feddyn" else [])
+            # h = -alpha (theta_k - anchor): a difference of params, so
+            # its rounding allowance is alpha spacings at the params' size
+            p_max = max(float(t.abs().max())
+                        for t in tree_leaves(start["params"]))
+            worst = {k: max(_paper_state_errs(
+                card[k], host[k], start[k],
+                PAPER_ALPHA * p_max if k == "client_state" else None))
+                for k in keys}
+            drop = ("" if "active" not in b else
+                    f", active {b['active'].int().tolist()}")
+            log(f"[paper-parity] SimpleCNN {shape[0]}x{shape[1]}x{shape[2]} "
+                f"{name} round {r + 1} ({clients} clients x {steps} local "
+                f"steps of B=10{drop}): worst error / allowance "
+                f"{ {k: round(v, 4) for k, v in worst.items()} }")
+            if max(worst.values()) > 1.0:
+                _paper_flip_fallback(torch, name, cpu, gpu, start, b, card,
+                                     host)
+            if "active" in b and not float(b["active"].sum()):
+                _paper_all_dropped(torch, befores["cuda", r], card)
+    _paper_hooks(torch, cpu, gpu, params_c, params_g)
+
+
+def _paper_all_dropped(torch, before, after) -> None:
+    """An all-dropped FedDyn round on the card: the aggregation returns the
+    broadcast point, so the params move by exactly -h_shared/alpha (the
+    reference's server correction, computed here by the same ops) and the
+    momentum and client state stay as they were, bit for bit."""
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    hs = before["client_state"]["shared"]["h"]
+    want = tree_map(lambda p, h: (p.float() - h / PAPER_ALPHA).to(p.dtype),
+                    before["params"], hs)
+    same = {k: all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(after[k]), tree_leaves(before[k])))
+        for k in ("server_m", "client_state")}
+    params_ok = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(after["params"]), tree_leaves(want)))
+    moved = max(float(h.abs().max()) for h in tree_leaves(hs)) / PAPER_ALPHA
+    log(f"[paper-parity] all-dropped FedDyn round on the card: server_m and "
+        f"client state bitwise unchanged {same}; params == start - "
+        f"h_shared/alpha bitwise: {params_ok} (max |h_shared/alpha| "
+        f"{moved:.3e})")
+    require(all(same.values()) and params_ok,
+            "paper-parity: the all-dropped round changed the state")
+
+
+def _paper_flip_fallback(torch, name, cpu, gpu, start, b, card, host):
+    """cnn-parity's fallback: ReLU flips in the first local step's forward
+    (card against CPU), the params' change's relative L2, and that step's
+    gradients in float64."""
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    x, y = b["client"][0][0, 0], b["client"][1][0, 0]
+    p = start["params"]
+    with torch.no_grad():
+        _, maps_c = cpu.apply(p, x, collect=True)
+        _, maps_g = gpu.apply(tree_map(lambda t: t.cuda(), p), x.cuda(),
+                              collect=True)
+    flips = sum(int(((maps_g[k].cpu() > 0) != (maps_c[k] > 0)).sum())
+                for k in maps_c)
+    d_card = _tree_sub(card["params"], start["params"])
+    d_cpu = _tree_sub(host["params"], start["params"])
+    diff2 = sum(float((a - b_).square().sum())
+                for a, b_ in zip(tree_leaves(d_card), tree_leaves(d_cpu)))
+    norm2 = sum(float(b_.square().sum()) for b_ in tree_leaves(d_cpu))
+    l2 = math.sqrt(diff2 / norm2) if norm2 else math.inf
+    log(f"[paper-parity] {name}: over the f32 allowance; ReLU units on the "
+        f"other side of 0 in the first step: {flips}; update relative L2 "
+        f"{l2:.3e} (tol {CNN_TOL_FLIPS:.0e})")
+    require(flips > 0 and l2 <= CNN_TOL_FLIPS,
+            f"paper-parity {name}: round update off without a ReLU flip")
+    _cnn_grad_parity64(torch, "SimpleCNN", cpu, gpu, p, x, y)
+
+
+def _paper_hooks(torch, cpu, gpu, params_c, params_g) -> None:
+    """FedDF and FedKT server phases (10 steps of 32 server images, lr
+    0.01: the paper runs' settings) from the same params and seed on the
+    card and the CPU, held as a round is (each leaf's spacing allowance at
+    the params' largest magnitude: FedDF's teacher is the student's own
+    start, where its KL has a zero gradient, so its update is rounding
+    noise on both devices, and a zero-initialised bias has no magnitude
+    of its own), with cnn-parity's fallback where ReLU inputs flip."""
+    import numpy as np
+
+    from repro_torch.core import baselines
+    from repro_torch.data.pipeline import build_federated_data
+    from repro_torch.experiments import SPEC
+    from repro_torch.utils.tree import tree_leaves
+
+    data = build_federated_data(num_clients=10, device_pool=2000, spec=SPEC)
+    steps, batch, seed = 10, 32, 3
+    for mode in ("feddf", "fedkt"):
+        out = {}
+        for dev, model, params in (("cpu", cpu, params_c),
+                                   ("cuda", gpu, params_g)):
+            hook = baselines.make_distillation_round_end(
+                model, data, mode=mode, steps=steps, batch=batch, seed=seed)
+            out[dev] = hook(None, 1, params)
+        p_max = max(float(t.abs().max()) for t in tree_leaves(params_c))
+        worst = max(_paper_state_errs(out["cuda"], out["cpu"], params_c,
+                                      p_max))
+        moved = max(e for e, _ in _leaf_errs(out["cpu"], params_c))
+        log(f"[paper-parity] {mode} hook ({steps} steps of B={batch}): max "
+            f"|update| {moved:.3e}; card~cpu worst error / allowance "
+            f"{worst:.4f}")
+        if worst > 1.0:
+            # the hook's own draws: np.random.default_rng(seed) per hook
+            sx = np.asarray(data.server_x)
+            idx = np.random.default_rng(seed).integers(0, sx.shape[0],
+                                                       steps * batch)
+            xs = torch.from_numpy(sx[idx].reshape(steps, batch,
+                                                  *sx.shape[1:]))
+            _paper_hook_fallback(torch, mode, cpu, gpu, params_c, xs,
+                                 out["cuda"], out["cpu"])
+
+
+def _paper_hook_fallback(torch, mode, cpu, gpu, params_c, xs, card, host):
+    """cnn-parity's fallback for a distillation hook over its f32
+    allowance: ReLU units on the other side of 0 (card against CPU) in the
+    student's forward at the start over the hook's batches, the update
+    tree's relative L2 within CNN_TOL_FLIPS, and (FedKT: a cross entropy
+    to the teacher's labels, the model's own loss) the first step's
+    gradients in float64 within CNN_TOL64."""
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    params_g = tree_map(lambda t: t.cuda(), params_c)
+    flips = 0
+    with torch.no_grad():
+        for x in xs:
+            _, maps_c = cpu.apply(params_c, x, collect=True)
+            _, maps_g = gpu.apply(params_g, x.cuda(), collect=True)
+            flips += sum(int(((maps_g[k].cpu() > 0) != (maps_c[k] > 0))
+                             .sum()) for k in maps_c)
+        labels = cpu.apply(params_c, xs[0]).argmax(-1)
+    d_card, d_cpu = _tree_sub(card, params_c), _tree_sub(host, params_c)
+    diff2 = sum(float((a - b).square().sum())
+                for a, b in zip(tree_leaves(d_card), tree_leaves(d_cpu)))
+    norm2 = sum(float(b.square().sum()) for b in tree_leaves(d_cpu))
+    l2 = math.sqrt(diff2 / norm2) if norm2 else math.inf
+    log(f"[paper-parity] {mode} hook: over the f32 allowance; ReLU units on "
+        f"the other side of 0 over its batches: {flips}; update relative L2 "
+        f"{l2:.3e} (tol {CNN_TOL_FLIPS:.0e})")
+    require(flips > 0 and l2 <= CNN_TOL_FLIPS,
+            f"paper-parity: {mode} hook differs without a ReLU flip")
+    if mode == "fedkt":
+        _cnn_grad_parity64(torch, "SimpleCNN", cpu, gpu, params_c, xs[0],
+                           labels)
+
+
+PAPER_ROUNDS, PAPER_PRUNE, PAPER_EVAL = 4, 2, 2
+
+
+class _RoundClock:
+    """Wraps ``LocalBackend.run_rounds`` so that each round runs alone and
+    is timed between two device syncs; records (round, seconds, FedDyn's
+    max |h| after it, the round's active count)."""
+
+    def __init__(self, torch):
+        from repro_torch.core.backend import LocalBackend
+
+        self.torch, self.cls = torch, LocalBackend
+        self.inner = LocalBackend.run_rounds
+        self.rows: list = []
+
+    def __enter__(self):
+        clock = self
+
+        def run_rounds(backend, state, t, n):
+            mets = []
+            for r in range(t, t + n):
+                clock.torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = clock.inner(backend, state, r, 1)
+                clock.torch.cuda.synchronize()
+                clock.rows.append((r + 1, time.perf_counter() - t0,
+                                   _max_h(state)))
+                mets += m
+            return state, mets
+
+        self.cls.run_rounds = run_rounds
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.run_rounds = self.inner
+        return False
+
+
+def _max_h(state):
+    from repro_torch.utils.tree import tree_leaves
+
+    if "client_state" not in state or not state["client_state"]["shared"]:
+        return None
+    return max(float(h.abs().max())
+               for h in tree_leaves(state["client_state"]["per_client"]))
+
+
+def phase_paper(torch) -> dict:
+    """The paper's evaluation on the card through ``repro_torch.
+    experiments``: ``run_one`` for each of the 16 ``suite_main`` algorithms
+    at the paper protocol (10x10x3 synthetic CIFAR, 100 clients over a
+    10,000-image pool, 10 a round, E = 5, B = 10, lr 0.1 decayed 0.99,
+    p = 0.05) cut to PAPER_ROUNDS rounds with the prune or hook at round
+    PAPER_PRUNE and an Eval every PAPER_EVAL, then the heterogeneity grid's
+    smoke cells (FedAvg, FedProx and FedDyn at dropout 0.25, 16 clients,
+    2 rounds).  One line a run: s/round (the median of the rounds after the
+    first; hooks, prunes and Evals fall between rounds and are not in it),
+    local samples/s, the busy share of a round cut to one client, peak
+    memory, final accuracy, MFLOPs before and after, p* and kept counts.
+    Returns {}: no kernel of K1-K6 is on the path (K1-K3 counted 0)."""
+    import shutil
+
+    from repro_torch import experiments
+    from repro_torch.kernels import masked_matmul as k1
+    from repro_torch.utils.tree import tree_size
+
+    out = os.path.join(ROOT, "build", "chip_smoke_paper")
+    shutil.rmtree(out, ignore_errors=True)
+    seen: list = []
+    trainer_cls = experiments.FederatedTrainer
+
+    class Recording(trainer_cls):
+        def run(self, plan, **kw):
+            res = super().run(plan, **kw)
+            seen.append((self, res))
+            return res
+
+    unpruned = tree_size(experiments.make_model("cnn").init(
+        torch.Generator(device="cuda").manual_seed(0)))
+    k1.launches = k1.dx_launches = k1.dw_launches = 0
+    peaks: list = []
+    experiments.FederatedTrainer = Recording
+    try:
+        for i, algo in enumerate(experiments.MAIN_ALGOS):
+            with _RoundClock(torch) as clock:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                rec = experiments.run_one(
+                    f"main_cnn_{algo}", algo=algo, rounds=PAPER_ROUNDS,
+                    prune_round=PAPER_PRUNE, out_dir=out, device="cuda")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            peaks.append(peak)
+            trainer, res = seen.pop()
+            # the requires read the final state before the profiled round
+            # of _paper_line trains on it
+            _paper_requires(torch, algo, trainer, res, rec, unpruned)
+            _paper_line(torch, f"main {algo}", trainer, res, clock.rows,
+                        wall, rec, peak)
+            del trainer, res
+        with _RoundClock(torch) as clock:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            cells = experiments.suite_scenario_matrix("smoke", out_dir=out,
+                                                      device="cuda")
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            peaks.append(peak)
+    finally:
+        experiments.FederatedTrainer = trainer_cls
+    per = len(clock.rows) // len(cells)
+    for j, cell in enumerate(cells):
+        trainer, res = seen[j]
+        rows = clock.rows[j * per:(j + 1) * per]
+        require(all(math.isfinite(v) for v in res.history["loss"]),
+                f"paper grid {cell['algo']}: loss not finite")
+        _paper_line(torch, f"grid {cell['algo']} drop {cell['dropout_rate']}",
+                    trainer, res, rows, cell["wall_s"], cell, peak)
+        if cell["algo"] == "feddyn":
+            h1 = rows[0][2]
+            log(f"[paper] grid feddyn: max |h| after round 1 {h1:.3e}, "
+                f"after round 2 {rows[1][2]:.3e}")
+            require(h1 > 0, "paper grid feddyn: h is zero after round 1")
+    log(f"[paper] grid smoke: {len(cells)} cells in {wall:.1f} s; the "
+        f"peak above is the grid's, over its cells")
+    log(f"[paper] peak device memory over the phase's runs "
+        f"{max(peaks):.3f} GiB (each run resets the counter: the [memory] "
+        f"line below is the grid's alone)")
+    n_k1 = k1.launches + k1.dx_launches + k1.dw_launches
+    log(f"[paper] masked_matmul (K1-K3) launches {n_k1}: the paper's runs "
+        f"use masked_compute='params' and no model of theirs reaches the "
+        f"kernel")
+    require(n_k1 == 0, f"paper: masked_matmul launched {n_k1} times")
+    return {}
+
+
+def _paper_line(torch, label, trainer, res, rows, wall, rec, peak) -> None:
+    """One line for one run (and its profiled one-client round)."""
+    from repro_torch.core.backend import sim_sample_kw
+
+    kw = sim_sample_kw(trainer.cfg, trainer.data)
+    local = kw["clients_per_round"] * kw["local_steps"] * kw["batch_size"]
+    times = [s for _, s, _ in rows]
+    round_s = statistics.median(times[1:]) if len(times) > 1 else times[0]
+    busy = _profile_one_client(torch, trainer.backend(), res.state,
+                               len(times) + 1, f"paper {label}")
+    fedap = rec.get("fedap") or {}
+    counts = fedap.get("kept_counts") or {
+        k: int(v["w"].shape[0]) for k, v in res.params.items()
+        if k.startswith("conv")}
+    mf = (f"MFLOPs/example {rec['mflops_before']:.3f} -> "
+          f"{rec['mflops_after']:.3f}, " if "mflops_before" in rec else "")
+    log(f"[paper] {label}: {round_s:.3f} s/round (rounds "
+        f"{[round(t, 3) for t in times]}; plan {wall:.1f} s with its Evals,"
+        f" hooks and prunes) -> {local / round_s:.1f} local samples/s; busy "
+        + (f"{busy:.1f}%" if busy is not None else "not measured")
+        + f"; peak {peak:.3f} GiB; final acc {rec['final_acc']:.4f}; {mf}"
+        f"p* {fedap.get('p_star', 'n/a')}, kept {counts}; "
+        f"{int(trainer.data.client_x.shape[0])} clients x "
+        f"{int(trainer.data.client_x.shape[1])} samples")
+
+
+def _paper_requires(torch, algo, trainer, res, rec, unpruned) -> None:
+    import numpy as np
+
+    from repro_torch.utils.tree import tree_leaves, tree_size
+
+    h = rec["history"]
+    require(all(math.isfinite(v) for k in ("loss", "acc", "tau_eff")
+                for v in h[k]), f"paper {algo}: history not finite")
+    if algo in ("imc", "prunefl"):
+        zeros = sum(int((t == 0).sum()) for t in tree_leaves(res.params))
+        total = tree_size(res.params)
+        log(f"[paper] {algo}: {zeros:,} of {total:,} weights at zero "
+            f"({100 * zeros / total:.1f}%)")
+        require(zeros >= 0.4 * total, f"paper {algo}: only {zeros} of "
+                f"{total} weights are zero")
+    if algo == "hrank":
+        size = tree_size(res.params)
+        log(f"[paper] hrank: params {unpruned:,} -> {size:,}")
+        require(size < unpruned, "paper hrank: the model was not shrunk")
+    if algo == "datasharing":
+        from repro_torch import experiments
+
+        n_k = experiments.DEVICE_POOL // experiments.NUM_CLIENTS
+        x = trainer.data.client_x
+        server = {row.tobytes() for row in np.asarray(trainer.data.server_x)}
+        added = x[:, n_k:].reshape(-1, *x.shape[2:])
+        log(f"[paper] datasharing: {x.shape[0]} clients x {x.shape[1]} "
+            f"samples ({x.shape[1] - n_k} server images appended to each)")
+        require(x.shape[1] > n_k and all(a.tobytes() in server
+                                         for a in added),
+                "paper datasharing: clients did not get the server data")
+    if algo == "hybridfl":
+        from repro_torch import experiments
+
+        n = int(trainer.backend().device_data()["client_x"].shape[0])
+        log(f"[paper] hybridfl: {n} clients sampled from "
+            f"(num_clients {trainer.cfg.num_clients})")
+        require(n == trainer.cfg.num_clients == trainer.data.sizes.shape[0]
+                and n == experiments.NUM_CLIENTS + 1,
+                "paper hybridfl: the server is not one more client")
+    if algo in ("fedap", "fedduap", "feddumap") and \
+            not rec["fedap"]["p_star"]:
+        log(f"[paper] {algo}: finding: at the paper's FedAP config p* is 0 "
+            f"at round {PAPER_PRUNE}: nothing is pruned")
 
 
 PHASE_SECONDS: dict = {}    # phase -> wall seconds, for the [time] lines
@@ -2354,7 +2837,9 @@ def main() -> int:
             ("score-parity", lambda: phase_score_parity(torch) or {}),
             ("scoring", lambda: phase_scoring(torch)),
             ("cnn-parity", lambda: phase_cnn_parity(torch) or {}),
-            ("training cnn", lambda: phase_training_cnn(torch))):
+            ("training cnn", lambda: phase_training_cnn(torch)),
+            ("paper-parity", lambda: phase_paper_parity(torch) or {}),
+            ("paper", lambda: phase_paper(torch))):
         for name, n in _phase(torch, label, path).items():
             launches[name] = launches.get(name, 0) + n
     for name, sec in PHASE_SECONDS.items():

@@ -2,17 +2,20 @@
 
 Counterpart of the reference's ``core/backend.py`` for one device.  A
 :class:`~repro_torch.core.plan.TrainPlan` says WHAT happens (Scan / Eval /
-Prune); :class:`PlanExecutor` owns the schedule loop (history, artifacts,
-the Prune decision/apply split) and drives :class:`LocalBackend`, which
-runs the rounds of :func:`repro_torch.core.engine.round_core` eagerly.
+Prune / Snapshot / Callback); :class:`PlanExecutor` owns the schedule loop
+(history, artifacts, the Prune decision/apply split, the Callback restart)
+and drives :class:`LocalBackend`, which runs the rounds of
+:func:`repro_torch.core.engine.round_core` eagerly.
 
 Where the reference compiles a scan chunk, the port runs one eager round
 after another, and a ``Prune(mode="mask")`` writes the masks into the
 existing state tensors (``copy_``/``mul_``/``zero_``): every state tensor
 keeps its storage and shape, the eager analogue of the reference's "zero
 added programs".  A shrink gathers the kept indices into new tensors, so it
-reads the old state before anything is reused.  Checkpoints, host faults,
-``Snapshot``/``Callback`` events and the mesh backend come with later
+reads the old state before anything is reused.  The state changes in
+place, so a ``Snapshot`` or a ``Callback`` gets a copy of the params taken
+at the event (the reference loans its immutable arrays and copies them
+lazily).  Checkpoints, host faults and the mesh backend come with later
 slices.
 """
 from __future__ import annotations
@@ -27,7 +30,15 @@ import torch
 
 from repro_torch.core import engine, pruning
 from repro_torch.core.engine import EngineConfig
-from repro_torch.core.plan import Eval, Prune, RunResult, Scan, TrainPlan
+from repro_torch.core.plan import (
+    Callback,
+    Eval,
+    Prune,
+    RunResult,
+    Scan,
+    Snapshot,
+    TrainPlan,
+)
 from repro_torch.utils.tree import tree_map
 
 
@@ -63,6 +74,7 @@ def sim_sample_kw(cfg, data) -> dict:
         local_steps=max(1, n_k // cfg.batch_size) * cfg.local_epochs,
         server_batch=cfg.server_batch_size,
         server_tau=max(1, n0 // cfg.server_batch_size) * cfg.server_epochs,
+        dropout_rate=float(cfg.dropout_rate),
     )
 
 
@@ -103,11 +115,12 @@ def init_filter_masks(model, params):
 def masked_round_state(state: dict, masks: Any, filter_masks: Any = None
                        ) -> dict:
     """Inject FedAP keep-masks into a live masked round state, IN PLACE:
-    server (and communicated) momentum restarts at zero, the masks and
-    filter masks are copied into their tensors, and the params are masked.
-    No state tensor changes storage or shape."""
+    server (and communicated) momentum and the FedProx/FedDyn client state
+    restart at zero, the masks and filter masks are copied into their
+    tensors, and the params are masked.  No state tensor changes storage or
+    shape."""
     with torch.no_grad():
-        for k in ("server_m", "global_m"):
+        for k in ("server_m", "global_m", "client_state"):
             if k in state:
                 tree_map(torch.Tensor.zero_, state[k])
         tree_map(lambda dst, m: dst.copy_(m), state["masks"], masks)
@@ -147,6 +160,11 @@ class LocalBackend:
     def _kernel_masks(self) -> bool:
         return self.eng.use_masks and self.eng.masked_compute == "kernel"
 
+    @property
+    def _num_clients(self) -> int:
+        """The total client count: sizes FedDyn's per-client state."""
+        return int(self.data.client_x.shape[0])
+
     def device_data(self) -> dict:
         if self._data is None:
             self._data = self.data.device_arrays(self.device)
@@ -158,7 +176,33 @@ class LocalBackend:
         fmasks = (init_filter_masks(self.model, params)
                   if self._kernel_masks else None)
         return engine.init_round_state(tree_map(torch.clone, params),
-                                       self.eng, filter_masks=fmasks)
+                                       self.eng, filter_masks=fmasks,
+                                       num_clients=self._num_clients)
+
+    def snapshot(self, state: dict):
+        """A copy of the global params: later rounds leave it unchanged."""
+        return tree_map(torch.clone, state["params"])
+
+    def snapshot_artifact(self, state: dict, t: int) -> dict:
+        """A ``Snapshot`` artifact, its params copied now (the reference
+        defers its copy to the next donating call; the port's rounds write
+        the state in place, so a deferred copy would see them)."""
+        return {"round": t, "params": self.snapshot(state)}
+
+    def replace_params(self, state: dict, params) -> dict:
+        """The Callback contract: replacement params (copied) start a new
+        round state, momentum and client state at zero, with the round
+        count kept and an earlier mask decision kept in force.  Params at
+        new shapes (a structured prune) make every tensor new."""
+        new_state = engine.init_round_state(
+            tree_map(torch.clone, params), self.eng,
+            filter_masks=state.get("filter_masks"),
+            num_clients=self._num_clients)
+        new_state["round"] = state["round"]
+        if "masks" in state:
+            new_state["masks"] = state["masks"]
+            engine.mask_(new_state["params"], state["masks"])
+        return new_state
 
     def round_batch(self, t: int) -> dict:
         """Round ``t``'s batch: from the injected source, or drawn."""
@@ -167,11 +211,11 @@ class LocalBackend:
                             self.batches(t))
         d = self.device_data()
         kw = self.sample_kw
-        sel, idx, sidx = engine.draw_round_indices(
+        draws = engine.draw_round_indices(
             self.generator, num_clients=int(d["client_x"].shape[0]),
             n_k=int(d["client_x"].shape[1]),
             n0=int(d["server_x"].shape[0]), **kw)
-        return engine.sample_round_batches(d, sel, idx, sidx, **kw)
+        return engine.sample_round_batches(d, *draws, **kw)
 
     def run_rounds(self, state: dict, t: int, n: int):
         """Rounds ``t .. t+n-1`` on ``state`` (in place); returns (state,
@@ -205,7 +249,9 @@ class LocalBackend:
         (the mask-now-shrink-later follow-up) gathers the momentum buffers
         at the kept indices too instead of restarting them, so masked then
         shrunk training goes on as shrink-from-the-start training would on
-        a normalisation-free model."""
+        a normalisation-free model.  A shrink restarts the FedDyn client
+        state as zeros at the shrunk shapes: the old ``h`` lives in the
+        pre-prune coordinates."""
         params = state["params"]
         if mode == "mask":
             masks = param_masks_for(self.model, params, kept)
@@ -218,7 +264,8 @@ class LocalBackend:
         fm = (init_filter_masks(self.model, new_params)
               if self._kernel_masks else None)
         new_state = engine.init_round_state(new_params, self.eng,
-                                            filter_masks=fm)
+                                            filter_masks=fm,
+                                            num_clients=self._num_clients)
         if compact_existing:
             for k in ("server_m", "global_m"):
                 if k in state:
@@ -236,11 +283,14 @@ def _tensor(a, device) -> torch.Tensor:
 
 class PlanExecutor:
     """Executes a :class:`TrainPlan` against a backend: history rows record
-    the completed-round count at each Eval, and artifact keys get ``#k``
-    suffixes on repeats."""
+    the completed-round count at each Eval (a Callback receives it too),
+    artifact keys get ``#k`` suffixes on repeats, and a Callback that
+    returns params restarts the round state through the backend.
+    ``trainer`` is what a Callback receives as its first argument."""
 
-    def __init__(self, backend: LocalBackend):
+    def __init__(self, backend: LocalBackend, *, trainer=None):
         self.backend = backend
+        self.trainer = trainer
 
     def run(self, plan: TrainPlan, *, params) -> RunResult:
         """Run ``plan`` from ``params`` (which are not modified; they are
@@ -274,9 +324,15 @@ class PlanExecutor:
                 history["loss"].append(float(loss))
                 history["tau_eff"].append(last_tau)
                 history["time"].append(time.perf_counter() - t0)
+            elif isinstance(ev, Snapshot):
+                record(ev.name, backend.snapshot_artifact(state, t))
             elif isinstance(ev, Prune):
                 state, art = self._prune(ev, state, params, artifacts)
                 record(ev.name, art)
+            elif isinstance(ev, Callback):
+                maybe = ev.fn(self.trainer, t, backend.snapshot(state))
+                if maybe is not None:
+                    state = backend.replace_params(state, maybe)
             else:  # pragma: no cover — TrainPlan validates event types
                 raise TypeError(f"unknown plan event: {ev!r}")
         return RunResult(params=state["params"], history=history,

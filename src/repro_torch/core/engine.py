@@ -1,11 +1,25 @@
 """The federated round engine: one implementation of the paper's round
 (steps 2-5 of Section 3.1), eager, on one device.
 
-Counterpart of the reference's ``core/engine.py`` for ``algorithm="fedavg"``
-with every momentum mode (none / restart / communicated local momentum,
-FedDUM server momentum), the FedDU dynamic server update, and FedAP masks
-in ``"params"`` and ``"kernel"`` compute modes.  FedProx, FedDyn, the health
-guard, fault injection and client dropout are later slices and raise.
+Counterpart of the reference's ``core/engine.py``: every momentum mode
+(none / restart / communicated local momentum, FedDUM server momentum),
+the FedDU dynamic server update, FedAP masks in ``"params"`` and
+``"kernel"`` compute modes, the client algorithms FedAvg, FedProx and
+FedDyn, and client dropout (``batch["active"]``).  The health guard and
+fault injection are a later slice and raise.
+
+``client_state`` (present iff ``cfg.algorithm != "fedavg"``) is keyed by
+the algorithm, as in the reference:
+
+  "fedprox"  ``{"per_client": {}, "shared": {}}``: the proximal pull
+             ``mu (theta - theta_global)`` needs only the round-start
+             params;
+  "feddyn"   ``{"per_client": {"h": [N, ...] per param}, "shared": {"h":
+             param tree}}``, f32: the ALPHA-SCALED correction ``h'_k =
+             alpha h_k``.  The local gradient is ``g + alpha (theta -
+             theta_global) - h'_k``, the update ``h'_k <- h'_k - alpha
+             act_k (theta_k^end - theta_global)``, and the server
+             correction ``w_half - h'/alpha`` (skipped at ``alpha == 0``).
 
 Differences from the reference, each for memory at the width of a real
 model (olmo-1b in f32 is 4.71 GB per param-sized tree):
@@ -13,7 +27,13 @@ model (olmo-1b in f32 is 4.71 GB per param-sized tree):
 * Clients train one after another instead of under ``vmap``.  FedAvg is a
   running f32 sum ``sum_k w_k theta_k`` with ``w = sizes / sum(sizes)``
   fixed before the first client, so the round holds one client's params,
-  momentum and gradient at a time, not ``C`` of each.
+  momentum and gradient at a time, not ``C`` of each.  With
+  ``batch["active"]`` the sum runs in the reference's delta form, ``base +
+  sum_k w_k (theta_k - base)`` with ``w = sizes act / max(sum, 1e-12)``,
+  so an all-dropped round aggregates to ``base`` exactly.
+* FedDyn's per-client ``h`` stays on the device; each selected client's
+  row is gathered inside the client loop, written back with an in-place
+  indexed copy, and ``sum_k act_k drift_k`` is a running sum, as FedAvg.
 * :func:`round_core` updates the round state IN PLACE and returns it;
   temporaries are dropped as soon as they are dead.  Nothing is donated or
   copied behind the caller's back, so a caller that wants to keep a state
@@ -31,7 +51,7 @@ accuracy gate comes from the FIRST server step's own forward.
 
 Randomness is an input: :func:`sample_round_batches` gathers one round's
 batches at given client and sample indices, and :func:`draw_round_indices`
-draws those indices from a ``torch.Generator``.
+draws those indices (and the dropout draw) from a ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -50,18 +70,44 @@ from repro_torch.core.server_update import FedDUConfig, feddu_apply, tau_eff
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 LATER = {
-    "algorithm": "the FedProx/FedDyn client algorithms come with the CNN "
-                 "slice",
     "guard": "the health guard comes with the reliability slice",
     "faults": "fault injection comes with the reliability slice",
-    "dropout_rate": "client dropout comes with the CNN slice",
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class FedProxConfig:
+    """FedProx's proximal term: local grad = g + mu * (theta - theta_global).
+    mu = 0 is bit-identical to FedAvg (the term multiplies to exact zero)."""
+
+    mu: float = 0.01
+
+    def __post_init__(self):
+        if self.mu < 0:
+            raise ValueError(f"FedProx mu must be >= 0, got {self.mu}")
+
+
+@dataclasses.dataclass(frozen=True)
+class FedDynConfig:
+    """FedDyn's dynamic regularizer (alpha-scaled; see the module
+    docstring).  alpha = 0 reduces to FedAvg: the correction state stays
+    exactly zero and the server division is skipped."""
+
+    alpha: float = 0.01
+
+    def __post_init__(self):
+        if self.alpha < 0:
+            raise ValueError(f"FedDyn alpha must be >= 0, got {self.alpha}")
+
+
+ALGORITHMS = ("fedavg", "fedprox", "feddyn")
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Algorithm switches of the round: FedAvg / FedDU / FedDUM / FedDA /
-    FedDUMAP (FedAP prunes between rounds, as a plan event)."""
+    FedDUMAP (FedAP prunes between rounds, as a plan event), and the client
+    algorithms FedProx / FedDyn."""
 
     lr: float = 0.1                 # eta: local AND server SGD step size
     lr_decay: float = 1.0           # per-round geometric decay (paper 4.1)
@@ -70,11 +116,13 @@ class EngineConfig:
     server_momentum: bool = False   # FedDUM server SGDM (Formulas 8/12)
     use_masks: bool = False         # FedAP masks in the round state
     masked_compute: str = "params"  # params | kernel
-    algorithm: str = "fedavg"       # only fedavg is ported
+    algorithm: str = "fedavg"       # fedavg | fedprox | feddyn
     guard: str = "off"              # only off is ported
     faults: tuple = ()              # none are ported
     feddu: FedDUConfig = dataclasses.field(default_factory=FedDUConfig)
     feddum: FedDUMConfig = dataclasses.field(default_factory=FedDUMConfig)
+    fedprox: FedProxConfig = dataclasses.field(default_factory=FedProxConfig)
+    feddyn: FedDynConfig = dataclasses.field(default_factory=FedDynConfig)
 
     def __post_init__(self):
         if self.local_momentum not in ("none", "restart", "communicated"):
@@ -83,35 +131,64 @@ class EngineConfig:
             raise ValueError(
                 f"unknown masked_compute: {self.masked_compute!r} "
                 "(expected 'params' or 'kernel')")
-        check_ported(algorithm=self.algorithm, guard=self.guard,
-                     faults=self.faults)
+        if self.algorithm not in ALGORITHMS:
+            raise ValueError(f"unknown algorithm: {self.algorithm!r} "
+                             f"(expected one of {ALGORITHMS})")
+        check_ported(guard=self.guard, faults=self.faults)
 
 
 def check_ported(**switches) -> None:
     """Raise for a switch of a later slice set away from its default."""
-    defaults = {"algorithm": "fedavg", "guard": "off", "faults": (),
-                "dropout_rate": 0.0}
+    defaults = {"guard": "off", "faults": ()}
     for name, value in switches.items():
         if value != defaults[name]:
             raise ValueError(f"{name}={value!r} is not ported yet: "
                              f"{LATER[name]}")
 
 
-def init_round_state(params: Any, cfg: EngineConfig,
-                     filter_masks: Any = None) -> dict:
-    """``{"params", "server_m", ["global_m"], ["masks"], ["filter_masks"],
-    "round"}`` on the params' device.  ``params`` is held, not copied.
-    Masks start as all ones (a no-op round), so a prune event only changes
-    their contents.  ``filter_masks`` (required iff ``use_masks`` and
-    ``masked_compute == "kernel"``) is copied."""
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+def _zeros_like_f32(tree):
+    return tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                          device=t.device), tree)
 
+
+def init_client_state(params: Any, cfg: EngineConfig,
+                      num_clients: int | None) -> dict:
+    """The algorithm-keyed ``client_state`` (see the module docstring), f32
+    zeros on the params' device; per-client leaves lead with
+    ``[num_clients]``, the TOTAL client count."""
+    if cfg.algorithm == "fedprox":
+        return {"per_client": {}, "shared": {}}
+    if num_clients is None:
+        raise ValueError(
+            "algorithm='feddyn' keeps per-client correction state in the "
+            "round state: pass num_clients=N (the TOTAL client count) to "
+            "init_round_state")
+    return {
+        "per_client": {"h": tree_map(
+            lambda p: torch.zeros((num_clients,) + tuple(p.shape),
+                                  dtype=torch.float32, device=p.device),
+            params)},
+        "shared": {"h": _zeros_like_f32(params)},
+    }
+
+
+def init_round_state(params: Any, cfg: EngineConfig,
+                     filter_masks: Any = None,
+                     num_clients: int | None = None) -> dict:
+    """``{"params", "server_m", ["global_m"], ["masks"], ["filter_masks"],
+    ["client_state"], "round"}`` on the params' device.  ``params`` is
+    held, not copied.  Masks start as all ones (a no-op round), so a prune
+    event only changes their contents.  ``filter_masks`` (required iff
+    ``use_masks`` and ``masked_compute == "kernel"``) is copied.
+    ``num_clients`` (required iff ``algorithm == "feddyn"``) sizes the
+    per-client leaves of ``client_state``."""
     dev = tree_leaves(params)[0].device
-    state = {"params": params, "server_m": tree_map(zeros, params),
+    state = {"params": params, "server_m": _zeros_like_f32(params),
              "round": torch.zeros((), dtype=torch.float32, device=dev)}
     if cfg.local_momentum == "communicated":
-        state["global_m"] = tree_map(zeros, params)
+        state["global_m"] = _zeros_like_f32(params)
+    if cfg.algorithm != "fedavg":
+        state["client_state"] = init_client_state(params, cfg, num_clients)
     if cfg.use_masks:
         state["masks"] = tree_map(
             lambda p: torch.ones(p.shape, dtype=torch.float32,
@@ -128,9 +205,17 @@ def init_round_state(params: Any, cfg: EngineConfig,
     return state
 
 
+def apply_masks(tree: Any, masks: Any) -> Any:
+    """A param-structured tree times its 0/1 keep-masks, into new tensors
+    (dtype kept)."""
+    return tree_map(lambda x, m: (x * m).to(x.dtype), tree, masks)
+
+
 def mask_(tree: Any, masks: Any) -> Any:
     """A param-structured tree times its 0/1 keep-masks, in place (the
-    reference's ``apply_masks``); returns ``tree``."""
+    in-place form of :func:`apply_masks`); returns ``tree``.  A leaf with
+    leading axes (FedDyn's ``[N, ...]`` per-client ``h``) takes its mask
+    broadcast over them."""
     tree_map(lambda x, m: x.mul_(m), tree, masks)
     return tree
 
@@ -181,15 +266,37 @@ def build_model_fns(cfg: EngineConfig, loss_fn: Callable,
 
 
 def local_train(cfg: EngineConfig, grad_fn: Callable, params: Any, m: Any,
-                batches, lr) -> tuple[Any, Any]:
+                batches, lr, anchor: Any = None,
+                h: Any = None) -> tuple[Any, Any]:
     """E local epochs on ONE client (Formula 11 when momentum is on),
     updating ``params`` and the f32 momentum ``m`` IN PLACE (``m`` is None
     without local momentum).  ``batches`` is a sequence of step batches;
-    ``lr`` a 0-d f32 tensor."""
+    ``lr`` a 0-d f32 tensor.
+
+    ``anchor`` is the broadcast round-start model (required for FedProx
+    and FedDyn), ``h`` this client's alpha-scaled FedDyn correction, fixed
+    over the local epochs.  The corrected gradient feeds the momentum
+    recursion like any other, so both compose with every momentum mode."""
     use_m = cfg.local_momentum != "none"
     beta = cfg.feddum.beta_local
+    if cfg.algorithm == "fedprox":
+        mu = cfg.fedprox.mu
+
+        def corrected(g, p):
+            return tree_map(lambda gi, pi, ai: gi.add_(
+                (pi - ai).mul_(mu).to(gi.dtype)), g, p, anchor)
+    elif cfg.algorithm == "feddyn":
+        alpha = cfg.feddyn.alpha
+
+        def corrected(g, p):
+            return tree_map(lambda gi, pi, ai, hi: gi.add_(
+                (pi - ai).mul_(alpha).to(gi.dtype)).sub_(hi.to(gi.dtype)),
+                g, p, anchor, h)
+    else:
+        def corrected(g, p):
+            return g
     for batch in batches:
-        g = grad_fn(params, batch)
+        g = corrected(grad_fn(params, batch), params)
         if use_m:
             tree_map(lambda mi, gi: mi.mul_(beta).add_(
                 gi.float().mul_(1.0 - beta)), m, g)
@@ -199,11 +306,6 @@ def local_train(cfg: EngineConfig, grad_fn: Callable, params: Any, m: Any,
             tree_map(lambda p, gi: p.sub_(gi.mul_(lr)), params, g)
             del g
     return params, m
-
-
-def _zeros_like_f32(tree):
-    return tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32,
-                                          device=t.device), tree)
 
 
 def _add_weighted(acc, tree, w):
@@ -226,7 +328,10 @@ def round_core(cfg: EngineConfig, grad_fn: Callable, loss_and_acc_fn: Callable,
       d_round   D(Pbar'^t), non-IID degree of this round's selection
       d_server  D(P0), non-IID degree of the server data
       n0        number of server samples
-      sel       [C] (optional, unused: the selected clients' indices)
+      sel       [C] the selected clients' global indices (optional;
+                required for FedDyn, which indexes client_state by it)
+      active    [C] 0/1 (optional): client dropout; the FedAvg sum runs in
+                delta form and dropped clients' state is left as it was
 
     Returns ``(state, {"tau_eff", "server_acc", "health"})`` as 0-d f32
     tensors (``health`` is 0: the guard is not ported).
@@ -261,26 +366,99 @@ def _round(cfg, grad_fn, loss_and_acc_fn, state, batch):
     params = _m(state["params"])
     lr = cfg.lr * (cfg.lr_decay ** state["round"])
 
-    # (2)-(4) local epochs client after client, FedAvg as a running sum
+    # (2)-(4) local epochs client after client, FedAvg as a running sum;
+    # with an "active" vector in the delta form around the broadcast point
     cx, cy = batch["client"]
     sizes = batch["sizes"].float()
-    w = sizes / sizes.sum()
+    active = batch.get("active")
+    if active is not None:
+        act = active.float()
+        w = sizes * act
+        w = w / torch.clamp(w.sum(), min=1e-12)
+    else:
+        act = None
+        w = sizes / sizes.sum()
+    feddyn = cfg.algorithm == "feddyn"
+    anchor = params if cfg.algorithm != "fedavg" else None
+    if cfg.local_momentum == "communicated":
+        m0 = _m(state["global_m"])
+    if feddyn:
+        if "sel" not in batch:
+            raise ValueError(
+                "algorithm='feddyn' needs batch['sel'] (the selected "
+                "clients' global indices) to gather per-client state: "
+                "sample_round_batches emits it")
+        sel = batch["sel"].long()
+        h_all = state["client_state"]["per_client"]["h"]
+        alpha = cfg.feddyn.alpha
+        drift_sum = None
     w_half = new_global_m = None
     for c in range(cx.shape[0]):
         p = tree_map(torch.clone, params)
         if cfg.local_momentum == "communicated":
-            m = _m(tree_map(torch.clone, state["global_m"]))
+            m = tree_map(torch.clone, m0)
         elif cfg.local_momentum == "restart":
             m = _zeros_like_f32(params)
         else:
             m = None
+        h = None
+        if feddyn:
+            row = sel[c:c + 1]
+            h = _m(tree_map(lambda x: x.index_select(0, row)[0], h_all))
         steps = [(cx[c, s], cy[c, s]) for s in range(cx.shape[1])]
-        p, m = local_train(cfg, grad_fn, p, m, steps, lr)
-        w_half = _add_weighted(w_half, p, w[c])
+        p, m = local_train(cfg, grad_fn, p, m, steps, lr, anchor=anchor,
+                           h=h)
+        if feddyn or act is not None:
+            d = tree_map(lambda a, b: a.float() - b.float(), p, params)
+        if feddyn:
+            # h_k <- h_k - alpha act_k (theta_k - anchor), written back to
+            # the client's row; sum_k act_k drift_k for the shared h
+            coef = alpha if act is None else act[c] * alpha
+            tree_map(lambda hk, dk: hk.sub_(dk * coef), h, d)
+            tree_map(lambda x, hk: x.index_copy_(0, row, hk[None]), h_all, h)
+            if act is None:
+                ad = d if drift_sum is not None else tree_map(torch.clone, d)
+            else:
+                ad = tree_map(lambda dk: dk * act[c], d)
+            if drift_sum is None:
+                drift_sum = ad
+            else:
+                tree_map(torch.Tensor.add_, drift_sum, ad)
+            del h, ad
+        if act is None:
+            w_half = _add_weighted(w_half, p, w[c])
+        else:
+            w_half = _add_weighted(w_half, d, w[c])
+        d = None
         if cfg.local_momentum == "communicated":
-            new_global_m = _add_weighted(new_global_m, m, w[c])
+            if act is None:
+                new_global_m = _add_weighted(new_global_m, m, w[c])
+            else:
+                new_global_m = _add_weighted(
+                    new_global_m, tree_map(lambda a, b: a - b, m, m0), w[c])
         del p, m
-    w_half = tree_map(lambda a, p: a.to(p.dtype), w_half, params)
+    if act is not None:
+        # base + sum_k w_k (theta_k - base): an all-dropped round is base
+        w_half = tree_map(lambda a, b: a.add_(b.float()).to(b.dtype),
+                          w_half, params)
+        if cfg.local_momentum == "communicated":
+            tree_map(torch.Tensor.add_, new_global_m, m0)
+    else:
+        w_half = tree_map(lambda a, p: a.to(p.dtype), w_half, params)
+
+    if feddyn:
+        # the server average h and the pull of w_half toward the implicit
+        # consensus point, before the FedDU server update
+        hs = _m(state["client_state"]["shared"]["h"])
+        n_total = tree_leaves(h_all)[0].shape[0]
+        tree_map(lambda h_, s_: h_.sub_(s_.mul_(alpha / n_total)), hs,
+                 drift_sum)
+        del drift_sum
+        if alpha > 0:
+            w_half = tree_map(lambda wh, h_: (wh.float() - h_ / alpha)
+                              .to(wh.dtype), w_half, hs)
+        _m(h_all)
+        _m(hs)
 
     # (5a) FedDU dynamic server update (Formulas 4-7); acc from the FIRST
     # server step's own forward
@@ -346,12 +524,16 @@ def epoch_indices(generator: torch.Generator, n: int, count: int) -> torch.Tenso
 def draw_round_indices(generator: torch.Generator, *, num_clients: int,
                        n_k: int, n0: int, clients_per_round: int,
                        batch_size: int, local_steps: int, server_batch: int,
-                       server_tau: int) -> tuple:
+                       server_tau: int, dropout_rate: float = 0.0) -> tuple:
     """One round's draws on the generator's device: ``(sel [C], idx
     [C, local_steps * batch_size], sidx [server_tau * server_batch])`` —
     ``C`` distinct clients, and per client and for the server, sample
     indices in without-replacement epochs (the semantics of the
-    reference's ``sample_clients`` / ``epoch_indices``, not its draws)."""
+    reference's ``sample_clients`` / ``epoch_indices``, not its draws).
+
+    ``dropout_rate`` > 0 appends ``active [C]``: each selected client stays
+    (1.0) unless a uniform draw falls below the rate (0.0), drawn after the
+    others, so the draws at rate 0 are unchanged."""
     dev = generator.device
     sel = torch.randperm(num_clients, generator=generator,
                          device=dev)[:clients_per_round]
@@ -359,16 +541,27 @@ def draw_round_indices(generator: torch.Generator, *, num_clients: int,
     idx = torch.stack([epoch_indices(generator, n_k, count)
                        for _ in range(clients_per_round)])
     sidx = epoch_indices(generator, n0, server_tau * server_batch)
-    return sel, idx, sidx
+    if not dropout_rate:
+        return sel, idx, sidx
+    active = (torch.rand(clients_per_round, generator=generator, device=dev)
+              >= dropout_rate).to(torch.float32)
+    return sel, idx, sidx, active
 
 
-def sample_round_batches(data: dict, sel, idx, sidx, *, clients_per_round: int,
-                         batch_size: int, local_steps: int, server_batch: int,
-                         server_tau: int) -> dict:
+def sample_round_batches(data: dict, sel, idx, sidx, active=None, *,
+                         clients_per_round: int, batch_size: int,
+                         local_steps: int, server_batch: int,
+                         server_tau: int, dropout_rate: float = 0.0) -> dict:
     """One round's :func:`round_core` batch gathered from the device-resident
     dataset (``FederatedData.device_arrays``) at the given indices: ``sel``
     [C] clients, ``idx`` [C, local_steps * batch_size] samples of each,
-    ``sidx`` [server_tau * server_batch] server samples."""
+    ``sidx`` [server_tau * server_batch] server samples, and ``active``
+    [C] 0/1, the dropout draw, which the batch carries as ``"active"``
+    (required iff ``dropout_rate`` > 0, the rate it was drawn at)."""
+    if bool(dropout_rate) != (active is not None):
+        raise ValueError(
+            f"dropout_rate={dropout_rate} needs an active vector iff it is "
+            f"above 0 (got active={'None' if active is None else 'given'})")
     sel = torch.as_tensor(sel, device=data["sizes"].device).long()
     idx = torch.as_tensor(idx, device=sel.device).long()
     sidx = torch.as_tensor(sidx, device=sel.device).long()
@@ -381,7 +574,7 @@ def sample_round_batches(data: dict, sel, idx, sidx, *, clients_per_round: int,
     sy = data["server_y"][sidx].reshape(server_tau, server_batch,
                                         *data["server_y"].shape[1:])
     p_round = niid.round_distribution(data["client_dists"], data["sizes"], sel)
-    return {
+    batch = {
         "client": (cx, cy),
         "sizes": data["sizes"][sel],
         "server": (sx, sy),
@@ -391,3 +584,7 @@ def sample_round_batches(data: dict, sel, idx, sidx, *, clients_per_round: int,
                            dtype=torch.float32, device=sel.device),
         "sel": sel.to(torch.int32),
     }
+    if active is not None:
+        batch["active"] = torch.as_tensor(active, device=sel.device).to(
+            torch.float32)
+    return batch

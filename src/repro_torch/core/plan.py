@@ -4,10 +4,12 @@ The port's copy of the reference's ``core/plan.py``:
 
 * the schedule language of the trainer — :class:`Scan` (rounds),
   :class:`Eval` (score the global model), :class:`Prune` (FedAP as an
-  event, in ``mask`` or ``shrink`` form), the :class:`TrainPlan` that
-  orders them, the paper's :func:`fedap_plan`, and the :class:`RunResult`
-  an execution returns (``Snapshot``/``Callback`` events, checkpointing
-  and ``RunResult.save`` come with the reliability slice);
+  event, in ``mask`` or ``shrink`` form), :class:`Snapshot` (a copy of the
+  params as an artifact), :class:`Callback` (a host hook at a segment
+  boundary: the distillation and pruning baselines), the
+  :class:`TrainPlan` that orders them, the paper's :func:`fedap_plan`, and
+  the :class:`RunResult` an execution returns (checkpointing and
+  ``RunResult.save`` come with the reliability slice);
 * the reader of ``repro-checkpoint-v1`` directories (``meta.json`` +
   ``arrays.npz``) written by the reference's ``RunResult.save``, so a
   checkpoint saved by the JAX package loads straight into the port.  Its
@@ -20,7 +22,7 @@ import dataclasses
 import json
 import pathlib
 import zipfile
-from typing import Any, Iterable, Union
+from typing import Any, Callable, Iterable, Union
 
 import numpy as np
 
@@ -50,6 +52,8 @@ class Scan:
 class Eval:
     """Evaluate the global model on the test split; appends to history.
     ``history["round"]`` records the rounds completed at the Eval."""
+
+    name: str = "eval"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,8 +89,30 @@ class Prune:
                 f"needs mode='shrink', got mode={self.mode!r}")
 
 
-Event = Union[Scan, Eval, Prune]
-_EVENTS = (Scan, Eval, Prune)
+@dataclasses.dataclass(frozen=True)
+class Snapshot:
+    """Copy the current global params into ``RunResult.artifacts[name]``
+    as ``{"round", "params"}``.  The round state is updated in place, so
+    the copy is taken at the event: later rounds leave it unchanged."""
+
+    name: str = "snapshot"
+
+
+@dataclasses.dataclass(frozen=True)
+class Callback:
+    """A host callback at a segment boundary (distillation, the pruning
+    baselines, ...).  ``fn(trainer, t, params)`` gets the completed-round
+    count ``t`` and a COPY of the params, and may return replacement
+    params: a non-None return restarts the round state (momentum and
+    client state from zero) with the round count and any mask decision
+    kept."""
+
+    fn: Callable
+    name: str = "callback"
+
+
+Event = Union[Scan, Eval, Prune, Snapshot, Callback]
+_EVENTS = (Scan, Eval, Prune, Snapshot, Callback)
 
 
 class TrainPlan:
@@ -133,6 +159,12 @@ class TrainPlan:
                 out.append(e)
         return tuple(out)
 
+    def chunk_lengths(self) -> tuple:
+        """The distinct Scan lengths after merging (the reference compiles
+        one scan program per length; the port runs rounds eagerly)."""
+        return tuple(sorted({e.rounds for e in self.compiled()
+                             if isinstance(e, Scan)}))
+
     @classmethod
     def standard(cls, num_rounds: int, *, eval_every: int = 1) -> "TrainPlan":
         """``num_rounds`` of training with an Eval every ``eval_every``
@@ -147,6 +179,28 @@ class TrainPlan:
             t += n
             if t % eval_every == 0 or t == num_rounds:
                 events.append(Eval())
+        return cls(events)
+
+    @classmethod
+    def with_callback(cls, num_rounds: int, fn: Callable, *,
+                      every: int = 1, eval_every: int = 1,
+                      name: str = "callback") -> "TrainPlan":
+        """Training with ``fn`` called every ``every`` rounds (and after the
+        last) as a :class:`Callback`; the hook gates itself on the round
+        count it receives.  ``eval_every=0`` schedules no Eval."""
+        events: list = []
+        t = 0
+        while t < num_rounds:
+            stops = [t + every - (t % every)]
+            if eval_every:
+                stops.append(t + eval_every - (t % eval_every))
+            stop = min(min(stops), num_rounds)
+            events.append(Scan(stop - t))
+            t = stop
+            if eval_every and (t % eval_every == 0 or t == num_rounds):
+                events.append(Eval())
+            if t % every == 0 or t == num_rounds:
+                events.append(Callback(fn, name=name))
         return cls(events)
 
 
@@ -205,7 +259,8 @@ class RunResult:
     artifacts  per-event outputs keyed by event name (``#k`` suffixes on
                repeats): Prune -> {"p_star", "layer_rates", "kept",
                "kept_counts", "mode", "filter_masks" | "params_before"},
-               and ``"reused"`` for a ``Prune(reuse=)`` compaction
+               and ``"reused"`` for a ``Prune(reuse=)`` compaction;
+               Snapshot -> {"round", "params"}
     state      the final round state
     """
 

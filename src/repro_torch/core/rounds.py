@@ -2,8 +2,9 @@
 
 Counterpart of the reference's ``core/rounds.py`` for the local backend.
 One round (Section 3.1): select a device subset, each device runs E local
-epochs (SGD, or restart-SGDM for FedDUM), the server aggregates with FedAvg
-weights n_k/n', then updates on its shared data with the dynamic tau_eff
+epochs (SGD, or restart-SGDM for FedDUM; FedProx and FedDyn correct the
+local gradient), the server aggregates with FedAvg weights n_k/n' (dropped
+clients weigh 0), then updates on its shared data with the dynamic tau_eff
 (FedDU), optionally through server momentum (FedDUM).  FedAP prunes as a
 ``Prune`` event of the plan::
 
@@ -24,7 +25,13 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core.backend import LocalBackend, PlanExecutor
-from repro_torch.core.engine import EngineConfig, check_ported
+from repro_torch.core.engine import (
+    ALGORITHMS,
+    EngineConfig,
+    FedDynConfig,
+    FedProxConfig,
+    check_ported,
+)
 from repro_torch.core.momentum import FedDUMConfig
 from repro_torch.core.plan import RunResult, TrainPlan
 from repro_torch.core.pruning import FedAPConfig
@@ -44,10 +51,13 @@ class FLConfig:
     use_server_update: bool = True       # FedDU
     local_momentum: str = "none"         # none | restart | communicated
     server_momentum: bool = False
-    # Later slices (they raise when set): client algorithms, dropout, the
-    # health guard and fault injection.
+    # Client algorithm: "fedavg", "fedprox" (proximal pull toward the
+    # round-start model) or "feddyn" (per-client correction state).
     algorithm: str = "fedavg"
+    # Each selected client drops this round with this probability; dropped
+    # clients weigh 0 in FedAvg and their client state is untouched.
     dropout_rate: float = 0.0
+    # A later slice (they raise when set): the health guard and faults.
     guard: str = "off"
     faults: tuple = ()
     # "params" zeroes the parameter tree only (full-density products);
@@ -60,6 +70,8 @@ class FLConfig:
     feddu: FedDUConfig = dataclasses.field(default_factory=FedDUConfig)
     feddum: FedDUMConfig = dataclasses.field(default_factory=FedDUMConfig)
     fedap: FedAPConfig = dataclasses.field(default_factory=FedAPConfig)
+    fedprox: FedProxConfig = dataclasses.field(default_factory=FedProxConfig)
+    feddyn: FedDynConfig = dataclasses.field(default_factory=FedDynConfig)
 
     def __post_init__(self):
         if self.local_momentum not in ("none", "restart", "communicated"):
@@ -83,8 +95,13 @@ class FLConfig:
             raise ValueError(f"lr must be > 0, got {self.lr}")
         if self.lr_decay <= 0:
             raise ValueError(f"lr_decay must be > 0, got {self.lr_decay}")
-        check_ported(algorithm=self.algorithm, dropout_rate=self.dropout_rate,
-                     guard=self.guard, faults=self.faults)
+        if self.algorithm not in ALGORITHMS:
+            raise ValueError(f"unknown algorithm: {self.algorithm!r} "
+                             f"(expected one of {ALGORITHMS})")
+        if not 0.0 <= self.dropout_rate < 1.0:
+            raise ValueError(f"dropout_rate must be in [0, 1), got "
+                             f"{self.dropout_rate}")
+        check_ported(guard=self.guard, faults=self.faults)
 
 
 def feddumap_config(**kw) -> FLConfig:
@@ -103,7 +120,9 @@ def engine_config(cfg: FLConfig) -> EngineConfig:
         local_momentum=cfg.local_momentum,
         server_momentum=cfg.server_momentum,
         masked_compute=cfg.masked_compute,
-        feddu=cfg.feddu, feddum=cfg.feddum)
+        algorithm=cfg.algorithm,
+        feddu=cfg.feddu, feddum=cfg.feddum,
+        fedprox=cfg.fedprox, feddyn=cfg.feddyn)
 
 
 class FederatedTrainer:
@@ -150,7 +169,8 @@ class FederatedTrainer:
         generator seeded with ``cfg.seed``; they are not modified.
         ``batches`` (optional) is a per-round batch source ``batches(t)``
         that replaces the trainer's own sampling (round ``t`` counts from
-        0 over the run)."""
+        0 over the run).  A plan's ``Callback`` events receive this
+        trainer."""
         if isinstance(plan, int):
             plan = TrainPlan.standard(plan, eval_every=eval_every)
         if params is None:
@@ -158,4 +178,4 @@ class FederatedTrainer:
             gen.manual_seed(self.cfg.seed)
             params = self.model.init(gen)
         backend = self.backend(use_masks=plan.uses_masks, batches=batches)
-        return PlanExecutor(backend).run(plan, params=params)
+        return PlanExecutor(backend, trainer=self).run(plan, params=params)

@@ -5,7 +5,8 @@ Trees are nested dicts with numpy-convertible leaves on the JAX side (what
 tensors on the port side.  The LM keeps the SAME layouts (``wq [d,H,hd]``,
 ``wo [H,hd,d]``, stacked ``[L, ...]`` layers), so leaves compare one for
 one; the paper's CNNs hold conv kernels as OIHW where the reference holds
-HWIO (:func:`cnn_params_from_jax`, :func:`cnn_params_to_numpy`).
+HWIO (:func:`cnn_params_from_jax`, :func:`cnn_params_to_numpy`,
+``round_state_from_jax(cnn=True)``).
 bfloat16 leaves cross bit-exactly in both directions (as raw 16-bit words
 into the port; as float32, which holds every bfloat16 value, out of it).
 """
@@ -38,18 +39,23 @@ def params_from_jax(tree, device="cuda", dtype=None) -> dict:
     return tree_map(lambda leaf: _leaf_to_torch(leaf, dev, dtype), tree)
 
 
+def _hwio_to_oihw(t: torch.Tensor, lead: int = 0) -> torch.Tensor:
+    """A conv kernel HWIO -> OIHW behind ``lead`` leading axes (FedDyn's
+    per-client ``[N, ...]``); a leaf of another rank is returned as is."""
+    if t.ndim - lead != 4:
+        return t
+    perm = tuple(range(lead)) + tuple(lead + i for i in (3, 2, 0, 1))
+    return t.permute(*perm).contiguous()
+
+
 def cnn_params_from_jax(tree, device="cuda") -> dict:
     """A paper-CNN param tree of the reference (conv kernels HWIO) as the
     port's on ``device``: every 4-D leaf, a conv kernel, is transposed to
     OIHW; every other leaf (biases, GroupNorm scales, dense and ``fc1``'s
     ``[spatial, C, out]`` weights) is copied as it is."""
     dev = _device.resolve(device)
-
-    def leaf(x):
-        t = _leaf_to_torch(x, dev, None)
-        return t.permute(3, 2, 0, 1).contiguous() if t.ndim == 4 else t
-
-    return tree_map(leaf, tree)
+    return tree_map(lambda x: _hwio_to_oihw(_leaf_to_torch(x, dev, None)),
+                    tree)
 
 
 def cnn_params_to_numpy(tree) -> dict:
@@ -99,16 +105,30 @@ def masks_from_jax(masks, device="cuda") -> dict:
 
 
 ROUND_STATE_KEYS = ("params", "server_m", "global_m", "masks", "filter_masks",
-                    "round")
+                    "client_state", "round")
 
 
-def round_state_from_jax(state, device="cuda") -> dict:
+def round_state_from_jax(state, device="cuda", *, cnn: bool = False) -> dict:
     """A reference engine round state (``{"params", "server_m",
-    ["global_m"], ["masks"], ["filter_masks"], "round"}``, as numpy or JAX
-    arrays) as tensors on ``device``, every leaf keeping its dtype, so the
-    port's ``round_core`` and the reference's can start from one state."""
+    ["global_m"], ["masks"], ["filter_masks"], ["client_state"],
+    "round"}``, as numpy or JAX arrays) as tensors on ``device``, every
+    leaf keeping its dtype, so the port's ``round_core`` and the
+    reference's can start from one state.  ``cnn=True`` converts a paper
+    CNN's state: every param-structured conv leaf HWIO -> OIHW, FedDyn's
+    per-client ``h`` with its leading ``[N]`` axis kept in front."""
     unknown = set(state) - set(ROUND_STATE_KEYS)
     if unknown:
         raise ValueError(f"round state keys {sorted(unknown)} are not ported "
                          f"yet (known: {ROUND_STATE_KEYS})")
-    return params_from_jax(state, device)
+    out = params_from_jax(state, device)
+    if not cnn:
+        return out
+    for k in ("params", "server_m", "global_m", "masks"):
+        if k in out:
+            out[k] = tree_map(_hwio_to_oihw, out[k])
+    if "client_state" in out:
+        cs = out["client_state"]
+        cs["per_client"] = tree_map(lambda t: _hwio_to_oihw(t, 1),
+                                    cs["per_client"])
+        cs["shared"] = tree_map(_hwio_to_oihw, cs["shared"])
+    return out

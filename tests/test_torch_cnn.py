@@ -24,6 +24,7 @@ from repro.models import cnn as jax_cnn
 from repro_torch import interop
 from repro_torch.core import engine
 from repro_torch.models import cnn
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 BATCH = 6
@@ -36,17 +37,6 @@ CASES = {
     "resnet18-8": ("ResNet18", {"width": 8, "num_classes": 10}, (8, 8, 3)),
     "resnet18-9": ("ResNet18", {"width": 8, "num_classes": 10}, (9, 9, 3)),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for the port's many small CPU ops: faster here
-    than the default (87.7 s against 113.9 s for the CNN test files in one
-    process) and it leaves the cores to the suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def random_params(model, seed):

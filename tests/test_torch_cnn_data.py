@@ -19,6 +19,7 @@ from repro.data.synthetic import synthetic_classification as jax_synth
 from repro_torch.data import partition
 from repro_torch.data.pipeline import FederatedData, build_federated_data
 from repro_torch.data.synthetic import SyntheticSpec, synthetic_classification
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SMALL = dict(num_classes=10, image_shape=(10, 10, 3), train_size=3000,
              test_size=400, noise_scale=0.5)

@@ -38,6 +38,7 @@ from repro_torch.core.backend import model_fns
 from repro_torch.core.engine import EngineConfig
 from repro_torch.models.lm import LM
 from repro_torch.utils.tree import tree_leaves, tree_map
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TINY = dict(name="dense-tiny", family="dense", rope="1d", norm="rmsnorm",
             act="silu", param_dtype="float32", remat="none",
@@ -211,8 +212,8 @@ def test_sample_round_batches_gathers_the_given_indices():
 
 
 def test_unported_switches_raise():
-    with pytest.raises(ValueError, match="CNN slice"):
-        EngineConfig(algorithm="fedprox")
+    with pytest.raises(ValueError, match="reliability slice"):
+        EngineConfig(faults=(object(),))
     with pytest.raises(ValueError, match="reliability slice"):
         EngineConfig(guard="skip_round")
     with pytest.raises(ValueError, match="filter_masks"):

@@ -28,6 +28,7 @@ from repro_torch.core import momentum, niid, pruning, server_update
 from repro_torch.data.pipeline import build_lm_federated_data
 from repro_torch.data.synthetic import TokenSpec
 from repro_torch.utils.tree import tree_leaves, tree_map
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(atol=1e-6, rtol=1e-6)
 

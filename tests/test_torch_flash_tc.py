@@ -30,6 +30,7 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro_torch.kernels import ref
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 BQ, ROWS, BK = 128, 64, 64          # query tile, consumer rows, kv tile
 HIDDEN, FULL, MASKED = 0, 1, 2

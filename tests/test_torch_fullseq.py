@@ -31,6 +31,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models import layers
 from repro_torch.models.lm import LM
 from repro_torch.serving import load_servable
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 OLMO_SMALL = jax_get_config("olmo-1b").reduced()
 F32 = dict(atol=2e-5, rtol=2e-5)

@@ -36,22 +36,12 @@ from repro_torch.core import engine, fedap, pruning, server_update
 from repro_torch.data.pipeline import build_federated_data
 from repro_torch.data.synthetic import SyntheticSpec
 from repro_torch.models import cnn
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SHAPE = (8, 8, 3)
 WORLD = dict(num_clients=20, server_fraction=0.08, device_pool=2000)
 SPEC = dict(num_classes=10, image_shape=SHAPE, train_size=3000,
             test_size=400, noise_scale=0.5)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for the port's many small CPU ops: faster here
-    than the default (87.7 s against 113.9 s for the CNN test files in one
-    process) and it leaves the cores to the suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _random_params(model, seed):

@@ -38,6 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
 from repro_torch.models.lm import LM
 from repro_torch.serving import load_servable, lockstep_decode
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ZAMBA = jax_get_config("zamba2-1.2b").reduced(
     num_layers=4, hybrid=HybridConfig(attn_every=2))

@@ -1,7 +1,8 @@
 """The port stands alone and never runs on the CPU by accident.
 
 * Every ``repro_torch`` module imports with ``jax`` and ``repro`` blocked.
-* No source line of the port or of ``chip_smoke.py`` imports either.
+* No source line of the port, of ``chip_smoke.py`` or of
+  ``examples/fl_paper_repro_torch.py`` imports either.
 * Entry points default to ``device="cuda"`` and raise on a machine without
   CUDA instead of carrying on on the CPU.
 * The kernel dispatch serves only CPU tensors with the plain versions: any
@@ -16,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import interop
+from repro_torch import experiments, interop
 from repro_torch.configs import get_config
 from repro_torch.core.rounds import FederatedTrainer, feddumap_config
 from repro_torch.data.pipeline import build_lm_federated_data
@@ -58,7 +59,9 @@ def test_every_module_imports_without_jax_or_repro():
 
 def test_no_source_line_imports_jax_or_repro():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
-    files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                        REPO / "examples" /
+                                        "fl_paper_repro_torch.py"]
     hits = [f"{f}:{i}" for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1)
             if pattern.match(line)]
@@ -82,7 +85,9 @@ def no_cuda():
                                    "FederatedTrainer", "device_arrays",
                                    "round_state_from_jax", "hybrid LM",
                                    "SimpleCNN", "ResNet18",
-                                   "cnn_params_from_jax", "CNN trainer"])
+                                   "cnn_params_from_jax", "CNN trainer",
+                                   "run_one", "scenario grid",
+                                   "fl_paper_repro_torch"])
 def test_default_device_raises_without_cuda(no_cuda, entry):
     params = LM(TINY, device="cpu").init(torch.Generator().manual_seed(0))
     data = build_lm_federated_data(
@@ -112,6 +117,20 @@ def test_default_device_raises_without_cuda(no_cuda, entry):
                                            device="cpu"), data,
                              feddumap_config(num_clients=2,
                                              clients_per_round=1))
+        elif entry == "run_one":
+            experiments.run_one("default-device", out_dir=REPO / "build")
+        elif entry == "scenario grid":
+            experiments.suite_scenario_matrix("smoke",
+                                              out_dir=REPO / "build")
+        elif entry == "fl_paper_repro_torch":
+            proc = subprocess.run(
+                [sys.executable, str(REPO / "examples" /
+                                     "fl_paper_repro_torch.py"),
+                 "--rounds", "1", "--out", str(REPO / "build" / "x")],
+                cwd=REPO, capture_output=True, text=True, timeout=120,
+                env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+                     "CUDA_VISIBLE_DEVICES": ""})
+            raise RuntimeError(proc.stderr.strip().splitlines()[-1])
         elif entry == "round_state_from_jax":
             interop.round_state_from_jax({"round": np.zeros((), np.float32)})
         elif entry == "DecodeEngine":

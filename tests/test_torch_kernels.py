@@ -20,6 +20,7 @@ from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as pallas_decode
 from repro.kernels.masked_matmul import masked_matmul as pallas_mm
 from repro_torch.kernels import ops, ref
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -27,6 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import pruning_lm
 from repro_torch.models import layers
 from repro_torch.models.lm import LM
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

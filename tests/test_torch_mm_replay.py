@@ -38,6 +38,7 @@ import torch
 from repro.kernels.masked_matmul import masked_matmul as pallas_mm
 from repro_torch.kernels import masked_matmul as k1
 from repro_torch.kernels import ref
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 BLOCK_N = 128                       # mask block

@@ -33,6 +33,7 @@ from repro_torch.serving import (
     ServeConfig,
     load_servable,
 )
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = JaxModelConfig(name="dense-tiny", family="dense", rope="1d",
                      norm="rmsnorm", act="silu", param_dtype="float32",

@@ -34,6 +34,7 @@ from repro.kernels.ssd_scan import ssd_scan as pallas_ssd
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssd_scan as k6
 from repro_torch.models import layers
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 2e-4
 BF16_STEP = 2.0 ** -7

@@ -44,6 +44,7 @@ from repro_torch.data.pipeline import build_lm_federated_data
 from repro_torch.data.synthetic import TokenSpec
 from repro_torch.models.lm import LM
 from repro_torch.utils.tree import tree_leaves
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TINY = dict(name="dense-tiny", family="dense", rope="1d", norm="rmsnorm",
             act="silu", param_dtype="float32", remat="none",
@@ -188,8 +189,10 @@ def test_trainer_refuses_a_model_on_another_device():
     meta.device = torch.device("meta")
     with pytest.raises(ValueError, match="model lives on"):
         FederatedTrainer(meta, trainer.data, trainer.cfg, device="cpu")
-    with pytest.raises(ValueError, match="CNN slice"):
-        dataclasses.replace(trainer.cfg, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="reliability slice"):
+        dataclasses.replace(trainer.cfg, guard="reject_client")
+    with pytest.raises(ValueError, match="reliability slice"):
+        dataclasses.replace(trainer.cfg, faults=(object(),))
     with pytest.raises(TypeError, match="masks="):
         LocalBackend(type("NoMasks", (), {"loss_and_acc":
                                           lambda self, p, x, y: None})(),

@@ -47,6 +47,7 @@ from repro_torch.data.synthetic import TokenSpec
 from repro_torch.kernels import masked_matmul as k1
 from repro_torch.models.lm import LM
 from repro_torch.utils.tree import tree_leaves
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ZAMBA = jax_get_config("zamba2-1.2b").reduced(
     num_layers=4, hybrid=HybridConfig(attn_every=2))

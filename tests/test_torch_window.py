@@ -21,6 +21,7 @@ from repro.models.lm import LM as JaxLM
 from repro_torch import interop
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lm import LM
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
