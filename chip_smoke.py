@@ -104,7 +104,21 @@ Phases, in order; any failure raises and the script exits non-zero:
               profiled one-client slice, peak memory, accuracy, MFLOPs and
               p*/kept, and the baselines' own checks (IMC/PruneFL zeros,
               HRank's shrink, Data-sharing's and Hybrid-FL's data, FedDyn's
-              h after round 1).
+              h after round 1);
+15. reliability — the health guard at olmo-1b's full width (16 layers,
+              f32, kernel mode): a ``reject_client`` round with NaNGrad on
+              one selected client against the unguarded round with that
+              client inactive (train-parity's allowance), ``skip_round``
+              bitwise a no-op on params, server_m and masks, and the s/round
+              and peak of guard off / reject / skip taken in turns; kill and
+              resume (``KillAfterChunk(2)``, a checkpoint every chunk, a
+              fresh trainer's ``resume``) of olmo-1b at 2 layers and of the
+              paper protocol's FedDUMAP SimpleCNN run with a shrink, each
+              after two uninterrupted runs that must be bitwise equal (the
+              determinism check), with the snapshot's bytes and its write
+              and load seconds; and an olmo-1b ``DecodeEngine`` run with
+              ``NaNLogits`` on slot 1, every wave under sync-debug "error":
+              slot 1 ends in "error", the others with the fault-free tokens.
 
 Each phase after the build prints its peak device memory; ``[time]`` lines
 give each phase's wall seconds and the total.
@@ -2789,6 +2803,404 @@ def _paper_requires(torch, algo, trainer, res, rec, unpruned) -> None:
             f"at round {PAPER_PRUNE}: nothing is pruned")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: reliability — the health guard, kill and resume, serving faults
+# ---------------------------------------------------------------------------
+
+def phase_reliability(torch) -> dict:
+    """The guard at olmo-1b's full width (parity with the surviving-client
+    round, skip_round bitwise, the guard's cost a round), kill and resume
+    of olmo-1b (2 layers, full width) and of the paper's FedDUMAP SimpleCNN
+    run, each after its own determinism check, and a NaNLogits serving
+    wave with no host sync.  Returns {kernel name: launches} over the
+    phase (K1-K3 in the kernel-mode rounds, K5 in the waves)."""
+    import shutil
+
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import masked_matmul as k1
+
+    root = os.path.join(ROOT, "build", "chip_smoke_reliability")
+    shutil.rmtree(root, ignore_errors=True)
+    k1.launches = k1.dx_launches = k1.dw_launches = 0
+    k5.launches = 0
+    try:
+        _guard_olmo(torch)
+        _resume_olmo(torch, root)
+        _resume_cnn(torch, root)
+        _nan_logits_wave(torch)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"masked_matmul": k1.launches, "masked_matmul_dx": k1.dx_launches,
+            "masked_matmul_dw": k1.dw_launches,
+            "decode_attention": k5.launches}
+
+
+def _olmo_trainer(torch, num_layers=None, faults=()):
+    """phase_training's olmo-1b FedDUMAP trainer (f32, kernel mode)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.pruning import FedAPConfig
+    from repro_torch.core.rounds import FederatedTrainer, feddumap_config
+    from repro_torch.data.pipeline import build_lm_federated_data
+    from repro_torch.data.synthetic import TokenSpec
+    from repro_torch.models.lm import LM
+
+    cfg = dataclasses.replace(get_config("olmo-1b"), param_dtype="float32",
+                              remat="none")
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    data = build_lm_federated_data(
+        num_clients=4, server_fraction=0.25,
+        spec=TokenSpec(vocab_size=cfg.vocab_size, num_topics=8, seq_len=129,
+                       num_sequences=45))
+    fl = feddumap_config(num_clients=4, clients_per_round=2, batch_size=4,
+                         server_batch_size=4, local_epochs=1, lr=3e-3,
+                         lr_decay=1.0, masked_compute="kernel", faults=faults,
+                         fedap=FedAPConfig(align=128, min_rate=0.5,
+                                           probe_size=4, participants=2))
+    return FederatedTrainer(LM(cfg, device="cuda"), data, fl, device="cuda")
+
+
+def _gib(n) -> float:
+    return n / 2 ** 30
+
+
+def _guard_olmo(torch) -> None:
+    """One FedDUMAP round of olmo-1b (16 layers, f32, kernel mode) from one
+    state: guard off; reject_client with NaNGrad on the second selected
+    client, held to the unguarded round with that client inactive (the
+    train-parity allowance); skip_round with the same fault, which must
+    leave params, server_m and masks bitwise as they were.  Off, reject
+    and skip run twice in turns for the guard's cost a round."""
+    import dataclasses
+
+    from repro_torch.core import engine
+    from repro_torch.reliability import NaNGrad
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    from repro_torch.kernels import masked_matmul as k1
+
+    tag = "[reliability] guard olmo-1b"
+    counts0 = (k1.launches, k1.dx_launches, k1.dw_launches)
+    trainer = _olmo_trainer(torch)
+    backend = trainer.backend(use_masks=True)
+    kw = backend.sample_kw
+    grads = kw["clients_per_round"] * kw["local_steps"] + kw["server_tau"]
+    n_layers = trainer.model.cfg.num_layers
+    state0 = backend.init_state(trainer.model.init(
+        torch.Generator(device="cuda").manual_seed(0)))
+    batch = backend.round_batch(0)
+    victim = int(batch["sel"][1])
+    fault = NaNGrad(client=victim, round=0)
+    cfgs = {"off": backend.eng,
+            "reject_client": dataclasses.replace(
+                backend.eng, guard="reject_client", faults=(fault,)),
+            "skip_round": dataclasses.replace(
+                backend.eng, guard="skip_round", faults=(fault,))}
+    log(f"{tag}: {n_layers} layers f32, kernel mode, {kw['clients_per_round']}"
+        f" clients a round (sel {batch['sel'].tolist()}), NaNGrad on client "
+        f"{victim} (slot 1) at round 0")
+
+    def one_round(cfg, b):
+        st = tree_map(torch.clone, state0)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st, met = engine.round_core(cfg, backend.grad_fn, backend.la_fn, st,
+                                    b)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return st, met, dt, torch.cuda.max_memory_allocated(), base
+
+    oracle, met_o, *_ = one_round(
+        cfgs["off"], dict(batch, active=torch.tensor([1.0, 0.0],
+                                                     device="cuda")))
+    want = oracle["params"]
+    del oracle
+    eps = torch.finfo(torch.float32).eps
+    times = {k: [] for k in cfgs}
+    peaks = {}
+    for turn in range(2):
+        for mode, cfg in cfgs.items():
+            st, met, dt, peak, base = one_round(cfg, batch)
+            times[mode].append(dt)
+            peaks[mode] = (peak, base)
+            health = float(met["health"])
+            if mode == "reject_client":
+                worst = max(_ratio(
+                    float((g - w).abs().max()),
+                    TRAIN_TOL * float((w - s).abs().max())
+                    + ROUND_ULPS * eps * float(s.abs().max()))
+                    for g, w, s in zip(tree_leaves(st["params"]),
+                                       tree_leaves(want),
+                                       tree_leaves(state0["params"])))
+                tau, tau_o = float(met["tau_eff"]), float(met_o["tau_eff"])
+                if turn == 0:
+                    log(f"{tag} reject_client: health {health:.0f}; params "
+                        f"against the round with client {victim} inactive: "
+                        f"worst error / allowance ({TRAIN_TOL:.0e} x max "
+                        f"|update| + {ROUND_ULPS} spacings) = {worst:.3f}; "
+                        f"tau_eff {tau:.6f} against {tau_o:.6f}")
+                require(health == 1.0 and worst <= 1.0 and
+                        abs(tau - tau_o) <= TRAIN_TOL * max(1.0, abs(tau_o)),
+                        f"guard: reject_client is not the surviving-client "
+                        f"round (health {health}, error {worst:.3f})")
+            elif mode == "skip_round":
+                same = all(torch.equal(a, b) for k in ("params", "server_m",
+                                                       "masks")
+                           for a, b in zip(tree_leaves(st[k]),
+                                           tree_leaves(state0[k])))
+                rnd = float(st["round"]) - float(state0["round"])
+                if turn == 0:
+                    log(f"{tag} skip_round: health {health:.0f}, tau_eff "
+                        f"{float(met['tau_eff'])}; params, server_m and "
+                        f"masks bitwise the round start's: {same}; round "
+                        f"+{rnd:.0f}")
+                require(same and rnd == 1.0 and health == 1.0 and
+                        float(met["tau_eff"]) == 0.0,
+                        "guard: skip_round moved the state")
+            else:
+                require(health == 0.0, f"guard off: health {health}")
+            del st, met
+    off = statistics.mean(times["off"])
+    for mode, ts in times.items():
+        peak, base = peaks[mode]
+        s = statistics.mean(ts)
+        log(f"{tag} {mode}: {s:.3f} s/round (rounds "
+            f"{[round(t, 3) for t in ts]}, taken in turns)"
+            + (f", {100 * (s / off - 1):+.1f}% against off"
+               if mode != "off" else "")
+            + f"; peak {_gib(peak):.2f} GiB, {_gib(peak - base):.2f} GiB "
+            f"above the round's start")
+    n = (2 * len(cfgs) + 1) * grads * 2 * n_layers
+    got = [a - b for a, b in zip((k1.launches, k1.dx_launches,
+                                  k1.dw_launches), counts0)]
+    log(f"{tag}: launches K1 {got[0]}, K2 {got[1]}, K3 {got[2]} (expected "
+        f"{2 * len(cfgs) + 1} rounds x {grads} gradient evaluations x 2 "
+        f"products x {n_layers} layers = {n} each)")
+    require(got == [n] * 3, f"guard: K1-K3 launches {got}, expected {n}")
+    del state0, want, trainer, backend
+
+
+class _CheckpointIO:
+    """Times and sizes every run checkpoint written and loaded inside the
+    block (``reliability.checkpoint`` save/load, patched)."""
+
+    def __init__(self):
+        from repro_torch.reliability import checkpoint as ck
+
+        self.ck = ck
+        self.writes: list = []
+        self.loads: list = []
+
+    def __enter__(self):
+        ck, save, load = self.ck, self.ck.save_checkpoint, \
+            self.ck.load_checkpoint
+        self.inner = (save, load)
+
+        def timed_save(directory, payload):
+            t0 = time.perf_counter()
+            step = save(directory, payload)
+            nbytes = sum(f.stat().st_size for f in step.iterdir())
+            self.writes.append((time.perf_counter() - t0, nbytes))
+            return step
+
+        def timed_load(path):
+            t0 = time.perf_counter()
+            out = load(path)
+            self.loads.append(time.perf_counter() - t0)
+            return out
+
+        ck.save_checkpoint, ck.load_checkpoint = timed_save, timed_load
+        return self
+
+    def __exit__(self, *exc):
+        self.ck.save_checkpoint, self.ck.load_checkpoint = self.inner
+        return False
+
+
+def _same_run(torch, a, b) -> list:
+    """What differs between two runs ((trainer, RunResult) pairs): history
+    columns but time, param leaves (by max |difference|), generator state."""
+    from repro_torch.utils.tree import tree_leaves
+
+    (ta, ra), (tb, rb) = a, b
+    diff = []
+    for k, col in ra.history.items():
+        other = rb.history.get(k)
+        if k != "time" and col != other:
+            i = next((i for i, (x, y) in enumerate(zip(col, other or []))
+                      if x != y), min(len(col), len(other or [])))
+            diff.append(f"history[{k!r}] from entry {i}")
+    la, lb = tree_leaves(ra.params), tree_leaves(rb.params)
+    if [x.shape for x in la] != [x.shape for x in lb]:
+        return diff + ["param shapes"]
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if not torch.equal(x, y):
+            diff.append(f"param leaf {i} {tuple(x.shape)} (max |diff| "
+                        f"{float((x.float() - y.float()).abs().max()):.3e})")
+    if not torch.equal(ta.generator.get_state(), tb.generator.get_state()):
+        diff.append("generator state")
+    return diff
+
+
+def _kill_and_resume(torch, tag, make_trainer, events, ckpt) -> None:
+    """The plan run twice uninterrupted (the card's determinism check),
+    then with KillAfterChunk(2) and a checkpoint every chunk, resumed from
+    disk in a fresh trainer: history (but time), params and the generator
+    state must equal the uninterrupted run's bitwise."""
+    from repro_torch.core.plan import TrainPlan
+    from repro_torch.reliability import KillAfterChunk, SimulatedCrash
+
+    runs, walls = [], []
+    for _ in range(2):
+        tr = make_trainer(())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = tr.run(TrainPlan(*events))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        runs.append((tr, res))
+    from repro_torch.utils.tree import tree_size
+
+    diff = _same_run(torch, runs[0], runs[1])
+    log(f"{tag} determinism: two uninterrupted runs of the plan "
+        f"({walls[0]:.2f} s, {walls[1]:.2f} s; {tree_size(res.params):,} "
+        f"params at the end) are "
+        + ("bitwise equal (history but time, params, generator state)"
+           if not diff else f"NOT equal: {'; '.join(diff[:6])}"))
+    require(not diff, f"{tag}: the plan is not deterministic on the card")
+    del runs[1]
+    with _CheckpointIO() as io:
+        killed = make_trainer((KillAfterChunk(2),))
+        t0 = time.perf_counter()
+        try:
+            killed.run(TrainPlan(*events, checkpoint_every=1,
+                                 checkpoint_dir=ckpt))
+            crashed = False
+        except SimulatedCrash:
+            crashed = True
+        t_kill = time.perf_counter() - t0
+        require(crashed, f"{tag}: KillAfterChunk(2) did not fire")
+        del killed
+        fresh = make_trainer(())
+        t0 = time.perf_counter()
+        res = fresh.resume(ckpt)
+        torch.cuda.synchronize()
+        t_resume = time.perf_counter() - t0
+    diff = _same_run(torch, runs[0], (fresh, res))
+    (w_s, nbytes), *_ = io.writes
+    log(f"{tag} checkpoint: snapshots of {[b for _, b in io.writes]} bytes "
+        f"(the first {_gib(nbytes):.3f} GiB), written in "
+        f"{[round(s, 3) for s, _ in io.writes]} s (the first at "
+        f"{_gib(nbytes) / w_s:.3f} GiB/s: device to host, npz, fsync); "
+        f"loaded in {[round(s, 3) for s in io.loads]} s (warm: written just "
+        f"before); killed run {t_kill:.2f} s, resumed run {t_resume:.2f} s")
+    log(f"{tag} kill after chunk 2 and resume: "
+        + ("bitwise equal to the uninterrupted run (history but time, "
+           "params, generator state)" if not diff
+           else f"NOT equal: {'; '.join(diff[:6])}"))
+    require(not diff, f"{tag}: the resumed run differs")
+    require(len(io.writes) == 3 and len(io.loads) == 1,
+            f"{tag}: {len(io.writes)} checkpoints written, "
+            f"{len(io.loads)} loaded (expected 3 and 1)")
+
+
+def _resume_olmo(torch, root) -> None:
+    from repro_torch.core.plan import Eval, Prune, Scan
+
+    tag = "[reliability] resume olmo-1b"
+    events = (Scan(1), Eval(), Prune(mode="mask"), Scan(1), Eval(), Scan(1))
+    log(f"{tag}: 2 layers at full width, f32, kernel mode; plan {events}")
+    _kill_and_resume(torch, tag,
+                     lambda faults: _olmo_trainer(torch, 2, faults),
+                     events, os.path.join(root, "olmo"))
+
+
+def _resume_cnn(torch, root) -> None:
+    """The paper protocol's FedDUMAP SimpleCNN run (``experiments``), its
+    FedAP at min_rate 0.3 so the shrink prunes."""
+    from repro_torch import experiments
+    from repro_torch.core.plan import Eval, Prune, Scan
+    from repro_torch.core.pruning import FedAPConfig
+    from repro_torch.core.rounds import FederatedTrainer, feddumap_config
+    from repro_torch.data.pipeline import build_federated_data
+
+    tag = "[reliability] resume SimpleCNN"
+    data = build_federated_data(
+        num_clients=experiments.NUM_CLIENTS, server_fraction=0.05,
+        device_pool=experiments.DEVICE_POOL, spec=experiments.SPEC, seed=0)
+    events = (Scan(1), Eval(), Prune(mode="shrink"), Scan(1), Eval(),
+              Scan(1))
+    log(f"{tag}: the paper protocol ({experiments.SPEC.image_shape}, "
+        f"{experiments.NUM_CLIENTS} clients over {experiments.DEVICE_POOL} "
+        f"images, {experiments.COMMON}), FedAP probe 32 / 6 participants / "
+        f"min_rate 0.3; plan {events}")
+
+    def make(faults):
+        cfg = feddumap_config(**experiments.COMMON, seed=0, faults=faults,
+                              fedap=FedAPConfig(probe_size=32,
+                                                participants=6,
+                                                min_rate=0.3))
+        return FederatedTrainer(experiments.make_model("cnn", "cuda"), data,
+                                cfg, device="cuda")
+
+    _kill_and_resume(torch, tag, make, events, os.path.join(root, "cnn"))
+
+
+def _nan_logits_wave(torch) -> None:
+    """olmo-1b (16 layers, bf16) through DecodeEngine with NaNLogits on
+    slot 1 after its third token, every wave under sync-debug "error":
+    slot 1's request ends with status "error" and the fault-free run's
+    first three tokens, every other request with the fault-free tokens."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    from repro_torch.reliability import NaNLogits
+    from repro_torch.serving import DecodeEngine, ServeConfig
+
+    tag = "[reliability] serving olmo-1b"
+    cfg = get_config("olmo-1b")
+    model = LM(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    scfg = ServeConfig(slots=8, cache_len=64, max_prompt=16,
+                       max_new_tokens=8, steps_per_wave=24)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(1, 17)))
+               .astype(np.int32) for _ in range(scfg.slots)]
+    clean = DecodeEngine(model, params, scfg, device="cuda").run(prompts)
+    eng = DecodeEngine(model, params, scfg, device="cuda",
+                       faults=(NaNLogits(slot=1, n_out=3),))
+    inner = eng._wave
+
+    def checked_wave():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            inner()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    eng._wave = checked_wave
+    got = eng.run(prompts)
+    status = [c.status for c in got]
+    log(f"{tag}: {len(got)} requests, NaNLogits(slot=1, n_out=3), every wave "
+        f"under set_sync_debug_mode('error'): status {status}; uid 1 emitted "
+        f"{len(got[1].tokens)} tokens before its retirement")
+    require([c.uid for c in got] == [c.uid for c in clean] and
+            status == ["ok"] + ["error"] + ["ok"] * (len(got) - 2),
+            f"serving fault: statuses {status}")
+    require(np.array_equal(got[1].tokens, clean[1].tokens[:3]),
+            "serving fault: slot 1 did not keep its first three tokens")
+    require(all(np.array_equal(a.tokens, b.tokens)
+                for i, (a, b) in enumerate(zip(got, clean)) if i != 1),
+            "serving fault: a co-batched request changed")
+    log(f"{tag}: the other {len(got) - 1} requests' tokens equal the "
+        f"fault-free run's")
+
+
 PHASE_SECONDS: dict = {}    # phase -> wall seconds, for the [time] lines
 
 
@@ -2839,7 +3251,8 @@ def main() -> int:
             ("cnn-parity", lambda: phase_cnn_parity(torch) or {}),
             ("training cnn", lambda: phase_training_cnn(torch)),
             ("paper-parity", lambda: phase_paper_parity(torch) or {}),
-            ("paper", lambda: phase_paper(torch))):
+            ("paper", lambda: phase_paper(torch)),
+            ("reliability", lambda: phase_reliability(torch))):
         for name, n in _phase(torch, label, path).items():
             launches[name] = launches.get(name, 0) + n
     for name, sec in PHASE_SECONDS.items():

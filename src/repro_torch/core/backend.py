@@ -15,11 +15,25 @@ added programs".  A shrink gathers the kept indices into new tensors, so it
 reads the old state before anything is reused.  The state changes in
 place, so a ``Snapshot`` or a ``Callback`` gets a copy of the params taken
 at the event (the reference loans its immutable arrays and copies them
-lazily).  Checkpoints, host faults and the mesh backend come with later
-slices.
+lazily).
+
+Fault tolerance lives in the executor, as in the reference: a plan with
+``checkpoint_dir`` is snapshotted at chunk boundaries
+(:mod:`repro_torch.reliability.checkpoint`), ``run(resume=payload)``
+continues a killed run bit-identically, and host faults
+(``reliability.KillAfterChunk``) raise ``SimulatedCrash`` after the
+chunk's checkpoint write.  A resume is bit-identical only if the run is
+deterministic, and on the GPU cuDNN's default choice is not: for the
+paper's SimpleCNN on an H100 it picks gradient kernels that sum with
+atomics (``dgrad_engine``, ``wgrad_alg0_engine``), one step's gradients
+differed by 6e-8 over three calls and two runs of a 3-round plan by 2e-3.
+So the executor runs its plan with cuDNN restricted to deterministic
+algorithms (:func:`deterministic_cudnn`; no measurable cost a round
+there).  The mesh backend comes with a later slice.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 import time
@@ -32,6 +46,7 @@ from repro_torch.core import engine, pruning
 from repro_torch.core.engine import EngineConfig
 from repro_torch.core.plan import (
     Callback,
+    CheckpointError,
     Eval,
     Prune,
     RunResult,
@@ -39,6 +54,8 @@ from repro_torch.core.plan import (
     Snapshot,
     TrainPlan,
 )
+from repro_torch.reliability import checkpoint as ckpt
+from repro_torch.reliability.faults import SimulatedCrash, host_faults
 from repro_torch.utils.tree import tree_map
 
 
@@ -141,6 +158,8 @@ class LocalBackend:
     draw_round_indices` from ``generator``.
     """
 
+    name = "local"
+
     def __init__(self, model, data, cfg, *, use_masks: bool = False,
                  device, generator: torch.Generator | None = None,
                  batches: Callable | None = None):
@@ -178,6 +197,11 @@ class LocalBackend:
         return engine.init_round_state(tree_map(torch.clone, params),
                                        self.eng, filter_masks=fmasks,
                                        num_clients=self._num_clients)
+
+    def restore_state(self, state: dict) -> dict:
+        """A checkpointed round state (host numpy) back on the device, each
+        leaf keeping its dtype: f32 round-trips through npz bit-exactly."""
+        return tree_map(lambda a: _tensor(a, self.device), state)
 
     def snapshot(self, state: dict):
         """A copy of the global params: later rounds leave it unchanged."""
@@ -281,28 +305,78 @@ def _tensor(a, device) -> torch.Tensor:
     return a.to(device)
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN restricted to its deterministic algorithms inside the block
+    (``torch.backends.cudnn.deterministic``, restored after)."""
+    cudnn = torch.backends.cudnn
+    before = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        cudnn.deterministic = before
+
+
 class PlanExecutor:
     """Executes a :class:`TrainPlan` against a backend: history rows record
     the completed-round count at each Eval (a Callback receives it too),
     artifact keys get ``#k`` suffixes on repeats, and a Callback that
     returns params restarts the round state through the backend.
-    ``trainer`` is what a Callback receives as its first argument."""
+    ``trainer`` is what a Callback receives as its first argument;
+    ``faults`` may hold host faults (``reliability.KillAfterChunk``), the
+    others are ignored here."""
 
-    def __init__(self, backend: LocalBackend, *, trainer=None):
+    def __init__(self, backend: LocalBackend, *, trainer=None, faults=()):
         self.backend = backend
         self.trainer = trainer
+        self._host_faults = host_faults(faults)
 
-    def run(self, plan: TrainPlan, *, params) -> RunResult:
+    def run(self, plan: TrainPlan, *, params=None,
+            resume: dict | None = None) -> RunResult:
         """Run ``plan`` from ``params`` (which are not modified; they are
-        the Lipschitz estimate's start point of any Prune decision)."""
+        the Lipschitz estimate's start point of any Prune decision), or
+        continue it from ``resume``, a ``reliability.load_checkpoint``
+        payload: the round state, history, artifacts, counters and the
+        backend generator's state come back from it, and the events before
+        its cursor are skipped."""
         backend = self.backend
-        state = backend.init_state(params)
-        history = {"round": [], "acc": [], "loss": [], "tau_eff": [],
-                   "time": [], "health": []}
-        artifacts: dict = {}
-        t0 = time.perf_counter()
-        t = 0
-        last_tau = 0.0
+        gen = backend.generator
+        if resume is not None:
+            if params is not None:
+                raise ValueError("run(resume=...) restores the params from "
+                                 "the checkpoint: pass no params=")
+            if gen is not None:
+                if resume.get("generator_state") is None:
+                    raise CheckpointError(
+                        "the checkpoint holds no torch.Generator state (a "
+                        "run on injected batches, or one of the reference "
+                        "package, which keeps a JAX key): resume it with "
+                        "batches=")
+                gen.set_state(_tensor(resume["generator_state"], "cpu"))
+            params = tree_map(lambda a: _tensor(a, backend.device),
+                              resume["init_params"])
+            state = backend.restore_state(resume["state"])
+            history = {k: list(v) for k, v in resume["history"].items()}
+            artifacts: dict = dict(resume["artifacts"])
+            t = int(resume["t"])
+            last_tau = float(resume["last_tau"])
+            chunks_done = int(resume["chunks_done"])
+            start = int(resume["cursor"])
+            t0 = time.perf_counter() - float(resume.get("elapsed", 0.0))
+        else:
+            if params is None:
+                raise ValueError("run() needs params= (or resume=)")
+            state = backend.init_state(params)
+            history = {"round": [], "acc": [], "loss": [], "tau_eff": [],
+                       "time": [], "health": []}
+            artifacts = {}
+            t0 = time.perf_counter()
+            t = 0
+            last_tau = 0.0
+            chunks_done = 0
+            start = 0
+        ckpt_dir = plan.checkpoint_dir
 
         def record(name, value):
             k, i = name, 1
@@ -311,30 +385,59 @@ class PlanExecutor:
                 i += 1
             artifacts[k] = value
 
-        for ev in plan.compiled():
-            if isinstance(ev, Scan):
-                state, mets = backend.run_rounds(state, t, ev.rounds)
-                t += ev.rounds
-                last_tau = float(mets[-1]["tau_eff"])
-                history["health"].extend(float(m["health"]) for m in mets)
-            elif isinstance(ev, Eval):
-                loss, acc = backend.evaluate(state)
-                history["round"].append(t)
-                history["acc"].append(float(acc))
-                history["loss"].append(float(loss))
-                history["tau_eff"].append(last_tau)
-                history["time"].append(time.perf_counter() - t0)
-            elif isinstance(ev, Snapshot):
-                record(ev.name, backend.snapshot_artifact(state, t))
-            elif isinstance(ev, Prune):
-                state, art = self._prune(ev, state, params, artifacts)
-                record(ev.name, art)
-            elif isinstance(ev, Callback):
-                maybe = ev.fn(self.trainer, t, backend.snapshot(state))
-                if maybe is not None:
-                    state = backend.replace_params(state, maybe)
-            else:  # pragma: no cover — TrainPlan validates event types
-                raise TypeError(f"unknown plan event: {ev!r}")
+        def write_checkpoint(cursor):
+            ckpt.save_checkpoint(ckpt_dir, {
+                "state": state,
+                "generator_state": None if gen is None else gen.get_state(),
+                "cursor": cursor, "t": t, "chunks_done": chunks_done,
+                "last_tau": last_tau, "history": history,
+                "artifacts": artifacts, "init_params": params,
+                "plan": ckpt.plan_spec(plan),
+                "checkpoint_every": plan.checkpoint_every,
+                "checkpoint_dir": str(ckpt_dir),
+                "backend": backend.name,
+                "elapsed": time.perf_counter() - t0,
+            })
+
+        with deterministic_cudnn():
+            for idx, ev in enumerate(plan.compiled()):
+                if idx < start:     # resumed: this event already ran
+                    continue
+                if isinstance(ev, Scan):
+                    state, mets = backend.run_rounds(state, t, ev.rounds)
+                    t += ev.rounds
+                    last_tau = float(mets[-1]["tau_eff"])
+                    history["health"].extend(float(m["health"]) for m in mets)
+                    chunks_done += 1
+                    if (ckpt_dir is not None
+                            and chunks_done % plan.checkpoint_every == 0):
+                        write_checkpoint(idx + 1)
+                    # after the checkpoint write, where a preemption between
+                    # chunks lands; counted over the whole run, so a resumed
+                    # run past the fault does not die again
+                    for f in self._host_faults:
+                        if f.chunks == chunks_done:
+                            raise SimulatedCrash(
+                                f"injected kill after chunk {chunks_done} "
+                                f"(round {t})")
+                elif isinstance(ev, Eval):
+                    loss, acc = backend.evaluate(state)
+                    history["round"].append(t)
+                    history["acc"].append(float(acc))
+                    history["loss"].append(float(loss))
+                    history["tau_eff"].append(last_tau)
+                    history["time"].append(time.perf_counter() - t0)
+                elif isinstance(ev, Snapshot):
+                    record(ev.name, backend.snapshot_artifact(state, t))
+                elif isinstance(ev, Prune):
+                    state, art = self._prune(ev, state, params, artifacts)
+                    record(ev.name, art)
+                elif isinstance(ev, Callback):
+                    maybe = ev.fn(self.trainer, t, backend.snapshot(state))
+                    if maybe is not None:
+                        state = backend.replace_params(state, maybe)
+                else:  # pragma: no cover — TrainPlan validates event types
+                    raise TypeError(f"unknown plan event: {ev!r}")
         return RunResult(params=state["params"], history=history,
                          artifacts=artifacts, state=state)
 

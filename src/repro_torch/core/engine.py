@@ -5,8 +5,8 @@ Counterpart of the reference's ``core/engine.py``: every momentum mode
 (none / restart / communicated local momentum, FedDUM server momentum),
 the FedDU dynamic server update, FedAP masks in ``"params"`` and
 ``"kernel"`` compute modes, the client algorithms FedAvg, FedProx and
-FedDyn, and client dropout (``batch["active"]``).  The health guard and
-fault injection are a later slice and raise.
+FedDyn, client dropout (``batch["active"]``), the health guard
+(``cfg.guard``) and device-fault injection (``cfg.faults``).
 
 ``client_state`` (present iff ``cfg.algorithm != "fedavg"``) is keyed by
 the algorithm, as in the reference:
@@ -38,6 +38,16 @@ model (olmo-1b in f32 is 4.71 GB per param-sized tree):
   temporaries are dropped as soon as they are dead.  Nothing is donated or
   copied behind the caller's back, so a caller that wants to keep a state
   passes a copy.
+* The health guard.  Its weights ``sizes act ok / max(sum, 1e-12)``
+  depend on clients not trained yet, so a guarded round sums
+  ``sum_k sizes_k act_k ok_k (theta_k - base)`` and its total and divides
+  once at the end.  A discarded round must leave the state as the round
+  found it, though the round writes in place: the server step computes
+  each leaf's new value into a temporary and keeps ``torch.where(discard,
+  old, new)``, FedDyn's shared ``h`` is updated on a copy, the selected
+  clients' rows of its per-client ``h`` are kept before the client loop,
+  and the FedDU proposal no longer overwrites ``w_half`` (its fallback):
+  one param-sized tree more than an unguarded round.
 
 Model access is two callables over an opaque batch (``(x, y)`` tuples for
 the simulation models), as in the reference:
@@ -69,12 +79,6 @@ from repro_torch.core.momentum import (
 from repro_torch.core.server_update import FedDUConfig, feddu_apply, tau_eff
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
-LATER = {
-    "guard": "the health guard comes with the reliability slice",
-    "faults": "fault injection comes with the reliability slice",
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class FedProxConfig:
     """FedProx's proximal term: local grad = g + mu * (theta - theta_global).
@@ -102,6 +106,8 @@ class FedDynConfig:
 
 ALGORITHMS = ("fedavg", "fedprox", "feddyn")
 
+GUARD_MODES = ("off", "reject_client", "skip_round")
+
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
@@ -117,8 +123,8 @@ class EngineConfig:
     use_masks: bool = False         # FedAP masks in the round state
     masked_compute: str = "params"  # params | kernel
     algorithm: str = "fedavg"       # fedavg | fedprox | feddyn
-    guard: str = "off"              # only off is ported
-    faults: tuple = ()              # none are ported
+    guard: str = "off"              # off | reject_client | skip_round
+    faults: tuple = ()              # device-fault injection (tests)
     feddu: FedDUConfig = dataclasses.field(default_factory=FedDUConfig)
     feddum: FedDUMConfig = dataclasses.field(default_factory=FedDUMConfig)
     fedprox: FedProxConfig = dataclasses.field(default_factory=FedProxConfig)
@@ -134,16 +140,16 @@ class EngineConfig:
         if self.algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm: {self.algorithm!r} "
                              f"(expected one of {ALGORITHMS})")
-        check_ported(guard=self.guard, faults=self.faults)
-
-
-def check_ported(**switches) -> None:
-    """Raise for a switch of a later slice set away from its default."""
-    defaults = {"guard": "off", "faults": ()}
-    for name, value in switches.items():
-        if value != defaults[name]:
-            raise ValueError(f"{name}={value!r} is not ported yet: "
-                             f"{LATER[name]}")
+        if self.guard not in GUARD_MODES:
+            raise ValueError(f"unknown guard: {self.guard!r} "
+                             f"(expected one of {GUARD_MODES})")
+        for f in self.faults:
+            if not hasattr(f, "apply_client"):
+                raise ValueError(
+                    f"EngineConfig.faults takes DEVICE faults (objects with "
+                    f"an apply_client hook, e.g. reliability.NaNGrad); got "
+                    f"{f!r}: host faults like KillAfterChunk belong to the "
+                    f"executor (pass them via FLConfig.faults)")
 
 
 def _zeros_like_f32(tree):
@@ -333,11 +339,36 @@ def round_core(cfg: EngineConfig, grad_fn: Callable, loss_and_acc_fn: Callable,
       active    [C] 0/1 (optional): client dropout; the FedAvg sum runs in
                 delta form and dropped clients' state is left as it was
 
+    ``cfg.faults`` (device faults, for tests) rewrite each client's trained
+    model before anything reads it.  ``cfg.guard != "off"`` adds the health
+    guard: a client whose model (and, with communicated momentum, its
+    momentum) is not finite everywhere is scrubbed back to the broadcast
+    point and weighs zero, and a non-finite FedDU proposal (model, tau_eff
+    or gate accuracy) falls back to the aggregate ``w_half``.  A round with
+    no surviving client (``"reject_client"``), or with any rejection
+    (``"skip_round"``), is discarded: params, momentum and client state
+    stay bit-identical to the round start, and the round counter still
+    advances.  The guard's decisions are 0-d device tensors: a guarded
+    round reads nothing to the host.
+
     Returns ``(state, {"tau_eff", "server_acc", "health"})`` as 0-d f32
-    tensors (``health`` is 0: the guard is not ported).
+    tensors; ``health`` counts the rejected active clients plus 1 for a
+    rejected server step (0 with the guard off).
     """
     with torch.no_grad():
         return _round(cfg, grad_fn, loss_and_acc_fn, state, batch)
+
+
+def _all_finite(*trees) -> torch.Tensor:
+    """0-d bool tensor: every element of every leaf is finite."""
+    return torch.stack([torch.isfinite(t).all() for tree in trees
+                        for t in tree_leaves(tree)]).all()
+
+
+def _where_(cond, a, b) -> None:
+    """``a <- torch.where(cond, a, b)`` leaf by leaf, in place (``cond`` a
+    0-d bool tensor; each leaf of ``b`` has its ``a`` leaf's dtype)."""
+    tree_map(lambda x, y: torch.where(cond, x, y, out=x), a, b)
 
 
 def _round(cfg, grad_fn, loss_and_acc_fn, state, batch):
@@ -367,20 +398,28 @@ def _round(cfg, grad_fn, loss_and_acc_fn, state, batch):
     lr = cfg.lr * (cfg.lr_decay ** state["round"])
 
     # (2)-(4) local epochs client after client, FedAvg as a running sum;
-    # with an "active" vector in the delta form around the broadcast point
+    # with an "active" vector or the guard in the delta form around the
+    # broadcast point
     cx, cy = batch["client"]
     sizes = batch["sizes"].float()
     active = batch.get("active")
-    if active is not None:
-        act = active.float()
+    act = active.float() if active is not None else None
+    guard = cfg.guard != "off"
+    delta_form = guard or act is not None
+    communicated = cfg.local_momentum == "communicated"
+    if guard:
+        # the weights need every client's verdict: sum sizes act ok
+        # (theta - base) and its total, divide once after the loop
+        zero = torch.zeros((), dtype=torch.float32, device=lr.device)
+        w_total = survivors = rejected = zero
+    elif act is not None:
         w = sizes * act
         w = w / torch.clamp(w.sum(), min=1e-12)
     else:
-        act = None
         w = sizes / sizes.sum()
     feddyn = cfg.algorithm == "feddyn"
     anchor = params if cfg.algorithm != "fedavg" else None
-    if cfg.local_momentum == "communicated":
+    if communicated:
         m0 = _m(state["global_m"])
     if feddyn:
         if "sel" not in batch:
@@ -392,10 +431,16 @@ def _round(cfg, grad_fn, loss_and_acc_fn, state, batch):
         h_all = state["client_state"]["per_client"]["h"]
         alpha = cfg.feddyn.alpha
         drift_sum = None
+        if guard:   # the selected rows as the round found them
+            h_rows = tree_map(lambda x: x.index_select(0, sel), h_all)
+    if cfg.faults:
+        sel_ids = batch.get("sel")
+        if sel_ids is None:
+            sel_ids = torch.arange(cx.shape[0], device=lr.device)
     w_half = new_global_m = None
     for c in range(cx.shape[0]):
         p = tree_map(torch.clone, params)
-        if cfg.local_momentum == "communicated":
+        if communicated:
             m = tree_map(torch.clone, m0)
         elif cfg.local_momentum == "restart":
             m = _zeros_like_f32(params)
@@ -408,57 +453,83 @@ def _round(cfg, grad_fn, loss_and_acc_fn, state, batch):
         steps = [(cx[c, s], cy[c, s]) for s in range(cx.shape[1])]
         p, m = local_train(cfg, grad_fn, p, m, steps, lr, anchor=anchor,
                            h=h)
-        if feddyn or act is not None:
+        for f in cfg.faults:
+            p = f.apply_client(p, params, sel_ids[c], state["round"])
+        if guard:
+            # a rejected client is scrubbed back to the broadcast point
+            # before anything reads it: zero weight alone keeps NaN
+            ok = _all_finite(p, m) if communicated else _all_finite(p)
+            _where_(ok, p, params)
+            if communicated:
+                _where_(ok, m, m0)
+            okf = ok.float()
+            a0 = act[c] if act is not None else 1.0
+            a_c = okf * a0
+            rejected = rejected + (1.0 - okf) * a0
+            survivors = survivors + a_c
+            wc = sizes[c] * a_c
+            w_total = w_total + wc
+        else:
+            a_c = act[c] if act is not None else None
+            wc = w[c]
+        if feddyn or delta_form:
             d = tree_map(lambda a, b: a.float() - b.float(), p, params)
         if feddyn:
             # h_k <- h_k - alpha act_k (theta_k - anchor), written back to
             # the client's row; sum_k act_k drift_k for the shared h
-            coef = alpha if act is None else act[c] * alpha
+            coef = alpha if a_c is None else a_c * alpha
             tree_map(lambda hk, dk: hk.sub_(dk * coef), h, d)
             tree_map(lambda x, hk: x.index_copy_(0, row, hk[None]), h_all, h)
-            if act is None:
+            if a_c is None:
                 ad = d if drift_sum is not None else tree_map(torch.clone, d)
             else:
-                ad = tree_map(lambda dk: dk * act[c], d)
+                ad = tree_map(lambda dk: dk * a_c, d)
             if drift_sum is None:
                 drift_sum = ad
             else:
                 tree_map(torch.Tensor.add_, drift_sum, ad)
             del h, ad
-        if act is None:
-            w_half = _add_weighted(w_half, p, w[c])
+        if delta_form:
+            w_half = _add_weighted(w_half, d, wc)
         else:
-            w_half = _add_weighted(w_half, d, w[c])
+            w_half = _add_weighted(w_half, p, wc)
         d = None
-        if cfg.local_momentum == "communicated":
-            if act is None:
-                new_global_m = _add_weighted(new_global_m, m, w[c])
-            else:
+        if communicated:
+            if delta_form:
                 new_global_m = _add_weighted(
-                    new_global_m, tree_map(lambda a, b: a - b, m, m0), w[c])
+                    new_global_m, tree_map(lambda a, b: a - b, m, m0), wc)
+            else:
+                new_global_m = _add_weighted(new_global_m, m, wc)
         del p, m
-    if act is not None:
+    if delta_form:
+        if guard:
+            total = torch.clamp(w_total, min=1e-12)
+            tree_map(lambda a: a.div_(total), w_half)
+            if communicated:
+                tree_map(lambda a: a.div_(total), new_global_m)
         # base + sum_k w_k (theta_k - base): an all-dropped round is base
         w_half = tree_map(lambda a, b: a.add_(b.float()).to(b.dtype),
                           w_half, params)
-        if cfg.local_momentum == "communicated":
+        if communicated:
             tree_map(torch.Tensor.add_, new_global_m, m0)
     else:
         w_half = tree_map(lambda a, p: a.to(p.dtype), w_half, params)
 
     if feddyn:
         # the server average h and the pull of w_half toward the implicit
-        # consensus point, before the FedDU server update
+        # consensus point, before the FedDU server update (on a copy of
+        # the shared h under the guard, which may discard the round)
         hs = _m(state["client_state"]["shared"]["h"])
+        hs_new = tree_map(torch.clone, hs) if guard else hs
         n_total = tree_leaves(h_all)[0].shape[0]
-        tree_map(lambda h_, s_: h_.sub_(s_.mul_(alpha / n_total)), hs,
+        tree_map(lambda h_, s_: h_.sub_(s_.mul_(alpha / n_total)), hs_new,
                  drift_sum)
         del drift_sum
         if alpha > 0:
             w_half = tree_map(lambda wh, h_: (wh.float() - h_ / alpha)
-                              .to(wh.dtype), w_half, hs)
+                              .to(wh.dtype), w_half, hs_new)
         _m(h_all)
-        _m(hs)
+        _m(hs_new)
 
     # (5a) FedDU dynamic server update (Formulas 4-7); acc from the FIRST
     # server step's own forward
@@ -482,30 +553,68 @@ def _round(cfg, grad_fn, loss_and_acc_fn, state, batch):
                         n0=batch["n0"], n_prime=batch["sizes"].sum(),
                         d_round=batch["d_round"], d_server=batch["d_server"],
                         tau=tau)
-        proposed = feddu_apply(w_half, g0, t_eff, lr, out=w_half)
+        # under the guard w_half stays: it is the proposal's fallback
+        proposed = feddu_apply(w_half, g0, t_eff, lr,
+                               out=None if guard else w_half)
         del g0, w_end
     else:
         proposed = w_half
         t_eff = torch.zeros((), dtype=torch.float32, device=lr.device)
         acc = torch.zeros((), dtype=torch.float32, device=lr.device)
 
-    # (5b) FedDUM server momentum on the pseudo-gradient (Formulas 8/12)
+    if guard:
+        # the server check: a non-finite proposal, tau_eff or gate accuracy
+        # falls back to w_half; then the round's verdict
+        server_ok = torch.ones((), dtype=torch.bool, device=lr.device)
+        if cfg.use_server_update:
+            server_ok = (torch.isfinite(t_eff) & torch.isfinite(acc)
+                         & _all_finite(proposed))
+            _where_(server_ok, proposed, w_half)
+            t_eff = torch.where(server_ok, t_eff, 0.0)
+            acc = torch.where(server_ok, acc, 0.0)
+        discard = ~(survivors > 0)
+        if cfg.guard == "skip_round":
+            discard = discard | (rejected > 0) | ~server_ok
+        health = rejected + (~server_ok).float()
+        t_eff = torch.where(discard, 0.0, t_eff)
+        acc = torch.where(discard, 0.0, acc)
+    else:
+        health = torch.zeros((), dtype=torch.float32, device=lr.device)
+
+    # (5b) FedDUM server momentum on the pseudo-gradient (Formulas 8/12);
+    # under the guard a leaf at a time into temporaries, kept unless the
+    # round is discarded
     if cfg.server_momentum:
         pseudo = server_pseudo_gradient(params, proposed, out=proposed)
-        server_momentum_step(params, state["server_m"], pseudo, cfg.feddum,
-                             out=(params, state["server_m"]))
+        if guard:
+            def step(p, mi, g):
+                w2, m2 = server_momentum_step(p, mi, g, cfg.feddum)
+                _where_(discard, mi, m2)
+                _where_(discard, p, w2)
+
+            tree_map(step, params, state["server_m"], pseudo)
+        else:
+            server_momentum_step(params, state["server_m"], pseudo,
+                                 cfg.feddum, out=(params, state["server_m"]))
+    elif guard:
+        _where_(discard, params, proposed)
     else:
         tree_map(lambda p, q: p.copy_(q), params, proposed)
     del proposed, w_half
 
     _m(params)
     _m(state["server_m"])
-    if cfg.local_momentum == "communicated":
+    if communicated:
+        if guard:
+            _where_(discard, m0, new_global_m)   # into the old buffer
+            new_global_m = m0
         state["global_m"] = _m(new_global_m)
+    if feddyn and guard:
+        _where_(discard, hs, hs_new)
+        tree_map(lambda x, old: x.index_copy_(0, sel, torch.where(
+            discard, old, x.index_select(0, sel))), h_all, h_rows)
     state["round"].add_(1.0)
-    return state, {"tau_eff": t_eff, "server_acc": acc,
-                   "health": torch.zeros((), dtype=torch.float32,
-                                         device=lr.device)}
+    return state, {"tau_eff": t_eff, "server_acc": acc, "health": health}
 
 
 # ---------------------------------------------------------------------------

@@ -7,24 +7,26 @@ The port's copy of the reference's ``core/plan.py``:
   event, in ``mask`` or ``shrink`` form), :class:`Snapshot` (a copy of the
   params as an artifact), :class:`Callback` (a host hook at a segment
   boundary: the distillation and pruning baselines), the
-  :class:`TrainPlan` that orders them, the paper's :func:`fedap_plan`, and
-  the :class:`RunResult` an execution returns (checkpointing and
-  ``RunResult.save`` come with the reliability slice);
-* the reader of ``repro-checkpoint-v1`` directories (``meta.json`` +
-  ``arrays.npz``) written by the reference's ``RunResult.save``, so a
-  checkpoint saved by the JAX package loads straight into the port.  Its
-  arrays come back as host numpy; :mod:`repro_torch.interop` moves them to
-  a device.
+  :class:`TrainPlan` that orders them (and, as an execution setting, where
+  and how often the executor checkpoints the run), the paper's
+  :func:`fedap_plan`, and the :class:`RunResult` an execution returns;
+* ``repro-checkpoint-v1`` directories (``meta.json`` + ``arrays.npz``):
+  :meth:`RunResult.save` writes one and :func:`load_artifact` reads one,
+  in the reference's format, so a run saved by either package loads into
+  the other.  Arrays come back as host numpy; :mod:`repro_torch.interop`
+  moves them to a device.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import pathlib
 import zipfile
 from typing import Any, Callable, Iterable, Union
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig
 
@@ -118,9 +120,18 @@ _EVENTS = (Scan, Eval, Prune, Snapshot, Callback)
 class TrainPlan:
     """An ordered schedule of :data:`Event` items, e.g.
     ``TrainPlan(Scan(30), Eval(), Prune(mode="mask"), Scan(30), Eval())``.
-    Iterables flatten, so sub-schedules splice in place."""
+    Iterables flatten, so sub-schedules splice in place.
 
-    def __init__(self, *events: Event | Iterable[Event]):
+    ``checkpoint_dir`` makes the executor durably snapshot the run (round
+    state, generator state, plan cursor, history and artifacts) every
+    ``checkpoint_every`` completed Scan chunks (default 1), so a killed
+    run continues bit-identically through
+    ``FederatedTrainer.resume(checkpoint_dir)``.  Checkpointing is an
+    execution setting, not part of the schedule: plan equality ignores
+    it."""
+
+    def __init__(self, *events: Event | Iterable[Event],
+                 checkpoint_every: int | None = None, checkpoint_dir=None):
         flat: list = []
         for e in events:
             if isinstance(e, _EVENTS):
@@ -131,6 +142,22 @@ class TrainPlan:
             if not isinstance(e, _EVENTS):
                 raise TypeError(f"not a TrainPlan event: {e!r}")
         self.events: tuple = tuple(flat)
+        if checkpoint_every is not None and checkpoint_dir is None:
+            raise ValueError("checkpoint_every without checkpoint_dir: "
+                             "there is nowhere to write the snapshots")
+        if checkpoint_every is None and checkpoint_dir is not None:
+            checkpoint_every = 1
+        if checkpoint_every is not None and checkpoint_every < 1:
+            raise ValueError(f"checkpoint_every must be >= 1, "
+                             f"got {checkpoint_every}")
+        self.checkpoint_every = checkpoint_every
+        self.checkpoint_dir = checkpoint_dir
+
+    def with_checkpointing(self, directory, *, every: int = 1) -> "TrainPlan":
+        """A copy of this plan that checkpoints into ``directory`` every
+        ``every`` completed Scan chunks."""
+        return TrainPlan(self.events, checkpoint_every=every,
+                         checkpoint_dir=directory)
 
     def __repr__(self):
         return f"TrainPlan({', '.join(map(repr, self.events))})"
@@ -260,7 +287,8 @@ class RunResult:
                repeats): Prune -> {"p_star", "layer_rates", "kept",
                "kept_counts", "mode", "filter_masks" | "params_before"},
                and ``"reused"`` for a ``Prune(reuse=)`` compaction;
-               Snapshot -> {"round", "params"}
+               Snapshot -> {"round", "params"}; those of a resumed run's
+               earlier chunks come back from its checkpoint as numpy
     state      the final round state
     """
 
@@ -268,6 +296,101 @@ class RunResult:
     history: dict
     artifacts: dict
     state: dict
+
+    def save(self, path, *, model_config=None, params=None) -> None:
+        """Write the run as a ``repro-checkpoint-v1`` directory, the format
+        of the reference's ``RunResult.save``: ``arrays.npz`` (the params
+        and the last Prune event's kept units and filter masks, under
+        '/'-joined paths) and ``meta.json`` (the prune mode, p*, layer
+        rates and kept counts, the history, and ``model_config`` when
+        given, a :class:`ModelConfig` of either package).  ``params``
+        overrides the final params (e.g. a ``Snapshot`` artifact's).
+
+        Leaves may be tensors on any device or numpy arrays (artifacts
+        restored from a run checkpoint); bfloat16 is written as float32,
+        which holds every bfloat16 value.  Each file is written to a temp
+        file, fsynced and renamed into place, so a crash never leaves a
+        half-written file for :func:`load_artifact`."""
+        out = pathlib.Path(path)
+        out.mkdir(parents=True, exist_ok=True)
+        prune_name, prune_art = None, None
+        for name, art in self.artifacts.items():
+            if isinstance(art, dict) and "kept" in art:
+                prune_name, prune_art = name, art
+
+        arrays = _flatten_arrays({"params": params if params is not None
+                                  else self.params})
+        meta: dict = {
+            "format": "repro-checkpoint-v1",
+            "history": _json_safe(self.history),
+            "model_config": (model_config.to_dict()
+                             if model_config is not None else None),
+            "prune": None,
+        }
+        if prune_art is not None:
+            kept = prune_art.get("kept") or {}
+            arrays.update(_flatten_arrays({"kept": dict(kept)}))
+            fmasks = prune_art.get("filter_masks")
+            if fmasks:
+                arrays.update(_flatten_arrays({"masks": dict(fmasks)}))
+            meta["prune"] = _json_safe({
+                "event": prune_name,
+                "mode": prune_art.get("mode"),
+                "p_star": prune_art.get("p_star"),
+                "layer_rates": prune_art.get("layer_rates"),
+                "kept_counts": prune_art.get(
+                    "kept_counts",
+                    {k: int(_host(v).shape[-1]) for k, v in kept.items()}),
+            })
+        tmp = out / f".arrays.npz.tmp-{os.getpid()}"
+        with open(tmp, "wb") as f:
+            np.savez(f, **{k: _host(v) for k, v in arrays.items()})
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, out / "arrays.npz")
+        tmp = out / f".meta.json.tmp-{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(meta, f, indent=2)
+            f.write("\n")
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, out / "meta.json")
+
+
+def _host(x) -> np.ndarray:
+    """A tensor (any device; bfloat16 as float32) or array as host numpy."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x)
+
+
+def _flatten_arrays(tree, prefix: str = "") -> dict:
+    """Nested dicts of arrays -> flat {'a/b/c': leaf}; keys must be
+    '/'-free."""
+    flat: dict = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            k = str(k)
+            if "/" in k:
+                raise ValueError(f"checkpoint keys may not contain '/': {k!r}")
+            flat.update(_flatten_arrays(v, f"{prefix}{k}/"))
+        return flat
+    flat[prefix[:-1]] = tree
+    return flat
+
+
+def _json_safe(x):
+    """numpy or torch scalars and arrays -> python, recursively."""
+    if isinstance(x, dict):
+        return {str(k): _json_safe(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_json_safe(v) for v in x]
+    if isinstance(x, np.generic):
+        return x.item()
+    if isinstance(x, (torch.Tensor, np.ndarray)):
+        return _host(x).tolist()
+    return x
 
 
 def _unflatten_arrays(flat: dict) -> dict:

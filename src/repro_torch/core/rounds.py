@@ -13,6 +13,9 @@ clients weigh 0), then updates on its shared data with the dynamic tau_eff
     res = trainer.run(fedap_plan(60, prune_round=30, mode="mask"))
     res.history["acc"], res.artifacts["prune"]["kept"]
 
+A plan with ``checkpoint_dir`` is snapshotted at chunk boundaries, and a
+killed run continues with ``FederatedTrainer(...).resume(checkpoint_dir)``.
+
 The round engine is :mod:`repro_torch.core.engine`, the schedule loop
 :class:`repro_torch.core.backend.PlanExecutor`.
 """
@@ -27,15 +30,17 @@ from repro_torch import device as _device
 from repro_torch.core.backend import LocalBackend, PlanExecutor
 from repro_torch.core.engine import (
     ALGORITHMS,
+    GUARD_MODES,
     EngineConfig,
     FedDynConfig,
     FedProxConfig,
-    check_ported,
 )
 from repro_torch.core.momentum import FedDUMConfig
-from repro_torch.core.plan import RunResult, TrainPlan
+from repro_torch.core.plan import CheckpointError, RunResult, TrainPlan
 from repro_torch.core.pruning import FedAPConfig
 from repro_torch.core.server_update import FedDUConfig
+from repro_torch.reliability import checkpoint as ckpt
+from repro_torch.reliability.faults import device_faults
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +62,10 @@ class FLConfig:
     # Each selected client drops this round with this probability; dropped
     # clients weigh 0 in FedAvg and their client state is untouched.
     dropout_rate: float = 0.0
-    # A later slice (they raise when set): the health guard and faults.
+    # The health guard: "reject_client" drops non-finite clients (and
+    # discards a round none survives), "skip_round" discards a round on any
+    # rejection.  faults: reliability fault events (tests), routed to the
+    # engine (device faults) and the executor (host faults).
     guard: str = "off"
     faults: tuple = ()
     # "params" zeroes the parameter tree only (full-density products);
@@ -101,7 +109,15 @@ class FLConfig:
         if not 0.0 <= self.dropout_rate < 1.0:
             raise ValueError(f"dropout_rate must be in [0, 1), got "
                              f"{self.dropout_rate}")
-        check_ported(guard=self.guard, faults=self.faults)
+        if self.guard not in GUARD_MODES:
+            raise ValueError(f"unknown guard: {self.guard!r} "
+                             f"(expected one of {GUARD_MODES})")
+        for f in self.faults:
+            if not (hasattr(f, "apply_client") or hasattr(f, "chunks")):
+                raise ValueError(
+                    f"FLConfig.faults entries must be reliability fault "
+                    f"events (NaNGrad / CorruptUpdate / KillAfterChunk), "
+                    f"got {f!r}")
 
 
 def feddumap_config(**kw) -> FLConfig:
@@ -121,6 +137,8 @@ def engine_config(cfg: FLConfig) -> EngineConfig:
         server_momentum=cfg.server_momentum,
         masked_compute=cfg.masked_compute,
         algorithm=cfg.algorithm,
+        guard=cfg.guard,
+        faults=device_faults(cfg.faults),
         feddu=cfg.feddu, feddum=cfg.feddum,
         fedprox=cfg.fedprox, feddyn=cfg.feddyn)
 
@@ -178,4 +196,40 @@ class FederatedTrainer:
             gen.manual_seed(self.cfg.seed)
             params = self.model.init(gen)
         backend = self.backend(use_masks=plan.uses_masks, batches=batches)
-        return PlanExecutor(backend, trainer=self).run(plan, params=params)
+        return PlanExecutor(backend, trainer=self,
+                            faults=self.cfg.faults).run(plan, params=params)
+
+    def resume(self, checkpoint_dir, *, plan: TrainPlan | None = None,
+               batches: Callable | None = None) -> RunResult:
+        """Continue a killed run from its chunk-boundary checkpoints,
+        bit-identically to the uninterrupted run: the round state, this
+        trainer's generator state, the plan cursor and the history come
+        back from the newest snapshot.
+
+        ``plan=None`` rebuilds the schedule from the checkpoint's plan spec
+        (checkpointing on, into the same directory).  A plan with
+        :class:`~repro_torch.core.plan.Callback` events cannot be rebuilt
+        from disk: pass the original plan, which is checked against the
+        spec.  ``batches`` is the per-round batch source of :meth:`run`,
+        continued at the restored round; a checkpoint without a generator
+        state (a run on injected batches, or one the reference package
+        wrote) needs it."""
+        payload = ckpt.load_checkpoint(checkpoint_dir)
+        if payload.get("backend") != LocalBackend.name:
+            raise CheckpointError(
+                f"checkpoint was written by the {payload.get('backend')!r} "
+                f"backend but this trainer runs {LocalBackend.name!r}: "
+                f"resume on the same backend (bit-identity is per-backend)")
+        if plan is None:
+            plan = ckpt.plan_from_spec(
+                payload["plan"],
+                checkpoint_every=payload.get("checkpoint_every"),
+                checkpoint_dir=payload.get("checkpoint_dir", checkpoint_dir))
+        elif ckpt.plan_spec(plan) != list(payload["plan"]):
+            raise CheckpointError(
+                "the plan passed to resume() does not match the plan the "
+                "checkpoint was written under: resuming would replay a "
+                "different schedule")
+        backend = self.backend(use_masks=plan.uses_masks, batches=batches)
+        return PlanExecutor(backend, trainer=self,
+                            faults=self.cfg.faults).run(plan, resume=payload)

@@ -17,7 +17,9 @@ FedAP-pruned) checkpoint is served from a fixed pool of decode slots.
   retires finished requests and admits queued ones into the freed slots.
 * **Health guard.**  A slot whose logits go non-finite is retired on the
   device (``error`` bit) and completes with ``status="error"``;
-  ``max_queue``/``on_full`` bound the host admission queue.
+  ``max_queue``/``on_full`` bound the host admission queue.  Serving
+  faults (``faults=``, e.g. ``reliability.NaNLogits``) poison a slot's
+  logits on the device just before that guard, for tests.
 
 Where the reference compiles two programs (admit, wave), the port runs
 eagerly; capturing the wave as a CUDA graph is later work.
@@ -113,10 +115,12 @@ class DecodeEngine:
     (``{"mlp": [L, d_ff]}``): every step then routes the FFN up/gate
     products through the block-skipping ``masked_matmul`` kernel.  The
     model, params and masks must live on ``device`` (default ``"cuda"``).
+    ``faults`` keeps the serving faults of a fault tuple (objects with an
+    ``apply_logits`` hook) and ignores the others.
     """
 
     def __init__(self, model, params, cfg: ServeConfig | None = None, *,
-                 masks=None, device="cuda"):
+                 masks=None, device="cuda", faults: tuple = ()):
         if model.cfg.family not in _SERVABLE_FAMILIES:
             raise ValueError(
                 f"DecodeEngine serves the scanned-KV families "
@@ -131,6 +135,7 @@ class DecodeEngine:
         self.cfg = cfg or ServeConfig()
         self._params = params
         self._masks = masks
+        self._faults = tuple(f for f in faults if hasattr(f, "apply_logits"))
         self._state = self._init_state()
         self._occupants: list[Optional[tuple[int, np.ndarray]]] = \
             [None] * self.cfg.slots
@@ -189,6 +194,8 @@ class DecodeEngine:
         logits, cache = self.model.decode_step(
             self._params, cache, {"tokens": state["last_tok"][:, None]},
             masks=self._masks)
+        for f in self._faults:
+            logits = f.apply_logits(logits, state)
         logits = logits[:, 0]
         # health guard: a slot with non-finite logits is retired (error
         # bit, frozen) instead of emitting garbage tokens

@@ -212,10 +212,21 @@ def test_sample_round_batches_gathers_the_given_indices():
 
 
 def test_unported_switches_raise():
-    with pytest.raises(ValueError, match="reliability slice"):
+    from repro_torch.reliability import KillAfterChunk, NaNGrad
+
+    # the guard and device faults are ported: accepted as the reference
+    # accepts them; an unknown guard or a host fault raises as there
+    for guard in ("off", "reject_client", "skip_round"):
+        assert EngineConfig(guard=guard).guard == guard
+    fault = NaNGrad(client=0, round=1)
+    assert EngineConfig(guard="reject_client", faults=(fault,)).faults == \
+        (fault,)
+    with pytest.raises(ValueError, match="guard"):
+        EngineConfig(guard="maybe")
+    with pytest.raises(ValueError, match="host"):
+        EngineConfig(faults=(KillAfterChunk(1),))
+    with pytest.raises(ValueError, match="DEVICE faults"):
         EngineConfig(faults=(object(),))
-    with pytest.raises(ValueError, match="reliability slice"):
-        EngineConfig(guard="skip_round")
     with pytest.raises(ValueError, match="filter_masks"):
         engine.init_round_state({"w": torch.zeros(2)},
                                 EngineConfig(use_masks=True,

@@ -205,6 +205,34 @@ class TestEngineProtocol:
             assert a.status == "ok"
             np.testing.assert_array_equal(a.tokens, b.tokens)
 
+    def test_nan_logits_retire_slot_not_batch(self, world):
+        """``NaNLogits`` poisons one slot's logits in the wave: that request
+        completes with status="error" (a prefix of its clean tokens), every
+        co-batched request emits its clean tokens, and the port's
+        completions equal the reference engine's under the same fault
+        (``test_reliability.py``'s serving lock)."""
+        from repro.reliability import NaNLogits as JaxNaNLogits
+        from repro_torch.reliability import NaNLogits
+
+        jmodel, jparams, _, _, model, params, _ = world
+        prompts = ragged_prompts(4, 4, CFG.vocab_size, seed=9)
+        clean = {c.uid: c for c in DecodeEngine(
+            model, params, ServeConfig(**SCFG), device="cpu").run(prompts)}
+        got = DecodeEngine(model, params, ServeConfig(**SCFG), device="cpu",
+                           faults=(NaNLogits(slot=0, n_out=1),)).run(prompts)
+        want = JaxEngine(jmodel, jparams, JaxServeConfig(**SCFG),
+                         faults=(JaxNaNLogits(slot=0, n_out=1),)).run(prompts)
+        _same(got, want)
+        errs = {c.uid for c in got if c.status == "error"}
+        assert errs, "no slot was retired"
+        for c in got:
+            if c.uid in errs:
+                assert len(c.tokens) <= len(clean[c.uid].tokens)
+                np.testing.assert_array_equal(
+                    c.tokens, clean[c.uid].tokens[:len(c.tokens)])
+            else:
+                np.testing.assert_array_equal(c.tokens, clean[c.uid].tokens)
+
 
 def masked_run_result(params, kept, fmasks, mode="mask"):
     art = {"mode": mode, "p_star": 0.5, "layer_rates": [0.5, 0.5],

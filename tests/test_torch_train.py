@@ -189,9 +189,20 @@ def test_trainer_refuses_a_model_on_another_device():
     meta.device = torch.device("meta")
     with pytest.raises(ValueError, match="model lives on"):
         FederatedTrainer(meta, trainer.data, trainer.cfg, device="cpu")
-    with pytest.raises(ValueError, match="reliability slice"):
-        dataclasses.replace(trainer.cfg, guard="reject_client")
-    with pytest.raises(ValueError, match="reliability slice"):
+    # the guard and faults are ported: accepted, and routed as in the
+    # reference (device faults to the engine, host faults to the executor)
+    from repro_torch.core.rounds import engine_config
+    from repro_torch.reliability import KillAfterChunk, NaNGrad
+
+    guarded = dataclasses.replace(
+        trainer.cfg, guard="reject_client",
+        faults=(NaNGrad(client=0, round=1), KillAfterChunk(2)))
+    eng = engine_config(guarded)
+    assert (eng.guard, eng.faults) == ("reject_client",
+                                       (NaNGrad(client=0, round=1),))
+    with pytest.raises(ValueError, match="guard"):
+        dataclasses.replace(trainer.cfg, guard="sometimes")
+    with pytest.raises(ValueError, match="fault"):
         dataclasses.replace(trainer.cfg, faults=(object(),))
     with pytest.raises(TypeError, match="masks="):
         LocalBackend(type("NoMasks", (), {"loss_and_acc":
