@@ -118,7 +118,27 @@ Phases, in order; any failure raises and the script exits non-zero:
               determinism check), with the snapshot's bytes and its write
               and load seconds; and an olmo-1b ``DecodeEngine`` run with
               ``NaNLogits`` on slot 1, every wave under sync-debug "error":
-              slot 1 ends in "error", the others with the fault-free tokens.
+              slot 1 ends in "error", the others with the fault-free tokens;
+16. xlstm-parity — xlstm-125m reduced to 4 layers (three mLSTM blocks, one
+              sLSTM), f32 with TF32 off, card against CPU from the same
+              params: the forward's logits (B = 2 x S = 128, two scan
+              chunks), 64 teacher-forced decode steps (logits and every
+              state tensor), the loss gradient and one FedDUM round; then
+              bf16: each block on one input, and the LM's forward and decode
+              no farther from the f32 logits than the CPU's bf16 run;
+17. xlstm   — xlstm-125m at full width and depth (12 layers, 188.9 M
+              params, seeded weights): bf16 scoring through
+              ``load_servable(..., attn_impl="pallas")`` (B = 4 x S = 2048,
+              s/forward, tokens/s, peak; the busy share of a forward at S =
+              256 under the profiler), bf16 serving through
+              ``lockstep_decode`` (8 prompts of 64 tokens, 64 new: ms/step,
+              tokens/s, launches a step and busy share of a profiled window,
+              a window under sync-debug "error"), f32 FedDUM training at S =
+              128 (s/round, tokens/s, peak), then
+              ``examples/serve_decode_torch.py`` and
+              ``examples/fl_llm_train_torch.py`` at their defaults as
+              subprocesses, which must exit 0.  No TPU kernel lies on the
+              family's path.
 
 Each phase after the build prints its peak device memory; ``[time]`` lines
 give each phase's wall seconds and the total.
@@ -1142,7 +1162,7 @@ def _train_parity(torch, arch, seed) -> None:
     from repro_torch.core import backend, engine
     from repro_torch.core.engine import EngineConfig
     from repro_torch.models.lm import LM
-    from repro_torch.utils.tree import tree_leaves, tree_map
+    from repro_torch.utils.tree import tree_map
 
     cfg = dataclasses.replace(get_config(arch), num_layers=2,
                               param_dtype="float32", remat="none")
@@ -1196,8 +1216,6 @@ def _train_parity(torch, arch, seed) -> None:
                "server": toks(1, b), "d_round": torch.tensor(0.3),
                "d_server": torch.tensor(0.02), "n0": torch.tensor(8.0)}
     deltas = {}
-    eps = torch.finfo(torch.float32).eps
-    ulp = [eps * float(t.abs().max()) for t in tree_leaves(params_c)]
     for name, model, params, fm in (("cpu", cpu, params_c, fm_c),
                                     ("card", gpu, params_g, fm_g)):
         dev = "cpu" if name == "cpu" else "cuda"
@@ -1217,19 +1235,30 @@ def _train_parity(torch, arch, seed) -> None:
             f"tau_eff {float(met['tau_eff']):.6f}, server acc "
             f"{float(met['server_acc']):.4f}")
         del state, before
+    _round_update_check(torch, f"[train-parity] {arch}", deltas, params_c)
+
+
+def _round_update_check(torch, tag, deltas, params_c) -> None:
+    """The card's round update against the CPU's (``deltas["card"]``,
+    ``deltas["cpu"]``, trees on the host), each leaf within TRAIN_TOL of
+    its max |update| plus ROUND_ULPS f32 spacings at its max |param|."""
+    from repro_torch.utils.tree import tree_leaves
+
+    eps = torch.finfo(torch.float32).eps
+    ulp = [eps * float(t.abs().max()) for t in tree_leaves(params_c)]
     errs = _leaf_errs(deltas["card"], deltas["cpu"])
     rel = max(e / m if m > 0 else e for e, m in errs)
     # zamba2's A_log and dt_bias start at 0: no spacing to count there
     ulps = max((e / u for (e, _), u in zip(errs, ulp) if u > 0), default=0)
     worst = max(_ratio(e, TRAIN_TOL * m + ROUND_ULPS * u)
                 for (e, m), u in zip(errs, ulp))
-    log(f"[train-parity] {arch} round parameter updates ({len(errs)} "
+    log(f"{tag} round parameter updates ({len(errs)} "
         f"leaves): worst error {rel:.3e} relative to the leaf's max |update|, "
         f"{ulps:.2f} f32 spacings at the leaf's max |param|; worst error / "
         f"allowance ({TRAIN_TOL:.0e} x max |update| + {ROUND_ULPS} spacings) "
         f"= {worst:.3f}")
-    require(worst <= 1.0, f"train-parity {arch}: round update error "
-            f"{worst:.3f} of its allowance")
+    require(worst <= 1.0, f"{tag}: round update error {worst:.3f} of its "
+            f"allowance")
 
 
 # ---------------------------------------------------------------------------
@@ -1597,8 +1626,8 @@ def phase_serving_hybrid(torch) -> dict:
         launches["decode_attention"] += n5
         launches["masked_matmul"] += n1
         tokens[mode] = got
-        _profile_lockstep(torch, mode, sv, prompt, cache_len)
-        _sync_free_lockstep(torch, mode, sv, prompt, cache_len)
+        _profile_lockstep(torch, f"zamba2 {mode}", sv, prompt, cache_len)
+        _sync_free_lockstep(torch, f"zamba2 {mode}", sv, prompt, cache_len)
         del sv
     same = (tokens["masked"] == tokens["shrunk"]).float()
     log(f"[serving] zamba2 masked and shrunk agree on "
@@ -1621,7 +1650,7 @@ def _lockstep_window(torch, sv, prompt, cache_len):
     return cache, prompt[:, :WINDOW[0]].cuda()
 
 
-def _profile_lockstep(torch, mode, sv, prompt, cache_len) -> None:
+def _profile_lockstep(torch, tag, sv, prompt, cache_len) -> None:
     """The host-clock time of a window of lockstep steps (no profiler)
     against the device time of the kernels of another under torch.profiler:
     their ratio is the device's busy share."""
@@ -1649,13 +1678,12 @@ def _profile_lockstep(torch, mode, sv, prompt, cache_len) -> None:
                if e.device_type.name == "CUDA"
                and e.self_device_time_total > 0]
     if not kernels:
-        log(f"[profile] zamba2 {mode}: {wall_ms:.3f} ms/step on the host "
-            f"clock; device time not measured (the profiler saw no CUDA "
-            f"kernels)")
+        log(f"[profile] {tag}: {wall_ms:.3f} ms/step on the host clock; "
+            f"device time not measured (the profiler saw no CUDA kernels)")
         return
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     busy = 100 * dev_ms / wall_ms
-    log(f"[profile] zamba2 {mode}: {wall_ms:.3f} ms/step on the host clock, "
+    log(f"[profile] {tag}: {wall_ms:.3f} ms/step on the host clock, "
         f"kernels {dev_ms:.3f} ms/step on the device -> busy {busy:.1f}%, "
         f"idle {100 - busy:.1f}%; launches "
         f"{sum(e.count for e in kernels) // n}/step")
@@ -1663,11 +1691,11 @@ def _profile_lockstep(torch, mode, sv, prompt, cache_len) -> None:
     own = [e for e in ranked[8:] if "decode_" in e.key or "masked_" in e.key]
     for e in ranked[:8] + own:
         per_step = e.self_device_time_total / 1e3 / n
-        log(f"[profile] zamba2 {mode}:   {per_step:8.4f} ms/step  "
+        log(f"[profile] {tag}:   {per_step:8.4f} ms/step  "
             f"{e.count // n:4d}/step  {e.key[:90]}")
 
 
-def _sync_free_lockstep(torch, mode, sv, prompt, cache_len) -> None:
+def _sync_free_lockstep(torch, tag, sv, prompt, cache_len) -> None:
     """A window of lockstep steps under sync-debug "error": any host sync
     inside the steps raises."""
     from repro_torch.serving.lockstep import run_steps
@@ -1682,7 +1710,7 @@ def _sync_free_lockstep(torch, mode, sv, prompt, cache_len) -> None:
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
-    log(f"[serving] zamba2 {mode}: {sum(WINDOW)} steps ran under "
+    log(f"[serving] {tag}: {sum(WINDOW)} steps ran under "
         f"set_sync_debug_mode('error') without a host sync")
 
 
@@ -3201,6 +3229,354 @@ def _nan_logits_wave(torch) -> None:
         f"fault-free run's")
 
 
+# ---------------------------------------------------------------------------
+# phases 16-17: the xlstm ssm family (no TPU kernel lies on its path)
+# ---------------------------------------------------------------------------
+
+# f32, TF32 off, card against CPU at the reduced 4-layer model.  Logits and
+# each decode state tensor: relative to max(1, max |cpu|).  The exponential
+# gates amplify f32 rounding through the layers: on the CPU the port and
+# the JAX package differ by up to 1.6e-5 of the logits' max (7.8e-5 at 5.1)
+# and 7.4e-5 of a gradient leaf's max (tests/test_torch_xlstm.py, which
+# holds them at 1e-4 and 2e-4).  Two f32 computations of another order
+# differ by as much again, so: logits 1e-4, gradient leaves 4e-4 of their
+# max |cpu|; a round's update takes train-parity's allowance.
+XLSTM_TOL = 1e-4
+XLSTM_GRAD_TOL = 4e-4
+XLSTM_STEPS = 64
+# bf16: one block on the same bf16 input within two bf16 steps of max(1,
+# max |cpu|) (cuBLAS and the CPU round each product's f32 sum to bf16 on
+# their own); through the LM the roundings compound, so the card's bf16
+# logits must lie within XLSTM_BF16_RATIO x the CPU bf16 logits' RMS
+# distance from the f32 logits of the same bf16 params.
+XLSTM_BF16_BLOCK_TOL = 2 * TOL["bfloat16"]
+XLSTM_BF16_RATIO = 1.25
+
+
+def _rms(torch, t) -> float:
+    return float(t.double().square().mean().sqrt())
+
+
+def phase_xlstm_parity(torch) -> None:
+    """xlstm-125m reduced to 4 layers (three mLSTM blocks, one sLSTM), d =
+    256, f32: the forward's logits at B = 2 x S = 128 (two scan chunks), 64
+    teacher-forced decode steps (logits and every state tensor), the loss
+    gradient and one FedDUM round from one state on the same batches, card
+    against CPU; then bf16 blocks, forward and decode."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.core import backend, engine
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.models import layers
+    from repro_torch.models.lm import LM
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = get_config("xlstm-125m").reduced(num_layers=4)
+    cpu, gpu = LM(cfg, device="cpu"), LM(cfg, device="cuda")
+    params_c = cpu.init(torch.Generator().manual_seed(11))
+    params_g = interop.params_from_jax(params_c, "cuda")
+    rng = np.random.default_rng(12)
+    b, s_len = 2, 128
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s_len + 1))
+                           .astype(np.int32))
+    x, y = seq[:, :-1], seq[:, 1:]
+    log(f"[xlstm-parity] xlstm-125m reduced: {cfg.num_layers} layers "
+        f"(sLSTM at {[i for i in range(cfg.num_layers) if cpu._is_slstm(i)]})"
+        f", d_model={cfg.d_model}, f32, B={b} S={s_len}")
+    with torch.no_grad():
+        want = cpu.apply(params_c, {"tokens": x})
+        got = gpu.apply(params_g, {"tokens": x.cuda()})
+    err, rel = max_rel_err(torch, got.cpu(), want)
+    log(f"[xlstm-parity] forward logits: max_abs_err={err:.3e} rel={rel:.3e}"
+        f" (tol {XLSTM_TOL:.0e})")
+    require(bool(torch.isfinite(got).all()) and rel <= XLSTM_TOL,
+            f"xlstm-parity forward: {rel:.3e}")
+
+    caches = {"cpu": cpu.init_cache(b, XLSTM_STEPS),
+              "card": gpu.init_cache(b, XLSTM_STEPS)}
+    worst = 0.0
+    with torch.inference_mode():
+        for t in range(XLSTM_STEPS):
+            tok = x[:, t:t + 1]
+            lc, caches["cpu"] = cpu.decode_step(params_c, caches["cpu"],
+                                                {"tokens": tok})
+            lg, caches["card"] = gpu.decode_step(params_g, caches["card"],
+                                                 {"tokens": tok.cuda()})
+            worst = max(worst, max_rel_err(torch, lg.cpu(), lc)[1])
+    states = [max_rel_err(torch, g.cpu(), c)[1] for g, c in zip(
+        tree_leaves(caches["card"])[1:], tree_leaves(caches["cpu"])[1:])]
+    log(f"[xlstm-parity] {XLSTM_STEPS} decode steps: worst logits rel "
+        f"{worst:.3e}, worst of {len(states)} state tensors rel "
+        f"{max(states):.3e} (tol {XLSTM_TOL:.0e})")
+    require(worst <= XLSTM_TOL and max(states) <= XLSTM_TOL,
+            "xlstm-parity decode differs")
+    require(int(caches["card"]["index"]) == XLSTM_STEPS,
+            "xlstm-parity: cache index")
+
+    (l_c, _), g_c = engine.value_and_grad_aux(
+        lambda p: cpu.loss_and_acc(p, x, y), params_c)
+    (l_g, _), g_g = engine.value_and_grad_aux(
+        lambda p: gpu.loss_and_acc(p, x.cuda(), y.cuda()), params_g)
+    errs = _leaf_errs(g_g, g_c)
+    worst = max(e / m if m > 0 else e for e, m in errs)
+    log(f"[xlstm-parity] loss card {float(l_g):.6f} cpu {float(l_c):.6f}; "
+        f"{len(errs)} gradient leaves, worst error {worst:.3e} relative to "
+        f"the leaf's max |grad| (tol {XLSTM_GRAD_TOL:.0e})")
+    require(abs(float(l_g) - float(l_c)) <= XLSTM_TOL * float(l_c),
+            "xlstm-parity: loss differs")
+    require(worst <= XLSTM_GRAD_TOL, f"xlstm-parity gradient {worst:.3e}")
+    del g_c, g_g
+
+    # one FedDUM round: 2 clients x 1 local step and 1 server step
+    eng = EngineConfig(lr=3e-3, lr_decay=1.0, use_server_update=True,
+                       local_momentum="restart", server_momentum=True)
+
+    def toks(*lead):
+        t = rng.integers(0, cfg.vocab_size, lead + (33,))
+        return (torch.from_numpy(t[..., :-1].astype(np.int32)),
+                torch.from_numpy(t[..., 1:].astype(np.int32)))
+
+    batch_c = {"client": toks(2, 1, b), "sizes": torch.tensor([8.0, 8.0]),
+               "server": toks(1, b), "d_round": torch.tensor(0.3),
+               "d_server": torch.tensor(0.02), "n0": torch.tensor(8.0)}
+    deltas = {}
+    for name, model, params in (("cpu", cpu, params_c),
+                                ("card", gpu, params_g)):
+        dev = "cpu" if name == "cpu" else "cuda"
+        state = engine.init_round_state(tree_map(torch.clone, params), eng)
+        before = tree_map(torch.clone, state["params"])
+        grad_fn, la_fn = backend.model_fns(model, eng)
+        state, met = engine.round_core(
+            eng, grad_fn, la_fn, state,
+            tree_map(lambda t: t.to(dev), batch_c))
+        deltas[name] = tree_map(lambda a, b_: (a - b_).cpu(), state["params"],
+                                before)
+        log(f"[xlstm-parity] one FedDUM round on the {name}: tau_eff "
+            f"{float(met['tau_eff']):.6f}, server acc "
+            f"{float(met['server_acc']):.4f}")
+        del state, before
+    _round_update_check(torch, "[xlstm-parity]", deltas, params_c)
+
+    # bf16: the blocks on one input, then the LM against its f32 logits
+    cfg16 = dataclasses.replace(cfg, param_dtype="bfloat16")
+    cpu16, gpu16 = LM(cfg16, device="cpu"), LM(cfg16, device="cuda")
+    p16_c = cpu16.init(torch.Generator().manual_seed(13))
+    p16_g = interop.params_from_jax(p16_c, "cuda")
+    h = torch.randn((b, s_len, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(14)).to(torch.bfloat16)
+    meta = layers.mlstm_meta(cfg)
+    with torch.no_grad():
+        for name, fn in (("l0", layers.apply_mlstm), ("l3", layers.apply_slstm)):
+            want = fn(p16_c["blocks"][name]["cell"], h, meta, cfg16)
+            got = fn(p16_g["blocks"][name]["cell"], h.cuda(), meta, cfg16)
+            err, rel = max_rel_err(torch, got.cpu(), want)
+            log(f"[xlstm-parity] bf16 {fn.__name__} (layer {name}): "
+                f"max_abs_err={err:.3e} rel={rel:.3e} (tol "
+                f"{XLSTM_BF16_BLOCK_TOL:.2e})")
+            require(got.dtype == torch.bfloat16 and rel <= XLSTM_BF16_BLOCK_TOL,
+                    f"xlstm-parity bf16 {fn.__name__}: {rel:.3e}")
+    p32 = tree_map(lambda t: t.float(), p16_c)
+    toks_ = x[:, :XLSTM_STEPS]
+    with torch.inference_mode():
+        out = {"exact": (cpu.apply(p32, {"tokens": x}), []),
+               "cpu": (cpu16.apply(p16_c, {"tokens": x}).float(), []),
+               "card": (gpu16.apply(p16_g, {"tokens": x.cuda()}).float()
+                        .cpu(), [])}
+        runs = {"exact": (cpu, p32, "cpu"), "cpu": (cpu16, p16_c, "cpu"),
+                "card": (gpu16, p16_g, "cuda")}
+        for key, (model, params, dev) in runs.items():
+            cache = model.init_cache(b, XLSTM_STEPS)
+            for t in range(XLSTM_STEPS):
+                logits, cache = model.decode_step(
+                    params, cache, {"tokens": toks_[:, t:t + 1].to(dev)})
+                out[key][1].append(logits.float().cpu())
+    for i, what in enumerate(("forward", f"{XLSTM_STEPS} decode steps")):
+        exact = out["exact"][i] if i == 0 else torch.cat(out["exact"][1])
+        d_cpu, d_card = (_rms(torch, (out[k][i] if i == 0 else
+                                      torch.cat(out[k][1])) - exact)
+                         for k in ("cpu", "card"))
+        log(f"[xlstm-parity] bf16 {what}: RMS distance from the f32 logits "
+            f"card {d_card:.4e}, cpu {d_cpu:.4e} (card within "
+            f"{XLSTM_BF16_RATIO} x cpu)")
+        require(d_card <= XLSTM_BF16_RATIO * d_cpu,
+                f"xlstm-parity bf16 {what}: card {d_card:.4e} cpu {d_cpu:.4e}")
+
+
+XLSTM_SCORE = (4, 2048)                         # B x S per forward
+# the profiled forward's S: the profiler costs ~0.6 ms a launch, and a
+# forward at S = 2048 launches ~150k kernels (the sLSTM's loop over S)
+XLSTM_PROFILE_S = 256
+XLSTM_SERVE = dict(batch=8, prompt=64, new=64)
+XLSTM_EXAMPLES = (("serve_decode_torch.py", r"arch=olmo-1b \(reduced, dense\)"),
+                  ("fl_llm_train_torch.py", r"round +20  loss "))
+
+
+def phase_xlstm(torch) -> dict:
+    """xlstm-125m at full width and depth (12 layers: 9 mLSTM, 3 sLSTM),
+    seeded weights: bf16 scoring through ``load_servable(...,
+    attn_impl="pallas")`` -> ``loss_and_acc`` at B = 4 x S = 2048, bf16
+    serving through ``lockstep_decode`` (8 prompts of 64 tokens, 64 new) with
+    a profiled window and one under sync-debug "error", f32 FedDUM training
+    at S = 128 (the training phase's config without FedAP: one round and an
+    Eval, then two timed rounds), then the two LM example scripts at their
+    defaults as subprocesses.  No TPU kernel lies on the family's path:
+    returns {}."""
+    import dataclasses
+    import re
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import TrainPlan
+    from repro_torch.core.rounds import FederatedTrainer, feddumap_config
+    from repro_torch.data.pipeline import build_lm_federated_data
+    from repro_torch.data.synthetic import TokenSpec
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import load_servable, lockstep_decode
+    from repro_torch.utils.tree import tree_size
+
+    cfg = get_config("xlstm-125m")
+    model = LM(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    kinds = ["s" if model._is_slstm(i) else "m" for i in range(cfg.num_layers)]
+    log(f"[xlstm] xlstm-125m full width: {cfg.num_layers} layers "
+        f"({kinds.count('m')} mLSTM, {kinds.count('s')} sLSTM), d_model="
+        f"{cfg.d_model}, {tree_size(params) / 1e6:.3f} M params, "
+        f"{cfg.param_dtype}")
+    sv = load_servable({"params": params, "kept": None, "mode": None,
+                        "model_config": cfg}, "dense", attn_impl="pallas",
+                       device="cuda")
+    del model, params
+    rng = np.random.default_rng(0)
+
+    # scoring: one timed forward, and a shorter one timed and profiled
+    t_part = time.perf_counter()
+    b, s_len = XLSTM_SCORE
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s_len + 1))
+                           .astype(np.int64)).cuda()
+    x, y = seq[:, :-1], seq[:, 1:]
+
+    def forward(s=s_len):
+        return sv.model.loss_and_acc(sv.params, x[:, :s], y[:, :s])
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, acc = forward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log(f"[scoring] xlstm-125m dense: loss {float(loss):.6f} acc "
+            f"{float(acc):.6f}; {b * s_len} tokens in {wall:.4f} s -> "
+            f"{b * s_len / wall:.1f} tokens/s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        require(math.isfinite(float(loss)) and 0.0 < float(loss)
+                < 2 * math.log(cfg.vocab_size) and 0.0 <= float(acc) <= 1.0,
+                f"scoring xlstm: loss {float(loss)}, acc {float(acc)}")
+        t0 = time.perf_counter()
+        forward(XLSTM_PROFILE_S)
+        torch.cuda.synchronize()
+        short = time.perf_counter() - t0
+        _profile_forward(torch, f"xlstm-125m dense (B={b} x S="
+                         f"{XLSTM_PROFILE_S})", lambda: forward(
+                             XLSTM_PROFILE_S), short)
+    del x, y, seq
+    log(f"[xlstm] scoring part: {time.perf_counter() - t_part:.1f} s")
+
+    # serving: the lockstep loop
+    t_part = time.perf_counter()
+    bs, p_len, n_new = (XLSTM_SERVE[k] for k in ("batch", "prompt", "new"))
+    cache_len = p_len + n_new
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (bs, p_len))
+                              .astype(np.int32))
+    lockstep_decode(sv.model, sv.params, prompt[:, :4], 4)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    got, steps = lockstep_decode(sv.model, sv.params, prompt, n_new,
+                                 timings=timings)
+    pre, dec = timings["prefill_s"], timings["decode_s"]
+    log(f"[serving] xlstm-125m: B={bs}, {steps} decode steps (prefill "
+        f"{pre:.3f} s, {1e3 * pre / p_len:.3f} ms/step; decode {dec:.3f} s, "
+        f"{1e3 * dec / n_new:.3f} ms/step) -> {bs * n_new / dec:.1f} "
+        f"tokens/s generated, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    require(steps == p_len + n_new and tuple(got.shape) == (bs, n_new)
+            and int(got.min()) >= 0 and int(got.max()) < cfg.vocab_size,
+            "serving xlstm: malformed tokens")
+    _profile_lockstep(torch, "xlstm-125m", sv, prompt, cache_len)
+    _sync_free_lockstep(torch, "xlstm-125m", sv, prompt, cache_len)
+    del sv
+    log(f"[xlstm] serving part: {time.perf_counter() - t_part:.1f} s")
+
+    # training: FedDUM in f32 at S = 128
+    t_part = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    model = LM(cfg32, device="cuda")
+    data = build_lm_federated_data(
+        num_clients=4, server_fraction=0.25,
+        spec=TokenSpec(vocab_size=cfg.vocab_size, num_topics=8, seq_len=129,
+                       num_sequences=45))
+    fl = feddumap_config(num_clients=4, clients_per_round=2, batch_size=4,
+                         server_batch_size=4, local_epochs=1, lr=3e-3,
+                         lr_decay=1.0)
+    trainer = FederatedTrainer(model, data, fl, device="cuda")
+    backend = trainer.backend()
+    kw = backend.sample_kw
+    seq_len = data.client_x.shape[-1]
+    tokens_per_round = seq_len * (kw["clients_per_round"] * kw["local_steps"]
+                                  * kw["batch_size"]
+                                  + kw["server_tau"] * kw["server_batch"])
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = trainer.run(TrainPlan.standard(1), params=params)
+    del params
+    state = res.state
+    t0 = time.perf_counter()
+    state, _ = backend.run_rounds(state, 1, 2)
+    torch.cuda.synchronize()
+    round_s = (time.perf_counter() - t0) / 2
+    loss, acc = backend.evaluate(state)
+    h = res.history
+    log(f"[training] xlstm-125m f32: S={seq_len}, per round "
+        f"{kw['clients_per_round']} clients x {kw['local_steps']} local steps "
+        f"of B={kw['batch_size']} + tau={kw['server_tau']} server steps of "
+        f"B={kw['server_batch']}, {tokens_per_round} tokens; round 1 test "
+        f"loss {h['loss'][0]:.6f} acc {h['acc'][0]:.4f} tau_eff "
+        f"{h['tau_eff'][0]:.6f}; after round 3 loss {float(loss):.6f} acc "
+        f"{float(acc):.4f}; steady state {round_s:.3f} s/round -> "
+        f"{tokens_per_round / round_s:.1f} tokens/s trained, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    require(all(math.isfinite(v) for k in ("loss", "acc", "tau_eff")
+                for v in h[k]) and math.isfinite(float(loss)),
+            "training xlstm: history not finite")
+    del res, state, trainer, backend, model
+    log(f"[xlstm] training part: {time.perf_counter() - t_part:.1f} s")
+
+    # the two LM example scripts at their defaults
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    for script, first in XLSTM_EXAMPLES:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable,
+                               os.path.join(ROOT, "examples", script)],
+                              cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=300)
+        lines = proc.stdout.strip().splitlines()
+        for line in lines[-4:]:
+            log(f"[xlstm] {script}: {line}")
+        log(f"[xlstm] {script} exited {proc.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        require(proc.returncode == 0, f"{script} failed:\n{proc.stderr}")
+        require(any(re.match(first, line) for line in lines),
+                f"{script}: no line matches {first!r}")
+    return {}
+
+
 PHASE_SECONDS: dict = {}    # phase -> wall seconds, for the [time] lines
 
 
@@ -3252,7 +3628,9 @@ def main() -> int:
             ("training cnn", lambda: phase_training_cnn(torch)),
             ("paper-parity", lambda: phase_paper_parity(torch) or {}),
             ("paper", lambda: phase_paper(torch)),
-            ("reliability", lambda: phase_reliability(torch))):
+            ("reliability", lambda: phase_reliability(torch)),
+            ("xlstm-parity", lambda: phase_xlstm_parity(torch) or {}),
+            ("xlstm", lambda: phase_xlstm(torch))):
         for name, n in _phase(torch, label, path).items():
             launches[name] = launches.get(name, 0) + n
     for name, sec in PHASE_SECONDS.items():

@@ -12,6 +12,7 @@ from repro_torch.configs.base import ModelConfig
 _ARCHS = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1p2b",
+    "xlstm-125m": "repro_torch.configs.xlstm_125m",
 }
 
 ARCH_NAMES = tuple(_ARCHS)

@@ -71,8 +71,10 @@ def cnn_params_to_numpy(tree) -> dict:
 def cache_from_jax(cache, device="cuda") -> dict:
     """A JAX decode cache (``LM.init_cache``'s tree as numpy or JAX arrays,
     e.g. one taken mid-stream) as the port's, leaf for leaf on ``device``,
-    every leaf keeping its dtype: dense ``{"k", "v", "index"}`` or hybrid
-    ``{"mamba": {"conv", "h"}, "shared_attn": {"k", "v"}, "index"}``."""
+    every leaf keeping its dtype: dense ``{"k", "v", "index"}``, hybrid
+    ``{"mamba": {"conv", "h"}, "shared_attn": {"k", "v"}, "index"}`` or ssm
+    ``{"l<i>": (C, N, m) | (c, n, h, m), "index"}`` (the recurrent states
+    stay tuples)."""
     if not isinstance(cache, dict) or "index" not in cache:
         raise ValueError(f"not a decode cache (a dict with an 'index' leaf): "
                          f"{type(cache).__name__}")

@@ -1,13 +1,15 @@
 """Transformer building blocks, as plain functions on tensors.
 
 Counterpart of the reference's ``models/layers.py``, limited to what the
-dense and hybrid families need: the full-sequence forward of training and
-scoring, the Mamba2 mixer, and the decode step of serving.  Layouts follow
-the reference: ``wq [d,H,hd]``, ``wk/wv [d,KV,hd]``, ``wo [H,hd,d]``,
-cache ``[B,S,KV,hd]``, FFN ``wi/wg [d,ff]``, ``wo [ff,d]``, Mamba2
-``in_proj [d, 2 d_in + 2 N + nh]``, ``conv [W, d_in + 2 N]``,
-``out_proj [d_in, d]``.  The compute dtype is the input dtype; norms, rope,
-softmax and the SSM state run in f32.
+dense, hybrid and ssm families need: the full-sequence forward of training
+and scoring, the Mamba2 mixer, the xLSTM cells, and the decode step of
+serving.  Layouts follow the reference: ``wq [d,H,hd]``, ``wk/wv
+[d,KV,hd]``, ``wo [H,hd,d]``, cache ``[B,S,KV,hd]``, FFN ``wi/wg [d,ff]``,
+``wo [ff,d]``, Mamba2 ``in_proj [d, 2 d_in + 2 N + nh]``, ``conv [W, d_in +
+2 N]``, ``out_proj [d_in, d]``, mLSTM ``up [d,2f]``, ``wq/wk/wv [f,nh,hd]``,
+``w_if [f,2nh]``, ``down [f,d]``, sLSTM ``w_x/w_h [d,4d]``, ``down [d,d]``.
+The compute dtype is the input dtype; norms, rope, softmax, the SSM state
+and the xLSTM gates and memories run in f32.
 """
 from __future__ import annotations
 
@@ -483,3 +485,231 @@ def mamba2_decode(params, x, state, meta: dict, cfg: ModelConfig):
     y = (y + xf * params["D"][:, None]).to(x.dtype).reshape(bsz, 1, d_in)
     y = apply_norm({"scale": params["norm_scale"]}, y * F.silu(z), "rmsnorm")
     return y @ params["out_proj"]
+
+
+# ---------------------------------------------------------------------------
+# xLSTM blocks: mLSTM (matrix memory) and sLSTM (scalar memory)
+# ---------------------------------------------------------------------------
+
+MLSTM_CHUNK = 64    # the reference's chunk of the mLSTM scan (min(64, S))
+
+
+def mlstm_meta(cfg: ModelConfig) -> dict:
+    """Shapes of the mLSTM cell: inner width ``f = proj_factor * d`` in
+    ``nh`` heads of ``hd``."""
+    f = int(cfg.xlstm.proj_factor * cfg.d_model)
+    return {"f": f, "nh": cfg.num_heads, "hd": f // cfg.num_heads}
+
+
+def init_mlstm(cfg: ModelConfig, dtype, generator, device) -> dict:
+    """mLSTM params in the reference's layouts: ``up [d, 2f]`` (``[x_inner |
+    z]``), ``wq/wk/wv [f, nh, hd]``, the gate projection ``w_if [f, 2nh]``
+    (``[i | f]``, float32 whatever the model's dtype), ``norm_scale [f]``
+    and ``down [f, d]``."""
+    meta = mlstm_meta(cfg)
+    d, f, nh, hd = cfg.d_model, meta["f"], meta["nh"], meta["hd"]
+
+    def normal(shape, scale, dt=dtype):
+        return _init_normal(shape, scale, dt, generator, device)
+
+    s_f = 1.0 / math.sqrt(f)
+    return {"up": normal((d, 2 * f), 1.0 / math.sqrt(d)),
+            "wq": normal((f, nh, hd), s_f), "wk": normal((f, nh, hd), s_f),
+            "wv": normal((f, nh, hd), s_f),
+            "w_if": normal((f, 2 * nh), s_f, torch.float32),
+            "norm_scale": torch.ones((f,), dtype=dtype, device=device),
+            "down": normal((f, d), s_f)}
+
+
+def _mlstm_scan(q, k, v, i_gate, f_gate, chunk: int):
+    """The chunked mLSTM, the reference's ``_mlstm_scan``: per head ``C_t =
+    f_t C_{t-1} + i_t k_t v_t^T``, ``y_t = q_t C_t / max(|q_t n_t|,
+    exp(-m_t))`` with the log-space stabiliser ``m`` (sigmoid forget gate,
+    exp input gate).  q, k, v [B,S,nh,hd]; gates [B,S,nh] -> y [B,S,nh,hd]
+    in q's dtype; S a multiple of ``chunk``.
+
+    Per chunk: the intra-chunk term ``(q k^T / sqrt(hd) o w) v`` with the
+    causal mask inside the exp, the carried memory's ``q C`` and ``q N``
+    scaled from the running max, and the memory update.  The reference's
+    three-operand einsums are taken as a product and a batched matmul
+    (``(scores w) @ v``, ``(k g)^T @ v``), which never forms a
+    [B, chunk, nh, hd, hd] temporary."""
+    b, s, nh, hd = q.shape
+    nc = s // chunk
+    scale = math.sqrt(hd)
+    lf = F.logsigmoid(f_gate.float()).reshape(b, nc, chunk, nh)
+    li = i_gate.float().reshape(b, nc, chunk, nh)
+
+    def chunks(t):                       # [B,S,nh,hd] -> [B,nc,nh,chunk,hd]
+        return t.float().reshape(b, nc, chunk, nh, hd).transpose(2, 3)
+
+    qc, kc, vc = chunks(q), chunks(k), chunks(v)
+    mask = torch.ones((chunk, chunk), dtype=torch.bool,
+                      device=q.device).tril()[None, :, :, None]
+    c_mem = q.new_zeros((b, nh, hd, hd), dtype=torch.float32)
+    n_mem = q.new_zeros((b, nh, hd), dtype=torch.float32)
+    m_run = q.new_full((b, nh), -1e30, dtype=torch.float32)
+    ys = []
+    for c in range(nc):
+        lfx, lix = lf[:, c], li[:, c]                             # [B,L,nh]
+        qx, kx, vx = qc[:, c], kc[:, c], vc[:, c]                 # [B,nh,L,hd]
+        cumf = torch.cumsum(lfx, dim=1)
+        total = cumf[:, -1]                                       # [B,nh]
+        log_g = lix + (total[:, None] - cumf)                     # j -> end
+        m_new = torch.maximum(m_run + total, torch.amax(log_g, dim=1))
+        d_ij = cumf[:, :, None, :] - cumf[:, None, :, :] + lix[:, None, :, :]
+        m_i = torch.maximum(
+            m_run[:, None] + cumf,
+            torch.amax(torch.where(mask, d_ij, -math.inf), dim=2))  # [B,L,nh]
+        w_ij = torch.exp(torch.where(mask, d_ij - m_i[:, :, None, :], -1e30))
+        w_hij = w_ij.permute(0, 3, 1, 2)                          # [B,nh,i,j]
+        scores = (qx @ kx.transpose(-1, -2)) / scale              # [B,nh,i,j]
+        sw = scores * w_hij
+        y_intra = sw @ vx                                         # [B,nh,L,hd]
+        carry_scale = torch.exp(m_run[:, None] + cumf - m_i).transpose(1, 2)
+        y_carry = (qx @ c_mem) / scale * carry_scale[..., None]
+        n_i = (qx @ n_mem[..., None])[..., 0] / scale * carry_scale \
+            + sw.sum(-1)                                          # [B,nh,L]
+        denom = torch.maximum(n_i.abs(), torch.exp(-m_i).transpose(1, 2))
+        ys.append((y_intra + y_carry) / denom[..., None])
+        g = torch.exp(log_g - m_new[:, None]).transpose(1, 2)     # [B,nh,L]
+        decay = torch.exp(m_run + total - m_new)                  # [B,nh]
+        kg = kx * g[..., None]
+        c_mem = c_mem * decay[..., None, None] + kg.transpose(-1, -2) @ vx
+        n_mem = n_mem * decay[..., None] + kg.sum(2)
+        m_run = m_new
+    y = torch.stack(ys, 1)                                     # [B,nc,nh,L,hd]
+    return y.transpose(2, 3).reshape(b, s, nh, hd).to(q.dtype)
+
+
+def _mlstm_qkv_gates(params, x):
+    """The mLSTM's projections of x [B,S,d]: q, k, v [B,S,nh,hd] in x's
+    dtype, the gates ``xi.float() @ w_if`` [B,S,2nh] in f32 and z."""
+    xi, z = (x @ params["up"]).chunk(2, dim=-1)
+    q, k, v = (_heads(xi, params[n]) for n in ("wq", "wk", "wv"))
+    return q, k, v, xi.float() @ params["w_if"], z
+
+
+def _mlstm_out(params, y, z):
+    """The gated RMSNorm ``rmsnorm(y * silu(z))`` and ``down``."""
+    y = apply_norm({"scale": params["norm_scale"]}, y * F.silu(z), "rmsnorm")
+    return y @ params["down"]
+
+
+def apply_mlstm(params, x, meta: dict, cfg: ModelConfig,
+                chunk: int = MLSTM_CHUNK):
+    """The mLSTM cell over a sequence, x [B,S,d] -> [B,S,d]: ``up`` split
+    into x_inner | z, q/k/v from x_inner, the i | f gates in f32, the scan
+    at ``min(chunk, S)``, the gated RMSNorm and ``down``.  An S above the
+    chunk that is not a multiple of it is refused, where the reference's
+    reshape fails."""
+    bsz, s, _ = x.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"apply_mlstm: sequence length {s} is not a "
+                         f"multiple of the scan's chunk {chunk}")
+    q, k, v, gates, z = _mlstm_qkv_gates(params, x)
+    i_gate, f_gate = gates.chunk(2, dim=-1)
+    y = _mlstm_scan(q, k, v, i_gate, f_gate, chunk)
+    return _mlstm_out(params, y.reshape(bsz, s, meta["f"]), z)
+
+
+def mlstm_init_state(batch: int, meta: dict, device) -> tuple:
+    """Fresh mLSTM decode state ``(C [B,nh,hd,hd], N [B,nh,hd], m [B,nh])``,
+    all f32: C and N zero, the stabiliser m at -1e30."""
+    nh, hd = meta["nh"], meta["hd"]
+    return (torch.zeros((batch, nh, hd, hd), dtype=torch.float32,
+                        device=device),
+            torch.zeros((batch, nh, hd), dtype=torch.float32, device=device),
+            torch.full((batch, nh), -1e30, dtype=torch.float32,
+                       device=device))
+
+
+def mlstm_decode(params, x, state, meta: dict, cfg: ModelConfig):
+    """One-token mLSTM step, x [B,1,d] -> [B,1,d]; ``state`` (C, N, m)
+    (:func:`mlstm_init_state`) is updated IN PLACE, where the reference
+    returns a new one.  As there, C and N take the unscaled k and only the
+    read-out ``q C`` and ``q N`` are divided by sqrt(hd)."""
+    f, nh, hd = meta["f"], meta["nh"], meta["hd"]
+    c_mem, n_mem, m_run = state
+    q, k, v, gates, z = _mlstm_qkv_gates(params, x)
+    q, k, v = (t[:, 0].float() for t in (q, k, v))                # [B,nh,hd]
+    li, lf = gates[:, 0].chunk(2, dim=-1)                         # [B,nh]
+    lf = F.logsigmoid(lf)
+    m_new = torch.maximum(m_run + lf, li)
+    decay = torch.exp(m_run + lf - m_new)
+    ki = k * torch.exp(li - m_new)[..., None]
+    c_mem.mul_(decay[..., None, None]).add_(ki[..., :, None] * v[..., None, :])
+    n_mem.mul_(decay[..., None]).add_(ki)
+    m_run.copy_(m_new)
+    scale = math.sqrt(hd)
+    y = (q[..., None, :] @ c_mem)[..., 0, :] / scale              # [B,nh,hd]
+    n = (q * n_mem).sum(-1) / scale
+    y = y / torch.maximum(n.abs(), torch.exp(-m_new))[..., None]
+    return _mlstm_out(params, y.reshape(x.shape[0], 1, f).to(x.dtype), z)
+
+
+def init_slstm(cfg: ModelConfig, dtype, generator, device) -> dict:
+    """sLSTM params in the reference's layouts: input and recurrent weights
+    ``w_x``, ``w_h`` [d, 4d] (gates i, f, z, o), ``bias [4d]`` (float32, 0)
+    and ``down [d, d]``."""
+    d = cfg.d_model
+    s = 1.0 / math.sqrt(d)
+
+    def normal(shape):
+        return _init_normal(shape, s, dtype, generator, device)
+
+    return {"w_x": normal((d, 4 * d)), "w_h": normal((d, 4 * d)),
+            "bias": torch.zeros((4 * d,), dtype=torch.float32, device=device),
+            "down": normal((d, d))}
+
+
+def _slstm_cell(params, x_t, state) -> tuple:
+    """One sLSTM step with exponential gating and the stabiliser, the
+    reference's ``_slstm_cell``: x_t [B,d]; ``state`` (c, n, h, m), each
+    [B,d] f32.  The recurrent h is cast to the params' dtype for its
+    product; the pre-activation is taken in f32 with the bias.  Returns the
+    new state."""
+    c, n, h, m = state
+    pre = (x_t @ params["w_x"] + h.to(x_t.dtype) @ params["w_h"]).float() \
+        + params["bias"]
+    i_, f_, z_, o_ = pre.chunk(4, dim=-1)
+    lf = F.logsigmoid(f_)
+    m_new = torch.maximum(lf + m, i_)
+    i_g = torch.exp(i_ - m_new)
+    f_g = torch.exp(lf + m - m_new)
+    c = f_g * c + i_g * torch.tanh(z_)
+    n = f_g * n + i_g
+    # torch.maximum, not clamp: at n == 1 (the first step, whenever i >= f)
+    # its gradient splits evenly, as jnp.maximum's does
+    h_new = torch.sigmoid(o_) * c / torch.maximum(n, n.new_ones(()))
+    return c, n, h_new, m_new
+
+
+def slstm_init_state(batch: int, d: int, device) -> tuple:
+    """Fresh sLSTM decode state ``(c, n, h, m)``, each [B,d] f32 zeros (m
+    too, as in the reference)."""
+    return tuple(torch.zeros((batch, d), dtype=torch.float32, device=device)
+                 for _ in range(4))
+
+
+def apply_slstm(params, x, meta: dict, cfg: ModelConfig):
+    """The sLSTM over a sequence, x [B,S,d] -> [B,S,d]: the cell a step at a
+    time from a zero state (a plain loop over S: the reference has no
+    kernel here), then ``down`` on the hidden states in x's dtype."""
+    bsz, s, d = x.shape
+    state = slstm_init_state(bsz, d, x.device)
+    hs = []
+    for t in range(s):
+        state = _slstm_cell(params, x[:, t], state)
+        hs.append(state[2])
+    return torch.stack(hs, 1).to(x.dtype) @ params["down"]
+
+
+def slstm_decode(params, x, state, meta: dict, cfg: ModelConfig):
+    """One-token sLSTM step, x [B,1,d] -> [B,1,d]; ``state`` (c, n, h, m)
+    is updated IN PLACE."""
+    new = _slstm_cell(params, x[:, 0], state)
+    for dst, src in zip(state, new):
+        dst.copy_(src)
+    return state[2][:, None].to(x.dtype) @ params["down"]

@@ -1,6 +1,6 @@
 """The decoder LM, functional: params are dicts of tensors.
 
-Counterpart of the reference's ``models/lm.py`` for two families:
+Counterpart of the reference's ``models/lm.py`` for three families:
 
 * ``dense`` (llama-style decoder: GQA + RoPE 1d/2d + SwiGLU or GELU MLP):
   the full-sequence forward, loss and token accuracy that federated
@@ -10,22 +10,30 @@ Counterpart of the reference's ``models/lm.py`` for two families:
   applied before each group of ``attn_every`` layers): the full-sequence
   forward, loss and token accuracy, and the decode step over a per-layer
   Mamba2 conv/SSM state and one KV cache per shared-attention application;
+* ``ssm`` (xlstm: mLSTM blocks with an sLSTM block every ``slstm_every``-th
+  layer, unrolled): the full-sequence forward, loss and token accuracy, and
+  the decode step over each layer's recurrent state;
 
-and the FedAP pruning seam of both.  Layer params are stacked along a
-leading ``[L, ...]`` axis as in the reference, so a JAX param tree
-converts leaf for leaf (:mod:`repro_torch.interop`).
+and the FedAP pruning seam of the first two (the ``ssm`` family has no FFN
+and refuses it, as the reference does).  Dense and hybrid layer params are
+stacked along a leading ``[L, ...]`` axis as in the reference, so a JAX
+param tree converts leaf for leaf (:mod:`repro_torch.interop`).
 
 Params: ``{"embed" [V,d], "unembed" [d,V] (untied only), "norm_out",
 "layers": {...}}`` with ``layers = {"attn": {wq, wk, wv, wo}, "norm_a",
 "norm_f", "mlp": {wi, wg, wo}}`` (dense) or ``{"mamba": {in_proj, conv,
 A_log, D, dt_bias, norm_scale, out_proj}, "norm_m", "norm_f", "mlp"}`` plus
-``"shared_attn": {"attn", "norm"}`` (hybrid).
+``"shared_attn": {"attn", "norm"}`` (hybrid); the ssm family holds
+``"blocks": {"l<i>": {"cell", "norm"}}`` instead of ``"layers"``, with an
+mLSTM cell ``{up, wq, wk, wv, w_if, norm_scale, down}`` or an sLSTM cell
+``{w_x, w_h, bias, down}``.
 
 ``attn_impl="pallas"`` sends full-sequence attention through the
 ``flash_attention`` kernel (K4) and the Mamba2 scan through ``ssd_scan``
 (K6), both forward only: it scores and evaluates.  ``"xla"`` (the default,
 as in the reference) runs their plain, differentiable forms, which is what
-training uses.
+training uses.  The ssm family reaches no kernel: its products are plain
+matmuls, as in the reference.
 """
 from __future__ import annotations
 
@@ -40,7 +48,7 @@ from repro_torch.models import layers as L
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-FAMILIES = ("dense", "hybrid")
+FAMILIES = ("dense", "hybrid", "ssm")
 
 
 def _unstack(stacked) -> list:
@@ -53,8 +61,8 @@ def _unstack(stacked) -> list:
 
 class LM:
     """``init``, ``apply``/``loss``/``loss_and_acc`` and ``init_cache``/
-    ``decode_step`` of a dense or hybrid decoder, on ``device`` (default
-    ``"cuda"``, which raises when CUDA is missing)."""
+    ``decode_step`` of a dense, hybrid or ssm decoder, on ``device``
+    (default ``"cuda"``, which raises when CUDA is missing)."""
 
     def __init__(self, cfg: ModelConfig, *, attn_impl: str = "xla",
                  device="cuda"):
@@ -73,7 +81,19 @@ class LM:
         self.device = _device.resolve(device)
         self.dtype = DTYPES[cfg.param_dtype]
         self.hybrid = cfg.family == "hybrid"
-        self._meta = L.mamba2_meta(cfg) if self.hybrid else None
+        self.ssm = cfg.family == "ssm"
+        self._meta = (L.mamba2_meta(cfg) if self.hybrid
+                      else L.mlstm_meta(cfg) if self.ssm else None)
+
+    def _is_slstm(self, i: int) -> bool:
+        """Whether ssm layer ``i`` is an sLSTM block (every
+        ``slstm_every``-th; the others are mLSTM)."""
+        return self.ssm and (i + 1) % self.cfg.xlstm.slstm_every == 0
+
+    def _refuse_masks(self, masks) -> None:
+        if masks is not None and self.ssm:
+            raise ValueError(f"masks= requires a scanned stack, not family "
+                             f"{self.cfg.family!r}")
 
     def hybrid_groups(self) -> list:
         """zamba2 layer groups ``(start, stop)``: the shared attention runs
@@ -95,6 +115,15 @@ class LM:
                 (cfg.d_model, cfg.vocab_size), 1.0 / math.sqrt(cfg.d_model),
                 self.dtype, generator, self.device)
         params["norm_out"] = L.init_norm(cfg, self.dtype, self.device)
+        if self.ssm:
+            blocks = {}
+            for i in range(cfg.num_layers):
+                init = L.init_slstm if self._is_slstm(i) else L.init_mlstm
+                blocks[f"l{i}"] = {
+                    "cell": init(cfg, self.dtype, generator, self.device),
+                    "norm": L.init_norm(cfg, self.dtype, self.device)}
+            params["blocks"] = blocks
+            return params
         if not self.hybrid:
             params["layers"] = L.init_layer_stack(
                 cfg, cfg.num_layers, self.dtype, generator, self.device)
@@ -145,8 +174,21 @@ class LM:
         ``cfg.remat == "block"`` recomputes each layer in the backward
         (``torch.utils.checkpoint``), launching its forward kernels twice.
         Neither family has an auxiliary loss, so only the logits return.
+
+        The ssm family runs its unrolled blocks ``x + cell(norm(x))`` and
+        ignores ``remat``, as the reference's branch returns before its
+        remat; ``masks=`` is refused there.
         """
         cfg = self.cfg
+        self._refuse_masks(masks)
+        if self.ssm:
+            x = params["embed"][batch["tokens"]]
+            for i in range(cfg.num_layers):
+                blk = params["blocks"][f"l{i}"]
+                h = L.apply_norm(blk["norm"], x, cfg.norm)
+                cell = L.apply_slstm if self._is_slstm(i) else L.apply_mlstm
+                x = x + cell(blk["cell"], h, self._meta, cfg)
+            return self._head(params, x)
         if cfg.remat not in ("none", "block"):
             raise ValueError(f"remat={cfg.remat!r} is not ported (the port "
                              f"takes 'none' and 'block')")
@@ -246,10 +288,20 @@ class LM:
         {"conv": [L, B, W-1, d_in + 2N] (param dtype), "h": [L, B, nh, p, N]
         (f32)}, "shared_attn": {"k", "v": [G, B, S', KV, hd]}}``, one KV cache
         per application of the shared attention (G groups), with S' = S cut
-        to ``cfg.sliding_window``."""
+        to ``cfg.sliding_window``.  ssm: ``{"l<i>": (C, N, m)`` (mLSTM) or
+        ``(c, n, h, m)`` (sLSTM)``}``, f32 recurrent states whose size does
+        not depend on ``cache_len``."""
         cfg = self.cfg
         rows = cache_len if window is None else min(cache_len, window)
         index = torch.zeros((), dtype=torch.int32, device=self.device)
+        if self.ssm:
+            cache = {"index": index}
+            for i in range(cfg.num_layers):
+                cache[f"l{i}"] = (
+                    L.slstm_init_state(batch_size, cfg.d_model, self.device)
+                    if self._is_slstm(i) else
+                    L.mlstm_init_state(batch_size, self._meta, self.device))
+            return cache
         if self.hybrid:
             rows = min(rows, cfg.sliding_window or rows)
             conv, h = L.mamba2_init_state(batch_size, self._meta, cfg,
@@ -292,11 +344,22 @@ class LM:
         plain-attention decode on the card.  The hybrid runs the shared
         attention on its group's cache before each group of Mamba2 layers
         (:func:`layers.mamba2_decode`, a plain recurrence: the reference has
-        no kernel there).
+        no kernel there).  The ssm family runs each layer's norm and its
+        cell's step (:func:`layers.mlstm_decode`, :func:`layers.slstm_decode`,
+        plain ops), each state written into its cache tensors; ``masks=`` is
+        refused there.
         """
         cfg = self.cfg
+        self._refuse_masks(masks)
         x = params["embed"][batch["tokens"]]
         idx = cache["index"]
+        if self.ssm:
+            for i in range(cfg.num_layers):
+                blk = params["blocks"][f"l{i}"]
+                h = L.apply_norm(blk["norm"], x, cfg.norm)
+                step = L.slstm_decode if self._is_slstm(i) else L.mlstm_decode
+                x = x + step(blk["cell"], h, cache[f"l{i}"], self._meta, cfg)
+            return self._head(params, x), {**cache, "index": idx + 1}
         off = idx if idx.ndim == 0 else idx[None, :, None]
         pos = L.default_positions(x.shape[0], 1, cfg.rope,
                                   device=x.device) + off

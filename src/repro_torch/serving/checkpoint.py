@@ -37,6 +37,8 @@ class Servable:
 
 
 def _infer_d_ff(params) -> int | None:
+    """The FFN width of stacked ``layers`` params; None for a tree without
+    them (the ssm family's ``blocks``)."""
     layers = params.get("layers") if isinstance(params, dict) else None
     if isinstance(layers, dict) and "mlp" in layers:
         return int(layers["mlp"]["wi"].shape[-1])

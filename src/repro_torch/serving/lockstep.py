@@ -3,7 +3,9 @@
 Counterpart of the reference's ``examples/serve_decode.py::serve_lockstep``,
 the way the reference serves the families whose decode state has no
 per-slot cache index (the hybrid's Mamba2 state and ring-buffer attention
-caches; ``DecodeEngine`` refuses them).  The prompt is prefilled one token a
+caches, the ssm family's mLSTM/sLSTM recurrent states; ``DecodeEngine``
+refuses them).  It is the same loop for every family: only
+``model.init_cache`` and ``model.decode_step`` differ.  The prompt is prefilled one token a
 step through ``model.decode_step``, then tokens are decoded greedily with
 argmax on the device.  Nothing inside the steps reads a tensor to the host:
 the generated tokens are read once, at the end.
@@ -21,7 +23,8 @@ def lockstep_decode(model, params, prompt, n_new: int, *, masks=None,
     P >= 1) with ``model`` (an ``LM``) on its device.
 
     The cache holds ``cache_len`` rows (default P + n_new); a hybrid's shared
-    attention cuts it to its window, past which it is a ring buffer.  As in
+    attention cuts it to its window, past which it is a ring buffer (an ssm
+    model's recurrent state has no rows).  As in
     the reference's loop, the argmax after the last prompt token is the first
     decode step's input, and the tokens returned are the argmax of each of
     the ``n_new`` decode steps.  ``masks`` (``{"mlp": [L, d_ff] 0/1}``) route

@@ -1,8 +1,8 @@
 """The port stands alone and never runs on the CPU by accident.
 
 * Every ``repro_torch`` module imports with ``jax`` and ``repro`` blocked.
-* No source line of the port, of ``chip_smoke.py`` or of
-  ``examples/fl_paper_repro_torch.py`` imports either.
+* No source line of the port, of ``chip_smoke.py`` or of the port's
+  examples (``examples/*_torch.py``) imports either.
 * Entry points default to ``device="cuda"`` and raise on a machine without
   CUDA instead of carrying on on the CPU.
 * The kernel dispatch serves only CPU tensors with the plain versions: any
@@ -34,6 +34,8 @@ from repro_torch.serving import DecodeEngine, ServeConfig, load_servable
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 TINY = get_config("olmo-1b").reduced(vocab_size=256, d_ff=256)
+EXAMPLES = ("fl_paper_repro_torch.py", "quickstart_torch.py",
+            "serve_decode_torch.py", "fl_llm_train_torch.py")
 
 
 def _modules():
@@ -59,9 +61,8 @@ def test_every_module_imports_without_jax_or_repro():
 
 def test_no_source_line_imports_jax_or_repro():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
-    files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                        REPO / "examples" /
-                                        "fl_paper_repro_torch.py"]
+    files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + [
+        REPO / "examples" / name for name in EXAMPLES]
     hits = [f"{f}:{i}" for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1)
             if pattern.match(line)]
@@ -87,7 +88,9 @@ def no_cuda():
                                    "SimpleCNN", "ResNet18",
                                    "cnn_params_from_jax", "CNN trainer",
                                    "run_one", "scenario grid",
-                                   "fl_paper_repro_torch"])
+                                   "fl_paper_repro_torch", "xlstm LM",
+                                   "serve_decode_torch",
+                                   "fl_llm_train_torch"])
 def test_default_device_raises_without_cuda(no_cuda, entry):
     params = LM(TINY, device="cpu").init(torch.Generator().manual_seed(0))
     data = build_lm_federated_data(
@@ -122,11 +125,17 @@ def test_default_device_raises_without_cuda(no_cuda, entry):
         elif entry == "scenario grid":
             experiments.suite_scenario_matrix("smoke",
                                               out_dir=REPO / "build")
-        elif entry == "fl_paper_repro_torch":
+        elif entry == "xlstm LM":
+            LM(get_config("xlstm-125m"))
+        elif entry in ("fl_paper_repro_torch", "serve_decode_torch",
+                       "fl_llm_train_torch"):
+            args = {"fl_paper_repro_torch": ["--rounds", "1", "--out",
+                                             str(REPO / "build" / "x")],
+                    "serve_decode_torch": ["--arch", "xlstm-125m"],
+                    "fl_llm_train_torch": ["--rounds", "1"]}[entry]
             proc = subprocess.run(
-                [sys.executable, str(REPO / "examples" /
-                                     "fl_paper_repro_torch.py"),
-                 "--rounds", "1", "--out", str(REPO / "build" / "x")],
+                [sys.executable, str(REPO / "examples" / f"{entry}.py"),
+                 *args],
                 cwd=REPO, capture_output=True, text=True, timeout=120,
                 env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
                      "CUDA_VISIBLE_DEVICES": ""})
