@@ -58,7 +58,7 @@ Phases, in order; any failure raises and the script exits non-zero:
               wave run under ``torch.cuda.set_sync_debug_mode("error")``,
               and the modes' device kernel time per step on adjacent lines;
               then zamba2-1.2b, all 38 layers, bfloat16, through
-              ``lockstep_decode`` (8 prompts of 448 tokens, 64 new) in the
+              ``lockstep_decode`` (8 prompts of 64 tokens, 64 new) in the
               same three modes: tokens/s, ms/step, K5 7 and K1 76 (masked)
               launches a step, a profiled window and a sync-checked one;
 9. score-parity — float32 logits of ``attn_impl="pallas"`` (K4, K6)
@@ -83,8 +83,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 12. training cnn — the paper protocol through ``FederatedTrainer``:
               ``SyntheticSpec()`` data, 100 clients of 400 samples, 2,000
               server samples, 10 clients a round, E = 5, B = 10, FedAP with
-              a probe of 32 and 6 participants; SimpleCNN for 6 rounds with
-              a prune at round 3 (shrink, mask, mask then shrink at 4) and
+              a probe of 32 and 6 participants; SimpleCNN with a prune at
+              round 2 (shrink and mask for 3 rounds, mask then shrink at 3
+              for 4) and
               VGG11 (32x32x3) for 2 rounds with a shrink at round 1: s/round,
               local samples/s, peak memory, the busy share of a profiled
               round, p*, kept counts, MFLOPs before and after, the accuracy
@@ -97,7 +98,7 @@ Phases, in order; any failure raises and the script exits non-zero:
               and momentum bitwise unchanged on the card and moves the
               params by exactly -h/alpha), and the FedDF and FedKT hooks;
 14. paper   — ``repro_torch.experiments.run_one`` for the 16 algorithms of
-              the paper's comparison at its protocol (4 rounds, prune or
+              the paper's comparison at its protocol (3 rounds, prune or
               hook at round 2, Eval every 2), then the scenario grid's
               smoke cells (FedAvg, FedProx, FedDyn at dropout 0.25): a line
               a run with s/round, local samples/s, the busy share of a
@@ -138,7 +139,32 @@ Phases, in order; any failure raises and the script exits non-zero:
               ``examples/serve_decode_torch.py`` and
               ``examples/fl_llm_train_torch.py`` at their defaults as
               subprocesses, which must exit 0.  No TPU kernel lies on the
-              family's path.
+              family's path;
+18. moe-parity — arctic-480b and llama4-maverick reduced (2 layers, d
+              256, 4 experts) with their own head layouts (56 and 40 heads
+              of 128 padded to 64 and 48 over 8 kv heads), f32, card against
+              CPU: one ``apply_moe`` with both auxiliary losses, the
+              forward's logits through plain attention and through K4, the
+              loss with its aux and every gradient leaf, 8 decode steps from
+              per-slot fill levels (K5 at G = 8 and 6); ``fedap_lm`` at rate
+              0.5 on a 16-expert arctic: the CPU keeps the same experts, and
+              a leaf-at-a-time prune equals it bitwise;
+19. moe     — arctic-480b at full width (128 experts of 4864, top-2, the
+              dense residual FFN, 56 heads padded to 64 over 8 kv heads of
+              128) cut to 2 of 35 layers, bf16, seeded weights, ``dense``
+              then ``experts@0.5`` (fedap_lm's 64 of 128 experts, gathered a
+              leaf at a time): scoring through ``load_servable(...,
+              attn_impl="pallas")`` at B = 4 x S = 2048 (K4 2 launches a
+              forward, a profiled forward) and serving through
+              ``DecodeEngine`` at the olmo-1b serving phase's settings (K5 2
+              launches a step; tokens/s, ms/step, launches a step and busy
+              share of a profiled wave, peak, a wave under sync-debug
+              "error"); then f32 FedDUM training of arctic's structure cut
+              to 4 layers, d 2048, 16 experts of 1216 at S = 128: two runs
+              of one round from one state bitwise equal, then two timed
+              rounds.  The kernels phase also holds K4 at arctic's scoring
+              shape (64 heads over 8) and K5 at G = 8 and 6 against their
+              plain versions, timed beside SDPA (``enable_gqa``).
 
 Each phase after the build prints its peak device memory; ``[time]`` lines
 give each phase's wall seconds and the total.
@@ -492,7 +518,146 @@ def phase_kernels(torch, timer) -> dict:
         records.setdefault(name, {}).update(rec)
     records["masked_matmul"].update(_scoring_k1(torch, timer, gen))
     records.update(_scoring_kernels(torch, timer, gen))
+    for name, rec in _moe_kernels(torch, timer, gen).items():
+        records[name].update(rec)
     return records
+
+
+def _gqa_heads(h, kvh):
+    """The query-head order under which SDPA's ``enable_gqa`` grouping (head
+    h' reads kv head h' // G) is the port's (head h = g KV + kv reads kv):
+    SDPA's head h' = kv G + g is the port's head g KV + kv."""
+    g = h // kvh
+    return [gi * kvh + kv for kv in range(kvh) for gi in range(g)]
+
+
+def _moe_kernels(torch, timer, gen) -> dict:
+    """K4 and K5 at the moe family's GQA shapes, each against its plain
+    version in f32 and bf16 and timed in bf16 beside its bound and SDPA
+    (``enable_gqa``, the query heads reordered to its grouping, checked
+    against the plain version): K4 at arctic-480b's scoring (B=4, S=2048,
+    64 padded heads over 8 kv heads of 128, causal; ``moe_*`` keys of its
+    record); K5 at arctic's serving (B=8, S=512, G = 8; ``moe_*`` keys) and
+    llama4-maverick's (48 padded heads over 8, G = 6; ``llama4_*`` keys),
+    ragged lengths with stale NaN rows, each launched twice and compared
+    bitwise."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.kernels import ref
+
+    out = {"flash_attention": {}, "decode_attention": {}}
+    b, s, h, kvh, hd = 4, 2048, 64, 8, 128
+    perm = torch.tensor(_gqa_heads(h, kvh), device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        q, k, v = (torch.randn((b, s, n, hd), generator=gen, device="cuda")
+                   .to(dtype) for n in (h, kvh, kvh))
+        got = k4.flash_attention(q, k, v, causal=True)
+        again = k4.flash_attention(q, k, v, causal=True)
+        want = ref.flash_attention_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err, rel = max_rel_err(torch, got, want)
+        wantf = want.float()
+        allowed = (BF16_STEP * wantf.abs() if dtype == torch.bfloat16 else 0) \
+            + SCORE_TOL["flash_attention"] * max(1.0, float(wantf.abs().max()))
+        worst = float(((got.float() - wantf).abs() / allowed).max())
+        log(f"[kernels] flash_attention arctic-480b B={b} S={s} H={h} KV={kvh}"
+            f" hd={hd} causal {dname}: max_abs_err={err:.3e} rel={rel:.3e}; "
+            f"|err| / allowance <= {worst:.3f} (limit 1); two launches "
+            f"bitwise equal: {bool(torch.equal(got, again))}")
+        require(bool(torch.isfinite(got).all()) and worst <= 1.0,
+                f"flash_attention arctic {dname}: error over tolerance")
+        require(torch.equal(got, again), f"flash_attention arctic {dname}: "
+                f"two launches differ")
+        del got, again, wantf, allowed
+        if dtype != torch.bfloat16:
+            del want, q, k, v
+            continue
+        qt = q[:, :, perm].transpose(1, 2).contiguous()
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+        lib = torch.empty_like(q)
+        lib[:, :, perm] = sdpa().transpose(1, 2)
+        lib_err = max_rel_err(torch, lib, want)[1]
+        require(lib_err <= 2 * BF16_STEP, f"sdpa (enable_gqa) is not the "
+                f"same function: {lib_err:.3e}")
+        del lib, want
+        ms, lib_ms = timer.turns(
+            lambda: k4.flash_attention(q, k, v, causal=True), sdpa)
+        plain_ms = timer(lambda: ref.flash_attention_ref(q, k, v,
+                                                         causal=True))
+        bound, by, flops = _k4_bound(b, s, s, h, kvh, hd, True, None,
+                                     q.element_size(), dname)
+        log(f"[kernels] flash_attention arctic-480b {dname}: kernel {ms:.4f} "
+            f"ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"sdpa (enable_gqa) {lib_ms:.4f} ms ({ms / lib_ms:.3f}x), bound "
+            f"{bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of it")
+        out["flash_attention"] = {
+            "moe_max_abs_err": err, "moe_ms": ms, "moe_plain_ms": plain_ms,
+            "moe_bound_ms": bound, "moe_bound_by": by,
+            "moe_library_ms": lib_ms}
+        del q, k, v, qt, kt, vt
+
+    b, s, kvh, hd = 8, 512, 8, 128
+    for tag, g in (("moe", 8), ("llama4", 6)):
+        h = g * kvh
+        perm = torch.tensor(_gqa_heads(h, kvh), device="cuda")
+        ln = torch.randint(1, 129, (b,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            q, k, v = _k5_case(torch, gen, b, s, kvh, g, hd, dtype, ln)
+            got = k5.decode_attention(q, k, v, ln)
+            again = k5.decode_attention(q, k, v, ln)
+            want = ref.decode_attention_ref(q, k, v, ln)
+            torch.cuda.synchronize()
+            err, rel = max_rel_err(torch, got, want)
+            gb = k5.decode_layout(hd, q.element_size(), g)[0]
+            log(f"[kernels] decode_attention {tag} B={b} S={s} H={h} KV={kvh}"
+                f" G={g} hd={hd} {dname} lengths {int(ln.min())}.."
+                f"{int(ln.max())}: max_abs_err={err:.3e} rel={rel:.3e} (tol "
+                f"{TOL[dname]:.3e}); {gb} heads a block; two launches "
+                f"bitwise equal: {bool(torch.equal(got, again))}")
+            require(bool(torch.isfinite(got).all()) and rel <= TOL[dname],
+                    f"decode_attention {tag} {dname}: error {rel:.3e}")
+            require(torch.equal(got, again), f"decode_attention {tag} "
+                    f"{dname}: two launches differ")
+            if dtype != torch.bfloat16:
+                continue
+            qt = q[:, :, perm].transpose(1, 2).contiguous()    # [B,H,1,hd]
+            kt = k.transpose(1, 2).contiguous().nan_to_num()
+            vt = v.transpose(1, 2).contiguous()
+            mask = (torch.arange(s, device="cuda")[None, :]
+                    < ln[:, None])[:, None, None, :]
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+            lib = torch.empty_like(q)
+            lib[:, :, perm] = sdpa().transpose(1, 2)
+            require(max_rel_err(torch, lib, want)[1] <= 2 * TOL[dname],
+                    f"sdpa (enable_gqa) at {tag} is not the same function")
+            ms, lib_ms = timer.turns(
+                lambda: k5.decode_attention(q, k, v, ln), sdpa)
+            plain_ms = timer(lambda: ref.decode_attention_ref(q, k, v, ln))
+            bound = _k5_bound_ms(b, h, kvh, hd, int(ln.sum()),
+                                 q.element_size(), dname)
+            log(f"[kernels] decode_attention {tag} G={g} {dname}: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (enable_gqa) "
+                f"{lib_ms:.4f} ms, bound {bound:.4f} ms (bytes), "
+                f"{100 * bound / ms:.1f}% of it")
+            out["decode_attention"].update({
+                f"{tag}_max_abs_err": err, f"{tag}_ms": ms,
+                f"{tag}_plain_ms": plain_ms, f"{tag}_bound_ms": bound,
+                f"{tag}_bound_by": "bytes", f"{tag}_library_ms": lib_ms})
+    return out
 
 
 def _hybrid_k5(torch, timer, gen) -> dict:
@@ -1525,10 +1690,11 @@ def _profile_wave(torch, mode, sv, scfg, prompts):
             f"kernels)")
         return None
     busy = 100 * dev_ms / wall_ms
+    n = scfg.steps_per_wave
     log(f"[profile] {mode}: wave {wall_ms:.3f} ms/step on the host clock, "
         f"kernels {dev_ms:.3f} ms/step on the device -> busy {busy:.1f}%, "
-        f"idle {100 - busy:.1f}%")
-    n = scfg.steps_per_wave
+        f"idle {100 - busy:.1f}%; {sum(e.count for e in kernels) / n:.0f} "
+        f"kernel launches a step")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     own = [e for e in ranked[6:] if "decode_" in e.key or "masked_" in e.key]
     for e in ranked[:6] + own:
@@ -1551,8 +1717,9 @@ def _sync_free_wave(torch, sv, scfg, prompts) -> None:
         f"set_sync_debug_mode('error') without a host sync")
 
 
-# zamba2 serving: 8 sequences, prompts of 448 tokens, 64 new, 512 cache rows
-HYBRID_SERVE = dict(batch=8, prompt=448, new=64, cache_len=512)
+# zamba2 serving: 8 sequences, prompts of 64 tokens, 64 new, 512 cache rows;
+# prefill runs a token a step (67-91 ms), so the prompt sets the phase's time
+HYBRID_SERVE = dict(batch=8, prompt=64, new=64, cache_len=512)
 
 
 def phase_serving_hybrid(torch) -> dict:
@@ -2155,12 +2322,12 @@ def _cnn_round_parity(torch, cpu, gpu, params_c, params_g, rng, shape):
 # config and prints it as a finding, and every other run takes the
 # quickstart's compression floor, min_rate 0.3, and must prune.
 CNN_RUNS = (
-    dict(model="SimpleCNN", shape=(16, 16, 3), rounds=6, prune_round=3,
+    dict(model="SimpleCNN", shape=(16, 16, 3), rounds=3, prune_round=2,
          mode="shrink", min_rate=0.3),
-    dict(model="SimpleCNN", shape=(16, 16, 3), rounds=6, prune_round=3,
+    dict(model="SimpleCNN", shape=(16, 16, 3), rounds=3, prune_round=2,
          mode="mask"),
-    dict(model="SimpleCNN", shape=(16, 16, 3), rounds=6, prune_round=3,
-         mode="mask", shrink_round=4, min_rate=0.3),
+    dict(model="SimpleCNN", shape=(16, 16, 3), rounds=4, prune_round=2,
+         mode="mask", shrink_round=3, min_rate=0.3),
     dict(model="VGG11", shape=(32, 32, 3), rounds=2, prune_round=1,
          mode="shrink", lr=0.01, min_rate=0.3),
 )
@@ -2306,10 +2473,10 @@ def phase_training_cnn(torch) -> dict:
         launches["masked_matmul"] += n_k1
         del res, state, trainer, backend, params, before, after
     same = all(np.array_equal(kept_by_run["shrink", "SimpleCNN"][k], v)
-               for k, v in kept_by_run["mask-then-shrink@4",
+               for k, v in kept_by_run["mask-then-shrink@3",
                                        "SimpleCNN"].items())
     log(f"[training cnn] SimpleCNN's shrink and mask-then-shrink runs kept "
-        f"{'the same' if same else 'different'} filters at round 3 (same "
+        f"{'the same' if same else 'different'} filters at round 2 (same "
         f"params, draws and min_rate; cuDNN's weight gradients sum in no "
         f"fixed order)")
     return launches
@@ -2620,7 +2787,7 @@ def _paper_hook_fallback(torch, mode, cpu, gpu, params_c, xs, card, host):
                            labels)
 
 
-PAPER_ROUNDS, PAPER_PRUNE, PAPER_EVAL = 4, 2, 2
+PAPER_ROUNDS, PAPER_PRUNE, PAPER_EVAL = 3, 2, 2
 
 
 class _RoundClock:
@@ -3577,6 +3744,368 @@ def phase_xlstm(torch) -> dict:
     return {}
 
 
+MOE_TOL = 1e-4      # f32 card against CPU: logits relative to max(1, max
+                    # |cpu|), the loss relative to itself (PARITY_TOL's)
+MOE_LAYER_TOL = 1e-5    # one apply_moe: y and both aux losses
+MOE_STEPS = 8           # teacher-forced decode steps of the parity check
+
+
+def _moe_parity_cfgs():
+    """The parity configs: arctic-480b and llama4-maverick reduced (2
+    layers, d 256, 4 experts), with their own head layouts (56 and 40 heads
+    of 128 padded to 64 and 48 over 8 kv heads: G = 8 and G = 6), f32."""
+    from repro_torch.configs import get_config
+
+    return [get_config(arch).reduced(num_heads=h, num_kv_heads=8,
+                                     head_dim=128)
+            for arch, h in (("arctic-480b", 56),
+                            ("llama4-maverick-400b-a17b", 40))]
+
+
+def phase_moe_parity(torch) -> None:
+    """The moe family card against CPU in f32 (TF32 off) from the same
+    params: one ``apply_moe`` (y and both auxiliary losses), the forward's
+    logits through plain attention and through K4, the loss with its aux
+    and every gradient leaf (the router's through the gate scale and the
+    losses), and teacher-forced decode steps from per-slot fill levels
+    (K5 at G = 8 and 6); then fedap_lm at rate 0.5 on a 16-expert arctic on
+    the card: its kept experts equal the CPU's, and a leaf-at-a-time prune
+    (``take_experts``, what the moe phase does) equals it bitwise."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import interop
+    from repro_torch.core import engine, pruning_lm
+    from repro_torch.models import layers
+    from repro_torch.models.lm import LM
+    from repro_torch.utils.tree import tree_map
+
+    rng = np.random.default_rng(21)
+    cfgs = _moe_parity_cfgs()
+    for cfg in cfgs:
+        name = cfg.name
+        cpu = LM(cfg, device="cpu")
+        gpu, gpu_k4 = (LM(cfg, device="cuda", attn_impl=impl)
+                       for impl in ("xla", "pallas"))
+        params_c = cpu.init(torch.Generator().manual_seed(22))
+        params_g = interop.params_from_jax(params_c, "cuda")
+        b, s_len = 2, 64
+        seq = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                            (b, s_len + 1)).astype(np.int32))
+        x, y = seq[:, :-1], seq[:, 1:]
+        log(f"[moe-parity] {name} reduced: {cfg.num_layers} layers, d_model="
+            f"{cfg.d_model}, {cfg.padded_num_heads} heads (of "
+            f"{cfg.num_heads}) over {cfg.padded_num_kv_heads} kv heads of "
+            f"{cfg.resolved_head_dim}, {cfg.moe.num_experts} experts top-"
+            f"{cfg.moe.top_k}, f32, B={b} S={s_len}")
+
+        h = torch.randn((b, s_len, cfg.d_model),
+                        generator=torch.Generator().manual_seed(23))
+        layer_c = tree_map(lambda t: t[0], params_c["layers"]["moe"])
+        layer_g = interop.params_from_jax(layer_c, "cuda")
+        with torch.no_grad():
+            yc, aux_c = layers.apply_moe(layer_c, h, cfg)
+            yg, aux_g = layers.apply_moe(layer_g, h.cuda(), cfg)
+        errs = [max_rel_err(torch, yg.cpu(), yc)[1]] + [
+            abs(float(aux_g[k]) - float(aux_c[k])) / abs(float(aux_c[k]))
+            for k in ("load_balance", "router_z")]
+        log(f"[moe-parity] {name} apply_moe: y rel {errs[0]:.3e}, "
+            f"load_balance {float(aux_g['load_balance']):.6e} rel "
+            f"{errs[1]:.3e}, router_z {float(aux_g['router_z']):.6e} rel "
+            f"{errs[2]:.3e} (tol {MOE_LAYER_TOL:.0e})")
+        require(max(errs) <= MOE_LAYER_TOL, f"moe-parity {name} apply_moe")
+
+        with torch.no_grad():
+            want = cpu.apply(params_c, {"tokens": x})
+            for model, what in ((gpu, "plain attention"), (gpu_k4, "K4")):
+                got = model.apply(params_g, {"tokens": x.cuda()})
+                err, rel = max_rel_err(torch, got.cpu(), want)
+                log(f"[moe-parity] {name} forward logits ({what}): "
+                    f"max_abs_err={err:.3e} rel={rel:.3e} (tol "
+                    f"{MOE_TOL:.0e})")
+                require(bool(torch.isfinite(got).all()) and rel <= MOE_TOL,
+                        f"moe-parity {name} forward ({what}): {rel:.3e}")
+
+        (l_c, _), g_c = engine.value_and_grad_aux(
+            lambda p: cpu.loss_and_acc(p, x, y), params_c)
+        (l_g, _), g_g = engine.value_and_grad_aux(
+            lambda p: gpu.loss_and_acc(p, x.cuda(), y.cuda()), params_g)
+        errs = _leaf_errs(g_g, g_c)
+        worst = max(e / m if m > 0 else e for e, m in errs)
+        router = float(g_g["layers"]["moe"]["router"].abs().max())
+        log(f"[moe-parity] {name} loss (with aux) card {float(l_g):.6f} cpu "
+            f"{float(l_c):.6f}; {len(errs)} gradient leaves, worst error "
+            f"{worst:.3e} relative to the leaf's max |grad| (tol "
+            f"{TRAIN_TOL:.0e}); router max |grad| {router:.3e}")
+        require(abs(float(l_g) - float(l_c)) <= MOE_TOL * float(l_c),
+                f"moe-parity {name}: loss differs")
+        require(worst <= TRAIN_TOL and router > 0,
+                f"moe-parity {name} gradient {worst:.3e}")
+        del g_c, g_g
+
+        start = np.array([0, 5, 17, 3], np.int32)         # fill levels
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (start.size, MOE_STEPS)).astype(np.int32))
+        caches = {"cpu": cpu.init_cache(start.size, 32),
+                  "card": gpu.init_cache(start.size, 32)}
+        caches["cpu"]["index"] = torch.from_numpy(start)
+        caches["card"]["index"] = torch.from_numpy(start).cuda()
+        worst = 0.0
+        with torch.inference_mode():
+            for t in range(MOE_STEPS):
+                lc, caches["cpu"] = cpu.decode_step(
+                    params_c, caches["cpu"], {"tokens": toks[:, t:t + 1]})
+                lg, caches["card"] = gpu.decode_step(
+                    params_g, caches["card"],
+                    {"tokens": toks[:, t:t + 1].cuda()})
+                worst = max(worst, max_rel_err(torch, lg.cpu(), lc)[1])
+        log(f"[moe-parity] {name} {MOE_STEPS} decode steps from fill levels "
+            f"{start.tolist()}: worst logits rel {worst:.3e} (tol "
+            f"{MOE_TOL:.0e})")
+        require(worst <= MOE_TOL, f"moe-parity {name} decode: {worst:.3e}")
+        del params_c, params_g, caches
+
+    cfg = dataclasses.replace(cfgs[0], moe=dataclasses.replace(
+        cfgs[0].moe, num_experts=16))
+    params = LM(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(24))
+    want, cfg_half, info = pruning_lm.fedap_lm(params, cfg, 0.5)
+    cpu_half, _, _ = pruning_lm.fedap_lm(
+        interop.params_from_jax(params, "cpu"), cfg, 0.5)
+    idx = pruning_lm.expert_kept_indices(
+        params, cfg, 0.5, min_keep=pruning_lm.fedap_min_keep(cfg))
+    moe = dict(params["layers"]["moe"])
+    for leaf in pruning_lm.EXPERT_AXIS:
+        moe[leaf] = pruning_lm.take_experts(moe.pop(leaf), leaf, idx)
+    same = all(torch.equal(moe[k], want["layers"]["moe"][k])
+               for k in pruning_lm.EXPERT_AXIS)
+    same_cpu = torch.equal(want["layers"]["moe"]["router"].cpu(),
+                           cpu_half["layers"]["moe"]["router"])
+    log(f"[moe-parity] fedap_lm(0.5) on {cfg.moe.num_experts} experts: kept "
+        f"{info['kept']} ({idx.tolist()}); the CPU keeps the same: "
+        f"{same_cpu}; leaf-at-a-time prune bitwise equal: {same}")
+    require(cfg_half.moe.num_experts == 8 and same and same_cpu,
+            "moe-parity: expert pruning differs")
+
+
+MOE_SERVE = dict(slots=8, cache_len=512, max_prompt=64, max_new_tokens=64,
+                 steps_per_wave=8)                # olmo-1b's serving phase
+MOE_SCORE = (4, 2048)                             # B x S per forward
+MOE_LAYERS = 2                                    # of arctic-480b's 35
+
+
+def _moe_train_cfg():
+    """arctic-480b's structure cut to train in f32 on one card: 4 layers,
+    d 2048, 14 heads padded to 16 over 2 kv heads of 128, 16 experts of
+    1216 (top-2, capacity 1.25) plus the dense residual FFN of 1216."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("arctic-480b")
+    return dataclasses.replace(
+        cfg, num_layers=4, d_model=2048, num_heads=14, num_kv_heads=2,
+        head_dim=128, d_ff=1216, param_dtype="float32", remat="none",
+        moe=dataclasses.replace(cfg.moe, num_experts=16, expert_d_ff=1216,
+                                dense_d_ff=1216))
+
+
+def phase_moe(torch) -> dict:
+    """arctic-480b at full width (d 7168, 56 heads padded to 64 over 8 kv
+    heads, 128 experts of 4864 top-2 plus the dense residual FFN, vocab
+    32000) cut to 2 of its 35 layers, bf16, seeded weights: scoring through
+    ``load_servable(attn_impl="pallas")`` at B = 4 x S = 2048 (K4 2 a
+    forward) and serving through ``DecodeEngine`` at olmo-1b's settings (K5
+    2 a step, a profiled wave, one under sync-debug "error"), first
+    ``dense``, then ``experts@0.5``: ``fedap_lm(params, cfg, 0.5)``'s
+    model, 64 of 128 experts, gathered a leaf at a time with each dense
+    leaf let go (the dense model and a fresh half stack do not fit the card
+    together); then f32 FedDUM training of arctic's structure cut to fit
+    (:func:`_moe_train_cfg`) at S = 128, two runs of one round from one
+    state bitwise equal, then timed rounds.  Returns {kernel name:
+    launches over the timed scoring forwards and serving runs}."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import pruning_lm
+    from repro_torch.core.plan import TrainPlan
+    from repro_torch.core.rounds import FederatedTrainer, feddumap_config
+    from repro_torch.data.pipeline import build_lm_federated_data
+    from repro_torch.data.synthetic import TokenSpec
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import DecodeEngine, ServeConfig, load_servable
+    from repro_torch.utils.tree import tree_size
+
+    cfg = dataclasses.replace(get_config("arctic-480b"),
+                              num_layers=MOE_LAYERS)
+    t_part = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = LM(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"[moe] arctic-480b full width, {cfg.num_layers} of 35 layers: "
+        f"{tree_size(params) / 1e9:.3f} B params, {cfg.param_dtype}, "
+        f"{cfg.padded_num_heads} heads over {cfg.padded_num_kv_heads} kv "
+        f"heads, {cfg.moe.num_experts} experts of {cfg.moe.expert_d_ff}; "
+        f"init {time.perf_counter() - t_part:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(0)
+    b, s_len = MOE_SCORE
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s_len + 1))
+                           .astype(np.int64)).cuda()
+    x, y = seq[:, :-1], seq[:, 1:]
+    scfg = ServeConfig(**MOE_SERVE)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(1, 65)))
+               .astype(np.int32) for _ in range(16)]
+    launches = {"decode_attention": 0, "flash_attention": 0}
+    losses = {}
+    for mode in ("dense", "experts@0.5"):
+        if mode != "dense":
+            t0 = time.perf_counter()
+            idx = pruning_lm.expert_kept_indices(
+                params, cfg, 0.5, min_keep=pruning_lm.fedap_min_keep(cfg))
+            experts = cfg.moe.num_experts
+            moe = params["layers"]["moe"]
+            for leaf in pruning_lm.EXPERT_AXIS:
+                moe[leaf] = pruning_lm.take_experts(moe.pop(leaf), leaf, idx)
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, num_experts=int(idx.shape[1])))
+            torch.cuda.synchronize()
+            log(f"[moe] fedap_lm(0.5): kept {cfg.moe.num_experts} of "
+                f"{experts} experts a layer in {time.perf_counter() - t0:.1f} s; "
+                f"{tree_size(params) / 1e9:.3f} B params")
+        sv = load_servable({"params": params, "kept": None, "mode": None,
+                            "model_config": cfg}, "dense", attn_impl="pallas",
+                           device="cuda")
+        require(sv.model.cfg.moe.num_experts == cfg.moe.num_experts,
+                f"moe {mode}: load_servable's expert count")
+
+        def forward():
+            return sv.model.loss_and_acc(sv.params, x, y)
+
+        with torch.no_grad():
+            forward()                                          # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            k4.launches = 0
+            t0 = time.perf_counter()
+            loss, acc = forward()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n4 = k4.launches
+            log(f"[scoring] arctic-480b {mode}: loss {float(loss):.6f} acc "
+                f"{float(acc):.6f}; {b * s_len} tokens in {wall:.4f} s -> "
+                f"{b * s_len / wall:.1f} tokens/s, peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                f"launches flash_attention={n4} (expected {cfg.num_layers})")
+            require(n4 == cfg.num_layers, f"scoring arctic {mode}: K4 "
+                    f"launched {n4} times")
+            require(math.isfinite(float(loss)) and 0.0 < float(loss)
+                    < 2 * math.log(cfg.vocab_size) and
+                    0.0 <= float(acc) <= 1.0,
+                    f"scoring arctic {mode}: loss {float(loss)}")
+            launches["flash_attention"] += n4
+            losses[mode] = float(loss)
+            _profile_forward(torch, f"arctic-480b {mode}", forward, wall)
+
+        DecodeEngine(sv.model, sv.params, scfg, device="cuda").run(
+            prompts[:2])                                       # warm-up
+        eng = DecodeEngine(sv.model, sv.params, scfg, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k5.launches = 0
+        t0 = time.perf_counter()
+        done = eng.run(prompts)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n5 = k5.launches
+        n_tok = sum(len(c.tokens) for c in done)
+        log(f"[serving] arctic-480b {mode}: {len(done)} requests, {n_tok} "
+            f"tokens, {eng.steps} decode steps in {dt:.3f} s -> "
+            f"{n_tok / dt:.1f} tokens/s, {1e3 * dt / eng.steps:.3f} ms/step, "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"launches decode_attention={n5}")
+        require(len(done) == len(prompts) and
+                all(c.status == "ok" and len(c.tokens) == scfg.max_new_tokens
+                    and int(c.tokens.min()) >= 0
+                    and int(c.tokens.max()) < cfg.vocab_size for c in done),
+                f"serving arctic {mode}: malformed completions")
+        require(n5 == eng.steps * cfg.num_layers, f"serving arctic {mode}: "
+                f"decode_attention launched {n5} times, expected "
+                f"{eng.steps} x {cfg.num_layers}")
+        launches["decode_attention"] += n5
+        _profile_wave(torch, f"arctic-480b {mode}", sv, scfg, prompts)
+        _sync_free_wave(torch, sv, scfg, prompts)
+        del sv, eng, done
+        torch.cuda.empty_cache()
+    log(f"[moe] arctic-480b scoring loss dense {losses['dense']:.6f}, "
+        f"experts@0.5 {losses['experts@0.5']:.6f}")
+    del params, moe, x, y, seq
+    torch.cuda.empty_cache()
+    log(f"[moe] scoring and serving part: {time.perf_counter() - t_part:.1f} "
+        f"s")
+
+    t_part = time.perf_counter()
+    cfg = _moe_train_cfg()
+    model = LM(cfg, device="cuda")
+    data = build_lm_federated_data(
+        num_clients=4, server_fraction=0.25,
+        spec=TokenSpec(vocab_size=cfg.vocab_size, num_topics=8, seq_len=129,
+                       num_sequences=45))
+    fl = feddumap_config(num_clients=4, clients_per_round=2, batch_size=4,
+                         server_batch_size=4, local_epochs=1, lr=3e-3,
+                         lr_decay=1.0)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    runs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        trainer = FederatedTrainer(model, data, fl, device="cuda")
+        res = trainer.run(TrainPlan.standard(1), params=params)
+        runs.append((trainer, res))
+    diff = _same_run(torch, *runs)
+    backend = runs[0][0].backend()
+    kw = backend.sample_kw
+    seq_len = data.client_x.shape[-1]
+    tokens_per_round = seq_len * (kw["clients_per_round"] * kw["local_steps"]
+                                  * kw["batch_size"]
+                                  + kw["server_tau"] * kw["server_batch"])
+    h = runs[0][1].history
+    log(f"[training] arctic-480b cut to {cfg.num_layers} layers, d_model="
+        f"{cfg.d_model}, {cfg.padded_num_heads} heads (of {cfg.num_heads}) "
+        f"over {cfg.padded_num_kv_heads}, {cfg.moe.num_experts} experts of "
+        f"{cfg.moe.expert_d_ff} + dense {cfg.moe.dense_d_ff}, f32, "
+        f"{tree_size(params) / 1e6:.1f} M params: round 1 test loss "
+        f"{h['loss'][0]:.6f} acc {h['acc'][0]:.4f} tau_eff "
+        f"{h['tau_eff'][0]:.6f}; two runs of the round from one state "
+        f"bitwise equal: {not diff} {diff}")
+    require(not diff, f"training arctic: two identical runs differ: {diff}")
+    require(all(math.isfinite(v) for k in ("loss", "acc", "tau_eff")
+                for v in h[k]), "training arctic: history not finite")
+    state = runs[1][1].state
+    del runs
+    t0 = time.perf_counter()
+    state, _ = backend.run_rounds(state, 1, 2)
+    torch.cuda.synchronize()
+    round_s = (time.perf_counter() - t0) / 2
+    loss, acc = backend.evaluate(state)
+    log(f"[training] arctic-480b f32: S={seq_len}, per round "
+        f"{kw['clients_per_round']} clients x {kw['local_steps']} local steps "
+        f"of B={kw['batch_size']} + tau={kw['server_tau']} server steps of "
+        f"B={kw['server_batch']}, {tokens_per_round} tokens; after round 3 "
+        f"loss {float(loss):.6f} acc {float(acc):.4f}; steady state "
+        f"{round_s:.3f} s/round -> {tokens_per_round / round_s:.1f} tokens/s "
+        f"trained, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    require(math.isfinite(float(loss)), "training arctic: loss not finite")
+    log(f"[moe] training part: {time.perf_counter() - t_part:.1f} s")
+    return launches
+
+
 PHASE_SECONDS: dict = {}    # phase -> wall seconds, for the [time] lines
 
 
@@ -3630,7 +4159,9 @@ def main() -> int:
             ("paper", lambda: phase_paper(torch)),
             ("reliability", lambda: phase_reliability(torch)),
             ("xlstm-parity", lambda: phase_xlstm_parity(torch) or {}),
-            ("xlstm", lambda: phase_xlstm(torch))):
+            ("xlstm", lambda: phase_xlstm(torch)),
+            ("moe-parity", lambda: phase_moe_parity(torch) or {}),
+            ("moe", lambda: phase_moe(torch))):
         for name, n in _phase(torch, label, path).items():
             launches[name] = launches.get(name, 0) + n
     for name, sec in PHASE_SECONDS.items():

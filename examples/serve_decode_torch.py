@@ -1,15 +1,16 @@
 """Serving demo on the PyTorch port: continuous batching or lockstep decode.
 
 The port's counterpart of ``examples/serve_decode.py``.  For the dense
-family this drives ``repro_torch.serving.DecodeEngine``: a fixed pool of
+and moe families this drives ``repro_torch.serving.DecodeEngine``: a fixed pool of
 decode slots, requests admitted as slots free up, prompts prefilled one
 token a step through the same step, finished sequences retired by the
 on-device done-mask.  ``--prune-rate`` serves a FedAP-style pruned model
-either ``masked`` (the block-skipping ``masked_matmul`` kernel at dense
-shapes) or ``shrunk`` (compacted d_ff).
+of the dense family either ``masked`` (the block-skipping ``masked_matmul``
+kernel at dense shapes) or ``shrunk`` (compacted d_ff).
 
   PYTHONPATH=src python examples/serve_decode_torch.py --arch olmo-1b \\
       --requests 8 --slots 4 --tokens 16 --prune-rate 0.5 --serve-mode shrunk
+  PYTHONPATH=src python examples/serve_decode_torch.py --arch arctic-480b
 
 The hybrid and ssm families decode with the lockstep loop
 (``repro_torch.serving.lockstep_decode``): every sequence at the same depth.
@@ -43,6 +44,9 @@ def serve_continuous(cfg, args):
                         .manual_seed(args.seed))
     masks = None
     tag = "dense"
+    if args.prune_rate > 0 and cfg.family != "dense":
+        raise SystemExit("--prune-rate prunes the scanned FFN stack; use a "
+                         "dense-family --arch")
     if args.prune_rate > 0:
         kept = pruning_lm.ffn_kept_indices(params, cfg, args.prune_rate,
                                            align=128)
@@ -129,7 +133,7 @@ def main():
     args = ap.parse_args()
 
     cfg = get_config(args.arch).reduced()
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         serve_continuous(cfg, args)
     else:
         serve_lockstep(cfg, args)

@@ -13,6 +13,8 @@ _ARCHS = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1p2b",
     "xlstm-125m": "repro_torch.configs.xlstm_125m",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
+    "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick_400b",
 }
 
 ARCH_NAMES = tuple(_ARCHS)

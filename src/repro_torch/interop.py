@@ -31,12 +31,34 @@ def _leaf_to_torch(leaf, device, dtype):
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
+# Leaves the reference keeps in f32 whatever the model's dtype, by the end
+# of their path: the MoE router, the Mamba2 mixer's A_log, D and dt_bias,
+# the mLSTM gate projection w_if and the sLSTM cell's bias.
+F32_LEAVES = (("router",), ("A_log",), ("D",), ("dt_bias",), ("w_if",),
+              ("cell", "bias"))
+
+
+def _keeps_f32(path: tuple) -> bool:
+    return any(path[-len(end):] == end for end in F32_LEAVES)
+
+
 def params_from_jax(tree, device="cuda", dtype=None) -> dict:
     """A JAX/numpy param tree (``embed``, ``norm_out``, ``layers/{attn:{wq,
     wk,wv,wo}, norm_a, norm_f, mlp:{wi,wg,wo}}``, ...) as tensors on
-    ``device``, cast to ``dtype`` when given."""
+    ``device``, cast to ``dtype`` when given, except the leaves that the
+    reference keeps in f32 in a model of any dtype (:data:`F32_LEAVES`):
+    those keep their own dtype."""
     dev = _device.resolve(device)
-    return tree_map(lambda leaf: _leaf_to_torch(leaf, dev, dtype), tree)
+
+    def convert(node, path):
+        if isinstance(node, dict):
+            return {k: convert(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return type(node)(convert(v, path) for v in node)
+        keep = dtype is None or _keeps_f32(path)
+        return _leaf_to_torch(node, dev, None if keep else dtype)
+
+    return convert(tree, ())
 
 
 def _hwio_to_oihw(t: torch.Tensor, lead: int = 0) -> torch.Tensor:

@@ -1,15 +1,17 @@
 """Transformer building blocks, as plain functions on tensors.
 
 Counterpart of the reference's ``models/layers.py``, limited to what the
-dense, hybrid and ssm families need: the full-sequence forward of training
-and scoring, the Mamba2 mixer, the xLSTM cells, and the decode step of
-serving.  Layouts follow the reference: ``wq [d,H,hd]``, ``wk/wv
-[d,KV,hd]``, ``wo [H,hd,d]``, cache ``[B,S,KV,hd]``, FFN ``wi/wg [d,ff]``,
-``wo [ff,d]``, Mamba2 ``in_proj [d, 2 d_in + 2 N + nh]``, ``conv [W, d_in +
-2 N]``, ``out_proj [d_in, d]``, mLSTM ``up [d,2f]``, ``wq/wk/wv [f,nh,hd]``,
-``w_if [f,2nh]``, ``down [f,d]``, sLSTM ``w_x/w_h [d,4d]``, ``down [d,d]``.
-The compute dtype is the input dtype; norms, rope, softmax, the SSM state
-and the xLSTM gates and memories run in f32.
+dense, moe, hybrid and ssm families need: the full-sequence forward of
+training and scoring, the token-choice MoE FFN, the Mamba2 mixer, the xLSTM
+cells, and the decode step of serving.  Layouts follow the reference: ``wq
+[d,H,hd]``, ``wk/wv [d,KV,hd]``, ``wo [H,hd,d]`` (H and KV after head
+padding), cache ``[B,S,KV,hd]``, FFN ``wi/wg [d,ff]``, ``wo [ff,d]``, MoE
+``router [d,E]`` (f32), ``wi/wg [E,d,f]``, ``wo [E,f,d]``, Mamba2 ``in_proj
+[d, 2 d_in + 2 N + nh]``, ``conv [W, d_in + 2 N]``, ``out_proj [d_in, d]``,
+mLSTM ``up [d,2f]``, ``wq/wk/wv [f,nh,hd]``, ``w_if [f,2nh]``, ``down
+[f,d]``, sLSTM ``w_x/w_h [d,4d]``, ``down [d,d]``.  The compute dtype is
+the input dtype; norms, rope, softmax, the router, the SSM state and the
+xLSTM gates and memories run in f32.
 """
 from __future__ import annotations
 
@@ -148,7 +150,12 @@ def attention_block(params, x, positions, cfg: ModelConfig, *, window=None,
     attention (optionally over a sliding ``window``), the output projection.
     x [B,S,d] -> [B,S,d].  ``attn_impl="xla"`` runs the plain
     :func:`attention` (differentiable); ``"pallas"`` runs the
-    ``flash_attention`` kernel (K4), forward only."""
+    ``flash_attention`` kernel (K4), forward only.
+
+    Head counts come from the params' shapes.  With padded heads
+    (``cfg.pad_heads_to``) the reference tiles K/V up to H, which maps query
+    head h to kv head ``h mod KV``: the [g, kv] grouping that both paths here
+    apply to GQA K/V directly, so K/V are passed on untiled."""
     b, s, _ = x.shape
     q = apply_rope(_heads(x, params["wq"]), positions, cfg.rope)
     k = apply_rope(_heads(x, params["wk"]), positions, cfg.rope)
@@ -257,53 +264,164 @@ def masked_dense(x, w, mask, b=None):
     return y * mask.to(y.dtype)
 
 
+# ---------------------------------------------------------------------------
+# MoE (token-choice top-k, capacity-bounded)
+# ---------------------------------------------------------------------------
+
+def init_moe(cfg: ModelConfig, n_layers: int, dtype, generator,
+             device) -> dict:
+    """Stacked [L, ...] MoE params with the reference's scales: ``router
+    [L,d,E]`` in f32 whatever the model's dtype, ``wi/wg [L,E,d,f]``, ``wo
+    [L,E,f,d]``, and the optional always-on FFNs ``dense`` (arctic's residual
+    branch, d_ff ``dense_d_ff``) and ``shared`` (llama4's shared expert, d_ff
+    ``expert_d_ff``).  The expert stacks are drawn a matrix at a time."""
+    m = cfg.moe
+    d, e, f = cfg.d_model, m.num_experts, m.expert_d_ff
+    lead = (n_layers,)
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    params = {"router": _init_normal(lead + (d, e), s_in, torch.float32,
+                                     generator, device)}
+    for name, shape, scale in (("wi", (e, d, f), s_in), ("wg", (e, d, f), s_in),
+                               ("wo", (e, f, d), s_out)):
+        params[name] = _init_normal_sliced(lead + shape, scale, dtype,
+                                           generator, device)
+    if m.dense_d_ff:
+        params["dense"] = init_mlp(d, m.dense_d_ff, cfg.act, dtype, generator,
+                                   device, n_layers)
+    if m.shared_expert:
+        params["shared"] = init_mlp(d, f, cfg.act, dtype, generator, device,
+                                    n_layers)
+    return params
+
+
+def top_k(x, k: int):
+    """(values, indices) of the ``k`` largest entries along the last axis,
+    in descending order; among equal values the lower index comes first,
+    as ``jax.lax.top_k`` orders them (``torch.topk`` promises no order)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def apply_moe(params, x, cfg: ModelConfig):
+    """Capacity-bounded token-choice routing, x [B,S,d] -> (y [B,S,d],
+    ``{"load_balance", "router_z"}`` 0-d f32 losses), the reference's
+    ``apply_moe``.
+
+    The router's logits, softmax and the top-k gate ``[T, E]`` run in f32.
+    Each expert takes its top-C tokens by gate, ``C = max(1, min(T, int(T k
+    cf / E)))`` with E read from the router's shape (so an expert-pruned
+    stack routes over its kept experts); a token picked with a zero gate
+    adds exact zeros.  The experts' SwiGLU products are batched matmuls in
+    the activations' dtype, scaled by the gate and scatter-added back in
+    that dtype (``index_add``: at most ``top_k`` non-zero terms meet in a
+    row, so the sum does not depend on their order).  Overflowing tokens
+    are dropped; the residual path carries them.  The reference computes
+    the experts in ``einsum``, outside any kernel: so does the port."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    router = params["router"]
+    e = router.shape[-1]
+    logits = xt.float() @ router                                  # [T, E]
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = top_k(probs, m.top_k)                            # [T, k]
+    gate = torch.zeros_like(probs).scatter(1, topi, topv)         # [T, E]
+    cap = max(1, min(t, int(t * m.top_k * m.capacity_factor / e)))
+    sel_gate, sel_idx = top_k(gate.T, cap)                        # [E, C]
+    xe = xt[sel_idx]                                              # [E, C, d]
+    h = torch.bmm(xe, params["wi"])
+    h = F.silu(torch.bmm(xe, params["wg"])) * h
+    ye = torch.bmm(h, params["wo"]) * sel_gate[..., None].to(xe.dtype)
+    y = torch.zeros((t, d), dtype=ye.dtype, device=x.device).index_add(
+        0, sel_idx.reshape(-1), ye.reshape(-1, d))
+    me = probs.mean(0)
+    ce = (gate > 0).float().mean(0)
+    aux = {"load_balance": e * (me * ce).sum() * m.load_balance_loss,
+           "router_z": torch.logsumexp(logits, dim=-1).square().mean()
+           * m.router_z_loss}
+    y = y.reshape(b, s, d)
+    if "shared" in params:
+        y = y + apply_mlp(params["shared"], x, cfg.act)
+    if "dense" in params:
+        y = y + apply_mlp(params["dense"], x, cfg.act)
+    return y.to(x.dtype), aux
+
+
 def _init_normal(shape, scale, dtype, generator, device):
     return (torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=device) * scale).to(dtype)
 
 
+def _init_normal_sliced(shape, scale, dtype, generator, device):
+    """:func:`_init_normal` drawn one trailing ``[a, b]`` matrix at a time
+    into a tensor of ``dtype``: no f32 copy of the whole tensor forms (an
+    arctic-480b expert stack is 17.8 GB in bf16, 35.7 GB in f32).  The draws
+    differ from one draw of the whole tensor, and are as seeded."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    flat = out.view(-1, *shape[-2:])
+    for i in range(flat.shape[0]):
+        flat[i].copy_(torch.randn(shape[-2:], generator=generator,
+                                  dtype=torch.float32, device=device)
+                      .mul_(scale))
+    return out
+
+
 def init_attention(cfg: ModelConfig, dtype, generator, device,
                    n_layers=None) -> dict:
     """Attention params ``{wq, wk, wv, wo}`` (stacked ``[L, ...]`` when
-    ``n_layers`` is given), drawn from ``generator``."""
-    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
-        cfg.resolved_head_dim
-    if cfg.pad_heads_to and h % cfg.pad_heads_to:
-        raise ValueError("pad_heads_to is not ported yet")
+    ``n_layers`` is given), drawn from ``generator``.
+
+    With ``cfg.pad_heads_to`` the head count is padded up to its multiple
+    (``cfg.padded_num_heads``), and KV with it where KV no longer divides
+    the padded count (``cfg.padded_num_kv_heads``).  The padded heads' ``wo``
+    rows are zero, as the reference's are; their ``wq`` columns are drawn,
+    so those rows take a gradient, as there."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv = cfg.padded_num_heads, cfg.padded_num_kv_heads
     lead = () if n_layers is None else (n_layers,)
     s = 1.0 / math.sqrt(d)
 
     def normal(shape, scale):
         return _init_normal(lead + shape, scale, dtype, generator, device)
 
-    return {"wq": normal((d, h, hd), s), "wk": normal((d, kv, hd), s),
-            "wv": normal((d, kv, hd), s),
-            "wo": normal((h, hd, d), 1.0 / math.sqrt(h * hd))}
+    wq, wk, wv = normal((d, h, hd), s), normal((d, kv, hd), s), \
+        normal((d, kv, hd), s)
+    wo = normal((h, hd, d), 1.0 / math.sqrt(cfg.num_heads * hd))
+    wo[..., cfg.num_heads:, :, :] = 0
+    return {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
 
 
-def init_mlp_stack(cfg: ModelConfig, n_layers: int, dtype, generator,
-                   device) -> dict:
-    """Stacked [L, ...] FFN params ``{wi, [wg], wo}``."""
-    d = cfg.d_model
-    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(cfg.d_ff)
-    mlp = {"wi": _init_normal((n_layers, d, cfg.d_ff), s_in, dtype,
-                              generator, device)}
-    if cfg.act == "silu":
-        mlp["wg"] = _init_normal((n_layers, d, cfg.d_ff), s_in, dtype,
+def init_mlp(d_model: int, d_ff: int, act: str, dtype, generator, device,
+             n_layers=None) -> dict:
+    """FFN params ``{wi, [wg], wo}`` (stacked ``[L, ...]`` when ``n_layers``
+    is given); ``wg`` only for ``act="silu"``."""
+    lead = () if n_layers is None else (n_layers,)
+    s_in, s_out = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_ff)
+    mlp = {"wi": _init_normal(lead + (d_model, d_ff), s_in, dtype, generator,
+                              device)}
+    if act == "silu":
+        mlp["wg"] = _init_normal(lead + (d_model, d_ff), s_in, dtype,
                                  generator, device)
-    mlp["wo"] = _init_normal((n_layers, cfg.d_ff, d), s_out, dtype,
-                             generator, device)
+    mlp["wo"] = _init_normal(lead + (d_ff, d_model), s_out, dtype, generator,
+                             device)
     return mlp
 
 
 def init_layer_stack(cfg: ModelConfig, n_layers: int, dtype, generator,
                      device) -> dict:
     """Stacked [L, ...] params of ``n_layers`` dense blocks (attention, two
-    norms, FFN), drawn from ``generator``."""
+    norms, FFN) or moe blocks (the FFN a :func:`init_moe` stack), drawn from
+    ``generator``."""
     attn = init_attention(cfg, dtype, generator, device, n_layers)
-    return {"attn": attn, "norm_a": init_norm(cfg, dtype, device, n_layers),
-            "mlp": init_mlp_stack(cfg, n_layers, dtype, generator, device),
-            "norm_f": init_norm(cfg, dtype, device, n_layers)}
+    stack = {"attn": attn, "norm_a": init_norm(cfg, dtype, device, n_layers)}
+    if cfg.family == "moe":
+        stack["moe"] = init_moe(cfg, n_layers, dtype, generator, device)
+    else:
+        stack["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, cfg.act, dtype,
+                                generator, device, n_layers)
+    stack["norm_f"] = init_norm(cfg, dtype, device, n_layers)
+    return stack
 
 
 def init_hybrid_stack(cfg: ModelConfig, n_layers: int, dtype, generator,
@@ -312,7 +430,8 @@ def init_hybrid_stack(cfg: ModelConfig, n_layers: int, dtype, generator,
     two norms, FFN), drawn from ``generator``."""
     return {"mamba": init_mamba2(cfg, n_layers, dtype, generator, device),
             "norm_m": init_norm(cfg, dtype, device, n_layers),
-            "mlp": init_mlp_stack(cfg, n_layers, dtype, generator, device),
+            "mlp": init_mlp(cfg.d_model, cfg.d_ff, cfg.act, dtype, generator,
+                            device, n_layers),
             "norm_f": init_norm(cfg, dtype, device, n_layers)}
 
 

@@ -1,11 +1,15 @@
 """The decoder LM, functional: params are dicts of tensors.
 
-Counterpart of the reference's ``models/lm.py`` for three families:
+Counterpart of the reference's ``models/lm.py`` for four families:
 
 * ``dense`` (llama-style decoder: GQA + RoPE 1d/2d + SwiGLU or GELU MLP):
   the full-sequence forward, loss and token accuracy that federated
   training differentiates and scoring evaluates, the decode step and the
   KV cache of serving;
+* ``moe`` (arctic-480b with a dense residual FFN, llama4 with a shared
+  expert; top-1/2 token-choice routing): the dense family's attention with
+  :func:`layers.apply_moe` for the FFN, whose ``load_balance + router_z``
+  auxiliary loss every loss adds, as the reference's does;
 * ``hybrid`` (zamba2: a Mamba2 backbone with one shared attention block
   applied before each group of ``attn_every`` layers): the full-sequence
   forward, loss and token accuracy, and the decode step over a per-layer
@@ -14,14 +18,17 @@ Counterpart of the reference's ``models/lm.py`` for three families:
   layer, unrolled): the full-sequence forward, loss and token accuracy, and
   the decode step over each layer's recurrent state;
 
-and the FedAP pruning seam of the first two (the ``ssm`` family has no FFN
-and refuses it, as the reference does).  Dense and hybrid layer params are
-stacked along a leading ``[L, ...]`` axis as in the reference, so a JAX
-param tree converts leaf for leaf (:mod:`repro_torch.interop`).
+and the FedAP unit-pruning seam of the dense and hybrid families (the
+``ssm`` family has no FFN and the ``moe`` family prunes whole experts,
+:func:`repro_torch.core.pruning_lm.fedap_lm`: both refuse it, as the
+reference does).  Dense, moe and hybrid layer params are stacked along a
+leading ``[L, ...]`` axis as in the reference, so a JAX param tree converts
+leaf for leaf (:mod:`repro_torch.interop`).
 
 Params: ``{"embed" [V,d], "unembed" [d,V] (untied only), "norm_out",
 "layers": {...}}`` with ``layers = {"attn": {wq, wk, wv, wo}, "norm_a",
-"norm_f", "mlp": {wi, wg, wo}}`` (dense) or ``{"mamba": {in_proj, conv,
+"norm_f", "mlp": {wi, wg, wo}}`` (dense; moe holds ``"moe": {router, wi,
+wg, wo, [dense], [shared]}`` in place of ``"mlp"``) or ``{"mamba": {in_proj, conv,
 A_log, D, dt_bias, norm_scale, out_proj}, "norm_m", "norm_f", "mlp"}`` plus
 ``"shared_attn": {"attn", "norm"}`` (hybrid); the ssm family holds
 ``"blocks": {"l<i>": {"cell", "norm"}}`` instead of ``"layers"``, with an
@@ -45,10 +52,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.utils.tree import tree_leaves, tree_unflatten
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-FAMILIES = ("dense", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 def _unstack(stacked) -> list:
@@ -61,7 +68,7 @@ def _unstack(stacked) -> list:
 
 class LM:
     """``init``, ``apply``/``loss``/``loss_and_acc`` and ``init_cache``/
-    ``decode_step`` of a dense, hybrid or ssm decoder, on ``device``
+    ``decode_step`` of a dense, moe, hybrid or ssm decoder, on ``device``
     (default ``"cuda"``, which raises when CUDA is missing)."""
 
     def __init__(self, cfg: ModelConfig, *, attn_impl: str = "xla",
@@ -82,6 +89,7 @@ class LM:
         self.dtype = DTYPES[cfg.param_dtype]
         self.hybrid = cfg.family == "hybrid"
         self.ssm = cfg.family == "ssm"
+        self.moe = cfg.family == "moe"
         self._meta = (L.mamba2_meta(cfg) if self.hybrid
                       else L.mlstm_meta(cfg) if self.ssm else None)
 
@@ -91,7 +99,15 @@ class LM:
         return self.ssm and (i + 1) % self.cfg.xlstm.slstm_every == 0
 
     def _refuse_masks(self, masks) -> None:
-        if masks is not None and self.ssm:
+        if masks is None:
+            return
+        if self.moe:
+            raise ValueError(
+                "masks= is unsupported for MoE stacks: a zeroed router "
+                "logit is not -inf, so masked experts would still "
+                "receive routed mass — prune experts with "
+                "Prune(mode='shrink') (core.pruning_lm.prune_lm_experts)")
+        if self.ssm:
             raise ValueError(f"masks= requires a scanned stack, not family "
                              f"{self.cfg.family!r}")
 
@@ -144,6 +160,8 @@ class LM:
         return x @ params["unembed"]
 
     def _block(self, layer, x, positions, mask, window):
+        """One pre-norm residual block: (x, the layer's auxiliary loss, or
+        None for a family without one)."""
         cfg = self.cfg
         if self.hybrid:
             h = L.apply_norm(layer["norm_m"], x, cfg.norm)
@@ -154,31 +172,40 @@ class LM:
             x = x + L.attention_block(layer["attn"], h, positions, cfg,
                                       window=window, attn_impl=self.attn_impl)
         h = L.apply_norm(layer.get("norm_f", {}), x, cfg.norm)
-        return x + L.apply_mlp(layer["mlp"], h, cfg.act, mask)
+        if self.moe:
+            y, aux = L.apply_moe(layer["moe"], h, cfg)
+            return x + y, aux["load_balance"] + aux["router_z"]
+        return x + L.apply_mlp(layer["mlp"], h, cfg.act, mask), None
 
     def apply(self, params, batch, *, window="auto", masks=None):
         """Full-sequence logits [B,S,V] for ``batch["tokens"]`` [B,S] (causal
         attention over the whole sequence; ``batch["positions"]`` [P,B,S]
         overrides the default ``arange`` positions).  ``window`` bounds the
-        dense family's attention ("auto" and None: full); the hybrid
-        family's shared attention always uses ``cfg.sliding_window``.
+        dense and moe families' attention ("auto" and None: full); the
+        hybrid family's shared attention always uses ``cfg.sliding_window``.
 
         ``masks`` (optional) ``{"mlp": [L, d_ff] 0/1}`` gives each layer its
         FedAP filter keep-mask row: masked units are zeroed at the FFN
         pre-activation (the logits equal the shrunk model's) and the up/gate
         products run the differentiable ``masked_matmul`` kernels, which
-        skip fully pruned 128-column blocks forward and backward.
+        skip fully pruned 128-column blocks forward and backward.  The moe
+        family refuses ``masks=``, with the reference's message.
 
         The stacked ``[L, ...]`` layer params are unbound once, so the
         backward writes each layer's gradient into one stacked tensor.
         ``cfg.remat == "block"`` recomputes each layer in the backward
         (``torch.utils.checkpoint``), launching its forward kernels twice.
-        Neither family has an auxiliary loss, so only the logits return.
+        Only the logits return: the moe family's auxiliary loss is summed by
+        :meth:`loss` and :meth:`loss_and_acc`.
 
         The ssm family runs its unrolled blocks ``x + cell(norm(x))`` and
         ignores ``remat``, as the reference's branch returns before its
         remat; ``masks=`` is refused there.
         """
+        return self._forward(params, batch, window, masks)[0]
+
+    def _forward(self, params, batch, window, masks):
+        """(logits, the layers' summed auxiliary loss or None)."""
         cfg = self.cfg
         self._refuse_masks(masks)
         if self.ssm:
@@ -188,7 +215,7 @@ class LM:
                 h = L.apply_norm(blk["norm"], x, cfg.norm)
                 cell = L.apply_slstm if self._is_slstm(i) else L.apply_mlstm
                 x = x + cell(blk["cell"], h, self._meta, cfg)
-            return self._head(params, x)
+            return self._head(params, x), None
         if cfg.remat not in ("none", "block"):
             raise ValueError(f"remat={cfg.remat!r} is not ported (the port "
                              f"takes 'none' and 'block')")
@@ -202,17 +229,23 @@ class LM:
         layers = _unstack(params["layers"])
         rows = (masks["mlp"].unbind(0) if masks is not None
                 else (None,) * len(layers))
+        total = None
 
         def block(i, x):
+            nonlocal total
             if cfg.remat == "block":
-                return checkpoint(self._block, layers[i], x, pos, rows[i],
-                                  window, use_reentrant=False)
-            return self._block(layers[i], x, pos, rows[i], window)
+                x, aux = checkpoint(self._block, layers[i], x, pos, rows[i],
+                                    window, use_reentrant=False)
+            else:
+                x, aux = self._block(layers[i], x, pos, rows[i], window)
+            if aux is not None:
+                total = aux if total is None else total + aux
+            return x
 
         if not self.hybrid:
             for i in range(len(layers)):
                 x = block(i, x)
-            return self._head(params, x)
+            return self._head(params, x), total
         shared = params["shared_attn"]
         for a, stop in self.hybrid_groups():
             h = L.apply_norm(shared["norm"], x, cfg.norm)
@@ -221,31 +254,35 @@ class LM:
                                       attn_impl=self.attn_impl)
             for i in range(a, stop):
                 x = block(i, x)
-        return self._head(params, x)
+        return self._head(params, x), total
 
     def loss(self, params, batch, *, window="auto", masks=None):
         """Mean next-token cross-entropy of :meth:`apply` (with its
         ``window``) against ``batch["labels"]`` [B,S], over
-        ``batch["loss_mask"]`` when given (log-softmax in f32)."""
+        ``batch["loss_mask"]`` when given (log-softmax in f32), plus the moe
+        family's summed ``load_balance + router_z`` after the mean."""
         return self._loss_acc(params, batch, masks, window)[0]
 
     def loss_and_acc(self, params, x, y, *, masks=None):
         """The federated trainer's model contract: ``(x, y)`` = (tokens [B,S],
         labels [B,S]) -> (loss, token accuracy), from one forward — the
-        port's copy of the reference's ``launch.steps.loss_and_accuracy``."""
+        port's copy of the reference's ``launch.steps.loss_and_accuracy``
+        (the loss as :meth:`loss` gives it)."""
         return self._loss_acc(params, {"tokens": x, "labels": y}, masks)
 
     def _loss_acc(self, params, batch, masks, window="auto"):
-        logits = self.apply(params, batch, window=window, masks=masks)
+        logits, aux = self._forward(params, batch, window, masks)
         labels = batch["labels"].long()
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
         ok = (logits.argmax(-1) == labels).float()
         mask = batch.get("loss_mask")
         if mask is None:
-            return nll.sum() / nll.numel(), ok.mean()
-        denom = mask.sum().clamp_min(1.0)
-        return (nll * mask).sum() / denom, (ok * mask).sum() / denom
+            loss, acc = nll.sum() / nll.numel(), ok.mean()
+        else:
+            denom = mask.sum().clamp_min(1.0)
+            loss, acc = (nll * mask).sum() / denom, (ok * mask).sum() / denom
+        return (loss if aux is None else loss + aux), acc
 
     # -- FedAP seam -------------------------------------------------------------
     def decide_kept(self, params, p_star, *, align=128) -> dict:
@@ -284,7 +321,8 @@ class LM:
         ``min(cache_len, window)`` when a ``window`` is given (a ring buffer
         once the index passes S); ``"index"`` is a 0-d int32 zero.
 
-        dense: ``{"k", "v": [L, B, S, KV, hd]}``.  hybrid: ``{"mamba":
+        dense and moe: ``{"k", "v": [L, B, S, KV, hd]}``, KV after head
+        padding (``cfg.padded_num_kv_heads``).  hybrid: ``{"mamba":
         {"conv": [L, B, W-1, d_in + 2N] (param dtype), "h": [L, B, nh, p, N]
         (f32)}, "shared_attn": {"k", "v": [G, B, S', KV, hd]}}``, one KV cache
         per application of the shared attention (G groups), with S' = S cut
@@ -337,7 +375,10 @@ class LM:
         FFN through the block-skipping masked path; the logits equal the
         shrunk model's.  (The reference's hybrid decode drops ``masks``; on
         a mask-mode checkpoint, whose pruned units are zero, both give the
-        same logits.)
+        same logits.)  The moe family refuses ``masks=``; its FFN is
+        :func:`layers.apply_moe` over the step's B tokens (routing couples
+        the rows of a batch: each expert takes its top-C of them), its
+        auxiliary loss dropped.
 
         Attention runs the ``decode_attention`` kernel (K5) for either
         ``attn_impl``, as the reference's Pallas path does; there is no
@@ -370,13 +411,15 @@ class LM:
         else:
             lp = params["layers"]
             for i in range(cfg.num_layers):
-                layer = {k: {n: t[i] for n, t in v.items()}
-                         for k, v in lp.items()}
+                layer = tree_map(lambda t: t[i], lp)
                 h = L.apply_norm(layer.get("norm_a", {}), x, cfg.norm)
                 x = x + L.attention_decode(layer["attn"], h, cache["k"][i],
                                            cache["v"][i], idx, pos, cfg)
                 h = L.apply_norm(layer.get("norm_f", {}), x, cfg.norm)
-                x = x + L.apply_mlp(layer["mlp"], h, cfg.act, rows[i])
+                if self.moe:
+                    x = x + L.apply_moe(layer["moe"], h, cfg)[0]
+                else:
+                    x = x + L.apply_mlp(layer["mlp"], h, cfg.act, rows[i])
         cache = {**cache, "index": idx + 1}
         return self._head(params, x), cache
 

@@ -45,6 +45,15 @@ def _infer_d_ff(params) -> int | None:
     return None
 
 
+def _infer_experts(params) -> int | None:
+    """The expert count of a stacked MoE ``layers`` tree (its router's
+    width); None for a tree without one."""
+    layers = params.get("layers") if isinstance(params, dict) else None
+    if isinstance(layers, dict) and "moe" in layers:
+        return int(layers["moe"]["router"].shape[-1])
+    return None
+
+
 def _port_config(cfg) -> ModelConfig:
     """The port's ModelConfig for ``cfg`` (a config of either package)."""
     if cfg is None or isinstance(cfg, ModelConfig):
@@ -61,8 +70,11 @@ def load_servable(source, serve_mode: str = "auto", *, model_config=None,
 
     ``serve_mode="auto"`` picks ``masked`` for a mask-mode prune decision,
     ``shrunk`` for a shrink-mode one, ``dense`` otherwise.  ``model_config``
-    overrides (or supplies) the recorded config; its ``d_ff`` is re-derived
-    from the param shapes, so a config recorded before a shrink still loads.
+    overrides (or supplies) the recorded config; its ``d_ff`` (and a moe
+    config's expert count) is re-derived from the param shapes, so a config
+    recorded before a shrink or an expert prune still loads.  A moe
+    checkpoint serves ``dense``: its FedAP prunes whole experts
+    (``pruning_lm.fedap_lm``), which leaves a dense stack at the kept count.
     ``attn_impl`` goes to every ``LM`` built: the default ``"pallas"`` scores
     through the ``flash_attention``/``ssd_scan`` kernels, as the reference's
     does (decode runs ``decode_attention`` either way).
@@ -107,6 +119,10 @@ def load_servable(source, serve_mode: str = "auto", *, model_config=None,
     d_ff = _infer_d_ff(params)
     if d_ff is not None and d_ff != cfg.d_ff:
         cfg = dataclasses.replace(cfg, d_ff=d_ff)
+    experts = _infer_experts(params)
+    if cfg.moe and experts is not None and experts != cfg.moe.num_experts:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, num_experts=experts))
 
     if mode == "dense":
         return Servable(LM(cfg, attn_impl=attn_impl, device=dev), params, None, mode)

@@ -105,7 +105,7 @@ class Completion:
 
 
 # Families whose decode cache is the stacked [L, B, S, KV, hd] KV pages.
-_SERVABLE_FAMILIES = ("dense",)
+_SERVABLE_FAMILIES = ("dense", "moe")
 
 
 class DecodeEngine:
@@ -113,7 +113,10 @@ class DecodeEngine:
 
     ``masks`` (optional) is the FedAP filter keep-mask tree
     (``{"mlp": [L, d_ff]}``): every step then routes the FFN up/gate
-    products through the block-skipping ``masked_matmul`` kernel.  The
+    products through the block-skipping ``masked_matmul`` kernel.  A moe
+    model's routing couples the slots of a step (each expert takes its
+    top-C of the batch's tokens), so idle and frozen slots take part in it
+    with what they hold, exactly as in the reference's engine.  The
     model, params and masks must live on ``device`` (default ``"cuda"``).
     ``faults`` keeps the serving faults of a fault tuple (objects with an
     ``apply_logits`` hook) and ignores the others.

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch import experiments, interop
 from repro_torch.configs import get_config
+from repro_torch.core import pruning_lm
 from repro_torch.core.rounds import FederatedTrainer, feddumap_config
 from repro_torch.data.pipeline import build_lm_federated_data
 from repro_torch.data.synthetic import TokenSpec
@@ -34,6 +35,7 @@ from repro_torch.serving import DecodeEngine, ServeConfig, load_servable
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 TINY = get_config("olmo-1b").reduced(vocab_size=256, d_ff=256)
+MOE = get_config("arctic-480b").reduced(vocab_size=256)
 EXAMPLES = ("fl_paper_repro_torch.py", "quickstart_torch.py",
             "serve_decode_torch.py", "fl_llm_train_torch.py")
 
@@ -90,7 +92,10 @@ def no_cuda():
                                    "run_one", "scenario grid",
                                    "fl_paper_repro_torch", "xlstm LM",
                                    "serve_decode_torch",
-                                   "fl_llm_train_torch"])
+                                   "fl_llm_train_torch", "moe LM",
+                                   "llama4 LM", "moe DecodeEngine",
+                                   "moe load_servable",
+                                   "serve_decode_torch moe"])
 def test_default_device_raises_without_cuda(no_cuda, entry):
     params = LM(TINY, device="cpu").init(torch.Generator().manual_seed(0))
     data = build_lm_federated_data(
@@ -127,14 +132,30 @@ def test_default_device_raises_without_cuda(no_cuda, entry):
                                               out_dir=REPO / "build")
         elif entry == "xlstm LM":
             LM(get_config("xlstm-125m"))
+        elif entry == "moe LM":
+            LM(get_config("arctic-480b"), attn_impl="pallas")
+        elif entry == "llama4 LM":
+            LM(get_config("llama4-maverick-400b-a17b"))
+        elif entry in ("moe DecodeEngine", "moe load_servable"):
+            moe = LM(MOE, device="cpu")
+            mp = moe.init(torch.Generator().manual_seed(0))
+            mp, mcfg, _ = pruning_lm.prune_lm_experts(mp, MOE, 0.5)
+            if entry == "moe DecodeEngine":
+                DecodeEngine(LM(mcfg, device="cpu"), mp,
+                             ServeConfig(slots=1, cache_len=8, max_prompt=4,
+                                         max_new_tokens=4))
+            else:
+                load_servable({"params": mp, "model_config": MOE}, "dense")
         elif entry in ("fl_paper_repro_torch", "serve_decode_torch",
-                       "fl_llm_train_torch"):
+                       "fl_llm_train_torch", "serve_decode_torch moe"):
             args = {"fl_paper_repro_torch": ["--rounds", "1", "--out",
                                              str(REPO / "build" / "x")],
                     "serve_decode_torch": ["--arch", "xlstm-125m"],
+                    "serve_decode_torch moe": ["--arch", "arctic-480b"],
                     "fl_llm_train_torch": ["--rounds", "1"]}[entry]
+            script = entry.split()[0]
             proc = subprocess.run(
-                [sys.executable, str(REPO / "examples" / f"{entry}.py"),
+                [sys.executable, str(REPO / "examples" / f"{script}.py"),
                  *args],
                 cwd=REPO, capture_output=True, text=True, timeout=120,
                 env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",

@@ -140,10 +140,10 @@ class TestDecodeStep:
             np.testing.assert_allclose(lm_.numpy(), ls_.numpy(), **TOL)
 
     def test_non_dense_family_is_refused(self):
-        """A family the port does not run yet (MoE) is refused by name."""
-        cfg = dataclasses.replace(_port_cfg(TINY), family="moe",
-                                  name="moe-tiny")
-        with pytest.raises(ValueError, match="'moe'"):
+        """A family the port does not run yet (VLM) is refused by name."""
+        cfg = dataclasses.replace(_port_cfg(TINY), family="vlm",
+                                  name="vlm-tiny")
+        with pytest.raises(ValueError, match="'vlm'"):
             LM(cfg, device="cpu")
 
 

@@ -2,8 +2,8 @@
 
 ``examples/fl_llm_train_torch.py`` (federated LM training through a
 TrainPlan with a FedAP Prune event) and ``examples/serve_decode_torch.py``
-(the continuous-batching engine for the dense family, pruned and masked;
-the lockstep loop for the ssm family) each run once in a subprocess with
+(the continuous-batching engine for the dense family, pruned and masked,
+and for the moe family; the lockstep loop for the ssm family) each run once in a subprocess with
 ``--device cpu`` at tiny sizes, and their printed lines are checked: the
 lines of the reference's scripts, with finite numbers.
 """
@@ -54,7 +54,13 @@ def test_fl_llm_train_prints_rounds_and_the_prune():
      r"arch=xlstm-125m \(reduced\) batch=4"),
     (("--arch", "olmo-1b", "--prune-rate", "0.5", "--serve-mode", "masked"),
      r"arch=olmo-1b \(reduced, masked@0\.5\) slots=4 requests=8"),
-], ids=["xlstm-lockstep", "olmo-masked-engine"])
+    (("--arch", "arctic-480b"),
+     r"arch=arctic-480b \(reduced, dense\) slots=4 requests=8"),
+    (("--arch", "llama4-maverick-400b-a17b"),
+     r"arch=llama4-maverick-400b-a17b \(reduced, dense\) slots=4 "
+     r"requests=8"),
+], ids=["xlstm-lockstep", "olmo-masked-engine", "arctic-engine",
+        "llama4-engine"])
 def test_serve_decode_prints_its_lines(args, head):
     lines = _run("serve_decode_torch.py", *args)
     assert len(lines) == 3 and re.fullmatch(head, lines[0]), lines
@@ -68,3 +74,16 @@ def test_serve_decode_prints_its_lines(args, head):
     assert rate and _finite(rate), lines
     sample = re.fullmatch(r"sample: \[([0-9, ]+)\]", lines[2])
     assert sample and len(sample.group(1).split(",")) == 16, lines
+
+
+def test_serve_decode_refuses_a_prune_rate_on_a_moe_arch():
+    """As the reference's script: ``--prune-rate`` prunes FFN units, which a
+    MoE stack does not have."""
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "examples" / "serve_decode_torch.py"),
+         "--arch", "arctic-480b", "--prune-rate", "0.5", "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+             "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 1
+    assert "use a dense-family --arch" in proc.stderr
