@@ -98,8 +98,8 @@ Phases, in order; any failure raises and the script exits non-zero:
               and momentum bitwise unchanged on the card and moves the
               params by exactly -h/alpha), and the FedDF and FedKT hooks;
 14. paper   — ``repro_torch.experiments.run_one`` for the 16 algorithms of
-              the paper's comparison at its protocol (3 rounds, prune or
-              hook at round 2, Eval every 2), then the scenario grid's
+              the paper's comparison at its protocol (2 rounds, prune or
+              hook at round 1, Eval every 2), then the scenario grid's
               smoke cells (FedAvg, FedProx, FedDyn at dropout 0.25): a line
               a run with s/round, local samples/s, the busy share of a
               profiled one-client slice, peak memory, accuracy, MFLOPs and
@@ -164,7 +164,45 @@ Phases, in order; any failure raises and the script exits non-zero:
               of one round from one state bitwise equal, then two timed
               rounds.  The kernels phase also holds K4 at arctic's scoring
               shape (64 heads over 8) and K5 at G = 8 and 6 against their
-              plain versions, timed beside SDPA (``enable_gqa``).
+              plain versions, timed beside SDPA (``enable_gqa``);
+20. vlm-parity — qwen2-vl-7b reduced (2 layers, d 256) with its own head
+              layout (28 heads padded to 32 over 4 kv heads of 128), f32,
+              card against CPU: logits from embeds with Qwen2-VL M-RoPE
+              positions (text, a patch grid, text) through plain attention
+              and K4, the loss over the text and every gradient leaf, 16
+              decode steps through the embeds path from fill levels (K5 at
+              G = 8);
+21. vlm     — qwen2-vl-7b at full width and depth (28 layers, 7.72 B
+              params, bf16, seeded) in dense, masked@0.5 and shrunk@0.5
+              modes: scoring through ``load_servable(attn_impl="pallas")``
+              and ``model.loss`` at B = 4 x (64 text + a 32 x 32 patch grid
+              + 960 text) with M-RoPE positions and the loss masked off the
+              patches (K4 28, K1 56 masked a forward; the dense loss against
+              ``"xla"``), serving through ``DecodeEngine`` (8 prompts of
+              1-64 tokens, 32 new; K5 28, K1 56 masked a step; a profiled
+              wave and one under sync-debug "error"), then the training
+              phase's FedDUMAP plan in f32 at 3 of 28 layers (K1-K3);
+22. whisper-parity — whisper-small reduced (2 + 2 layers, d 256, 64
+              frames) with its own head layout (12 heads padded to 16, KV
+              alongside), f32, card against CPU: the encoder, logits
+              through plain attention and K4 (causal on the decoder, no
+              mask on the cross-attention: 2 a layer, counted), the loss
+              and every gradient leaf, ``prefill_cross``'s K/V and 16
+              decode steps;
+23. whisper — whisper-small at full width and depth (12 + 12 layers, 1500
+              frames, bf16, seeded): scoring at B = 8 x S = 448 (K4 24 a
+              forward: the causal self-attention and the unmasked
+              cross-attention of each decoder layer; the loss against
+              ``"xla"``), ``lockstep_decode`` of 8 sequences with a 4-token
+              prompt and 124 new tokens after ``prefill_cross`` (K5 12 a
+              step, a profiled window, one under sync-debug "error"), and
+              an f32 loss gradient, finite and bitwise equal over two runs.
+              The kernels phase also holds K4 at qwen2-vl's scoring shape
+              and whisper's self- and cross-attention shapes (Sq 448 over
+              Skv 1500 and 1500 over 448, no mask), K5 at qwen2-vl's G = 8
+              and whisper's lockstep lengths, and K1-K3 at qwen2-vl's FFN
+              (K 3584, N 18944) against their plain versions, timed beside
+              SDPA and ``torch.matmul``.
 
 Each phase after the build prints its peak device memory; ``[time]`` lines
 give each phase's wall seconds and the total.
@@ -520,6 +558,8 @@ def phase_kernels(torch, timer) -> dict:
     records.update(_scoring_kernels(torch, timer, gen))
     for name, rec in _moe_kernels(torch, timer, gen).items():
         records[name].update(rec)
+    for name, rec in _vlm_whisper_kernels(torch, timer, gen).items():
+        records[name].update(rec)
     return records
 
 
@@ -557,21 +597,9 @@ def _moe_kernels(torch, timer, gen) -> dict:
         got = k4.flash_attention(q, k, v, causal=True)
         again = k4.flash_attention(q, k, v, causal=True)
         want = ref.flash_attention_ref(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        err, rel = max_rel_err(torch, got, want)
-        wantf = want.float()
-        allowed = (BF16_STEP * wantf.abs() if dtype == torch.bfloat16 else 0) \
-            + SCORE_TOL["flash_attention"] * max(1.0, float(wantf.abs().max()))
-        worst = float(((got.float() - wantf).abs() / allowed).max())
-        log(f"[kernels] flash_attention arctic-480b B={b} S={s} H={h} KV={kvh}"
-            f" hd={hd} causal {dname}: max_abs_err={err:.3e} rel={rel:.3e}; "
-            f"|err| / allowance <= {worst:.3f} (limit 1); two launches "
-            f"bitwise equal: {bool(torch.equal(got, again))}")
-        require(bool(torch.isfinite(got).all()) and worst <= 1.0,
-                f"flash_attention arctic {dname}: error over tolerance")
-        require(torch.equal(got, again), f"flash_attention arctic {dname}: "
-                f"two launches differ")
-        del got, again, wantf, allowed
+        err = _k4_check(torch, f"arctic-480b B={b} S={s} H={h} KV={kvh} "
+                        f"hd={hd} causal", dname, got, want, again)
+        del got, again
         if dtype != torch.bfloat16:
             del want, q, k, v
             continue
@@ -913,6 +941,28 @@ def _k4_bound(b, sq, skv, h, kvh, hd, causal, window, elt, dtype_name):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations"), flops
+
+
+def _k4_check(torch, label, dname, got, want, again=None):
+    """K4 against its plain version under the scoring rule (f32: SCORE_TOL
+    relative to max(1, max |plain|); bf16: per element, one bf16 step of
+    |plain| plus that allowance); launched twice when ``again`` is given,
+    the two bitwise equal.  Returns max |got - want|."""
+    torch.cuda.synchronize()
+    err, rel = max_rel_err(torch, got, want)
+    tol = SCORE_TOL["flash_attention"]
+    wantf = want.float()
+    allowed = (BF16_STEP * wantf.abs() if dname == "bfloat16" else 0) \
+        + tol * max(1.0, float(wantf.abs().max()))
+    worst = float(((got.float() - wantf).abs() / allowed).max())
+    same = again is None or bool(torch.equal(got, again))
+    log(f"[kernels] flash_attention {label} {dname}: max_abs_err={err:.3e} "
+        f"rel={rel:.3e}; |err| / allowance <= {worst:.3f} (limit 1)"
+        + ("" if again is None else f"; two launches bitwise equal: {same}"))
+    require(bool(torch.isfinite(got).all()) and worst <= 1.0,
+            f"flash_attention {label} {dname}: error over tolerance")
+    require(same, f"flash_attention {label} {dname}: two launches differ")
+    return err
 
 
 def _k6_bound(b, s, nh, p, n, elt, dtype_name):
@@ -1806,18 +1856,21 @@ def phase_serving_hybrid(torch) -> dict:
     return launches
 
 
-WINDOW = (4, 4)     # prefill and decode steps of a profiled or checked window
+WINDOW = (2, 2)     # prefill and decode steps of a profiled or checked window
 
 
-def _lockstep_window(torch, sv, prompt, cache_len):
-    """A fresh cache and the first prompt tokens on the card: a window of 8
-    steps (4 prefill, 4 decode) for the profile and the sync check (a
-    profile of ~3100 launches a step costs the profiler ~2 s a step)."""
+def _lockstep_window(torch, sv, prompt, cache_len, enc=None):
+    """A fresh cache and the first prompt tokens on the card: a window of 4
+    steps (2 prefill, 2 decode) for the profile and the sync check (a
+    profile of ~3100 launches a step costs the profiler ~2 s a step).  An
+    encdec model's cross K/V are written from the frames ``enc`` first."""
     cache = sv.model.init_cache(prompt.shape[0], cache_len)
+    if enc is not None:
+        sv.model.prefill_cross(sv.params, cache, {"enc_embeds": enc})
     return cache, prompt[:, :WINDOW[0]].cuda()
 
 
-def _profile_lockstep(torch, tag, sv, prompt, cache_len) -> None:
+def _profile_lockstep(torch, tag, sv, prompt, cache_len, enc=None) -> None:
     """The host-clock time of a window of lockstep steps (no profiler)
     against the device time of the kernels of another under torch.profiler:
     their ratio is the device's busy share."""
@@ -1827,14 +1880,14 @@ def _profile_lockstep(torch, tag, sv, prompt, cache_len) -> None:
 
     n = sum(WINDOW)
     with torch.inference_mode():
-        cache, p = _lockstep_window(torch, sv, prompt, cache_len)
+        cache, p = _lockstep_window(torch, sv, prompt, cache_len, enc)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run_steps(sv.model, sv.params, cache, p, WINDOW[1],
                   masks=sv.masks)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / n
-        cache, p = _lockstep_window(torch, sv, prompt, cache_len)
+        cache, p = _lockstep_window(torch, sv, prompt, cache_len, enc)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1862,13 +1915,13 @@ def _profile_lockstep(torch, tag, sv, prompt, cache_len) -> None:
             f"{e.count // n:4d}/step  {e.key[:90]}")
 
 
-def _sync_free_lockstep(torch, tag, sv, prompt, cache_len) -> None:
+def _sync_free_lockstep(torch, tag, sv, prompt, cache_len, enc=None) -> None:
     """A window of lockstep steps under sync-debug "error": any host sync
     inside the steps raises."""
     from repro_torch.serving.lockstep import run_steps
 
     with torch.inference_mode():
-        cache, p = _lockstep_window(torch, sv, prompt, cache_len)
+        cache, p = _lockstep_window(torch, sv, prompt, cache_len, enc)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -2787,7 +2840,7 @@ def _paper_hook_fallback(torch, mode, cpu, gpu, params_c, xs, card, host):
                            labels)
 
 
-PAPER_ROUNDS, PAPER_PRUNE, PAPER_EVAL = 3, 2, 2
+PAPER_ROUNDS, PAPER_PRUNE, PAPER_EVAL = 2, 1, 2
 
 
 class _RoundClock:
@@ -4106,6 +4159,763 @@ def phase_moe(torch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the vlm and encdec families: qwen2-vl-7b and whisper-small
+# ---------------------------------------------------------------------------
+
+def _vlm_whisper_kernels(torch, timer, gen) -> dict:
+    """The kernels at the vlm and encdec paths' shapes, each against its
+    plain version (f32 and bf16; two launches bitwise equal) and timed in
+    bf16 beside its bound and one library call:
+
+    * K4 at qwen2-vl's scoring (B=4, S=2048, 28 heads padded to 32 over 4
+      kv heads of 128, causal; ``qwen_*`` keys, SDPA with ``enable_gqa``),
+      whisper's decoder self-attention (B=8, S=448, 12 heads padded to 16
+      over 16 of 64, causal; ``whisper_*``) and its cross-attention (B=8,
+      Sq=448 queries over Skv=1500 encoder frames, no mask: 11 kv tiles of
+      128 plus 92 keys, 3.5 query tiles; ``cross_*``, SDPA with
+      ``is_causal=False``), and the cross case the other way round (Sq=1500
+      over Skv=448, untimed);
+    * K5 at qwen2-vl's serving (B=8, S=512, 32 heads over 4: G = 8, a
+      wave's lengths with stale NaN rows; ``qwen_*``) and whisper's
+      lockstep decode (B=8, S=128, 16 over 16, every length index + 1;
+      ``whisper_*``);
+    * K1 at qwen2-vl's FFN (K=3584, N=18944: 148 column blocks) in bf16 at
+      decode (M=8, all kept and half; ``qwen_decode_*``) and at scoring
+      (M=8192; ``qwen_scoring_*``), and K1, K2, K3 in f32 at training
+      (M=512; K1 ``qwen_train_*``, K2 and K3 ``qwen_*``), beside
+      ``torch.matmul``.
+    Returns {kernel name: {key: value}} to add to the records."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.kernels import masked_matmul as k1
+    from repro_torch.kernels import ref
+
+    out = {name: {} for name in ("flash_attention", "decode_attention",
+                                 "masked_matmul", "masked_matmul_dx",
+                                 "masked_matmul_dw")}
+    # tag, B, Sq, Skv, H, KV, hd, causal, timed
+    for tag, b, sq, skv, h, kvh, hd, causal, timed in (
+            ("qwen", 4, 2048, 2048, 32, 4, 128, True, True),
+            ("whisper", 8, 448, 448, 16, 16, 64, True, True),
+            ("cross", 8, 448, 1500, 16, 16, 64, False, True),
+            ("cross-wide", 2, 1500, 448, 16, 16, 64, False, False)):
+        label = (f"{tag} B={b} Sq={sq} Skv={skv} H={h} KV={kvh} hd={hd} "
+                 f"{'causal' if causal else 'no mask'}")
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            q = torch.randn((b, sq, h, hd), generator=gen,
+                            device="cuda").to(dtype)
+            k, v = (torch.randn((b, skv, kvh, hd), generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            got = k4.flash_attention(q, k, v, causal=causal)
+            again = k4.flash_attention(q, k, v, causal=causal)
+            want = ref.flash_attention_ref(q, k, v, causal=causal)
+            err = _k4_check(torch, label, dname, got, want, again)
+            del got, again
+            if not timed or dtype != torch.bfloat16:
+                del want
+                continue
+            perm = torch.tensor(_gqa_heads(h, kvh), device="cuda")
+            qt = q[:, :, perm].transpose(1, 2).contiguous()
+            kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=kvh != h)
+
+            lib = torch.empty_like(q)
+            lib[:, :, perm] = sdpa().transpose(1, 2)
+            require(max_rel_err(torch, lib, want)[1] <= 2 * BF16_STEP,
+                    f"sdpa at {tag} is not the same function")
+            del lib, want
+            ms, lib_ms = timer.turns(
+                lambda: k4.flash_attention(q, k, v, causal=causal), sdpa)
+            plain_ms = timer(lambda: ref.flash_attention_ref(
+                q, k, v, causal=causal))
+            bound, by, flops = _k4_bound(b, sq, skv, h, kvh, hd, causal, None,
+                                         q.element_size(), dname)
+            log(f"[kernels] flash_attention {tag} {dname}: kernel {ms:.4f} ms"
+                f" ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms,"
+                f" sdpa{' (enable_gqa)' if kvh != h else ''}"
+                f"{'' if causal else ' (is_causal=False)'} {lib_ms:.4f} ms "
+                f"({ms / lib_ms:.3f}x), bound {bound:.4f} ms ({by}), "
+                f"{100 * bound / ms:.1f}% of it")
+            out["flash_attention"].update({
+                f"{tag}_max_abs_err": err, f"{tag}_ms": ms,
+                f"{tag}_plain_ms": plain_ms, f"{tag}_bound_ms": bound,
+                f"{tag}_bound_by": by, f"{tag}_library_ms": lib_ms})
+            del q, k, v, qt, kt, vt
+
+    # K5: qwen2-vl's engine (lengths of a wave: prompts of 1-64 tokens plus
+    # up to 32 new) and whisper's lockstep loop (every length the same)
+    for tag, b, s, kvh, g, hd, lo, hi in (("qwen", 8, 512, 4, 8, 128, 1, 96),
+                                          ("whisper", 8, 128, 16, 1, 64, 77,
+                                           77)):
+        h = g * kvh
+        ln = torch.randint(lo, hi + 1, (b,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            q, k, v = _k5_case(torch, gen, b, s, kvh, g, hd, dtype, ln)
+            got = k5.decode_attention(q, k, v, ln)
+            again = k5.decode_attention(q, k, v, ln)
+            want = ref.decode_attention_ref(q, k, v, ln)
+            torch.cuda.synchronize()
+            err, rel = max_rel_err(torch, got, want)
+            log(f"[kernels] decode_attention {tag} B={b} S={s} H={h} KV={kvh}"
+                f" G={g} hd={hd} {dname} lengths {int(ln.min())}.."
+                f"{int(ln.max())}: max_abs_err={err:.3e} rel={rel:.3e} (tol "
+                f"{TOL[dname]:.3e}); two launches bitwise equal: "
+                f"{bool(torch.equal(got, again))}")
+            require(bool(torch.isfinite(got).all()) and rel <= TOL[dname],
+                    f"decode_attention {tag} {dname}: error {rel:.3e}")
+            require(torch.equal(got, again), f"decode_attention {tag} "
+                    f"{dname}: two launches differ")
+            if dtype != torch.bfloat16:
+                continue
+            perm = torch.tensor(_gqa_heads(h, kvh), device="cuda")
+            qt = q[:, :, perm].transpose(1, 2).contiguous()
+            kt = k.transpose(1, 2).contiguous().nan_to_num()
+            vt = v.transpose(1, 2).contiguous()
+            mask = (torch.arange(s, device="cuda")[None, :]
+                    < ln[:, None])[:, None, None, :]
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=g > 1)
+
+            lib = torch.empty_like(q)
+            lib[:, :, perm] = sdpa().transpose(1, 2)
+            require(max_rel_err(torch, lib, want)[1] <= 2 * TOL[dname],
+                    f"sdpa at {tag} decode is not the same function")
+            ms, lib_ms = timer.turns(
+                lambda: k5.decode_attention(q, k, v, ln), sdpa)
+            plain_ms = timer(lambda: ref.decode_attention_ref(q, k, v, ln))
+            bound = _k5_bound_ms(b, h, kvh, hd, int(ln.sum()),
+                                 q.element_size(), dname)
+            log(f"[kernels] decode_attention {tag} G={g} {dname}: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+                f"bound {bound:.4f} ms (bytes), {100 * bound / ms:.1f}% of it")
+            out["decode_attention"].update({
+                f"{tag}_max_abs_err": err, f"{tag}_ms": ms,
+                f"{tag}_plain_ms": plain_ms, f"{tag}_bound_ms": bound,
+                f"{tag}_bound_by": "bytes", f"{tag}_library_ms": lib_ms})
+
+    # K1-K3 at qwen2-vl's FFN: up/gate [3584, 18944]
+    kdim, n = 3584, 18944
+    nb = n // 128
+    half = torch.zeros(nb, device="cuda")
+    half[torch.randperm(nb, generator=gen, device="cuda")[: nb // 2]] = 1.0
+    ones = torch.ones(nb, device="cuda")
+    # name, kind, dtype, M, masks, key prefix, plain, library
+    cases = (
+        ("masked_matmul", "fwd", torch.bfloat16, 8, (("ones", ones),
+                                                     ("rate0.5", half)),
+         "qwen_decode_"),
+        ("masked_matmul", "fwd", torch.bfloat16, SCORE_M, (("ones", ones),),
+         "qwen_scoring_"),
+        ("masked_matmul", "fwd", torch.float32, TRAIN_M, (("ones", ones),),
+         "qwen_train_"),
+        ("masked_matmul_dx", "dx", torch.float32, TRAIN_M, (("ones", ones),),
+         "qwen_"),
+        ("masked_matmul_dw", "dw", torch.float32, TRAIN_M, (("ones", ones),),
+         "qwen_"))
+    fns = {"fwd": (k1.masked_matmul, ref.masked_matmul_ref,
+                   lambda a, b: torch.matmul(a, b)),
+           "dx": (k1.masked_matmul_dx, ref.masked_matmul_dx_ref,
+                  lambda a, b: torch.matmul(a, b.T)),
+           "dw": (k1.masked_matmul_dw, ref.masked_matmul_dw_ref,
+                  lambda a, b: torch.matmul(a.T, b))}
+    for name, kind, dtype, m, masks, prefix in cases:
+        dname = str(dtype).split(".")[-1]
+        fn, plain, lib = fns[kind]
+        w = (torch.randn((kdim, n), generator=gen, device="cuda")
+             / kdim ** 0.5).to(dtype)
+        x = torch.randn((m, kdim), generator=gen, device="cuda").to(dtype)
+        dy = torch.randn((m, n), generator=gen, device="cuda").to(dtype)
+        a, b = {"fwd": (x, w), "dx": (dy, w), "dw": (x, dy)}[kind]
+        for label, bm in masks:
+            got = fn(a, b, bm)
+            want = plain(a, b, bm)
+            torch.cuda.synchronize()
+            err, rel = max_rel_err(torch, got, want)
+            same = bool(torch.equal(got, fn(a, b, bm)))
+            log(f"[kernels] {name} qwen2-vl {label} {dname} M={m} K={kdim} "
+                f"N={n}: max_abs_err={err:.3e} rel={rel:.3e} (tol "
+                f"{TOL[dname]:.3e}); two launches bitwise equal: {same}")
+            require(bool(torch.isfinite(got).all()) and rel <= TOL[dname],
+                    f"{name} qwen2-vl {label} {dname} M={m}: {rel:.3e}")
+            require(same, f"{name} qwen2-vl {label}: two launches differ")
+            del got, want
+            ms, lib_ms = timer.turns(lambda: fn(a, b, bm), lambda: lib(a, b))
+            plain_ms = timer(lambda: plain(a, b, bm))
+            kept = int((bm > 0).sum())
+            bound, by = _mm_bound(kind, m, kdim, n, kept, a.element_size(),
+                                  dname)
+            log(f"[kernels] {name} qwen2-vl {dname} M={m} kept {kept}/{nb} "
+                f"blocks: kernel {ms:.4f} ms "
+                f"({2e-9 * m * kdim * 128 * kept / ms:.1f} TFLOP/s), plain "
+                f"{plain_ms:.4f} ms, torch.matmul (all blocks) {lib_ms:.4f} "
+                f"ms ({ms / lib_ms:.3f}x), bound {bound:.4f} ms ({by}), "
+                f"{100 * bound / ms:.1f}% of it")
+            key = prefix if label == "ones" else prefix + "half_"
+            out[name].update({
+                f"{key}max_abs_err": err, f"{key}ms": ms,
+                f"{key}plain_ms": plain_ms, f"{key}bound_ms": bound,
+                f"{key}bound_by": by, f"{key}library_ms": lib_ms})
+        del w, x, dy, a, b
+    return out
+
+
+def vl_positions(torch, b, text, grid, after, device="cuda"):
+    """[3, b, S] M-RoPE ids as Qwen2-VL builds them for ``text`` tokens, a
+    ``grid`` (rows, cols) of vision patches, then ``after`` tokens: text
+    takes t = h = w = i; the grid, starting at s0, takes t = s0, h = s0 +
+    row, w = s0 + col; the text after it resumes at the maximum + 1."""
+    gh, gw = grid
+    t0 = torch.arange(text)
+    rows = torch.arange(gh).repeat_interleave(gw)
+    cols = torch.arange(gw).repeat(gh)
+    s0 = text
+    grid_ids = torch.stack([torch.full_like(rows, s0), s0 + rows, s0 + cols])
+    nxt = int(grid_ids.max()) + 1
+    tail = torch.arange(nxt, nxt + after)
+    pos = torch.cat([t0.expand(3, -1), grid_ids, tail.expand(3, -1)], dim=1)
+    return pos[:, None].expand(3, b, -1).to(device=device,
+                                            dtype=torch.int32).contiguous()
+
+
+def _vl_embeds(params, batch):
+    """The input embeddings of a :func:`_vl_batch`: the embedding table's
+    rows at the text tokens, the patch embeddings where ``loss_mask`` is 0
+    (so a gradient reaches ``embed`` through the text)."""
+    text = params["embed"][batch["tokens"]]
+    return text.masked_scatter((batch["loss_mask"] == 0)[..., None],
+                               batch["patches"].to(text.dtype))
+
+
+def _vl_batch(torch, params, cfg, b, text, grid, after, seed):
+    """A scoring batch of ``b`` sequences of text tokens, ``grid`` vision
+    patches (seeded embeddings at the embedding table's scale) and text:
+    ``embeds``, Qwen2-VL ``positions``, ``labels`` and a ``loss_mask`` that
+    is 0 on the patches; ``tokens`` and ``patches`` (which the model does
+    not read) rebuild the embeddings (:func:`_vl_embeds`)."""
+    n_patch = grid[0] * grid[1]
+    s_len = text + n_patch + after
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s_len + 1), generator=gen,
+                           device="cuda")
+    patches = (torch.randn((b, n_patch, cfg.d_model), generator=gen,
+                           device="cuda") / math.sqrt(cfg.d_model))
+    loss_mask = torch.ones((b, s_len), device="cuda")
+    loss_mask[:, text:text + n_patch] = 0.0
+    batch = {"tokens": tokens[:, :-1], "patches": patches,
+             "positions": vl_positions(torch, b, text, grid, after),
+             "labels": tokens[:, 1:], "loss_mask": loss_mask}
+    with torch.no_grad():
+        batch["embeds"] = _vl_embeds(params, batch)
+    return batch
+
+
+VL_TOL = 1e-4       # f32 card against CPU (PARITY_TOL's; MOE_TOL's)
+
+
+def _vlm_parity_cfg():
+    """qwen2-vl reduced with its own head layout: 28 heads padded to 32
+    over 4 kv heads of 128 (G = 8), 2 layers, d 256, f32."""
+    from repro_torch.configs import get_config
+
+    return get_config("qwen2-vl-7b").reduced(num_heads=28, num_kv_heads=4,
+                                             head_dim=128)
+
+
+def phase_vlm_parity(torch) -> None:
+    """The vlm family card against CPU in f32 (TF32 off) from the same
+    params: the forward's logits from embeds with Qwen2-VL M-RoPE positions
+    through plain attention and through K4, the loss over a loss mask and
+    every gradient leaf, and teacher-forced decode steps through the embeds
+    path from per-slot fill levels (K5 at G = 8)."""
+    import numpy as np
+
+    from repro_torch import interop
+    from repro_torch.core import engine
+    from repro_torch.models.lm import LM
+
+    cfg = _vlm_parity_cfg()
+    cpu = LM(cfg, device="cpu")
+    gpu, gpu_k4 = (LM(cfg, device="cuda", attn_impl=impl)
+                   for impl in ("xla", "pallas"))
+    params_c = cpu.init(torch.Generator().manual_seed(31))
+    params_g = interop.params_from_jax(params_c, "cuda")
+    batch_g = _vl_batch(torch, params_g, cfg, 2, 8, (6, 8), 24, 32)
+    batch_c = {k: v.cpu() for k, v in batch_g.items()}
+    log(f"[vlm-parity] qwen2-vl-7b reduced: {cfg.num_layers} layers, d_model"
+        f"={cfg.d_model}, {cfg.padded_num_heads} heads (of {cfg.num_heads}) "
+        f"over {cfg.padded_num_kv_heads} kv heads of "
+        f"{cfg.resolved_head_dim}, f32; B=2 x S="
+        f"{batch_c['labels'].shape[1]}: 8 text, a 6 x 8 patch grid, 24 text")
+    with torch.no_grad():
+        want = cpu.apply(params_c, batch_c)
+        for model, what in ((gpu, "plain attention"), (gpu_k4, "K4")):
+            got = model.apply(params_g, batch_g)
+            err, rel = max_rel_err(torch, got.cpu(), want)
+            log(f"[vlm-parity] forward logits ({what}): max_abs_err="
+                f"{err:.3e} rel={rel:.3e} (tol {VL_TOL:.0e})")
+            require(bool(torch.isfinite(got).all()) and rel <= VL_TOL,
+                    f"vlm-parity forward ({what}): {rel:.3e}")
+    (l_c, _), g_c = engine.value_and_grad_aux(
+        lambda p: cpu._loss_acc(p, {**batch_c, "embeds": _vl_embeds(
+            p, batch_c)}, None), params_c)
+    (l_g, _), g_g = engine.value_and_grad_aux(
+        lambda p: gpu._loss_acc(p, {**batch_g, "embeds": _vl_embeds(
+            p, batch_g)}, None), params_g)
+    errs = _leaf_errs(g_g, g_c)
+    worst = max(e / m if m > 0 else e for e, m in errs)
+    log(f"[vlm-parity] loss over the text (mask 0 on the patches) card "
+        f"{float(l_g):.6f} cpu {float(l_c):.6f}; {len(errs)} gradient "
+        f"leaves, worst error {worst:.3e} relative to the leaf's max |grad| "
+        f"(tol {TRAIN_TOL:.0e})")
+    require(abs(float(l_g) - float(l_c)) <= VL_TOL * float(l_c),
+            "vlm-parity: loss differs")
+    require(worst <= TRAIN_TOL, f"vlm-parity gradient {worst:.3e}")
+    del g_c, g_g
+
+    start = np.array([0, 5], np.int32)
+    caches = {"cpu": cpu.init_cache(2, 64), "card": gpu.init_cache(2, 64)}
+    caches["cpu"]["index"] = torch.from_numpy(start)
+    caches["card"]["index"] = torch.from_numpy(start).cuda()
+    worst = 0.0
+    steps = 16
+    with torch.inference_mode():
+        for t in range(steps):
+            step = {"embeds": batch_c["embeds"][:, t:t + 1],
+                    "positions": batch_c["positions"][:, :, t:t + 1]
+                    + torch.from_numpy(start)[None, :, None]}
+            lc, caches["cpu"] = cpu.decode_step(params_c, caches["cpu"], step)
+            lg, caches["card"] = gpu.decode_step(
+                params_g, caches["card"],
+                {k: v.cuda() for k, v in step.items()})
+            worst = max(worst, max_rel_err(torch, lg.cpu(), lc)[1])
+    log(f"[vlm-parity] {steps} decode steps through the embeds path from "
+        f"fill levels {start.tolist()} (K5 at G = 8): worst logits rel "
+        f"{worst:.3e} (tol {VL_TOL:.0e})")
+    require(worst <= VL_TOL, f"vlm-parity decode: {worst:.3e}")
+
+
+VLM_SCORE = (4, 64, (32, 32), 960)      # B; text, patch grid, text
+VLM_SERVE = dict(slots=8, cache_len=512, max_prompt=64, max_new_tokens=32,
+                 steps_per_wave=8)
+VLM_TRAIN_LAYERS = 3    # of qwen2-vl-7b's 28, f32: 4 peaked at 75.2 GiB
+VLM_PROFILE_STEPS = 2   # steps of the profiled wave (~1900 launches a step)
+VLM_XLA_TOL = 1e-2      # bf16 loss, "pallas" against "xla", relative
+
+
+def phase_vlm(torch) -> dict:
+    """qwen2-vl-7b at full width and depth (28 layers, d 3584, 28 heads
+    padded to 32 over 4 kv heads of 128, d_ff 18944, vocab 152064), bf16,
+    seeded weights, in ``dense``, ``masked@0.5`` and ``shrunk@0.5`` modes:
+    scoring through ``load_servable(attn_impl="pallas")`` then
+    ``model.loss`` on B = 4 sequences of 64 text tokens, a 32 x 32 grid of
+    vision-patch embeddings and 960 text tokens, with Qwen2-VL's M-RoPE
+    positions and the loss masked off the patches (K4 28 a forward, K1 56
+    masked), the dense loss held against ``attn_impl="xla"``; serving
+    through ``DecodeEngine`` (8 prompts of 1-64 tokens, 32 new; K5 28 a
+    step, K1 56 masked; a profiled wave of :data:`VLM_PROFILE_STEPS` steps,
+    a wave under sync-debug "error");
+    then FedDUMAP training in f32 cut to :data:`VLM_TRAIN_LAYERS` layers
+    (:func:`phase_training`: K1-K3).  Returns {kernel name: launches}."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.kernels import masked_matmul as k1
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import DecodeEngine, ServeConfig, load_servable
+    from repro_torch.utils.tree import tree_size
+
+    cfg = get_config("qwen2-vl-7b")
+    t_part = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = LM(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    kept = model.decide_kept(params, 0.5)
+    torch.cuda.synchronize()
+    log(f"[vlm] qwen2-vl-7b full width and depth: {cfg.num_layers} layers, "
+        f"{tree_size(params) / 1e9:.3f} B params, {cfg.param_dtype}, "
+        f"{cfg.padded_num_heads} heads over {cfg.padded_num_kv_heads} kv heads"
+        f" of {cfg.resolved_head_dim}; init {time.perf_counter() - t_part:.1f}"
+        f" s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; rate "
+        f"0.5 keeps {kept['mlp'].shape[1]} of {cfg.d_ff} FFN units a layer")
+    b, text, grid, after = VLM_SCORE
+    batch = _vl_batch(torch, params, cfg, b, text, grid, after, 1)
+    n_tok = int(batch["loss_mask"].numel())
+    source = {"params": params, "kept": kept, "mode": "mask",
+              "model_config": cfg}
+    del model
+    scfg = ServeConfig(**VLM_SERVE)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(1, 65)))
+               .astype(np.int32) for _ in range(8)]
+    launches = {"flash_attention": 0, "decode_attention": 0,
+                "masked_matmul": 0}
+    losses = {}
+    for mode in ("dense", "masked", "shrunk"):
+        src = source if mode != "dense" else {**source, "kept": None}
+        sv = load_servable(src, mode, attn_impl="pallas", device="cuda")
+        n1_step = 2 * cfg.num_layers if mode == "masked" else 0
+
+        def forward():
+            return sv.model.loss(sv.params, batch, masks=sv.masks)
+
+        with torch.no_grad():
+            forward()                                          # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            k4.launches = k1.launches = 0
+            t0 = time.perf_counter()
+            loss = forward()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n4, n1 = k4.launches, k1.launches
+            log(f"[scoring] qwen2-vl-7b {mode}: loss {float(loss):.6f} over "
+                f"{int(batch['loss_mask'].sum())} text positions; {n_tok} "
+                f"tokens ({b} x {text} text + {grid[0]}x{grid[1]} patches + "
+                f"{after} text) in {wall:.4f} s -> {n_tok / wall:.1f} "
+                f"tokens/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+                f" GiB; launches flash_attention={n4} masked_matmul={n1} "
+                f"(expected {cfg.num_layers}, {n1_step})")
+            require(n4 == cfg.num_layers and n1 == n1_step,
+                    f"scoring qwen2-vl {mode}: launches K4 {n4}, K1 {n1}")
+            require(math.isfinite(float(loss)) and 0.0 < float(loss)
+                    < 2 * math.log(cfg.vocab_size),
+                    f"scoring qwen2-vl {mode}: loss {float(loss)}")
+            launches["flash_attention"] += n4
+            launches["masked_matmul"] += n1
+            losses[mode] = float(loss)
+            _profile_forward(torch, f"qwen2-vl-7b {mode}", forward, wall)
+            if mode == "dense":
+                xla = LM(sv.model.cfg, attn_impl="xla", device="cuda")
+                plain = float(xla.loss(sv.params, batch))
+                log(f"[scoring] qwen2-vl-7b dense: loss through K4 "
+                    f"{float(loss):.6f}, through the plain attention "
+                    f"{plain:.6f}: relative difference "
+                    f"{abs(float(loss) - plain) / plain:.3e} (tol "
+                    f"{VLM_XLA_TOL:.0e}, bf16 over {cfg.num_layers} "
+                    f"layers)")
+                require(abs(float(loss) - plain) <= VLM_XLA_TOL * plain,
+                        "scoring qwen2-vl: pallas and xla losses disagree")
+                del xla
+
+        _full_engine(torch, sv, scfg, prompts)          # warm-up: one wave
+        eng = DecodeEngine(sv.model, sv.params, scfg, masks=sv.masks,
+                           device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k5.launches = k1.launches = 0
+        t0 = time.perf_counter()
+        done = eng.run(prompts)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n5, n1 = k5.launches, k1.launches
+        gen_tok = sum(len(c.tokens) for c in done)
+        log(f"[serving] qwen2-vl-7b {mode}: {len(done)} requests, {gen_tok} "
+            f"tokens, {eng.steps} decode steps in {dt:.3f} s -> "
+            f"{gen_tok / dt:.1f} tokens/s, {1e3 * dt / eng.steps:.3f} "
+            f"ms/step, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB; launches decode_attention={n5} masked_matmul={n1} "
+            f"({n5 // max(eng.steps, 1)} and {n1 // max(eng.steps, 1)} a "
+            f"step)")
+        require(len(done) == len(prompts) and
+                all(c.status == "ok" and len(c.tokens) == scfg.max_new_tokens
+                    and int(c.tokens.min()) >= 0
+                    and int(c.tokens.max()) < cfg.vocab_size for c in done),
+                f"serving qwen2-vl {mode}: malformed completions")
+        require(n5 == eng.steps * cfg.num_layers and
+                n1 == eng.steps * n1_step, f"serving qwen2-vl {mode}: "
+                f"launches K5 {n5}, K1 {n1} over {eng.steps} steps")
+        launches["decode_attention"] += n5
+        launches["masked_matmul"] += n1
+        _profile_wave(torch, f"qwen2-vl-7b {mode}", sv, dataclasses.replace(
+            scfg, steps_per_wave=VLM_PROFILE_STEPS), prompts)
+        _sync_free_wave(torch, sv, scfg, prompts)
+        del sv, eng, done
+        torch.cuda.empty_cache()
+    log(f"[vlm] qwen2-vl-7b scoring losses dense {losses['dense']:.6f}, "
+        f"masked {losses['masked']:.6f}, shrunk {losses['shrunk']:.6f}; "
+        f"masked and shrunk differ by "
+        f"{abs(losses['masked'] - losses['shrunk']):.3e} (tol 2e-2 relative)")
+    require(abs(losses["masked"] - losses["shrunk"])
+            <= 2e-2 * losses["shrunk"], "scoring qwen2-vl: masked and shrunk "
+            "losses disagree")
+    del params, source, batch, forward
+    torch.cuda.empty_cache()
+    log(f"[vlm] scoring and serving part: {time.perf_counter() - t_part:.1f}"
+        f" s")
+    t_part = time.perf_counter()
+    for name, n in phase_training(torch, "qwen2-vl-7b",
+                                  num_layers=VLM_TRAIN_LAYERS).items():
+        launches[name] = launches.get(name, 0) + n
+    log(f"[vlm] training part: {time.perf_counter() - t_part:.1f} s")
+    return launches
+
+
+WHISPER_TOL = 1e-4      # f32 card against CPU (PARITY_TOL's)
+
+
+def _whisper_parity_cfg():
+    """whisper-small reduced with its own head layout: 12 heads padded to
+    16 with KV alongside (MHA, 16 over 16) of 64; 2 + 2 layers, d 256, 64
+    encoder frames, f32."""
+    from repro_torch.configs import get_config
+
+    return get_config("whisper-small").reduced(num_heads=12, num_kv_heads=12)
+
+
+def phase_whisper_parity(torch) -> dict:
+    """The encdec family card against CPU in f32 (TF32 off) from the same
+    params: the encoder, the logits through plain attention and through K4
+    (causal on the decoder, no mask on the cross-attention at Sq = 48,
+    Skv = 64: 2 launches a decoder layer, counted), the loss and every
+    gradient leaf, the cross K/V of ``prefill_cross`` and teacher-forced
+    decode steps (K5 over the self cache)."""
+    import numpy as np
+
+    from repro_torch import interop
+    from repro_torch.core import engine
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.models.lm import LM
+
+    cfg = _whisper_parity_cfg()
+    cpu = LM(cfg, device="cpu")
+    gpu, gpu_k4 = (LM(cfg, device="cuda", attn_impl=impl)
+                   for impl in ("xla", "pallas"))
+    params_c = cpu.init(torch.Generator().manual_seed(41))
+    params_g = interop.params_from_jax(params_c, "cuda")
+    rng = np.random.default_rng(42)
+    b, s_len = 2, 48
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s_len + 1))
+                           .astype(np.int64))
+    frames = torch.from_numpy(rng.standard_normal(
+        (b, cfg.encoder.frames, cfg.d_model)).astype(np.float32))
+    batch_c = {"tokens": tok[:, :-1], "labels": tok[:, 1:],
+               "enc_embeds": frames}
+    batch_g = {k: v.cuda() for k, v in batch_c.items()}
+    log(f"[whisper-parity] whisper-small reduced: {cfg.encoder.num_layers} "
+        f"encoder + {cfg.num_layers} decoder layers, d_model={cfg.d_model}, "
+        f"{cfg.padded_num_heads} heads (of {cfg.num_heads}) over "
+        f"{cfg.padded_num_kv_heads} of {cfg.resolved_head_dim}, "
+        f"{cfg.encoder.frames} frames, f32; B={b} S={s_len}")
+    with torch.no_grad():
+        enc_err = max_rel_err(torch, gpu._encode(params_g, batch_g).cpu(),
+                              cpu._encode(params_c, batch_c))[1]
+        want = cpu.apply(params_c, batch_c)
+        log(f"[whisper-parity] encoder output rel {enc_err:.3e} (tol "
+            f"{WHISPER_TOL:.0e})")
+        require(enc_err <= WHISPER_TOL, f"whisper-parity encoder {enc_err}")
+        for model, what in ((gpu, "plain attention"), (gpu_k4, "K4")):
+            k4.launches = 0
+            got = model.apply(params_g, batch_g)
+            torch.cuda.synchronize()
+            err, rel = max_rel_err(torch, got.cpu(), want)
+            n4 = k4.launches
+            want4 = 2 * cfg.num_layers if model is gpu_k4 else 0
+            log(f"[whisper-parity] forward logits ({what}): max_abs_err="
+                f"{err:.3e} rel={rel:.3e} (tol {WHISPER_TOL:.0e}); K4 "
+                f"launches {n4} (expected {want4}: causal and cross a layer)")
+            require(bool(torch.isfinite(got).all()) and rel <= WHISPER_TOL
+                    and n4 == want4, f"whisper-parity forward ({what})")
+    (l_c, _), g_c = engine.value_and_grad_aux(
+        lambda p: cpu._loss_acc(p, batch_c, None), params_c)
+    (l_g, _), g_g = engine.value_and_grad_aux(
+        lambda p: gpu._loss_acc(p, batch_g, None), params_g)
+    errs = _leaf_errs(g_g, g_c)
+    worst = max(e / m if m > 0 else e for e, m in errs)
+    log(f"[whisper-parity] loss card {float(l_g):.6f} cpu {float(l_c):.6f}; "
+        f"{len(errs)} gradient leaves, worst error {worst:.3e} relative to "
+        f"the leaf's max |grad| (tol {TRAIN_TOL:.0e})")
+    require(abs(float(l_g) - float(l_c)) <= WHISPER_TOL * float(l_c),
+            "whisper-parity: loss differs")
+    require(worst <= TRAIN_TOL, f"whisper-parity gradient {worst:.3e}")
+    del g_c, g_g
+
+    caches = {"cpu": cpu.init_cache(b, 32), "card": gpu.init_cache(b, 32)}
+    cpu.prefill_cross(params_c, caches["cpu"], batch_c)
+    gpu.prefill_cross(params_g, caches["card"], batch_g)
+    cross = max(max_rel_err(torch, caches["card"]["cross"][s].cpu(),
+                            caches["cpu"]["cross"][s])[1] for s in ("k", "v"))
+    worst = 0.0
+    with torch.inference_mode():
+        for t in range(16):
+            lc, caches["cpu"] = cpu.decode_step(
+                params_c, caches["cpu"], {"tokens": batch_c["tokens"][:, t:t + 1]})
+            lg, caches["card"] = gpu.decode_step(
+                params_g, caches["card"],
+                {"tokens": batch_g["tokens"][:, t:t + 1]})
+            worst = max(worst, max_rel_err(torch, lg.cpu(), lc)[1])
+    log(f"[whisper-parity] prefill_cross K/V rel {cross:.3e}; 16 decode "
+        f"steps: worst logits rel {worst:.3e} (tol {WHISPER_TOL:.0e})")
+    require(cross <= WHISPER_TOL and worst <= WHISPER_TOL,
+            f"whisper-parity decode: {cross:.3e}, {worst:.3e}")
+    return {}
+
+
+WHISPER_SCORE = (8, 448)                # B x S of the decoder; 1500 frames
+WHISPER_SERVE = dict(batch=8, prompt=4, new=124)    # 128 cache rows
+WHISPER_GRAD = (2, 448)                 # B x S of the f32 gradient
+WHISPER_XLA_TOL = 1e-2                  # bf16 loss, pallas against xla
+
+
+def phase_whisper(torch) -> dict:
+    """whisper-small at full width and depth (12 encoder and 12 decoder
+    layers, d 768, 12 heads padded to 16 over 16 of 64, 1500 frames, vocab
+    51865), seeded weights and frames: bf16 scoring through
+    ``load_servable(attn_impl="pallas")`` at B = 8 x S = 448 (K4 24 a
+    forward: each decoder layer's causal self-attention and its
+    cross-attention over the 1500 frames without the mask; the encoder's
+    attention is the plain one, as the reference's), the loss held against
+    ``attn_impl="xla"``; bf16 ``lockstep_decode`` of 8 sequences, a
+    4-token prompt and 124 new tokens after ``prefill_cross`` (K5 12 a
+    step), a profiled window and one under sync-debug "error"; an f32 loss
+    gradient at full width, finite and bitwise equal over two runs.
+    Returns {kernel name: launches}."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import lockstep_decode, load_servable
+    from repro_torch.utils.tree import tree_leaves, tree_size
+
+    cfg = get_config("whisper-small")
+    frames_n = cfg.encoder.frames
+    params = LM(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    log(f"[whisper] whisper-small full width and depth: "
+        f"{cfg.encoder.num_layers} encoder + {cfg.num_layers} decoder layers,"
+        f" {tree_size(params) / 1e6:.1f} M params, {cfg.param_dtype}, "
+        f"{cfg.padded_num_heads} heads over {cfg.padded_num_kv_heads} of "
+        f"{cfg.resolved_head_dim}, {frames_n} frames")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, s_len = WHISPER_SCORE
+    tokens = torch.randint(0, cfg.vocab_size, (b, s_len + 1), generator=gen,
+                           device="cuda")
+    frames = torch.randn((b, frames_n, cfg.d_model), generator=gen,
+                         device="cuda")
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:],
+             "enc_embeds": frames}
+    sv = load_servable({"params": params, "model_config": cfg}, "dense",
+                       attn_impl="pallas", device="cuda")
+    launches = {"flash_attention": 0, "decode_attention": 0}
+
+    def forward():
+        return sv.model.loss(sv.params, batch)
+
+    with torch.no_grad():
+        forward()                                              # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k4.launches = 0
+        t0 = time.perf_counter()
+        loss = forward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n4 = k4.launches
+        log(f"[scoring] whisper-small: loss {float(loss):.6f}; {b * s_len} "
+            f"decoder tokens over {b} x {frames_n} frames in {wall:.4f} s -> "
+            f"{b * s_len / wall:.1f} tokens/s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+            f"flash_attention={n4} (expected {2 * cfg.num_layers}: "
+            f"{cfg.num_layers} causal + {cfg.num_layers} cross)")
+        require(n4 == 2 * cfg.num_layers, f"scoring whisper: K4 {n4}")
+        require(math.isfinite(float(loss)) and 0.0 < float(loss)
+                < 2 * math.log(cfg.vocab_size),
+                f"scoring whisper: loss {float(loss)}")
+        launches["flash_attention"] += n4
+        _profile_forward(torch, "whisper-small", forward, wall)
+        plain = float(LM(cfg, attn_impl="xla", device="cuda").loss(
+            sv.params, batch))
+        log(f"[scoring] whisper-small: loss through K4 {float(loss):.6f}, "
+            f"through the plain attention {plain:.6f}: relative difference "
+            f"{abs(float(loss) - plain) / plain:.3e} (tol "
+            f"{WHISPER_XLA_TOL:.0e}, bf16)")
+        require(abs(float(loss) - plain) <= WHISPER_XLA_TOL * plain,
+                "scoring whisper: pallas and xla losses disagree")
+
+    n_b, n_p, n_new = (WHISPER_SERVE[k] for k in ("batch", "prompt", "new"))
+    prompt = torch.randint(0, cfg.vocab_size, (n_b, n_p), generator=gen,
+                           device="cuda").cpu()
+    enc = torch.randn((n_b, frames_n, cfg.d_model), generator=gen,
+                      device="cuda")
+    lockstep_decode(sv.model, sv.params, prompt, 4, enc_embeds=enc)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k5.launches = 0
+    timings = {}
+    gen_tok, steps = lockstep_decode(sv.model, sv.params, prompt, n_new,
+                                     enc_embeds=enc, timings=timings)
+    n5 = k5.launches
+    dec = timings["decode_s"]
+    log(f"[serving] whisper-small lockstep: {n_b} sequences, prompt {n_p}, "
+        f"{n_new} new ({n_p + n_new} cache rows, cross K/V over {frames_n} "
+        f"frames): prefill {1e3 * timings['prefill_s'] / n_p:.3f} ms/step, "
+        f"decode {1e3 * dec / n_new:.3f} ms/step -> {n_b * n_new / dec:.1f} "
+        f"tokens/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB;"
+        f" launches decode_attention={n5} ({n5 // steps} a step)")
+    require(n5 == steps * cfg.num_layers, f"serving whisper: K5 {n5}, "
+            f"expected {steps} x {cfg.num_layers}")
+    require(tuple(gen_tok.shape) == (n_b, n_new) and int(gen_tok.min()) >= 0
+            and int(gen_tok.max()) < cfg.vocab_size,
+            "serving whisper: malformed tokens")
+    launches["decode_attention"] += n5
+    cache_len = n_p + n_new
+    _profile_lockstep(torch, "whisper-small", sv, prompt, cache_len, enc=enc)
+    _sync_free_lockstep(torch, "whisper-small", sv, prompt, cache_len,
+                        enc=enc)
+    del sv, params, batch, frames, enc
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    model = LM(cfg32, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(2))
+    b, s_len = WHISPER_GRAD
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s_len + 1), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:],
+             "enc_embeds": torch.randn((b, frames_n, cfg.d_model),
+                                       generator=gen, device="cuda")}
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        (loss, _), grads = engine.value_and_grad_aux(
+            lambda p: model._loss_acc(p, batch, None), params)
+        torch.cuda.synchronize()
+        runs.append((float(loss), tree_leaves(grads),
+                     time.perf_counter() - t0))
+    same = runs[0][0] == runs[1][0] and all(
+        torch.equal(a, c) for a, c in zip(runs[0][1], runs[1][1]))
+    finite = all(bool(torch.isfinite(g).all()) for g in runs[0][1])
+    log(f"[training] whisper-small f32 loss gradient (B={b} x S={s_len}, "
+        f"{frames_n} frames): loss {runs[0][0]:.6f}, "
+        f"{len(runs[0][1])} leaves, finite {finite}, two runs bitwise "
+        f"equal {same}; {runs[1][2]:.3f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    require(finite and same, "whisper gradient: not finite or not "
+            "reproducible")
+    return launches
+
+
 PHASE_SECONDS: dict = {}    # phase -> wall seconds, for the [time] lines
 
 
@@ -4161,7 +4971,11 @@ def main() -> int:
             ("xlstm-parity", lambda: phase_xlstm_parity(torch) or {}),
             ("xlstm", lambda: phase_xlstm(torch)),
             ("moe-parity", lambda: phase_moe_parity(torch) or {}),
-            ("moe", lambda: phase_moe(torch))):
+            ("moe", lambda: phase_moe(torch)),
+            ("vlm-parity", lambda: phase_vlm_parity(torch) or {}),
+            ("vlm", lambda: phase_vlm(torch)),
+            ("whisper-parity", lambda: phase_whisper_parity(torch)),
+            ("whisper", lambda: phase_whisper(torch))):
         for name, n in _phase(torch, label, path).items():
             launches[name] = launches.get(name, 0) + n
     for name, sec in PHASE_SECONDS.items():

@@ -12,12 +12,17 @@ kernel at dense shapes) or ``shrunk`` (compacted d_ff).
       --requests 8 --slots 4 --tokens 16 --prune-rate 0.5 --serve-mode shrunk
   PYTHONPATH=src python examples/serve_decode_torch.py --arch arctic-480b
 
-The hybrid and ssm families decode with the lockstep loop
+The hybrid, ssm, vlm and encdec families decode with the lockstep loop
 (``repro_torch.serving.lockstep_decode``): every sequence at the same depth.
+A vlm step's input is the one-hot embedding of its token, as in the
+reference's loop; whisper's encoder frames are random, drawn from
+``--seed``, and its cross K/V are computed once before the prompt.
+``--prune-rate`` applies to the engine's dense family only.
 
   PYTHONPATH=src python examples/serve_decode_torch.py --arch xlstm-125m
   PYTHONPATH=src python examples/serve_decode_torch.py --arch zamba2-1.2b \\
       --tokens 32 --device cpu
+  PYTHONPATH=src python examples/serve_decode_torch.py --arch whisper-small
 
 Every config is the arch's ``reduced()`` one, with random weights from
 ``--seed``.  ``--device`` defaults to ``cuda``.
@@ -94,15 +99,22 @@ def serve_continuous(cfg, args):
 def serve_lockstep(cfg, args):
     """Lockstep path for families without per-slot cache indices: every
     sequence at the same depth, one decode step a token."""
+    if args.prune_rate > 0:
+        raise SystemExit("--prune-rate prunes the scanned FFN stack; use a "
+                         "dense-family --arch")
     model = LM(cfg, device=args.device)
     params = model.init(torch.Generator(device=model.device)
                         .manual_seed(args.seed))
     rng = np.random.default_rng(args.seed)
+    enc = None
+    if cfg.family == "encdec":
+        enc = torch.from_numpy(rng.standard_normal(
+            (args.slots, cfg.encoder.frames, cfg.d_model)).astype(np.float32))
     prompt = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (args.slots, args.prompt)).astype(np.int32))
     timings = {}
     gen, _ = lockstep_decode(model, params, prompt, args.tokens,
-                             timings=timings)
+                             timings=timings, enc_embeds=enc)
     prefill_s, decode_s = timings["prefill_s"], timings["decode_s"]
     print(f"arch={cfg.name} (reduced) batch={args.slots}")
     print(f"prefill {args.prompt} tok: {prefill_s:.2f}s; "

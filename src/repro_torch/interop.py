@@ -43,11 +43,14 @@ def _keeps_f32(path: tuple) -> bool:
 
 
 def params_from_jax(tree, device="cuda", dtype=None) -> dict:
-    """A JAX/numpy param tree (``embed``, ``norm_out``, ``layers/{attn:{wq,
-    wk,wv,wo}, norm_a, norm_f, mlp:{wi,wg,wo}}``, ...) as tensors on
-    ``device``, cast to ``dtype`` when given, except the leaves that the
-    reference keeps in f32 in a model of any dtype (:data:`F32_LEAVES`):
-    those keep their own dtype."""
+    """A JAX/numpy param tree of any family (``embed``, ``norm_out``,
+    ``layers/{attn:{wq,wk,wv,wo}, norm_a, norm_f, mlp:{wi,wg,wo}}`` of the
+    stacked families, ``blocks/l<i>`` of ssm, ``enc_pos``, ``norm_enc``,
+    ``encoder/l<i>`` and ``decoder/l<i>`` (with ``xattn``, ``norm_x``) of
+    encdec, ...), walked leaf for leaf, as tensors on ``device``, cast to
+    ``dtype`` when given, except the leaves that the reference keeps in f32
+    in a model of any dtype (:data:`F32_LEAVES`; a layernorm's ``bias`` is
+    not the sLSTM cell's): those keep their own dtype."""
     dev = _device.resolve(device)
 
     def convert(node, path):
@@ -93,10 +96,11 @@ def cnn_params_to_numpy(tree) -> dict:
 def cache_from_jax(cache, device="cuda") -> dict:
     """A JAX decode cache (``LM.init_cache``'s tree as numpy or JAX arrays,
     e.g. one taken mid-stream) as the port's, leaf for leaf on ``device``,
-    every leaf keeping its dtype: dense ``{"k", "v", "index"}``, hybrid
-    ``{"mamba": {"conv", "h"}, "shared_attn": {"k", "v"}, "index"}`` or ssm
-    ``{"l<i>": (C, N, m) | (c, n, h, m), "index"}`` (the recurrent states
-    stay tuples)."""
+    every leaf keeping its dtype: dense, moe and vlm ``{"k", "v",
+    "index"}``, hybrid ``{"mamba": {"conv", "h"}, "shared_attn": {"k",
+    "v"}, "index"}``, ssm ``{"l<i>": (C, N, m) | (c, n, h, m), "index"}``
+    (the recurrent states stay tuples) or encdec ``{"self": {"k", "v"},
+    "cross": {"k", "v"}, "index"}``."""
     if not isinstance(cache, dict) or "index" not in cache:
         raise ValueError(f"not a decode cache (a dict with an 'index' leaf): "
                          f"{type(cache).__name__}")

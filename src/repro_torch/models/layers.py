@@ -1,8 +1,9 @@
 """Transformer building blocks, as plain functions on tensors.
 
-Counterpart of the reference's ``models/layers.py``, limited to what the
-dense, moe, hybrid and ssm families need: the full-sequence forward of
-training and scoring, the token-choice MoE FFN, the Mamba2 mixer, the xLSTM
+Counterpart of the reference's ``models/layers.py`` for the six LM
+families: the full-sequence forward of training and scoring (causal
+self-attention, the encoder's bidirectional attention and the decoder's
+cross-attention), the token-choice MoE FFN, the Mamba2 mixer, the xLSTM
 cells, and the decode step of serving.  Layouts follow the reference: ``wq
 [d,H,hd]``, ``wk/wv [d,KV,hd]``, ``wo [H,hd,d]`` (H and KV after head
 padding), cache ``[B,S,KV,hd]``, FFN ``wi/wg [d,ff]``, ``wo [ff,d]``, MoE
@@ -47,17 +48,8 @@ def apply_norm(params, x, kind: str, eps: float = 1e-5):
 
 
 # ---------------------------------------------------------------------------
-# rotary embeddings: 1d / GLM-2d
+# rotary embeddings: 1d / GLM-2d / M-RoPE
 # ---------------------------------------------------------------------------
-
-def _rope_angles(positions, dim: int, base: float = 10000.0):
-    """positions [..., S] -> (sin, cos) [..., S, dim//2] in f32."""
-    exps = torch.arange(0, dim, 2, dtype=torch.float32,
-                        device=positions.device) / dim
-    freqs = 1.0 / (base ** exps)
-    ang = positions.float()[..., None] * freqs
-    return torch.sin(ang), torch.cos(ang)
-
 
 def _rotate(x, sin, cos):
     """x [..., dim], rotating interleaved pairs (x[..., ::2], x[..., 1::2])."""
@@ -67,35 +59,74 @@ def _rotate(x, sin, cos):
     return torch.stack([y1, y2], dim=-1).reshape(x.shape)
 
 
-def apply_rope(x, positions, kind: str):
-    """x [B, S, n, head_dim]; positions [P, B, S] with P=1 (1d) or 2 (GLM
-    2d: first half of head_dim by stream 0, second by stream 1)."""
+def mrope_sections(hd: int) -> list:
+    """M-RoPE's split of head_dim into its (t, h, w) sections, the
+    reference's ``[hd // 2, hd // 4, hd - hd // 2 - hd // 4]``."""
+    return [hd // 2, hd // 4, hd - hd // 2 - hd // 4]
+
+
+ROPE_STREAMS = {"none": 1, "1d": 1, "2d": 2, "mrope": 3}
+_ROPE_TABLES: dict = {}     # (kind, hd, device) -> (freqs, streams)
+
+
+def _rope_table(kind: str, hd: int, device, base: float = 10000.0):
+    """(freqs [hd//2] f32, streams [hd//2] int64): the frequency of each
+    rotated pair of head_dim and the position stream that turns it.  Each
+    section of width w (1d: all of hd; 2d: two halves; mrope: the
+    :func:`mrope_sections`) has the reference's ``1 / base ** (arange(0, w,
+    2) / w)``.  Made once per (kind, hd, device), outside inference mode."""
+    key = (kind, hd, str(device))
+    if key not in _ROPE_TABLES:
+        widths = {"1d": [hd], "2d": [hd // 2, hd - hd // 2],
+                  "mrope": mrope_sections(hd)}[kind]
+        with torch.inference_mode(False):
+            freqs = [1.0 / (base ** (torch.arange(
+                0, w, 2, dtype=torch.float32, device=device) / w))
+                for w in widths]
+            streams = [torch.full((w // 2,), i, dtype=torch.int64,
+                                  device=device)
+                       for i, w in enumerate(widths)]
+            _ROPE_TABLES[key] = (torch.cat(freqs), torch.cat(streams))
+    return _ROPE_TABLES[key]
+
+
+def rope_sin_cos(positions, kind: str, hd: int):
+    """(sin, cos) [B, S, 1, hd//2] in f32 of the rotation angles at
+    ``positions`` [P, B, S] (P as :data:`ROPE_STREAMS`), every pair's angle
+    its stream's position times its frequency, computed once for q and k;
+    None for ``kind="none"``."""
+    if kind == "none":
+        return None
+    if kind not in ROPE_STREAMS:
+        raise ValueError(kind)
+    freqs, streams = _rope_table(kind, hd, positions.device)
+    pos = positions.float()
+    if kind == "1d":
+        ang = pos[0][..., None] * freqs
+    else:
+        ang = pos.index_select(0, streams).permute(1, 2, 0) * freqs
+    return torch.sin(ang)[:, :, None, :], torch.cos(ang)[:, :, None, :]
+
+
+def apply_rope(x, positions, kind: str, sin_cos=None):
+    """x [B, S, n, head_dim]; positions [P, B, S] with P=1 (1d), 2 (GLM 2d:
+    first half of head_dim by stream 0, second by stream 1) or 3 (M-RoPE:
+    the :func:`mrope_sections` of head_dim by the t, h and w streams, each
+    section's angles over its own width, its pairs interleaved as in 1d;
+    the reference's form, not Hugging Face's rotate-half one).  Every
+    section's pairs are rotated in one pass (sections start at even
+    offsets, so no pair spans two), with the angles of
+    :func:`rope_sin_cos`, or ``sin_cos`` when given."""
     if kind == "none":
         return x
-    hd = x.shape[-1]
-    xf = x.float()
-    if kind == "1d":
-        sin, cos = _rope_angles(positions[0], hd)
-        out = _rotate(xf, sin[:, :, None, :], cos[:, :, None, :])
-    elif kind == "2d":
-        h = hd // 2
-        s0, c0 = _rope_angles(positions[0], h)
-        s1, c1 = _rope_angles(positions[1], h)
-        out = torch.cat([
-            _rotate(xf[..., :h], s0[:, :, None, :], c0[:, :, None, :]),
-            _rotate(xf[..., h:], s1[:, :, None, :], c1[:, :, None, :]),
-        ], dim=-1)
-    elif kind == "mrope":
-        raise ValueError("rope='mrope' (qwen2-vl) is not ported yet")
-    else:
-        raise ValueError(kind)
-    return out.to(x.dtype)
+    sin, cos = sin_cos or rope_sin_cos(positions, kind, x.shape[-1])
+    return _rotate(x.float(), sin, cos).to(x.dtype)
 
 
 def default_positions(batch: int, seq: int, kind: str, offset: int = 0, *,
                       device="cpu"):
     """[P, B, S] int32 positions ``arange(seq) + offset`` per rope stream."""
-    p = {"none": 1, "1d": 1, "2d": 2, "mrope": 3}[kind]
+    p = ROPE_STREAMS[kind]
     pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :] + offset
     return pos.expand(p, batch, seq).to(torch.int32)
 
@@ -145,30 +176,55 @@ ATTN_IMPLS = ("xla", "pallas")
 
 
 def attention_block(params, x, positions, cfg: ModelConfig, *, window=None,
-                    attn_impl: str = "xla"):
+                    attn_impl: str = "xla", cross_kv=None):
     """Causal self-attention over a whole sequence: q/k/v projections, rope,
     attention (optionally over a sliding ``window``), the output projection.
     x [B,S,d] -> [B,S,d].  ``attn_impl="xla"`` runs the plain
     :func:`attention` (differentiable); ``"pallas"`` runs the
     ``flash_attention`` kernel (K4), forward only.
 
+    ``cross_kv=(k, v)`` ([B,F,KV,hd] each, from an encoder: the whisper
+    decoder's cross-attention) makes it cross-attention: only q is
+    projected, nothing is rotated, and every query sees all F keys (no
+    causal mask; K4 runs with ``causal=False`` at Sq != Skv).
+
     Head counts come from the params' shapes.  With padded heads
     (``cfg.pad_heads_to``) the reference tiles K/V up to H, which maps query
     head h to kv head ``h mod KV``: the [g, kv] grouping that both paths here
     apply to GQA K/V directly, so K/V are passed on untiled."""
     b, s, _ = x.shape
-    q = apply_rope(_heads(x, params["wq"]), positions, cfg.rope)
-    k = apply_rope(_heads(x, params["wk"]), positions, cfg.rope)
-    v = _heads(x, params["wv"])
+    if cross_kv is None:
+        sc = rope_sin_cos(positions, cfg.rope, params["wq"].shape[-1])
+        q = apply_rope(_heads(x, params["wq"]), positions, cfg.rope, sc)
+        k = apply_rope(_heads(x, params["wk"]), positions, cfg.rope, sc)
+        v = _heads(x, params["wv"])
+        causal = True
+    else:
+        q = _heads(x, params["wq"])
+        k, v = cross_kv
+        causal = False
     if attn_impl == "pallas":
-        out = ops.flash_attention(q, k, v, causal=True, window=window)
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
     elif attn_impl == "xla":
-        out = attention(q, k, v, causal=True, window=window)
+        out = attention(q, k, v, causal=causal, window=window)
     else:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                          f"{attn_impl!r}")
     wo = params["wo"]
     return out.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def encoder_attention(params, x):
+    """The encoder's bidirectional self-attention, x [B,F,d] -> [B,F,d]:
+    q/k/v projections, no rope, plain :func:`attention` with
+    ``causal=False``, the output projection.  It runs the plain attention
+    whatever the model's ``attn_impl``: the reference's encoder branch
+    calls its plain attention directly and never reaches its Pallas
+    kernel, so no kernel lies on this path."""
+    out = attention(_heads(x, params["wq"]), _heads(x, params["wk"]),
+                    _heads(x, params["wv"]), causal=False)
+    wo = params["wo"]
+    return out.reshape(*x.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -194,8 +250,9 @@ def attention_decode(params, x, cache_k, cache_v, cache_index, positions,
     """
     b = x.shape[0]
     s_cache, kvh, hd = cache_k.shape[1], cache_k.shape[2], cache_k.shape[3]
-    q = apply_rope(_heads(x, params["wq"]), positions, cfg.rope)
-    k_new = apply_rope(_heads(x, params["wk"]), positions, cfg.rope)
+    sc = rope_sin_cos(positions, cfg.rope, hd)
+    q = apply_rope(_heads(x, params["wq"]), positions, cfg.rope, sc)
+    k_new = apply_rope(_heads(x, params["wk"]), positions, cfg.rope, sc)
     v_new = _heads(x, params["wv"])
     idx = cache_index.expand(b) if cache_index.ndim == 0 else cache_index
     rows = torch.arange(b, device=x.device) * s_cache + torch.remainder(
@@ -212,6 +269,24 @@ def attention_decode(params, x, cache_k, cache_v, cache_index, positions,
     h = out.shape[2]
     wo = params["wo"]
     return out.reshape(b, 1, h * hd) @ wo.reshape(h * hd, wo.shape[-1])
+
+
+def attention_decode_cross(params, x, cross_k, cross_v):
+    """One query token against the fixed cross K/V of an encoder: x
+    [B,1,d], cross_k/cross_v [B,F,KV,hd] -> [B,1,d].  Plain einsums with
+    the scores, softmax and weighted sum in f32 over every frame (the
+    reference's ``attention_decode_cross``, which has no kernel either)."""
+    b = x.shape[0]
+    h, hd = params["wq"].shape[1], params["wq"].shape[2]
+    kvh = cross_k.shape[2]
+    qg = _heads(x, params["wq"]).reshape(b, h // kvh, kvh, hd).float()
+    scores = torch.einsum("bgkd,bskd->bgks", qg,
+                          cross_k.float()) / math.sqrt(hd)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgks,bskd->bgkd", w, cross_v.float())
+    wo = params["wo"]
+    return out.reshape(b, 1, h * hd).to(x.dtype) @ wo.reshape(h * hd,
+                                                              wo.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -422,6 +497,23 @@ def init_layer_stack(cfg: ModelConfig, n_layers: int, dtype, generator,
                                 generator, device, n_layers)
     stack["norm_f"] = init_norm(cfg, dtype, device, n_layers)
     return stack
+
+
+def init_block(cfg: ModelConfig, dtype, generator, device, *,
+               cross: bool = False) -> dict:
+    """One unstacked encoder (or, with ``cross``, decoder) block of the
+    encdec family: ``{"attn", "norm_a", ["xattn", "norm_x"], "mlp",
+    "norm_f"}``, the cross-attention's heads padded as the self-attention's
+    are."""
+    block = {"attn": init_attention(cfg, dtype, generator, device),
+             "norm_a": init_norm(cfg, dtype, device)}
+    if cross:
+        block["xattn"] = init_attention(cfg, dtype, generator, device)
+        block["norm_x"] = init_norm(cfg, dtype, device)
+    block["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, cfg.act, dtype, generator,
+                            device)
+    block["norm_f"] = init_norm(cfg, dtype, device)
+    return block
 
 
 def init_hybrid_stack(cfg: ModelConfig, n_layers: int, dtype, generator,

@@ -1,6 +1,6 @@
 """The decoder LM, functional: params are dicts of tensors.
 
-Counterpart of the reference's ``models/lm.py`` for four families:
+Counterpart of the reference's ``models/lm.py`` for its six families:
 
 * ``dense`` (llama-style decoder: GQA + RoPE 1d/2d + SwiGLU or GELU MLP):
   the full-sequence forward, loss and token accuracy that federated
@@ -17,13 +17,24 @@ Counterpart of the reference's ``models/lm.py`` for four families:
 * ``ssm`` (xlstm: mLSTM blocks with an sLSTM block every ``slstm_every``-th
   layer, unrolled): the full-sequence forward, loss and token accuracy, and
   the decode step over each layer's recurrent state;
+* ``vlm`` (qwen2-vl: the dense family's stack with M-RoPE, whose input is
+  ``batch["embeds"]`` [B,S,d] in place of tokens, with 3-stream
+  ``batch["positions"]`` [3,B,S]): everything the dense family does;
+* ``encdec`` (whisper: a bidirectional encoder over ``batch["enc_embeds"]``
+  [B,F,d] plus learned ``enc_pos``, and a causal decoder whose blocks
+  cross-attend the encoder's output; both unrolled): the full-sequence
+  forward and loss, and decode over a self-attention KV cache and the
+  fixed cross K/V that :meth:`LM.prefill_cross` writes once.
 
-and the FedAP unit-pruning seam of the dense and hybrid families (the
-``ssm`` family has no FFN and the ``moe`` family prunes whole experts,
-:func:`repro_torch.core.pruning_lm.fedap_lm`: both refuse it, as the
-reference does).  Dense, moe and hybrid layer params are stacked along a
-leading ``[L, ...]`` axis as in the reference, so a JAX param tree converts
-leaf for leaf (:mod:`repro_torch.interop`).
+Any family takes ``embeds`` in place of tokens and ``positions`` in place of
+the default ``arange``, as the reference's do.  The FedAP unit-pruning seam
+serves the dense, vlm and hybrid families (the ``ssm`` family has no FFN
+stack, the ``moe`` family prunes whole experts,
+:func:`repro_torch.core.pruning_lm.fedap_lm`, and the ``encdec`` family's
+blocks are not stacked: each refuses it, as the reference does).  Dense,
+moe, vlm and hybrid layer params are stacked along a leading ``[L, ...]``
+axis as in the reference, so a JAX param tree converts leaf for leaf
+(:mod:`repro_torch.interop`).
 
 Params: ``{"embed" [V,d], "unembed" [d,V] (untied only), "norm_out",
 "layers": {...}}`` with ``layers = {"attn": {wq, wk, wv, wo}, "norm_a",
@@ -33,14 +44,19 @@ A_log, D, dt_bias, norm_scale, out_proj}, "norm_m", "norm_f", "mlp"}`` plus
 ``"shared_attn": {"attn", "norm"}`` (hybrid); the ssm family holds
 ``"blocks": {"l<i>": {"cell", "norm"}}`` instead of ``"layers"``, with an
 mLSTM cell ``{up, wq, wk, wv, w_if, norm_scale, down}`` or an sLSTM cell
-``{w_x, w_h, bias, down}``.
+``{w_x, w_h, bias, down}``; the encdec family holds ``"enc_pos" [F,d]``,
+``"norm_enc"``, ``"encoder": {"l<i>": {attn, norm_a, mlp, norm_f}}`` and
+``"decoder": {"l<i>": {attn, norm_a, xattn, norm_x, mlp, norm_f}}``.
 
 ``attn_impl="pallas"`` sends full-sequence attention through the
 ``flash_attention`` kernel (K4) and the Mamba2 scan through ``ssd_scan``
 (K6), both forward only: it scores and evaluates.  ``"xla"`` (the default,
 as in the reference) runs their plain, differentiable forms, which is what
 training uses.  The ssm family reaches no kernel: its products are plain
-matmuls, as in the reference.
+matmuls, as in the reference.  Nor does the encdec encoder: its
+bidirectional attention is the plain one for either ``attn_impl``, as the
+reference's is; the decoder's self- and cross-attention run K4 (causal, and
+without the mask at Sq != Skv) under ``"pallas"``.
 """
 from __future__ import annotations
 
@@ -55,7 +71,7 @@ from repro_torch.models import layers as L
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-FAMILIES = ("dense", "moe", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "encdec")
 
 
 def _unstack(stacked) -> list:
@@ -68,15 +84,16 @@ def _unstack(stacked) -> list:
 
 class LM:
     """``init``, ``apply``/``loss``/``loss_and_acc`` and ``init_cache``/
-    ``decode_step`` of a dense, moe, hybrid or ssm decoder, on ``device``
-    (default ``"cuda"``, which raises when CUDA is missing)."""
+    ``decode_step`` (and ``prefill_cross`` for encdec) of a model of any of
+    the six families, on ``device`` (default ``"cuda"``, which raises when
+    CUDA is missing)."""
 
     def __init__(self, cfg: ModelConfig, *, attn_impl: str = "xla",
                  device="cuda"):
         if cfg.family not in FAMILIES:
             raise ValueError(
-                f"repro_torch.models.LM ports the {FAMILIES} families so far, "
-                f"not {cfg.family!r} ({cfg.name})")
+                f"repro_torch.models.LM runs the {FAMILIES} families, not "
+                f"{cfg.family!r} ({cfg.name})")
         if cfg.param_dtype not in DTYPES:
             raise ValueError(f"param_dtype must be one of {sorted(DTYPES)}, "
                              f"got {cfg.param_dtype!r}")
@@ -90,6 +107,7 @@ class LM:
         self.hybrid = cfg.family == "hybrid"
         self.ssm = cfg.family == "ssm"
         self.moe = cfg.family == "moe"
+        self.encdec = cfg.family == "encdec"
         self._meta = (L.mamba2_meta(cfg) if self.hybrid
                       else L.mlstm_meta(cfg) if self.ssm else None)
 
@@ -107,7 +125,7 @@ class LM:
                 "logit is not -inf, so masked experts would still "
                 "receive routed mass — prune experts with "
                 "Prune(mode='shrink') (core.pruning_lm.prune_lm_experts)")
-        if self.ssm:
+        if self.ssm or self.encdec:
             raise ValueError(f"masks= requires a scanned stack, not family "
                              f"{self.cfg.family!r}")
 
@@ -131,6 +149,20 @@ class LM:
                 (cfg.d_model, cfg.vocab_size), 1.0 / math.sqrt(cfg.d_model),
                 self.dtype, generator, self.device)
         params["norm_out"] = L.init_norm(cfg, self.dtype, self.device)
+        if self.encdec:
+            enc = cfg.encoder
+            params["enc_pos"] = L._init_normal(
+                (enc.frames, cfg.d_model), 0.02, self.dtype, generator,
+                self.device)
+            params["norm_enc"] = L.init_norm(cfg, self.dtype, self.device)
+            params["encoder"] = {
+                f"l{i}": L.init_block(cfg, self.dtype, generator, self.device)
+                for i in range(enc.num_layers)}
+            params["decoder"] = {
+                f"l{i}": L.init_block(cfg, self.dtype, generator, self.device,
+                                      cross=True)
+                for i in range(cfg.num_layers)}
+            return params
         if self.ssm:
             blocks = {}
             for i in range(cfg.num_layers):
@@ -152,6 +184,60 @@ class LM:
         return params
 
     # -- forward pieces ---------------------------------------------------------
+    def _embed_in(self, params, batch):
+        """The input embeddings: ``batch["embeds"]`` cast to the param dtype
+        when given, else the rows of ``embed`` at ``batch["tokens"]``."""
+        if "embeds" in batch:
+            return batch["embeds"].to(self.dtype)
+        return params["embed"][batch["tokens"]]
+
+    def _encode(self, params, batch):
+        """The encdec encoder over ``batch["enc_embeds"]`` [B,F,d] (F =
+        ``cfg.encoder.frames``): plus ``enc_pos``, each block's
+        bidirectional attention and FFN (pre-norm residual), then
+        ``norm_enc``."""
+        cfg = self.cfg
+        if "enc_embeds" not in batch:
+            raise ValueError(
+                f"family 'encdec' ({cfg.name}) reads the encoder's frame "
+                f"embeddings from batch['enc_embeds'] [B, "
+                f"{cfg.encoder.frames}, {cfg.d_model}]; this batch has only "
+                f"{sorted(batch)} (loss_and_acc takes tokens and labels, so "
+                f"federated training of this family is refused, as the "
+                f"reference's fails; use LM.loss with a batch dict)")
+        x = batch["enc_embeds"].to(self.dtype) + params["enc_pos"][None]
+        for i in range(cfg.encoder.num_layers):
+            blk = params["encoder"][f"l{i}"]
+            h = L.apply_norm(blk["norm_a"], x, cfg.norm)
+            x = x + L.encoder_attention(blk["attn"], h)
+            h = L.apply_norm(blk["norm_f"], x, cfg.norm)
+            x = x + L.apply_mlp(blk["mlp"], h, cfg.act)
+        return L.apply_norm(params["norm_enc"], x, cfg.norm)
+
+    @staticmethod
+    def _cross_kv(blk, enc):
+        """A decoder block's cross K/V [B,F,KV,hd] from the encoder output."""
+        return L._heads(enc, blk["xattn"]["wk"]), L._heads(enc,
+                                                          blk["xattn"]["wv"])
+
+    def _decode_layers(self, params, x, pos, window, enc):
+        """The encdec decoder's blocks over a whole sequence: causal
+        self-attention (over ``window``), cross-attention to ``enc`` (no
+        window), the FFN."""
+        cfg = self.cfg
+        for i in range(cfg.num_layers):
+            blk = params["decoder"][f"l{i}"]
+            h = L.apply_norm(blk["norm_a"], x, cfg.norm)
+            x = x + L.attention_block(blk["attn"], h, pos, cfg, window=window,
+                                      attn_impl=self.attn_impl)
+            h = L.apply_norm(blk["norm_x"], x, cfg.norm)
+            x = x + L.attention_block(blk["xattn"], h, pos, cfg,
+                                      attn_impl=self.attn_impl,
+                                      cross_kv=self._cross_kv(blk, enc))
+            h = L.apply_norm(blk["norm_f"], x, cfg.norm)
+            x = x + L.apply_mlp(blk["mlp"], h, cfg.act)
+        return x
+
     def _head(self, params, x):
         cfg = self.cfg
         x = L.apply_norm(params.get("norm_out", {}), x, cfg.norm)
@@ -178,9 +264,11 @@ class LM:
         return x + L.apply_mlp(layer["mlp"], h, cfg.act, mask), None
 
     def apply(self, params, batch, *, window="auto", masks=None):
-        """Full-sequence logits [B,S,V] for ``batch["tokens"]`` [B,S] (causal
-        attention over the whole sequence; ``batch["positions"]`` [P,B,S]
-        overrides the default ``arange`` positions).  ``window`` bounds the
+        """Full-sequence logits [B,S,V] for ``batch["tokens"]`` [B,S] or
+        ``batch["embeds"]`` [B,S,d] (causal attention over the whole
+        sequence; ``batch["positions"]`` [P,B,S] overrides the default
+        ``arange`` positions; the encdec family also reads
+        ``batch["enc_embeds"]`` [B,F,d]).  ``window`` bounds the
         dense and moe families' attention ("auto" and None: full); the
         hybrid family's shared attention always uses ``cfg.sliding_window``.
 
@@ -199,8 +287,9 @@ class LM:
         :meth:`loss` and :meth:`loss_and_acc`.
 
         The ssm family runs its unrolled blocks ``x + cell(norm(x))`` and
-        ignores ``remat``, as the reference's branch returns before its
-        remat; ``masks=`` is refused there.
+        the encdec family its encoder and its decoder's blocks; both ignore
+        ``remat``, as the reference's branches return before its remat, and
+        refuse ``masks=``.
         """
         return self._forward(params, batch, window, masks)[0]
 
@@ -208,8 +297,18 @@ class LM:
         """(logits, the layers' summed auxiliary loss or None)."""
         cfg = self.cfg
         self._refuse_masks(masks)
+        x = self._embed_in(params, batch)
+        b, s = x.shape[0], x.shape[1]
+        pos = batch.get("positions")
+        if pos is None:
+            pos = L.default_positions(b, s, cfg.rope, device=x.device)
+        if window == "auto":
+            window = None
+        if self.encdec:
+            enc = self._encode(params, batch)
+            return self._head(params, self._decode_layers(
+                params, x, pos, window, enc)), None
         if self.ssm:
-            x = params["embed"][batch["tokens"]]
             for i in range(cfg.num_layers):
                 blk = params["blocks"][f"l{i}"]
                 h = L.apply_norm(blk["norm"], x, cfg.norm)
@@ -219,13 +318,6 @@ class LM:
         if cfg.remat not in ("none", "block"):
             raise ValueError(f"remat={cfg.remat!r} is not ported (the port "
                              f"takes 'none' and 'block')")
-        if window == "auto":
-            window = None
-        x = params["embed"][batch["tokens"]]
-        b, s = x.shape[0], x.shape[1]
-        pos = batch.get("positions")
-        if pos is None:
-            pos = L.default_positions(b, s, cfg.rope, device=x.device)
         layers = _unstack(params["layers"])
         rows = (masks["mlp"].unbind(0) if masks is not None
                 else (None,) * len(layers))
@@ -267,7 +359,10 @@ class LM:
         """The federated trainer's model contract: ``(x, y)`` = (tokens [B,S],
         labels [B,S]) -> (loss, token accuracy), from one forward — the
         port's copy of the reference's ``launch.steps.loss_and_accuracy``
-        (the loss as :meth:`loss` gives it)."""
+        (the loss as :meth:`loss` gives it).  An encdec model raises a
+        ``ValueError`` naming the missing ``enc_embeds`` (the reference
+        raises ``KeyError``), so ``FederatedTrainer`` cannot train that
+        family; :meth:`loss` on a batch dict is its differentiable entry."""
         return self._loss_acc(params, {"tokens": x, "labels": y}, masks)
 
     def _loss_acc(self, params, batch, masks, window="auto"):
@@ -328,10 +423,24 @@ class LM:
         per application of the shared attention (G groups), with S' = S cut
         to ``cfg.sliding_window``.  ssm: ``{"l<i>": (C, N, m)`` (mLSTM) or
         ``(c, n, h, m)`` (sLSTM)``}``, f32 recurrent states whose size does
-        not depend on ``cache_len``."""
+        not depend on ``cache_len``.  encdec: ``{"self": {"k", "v": [L, B,
+        S, KV, hd]}, "cross": {"k", "v": [L, B, F, KV, hd]}}`` (the cross
+        K/V zero until :meth:`prefill_cross`)."""
         cfg = self.cfg
         rows = cache_len if window is None else min(cache_len, window)
         index = torch.zeros((), dtype=torch.int32, device=self.device)
+
+        def kv(length):
+            shape = (cfg.num_layers, batch_size, length,
+                     cfg.padded_num_kv_heads, cfg.resolved_head_dim)
+            return {"k": torch.zeros(shape, dtype=self.dtype,
+                                     device=self.device),
+                    "v": torch.zeros(shape, dtype=self.dtype,
+                                     device=self.device)}
+
+        if self.encdec:
+            return {"self": kv(rows), "cross": kv(cfg.encoder.frames),
+                    "index": index}
         if self.ssm:
             cache = {"index": index}
             for i in range(cfg.num_layers):
@@ -355,15 +464,27 @@ class LM:
                         "v": torch.zeros(kv, dtype=self.dtype,
                                          device=self.device)},
                     "index": index}
-        shape = (cfg.num_layers, batch_size, rows,
-                 cfg.padded_num_kv_heads, cfg.resolved_head_dim)
-        return {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
-                "index": index}
+        return {**kv(rows), "index": index}
+
+    def prefill_cross(self, params, cache, batch):
+        """encdec only: run the encoder over ``batch["enc_embeds"]`` once and
+        write every decoder layer's cross K/V into ``cache["cross"]``, in
+        place (no autograd).  Returns the cache."""
+        if not self.encdec:
+            raise ValueError(f"prefill_cross is the encdec family's, not "
+                             f"{self.cfg.family!r}'s")
+        with torch.no_grad():
+            enc = self._encode(params, batch)
+            for i in range(self.cfg.num_layers):
+                k, v = self._cross_kv(params["decoder"][f"l{i}"], enc)
+                cache["cross"]["k"][i].copy_(k)
+                cache["cross"]["v"][i].copy_(v)
+        return cache
 
     def decode_step(self, params, cache, batch, *, masks=None):
-        """One-token decode.  ``batch["tokens"]`` [B,1].  Returns (logits
-        [B,1,V], cache).
+        """One-token decode.  ``batch["tokens"]`` [B,1] (or ``"embeds"``
+        [B,1,d]; ``"positions"`` [P,B,1] in place of the index's).  Returns
+        (logits [B,1,V], cache).
 
         ``cache["index"]`` is a 0-d tensor (lockstep decode) or an int32 [B]
         tensor (continuous batching: per-slot fill levels, which the rope
@@ -388,11 +509,14 @@ class LM:
         no kernel there).  The ssm family runs each layer's norm and its
         cell's step (:func:`layers.mlstm_decode`, :func:`layers.slstm_decode`,
         plain ops), each state written into its cache tensors; ``masks=`` is
-        refused there.
+        refused there.  The encdec family runs, per decoder layer, K5 on its
+        self cache, :func:`layers.attention_decode_cross` on the cross K/V
+        (plain f32 einsums, as the reference's) and the FFN; ``masks=`` is
+        refused there too.
         """
         cfg = self.cfg
         self._refuse_masks(masks)
-        x = params["embed"][batch["tokens"]]
+        x = self._embed_in(params, batch)
         idx = cache["index"]
         if self.ssm:
             for i in range(cfg.num_layers):
@@ -401,12 +525,16 @@ class LM:
                 step = L.slstm_decode if self._is_slstm(i) else L.mlstm_decode
                 x = x + step(blk["cell"], h, cache[f"l{i}"], self._meta, cfg)
             return self._head(params, x), {**cache, "index": idx + 1}
-        off = idx if idx.ndim == 0 else idx[None, :, None]
-        pos = L.default_positions(x.shape[0], 1, cfg.rope,
-                                  device=x.device) + off
+        pos = batch.get("positions")
+        if pos is None:
+            off = idx if idx.ndim == 0 else idx[None, :, None]
+            pos = L.default_positions(x.shape[0], 1, cfg.rope,
+                                      device=x.device) + off
         rows = (masks["mlp"].unbind(0) if masks is not None
                 else (None,) * cfg.num_layers)
-        if self.hybrid:
+        if self.encdec:
+            x = self._encdec_decode(params, cache, x, idx, pos)
+        elif self.hybrid:
             x = self._hybrid_decode(params, cache, x, idx, pos, rows)
         else:
             lp = params["layers"]
@@ -422,6 +550,24 @@ class LM:
                     x = x + L.apply_mlp(layer["mlp"], h, cfg.act, rows[i])
         cache = {**cache, "index": idx + 1}
         return self._head(params, x), cache
+
+    def _encdec_decode(self, params, cache, x, idx, pos):
+        """The encdec decoder's layers for one token: self-attention (K5
+        over ``cache["self"]`` row ``i``), cross-attention to the fixed
+        ``cache["cross"]`` K/V, the FFN."""
+        cfg = self.cfg
+        sk, sv = cache["self"]["k"], cache["self"]["v"]
+        ck, cv = cache["cross"]["k"], cache["cross"]["v"]
+        for i in range(cfg.num_layers):
+            blk = params["decoder"][f"l{i}"]
+            h = L.apply_norm(blk["norm_a"], x, cfg.norm)
+            x = x + L.attention_decode(blk["attn"], h, sk[i], sv[i], idx, pos,
+                                       cfg)
+            h = L.apply_norm(blk["norm_x"], x, cfg.norm)
+            x = x + L.attention_decode_cross(blk["xattn"], h, ck[i], cv[i])
+            h = L.apply_norm(blk["norm_f"], x, cfg.norm)
+            x = x + L.apply_mlp(blk["mlp"], h, cfg.act)
+        return x
 
     def _hybrid_decode(self, params, cache, x, idx, pos, rows):
         """The hybrid's layers for one token: per group, the shared

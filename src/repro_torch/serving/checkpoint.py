@@ -75,6 +75,9 @@ def load_servable(source, serve_mode: str = "auto", *, model_config=None,
     recorded before a shrink or an expert prune still loads.  A moe
     checkpoint serves ``dense``: its FedAP prunes whole experts
     (``pruning_lm.fedap_lm``), which leaves a dense stack at the kept count.
+    An encdec checkpoint serves ``dense`` only: its blocks are not a
+    stacked FFN, so ``masked`` and ``shrunk`` raise, as they fail in the
+    reference.
     ``attn_impl`` goes to every ``LM`` built: the default ``"pallas"`` scores
     through the ``flash_attention``/``ssd_scan`` kernels, as the reference's
     does (decode runs ``decode_attention`` either way).
@@ -132,6 +135,10 @@ def load_servable(source, serve_mode: str = "auto", *, model_config=None,
             f"serve_mode={mode!r} needs a pruned checkpoint, but this one "
             f"carries no kept-filter decision (train with a Prune event, "
             f"or serve dense)")
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"serve_mode={mode!r} needs a stacked FFN to mask or shrink; "
+            f"family 'encdec' ({cfg.name}) serves dense")
 
     if mode == "masked":
         model = LM(cfg, attn_impl=attn_impl, device=dev)

@@ -104,8 +104,9 @@ class Completion:
     status: str = "ok"
 
 
-# Families whose decode cache is the stacked [L, B, S, KV, hd] KV pages.
-_SERVABLE_FAMILIES = ("dense", "moe")
+# Families whose decode cache is the stacked [L, B, S, KV, hd] KV pages (a
+# vlm wave feeds tokens, as the reference's engine does).
+_SERVABLE_FAMILIES = ("dense", "moe", "vlm")
 
 
 class DecodeEngine:
@@ -127,9 +128,9 @@ class DecodeEngine:
         if model.cfg.family not in _SERVABLE_FAMILIES:
             raise ValueError(
                 f"DecodeEngine serves the scanned-KV families "
-                f"{_SERVABLE_FAMILIES}, not {model.cfg.family!r} (its decode "
-                f"state has no per-slot cache index; serve it with "
-                f"repro_torch.serving.lockstep_decode)")
+                f"{_SERVABLE_FAMILIES}, not {model.cfg.family!r} (ssm/"
+                f"hybrid/encdec decode state has no per-slot cache index; "
+                f"serve it with repro_torch.serving.lockstep_decode)")
         self.device = _device.resolve(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "

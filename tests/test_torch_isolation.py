@@ -30,12 +30,15 @@ from repro_torch.kernels import masked_matmul as k1
 from repro_torch.kernels import ssd_scan as k6
 from repro_torch.models import cnn
 from repro_torch.models.lm import LM
-from repro_torch.serving import DecodeEngine, ServeConfig, load_servable
+from repro_torch.serving import (DecodeEngine, ServeConfig, load_servable,
+                                 lockstep_decode)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 TINY = get_config("olmo-1b").reduced(vocab_size=256, d_ff=256)
 MOE = get_config("arctic-480b").reduced(vocab_size=256)
+VLM = get_config("qwen2-vl-7b").reduced(vocab_size=256)
+WHISPER = get_config("whisper-small").reduced(vocab_size=256)
 EXAMPLES = ("fl_paper_repro_torch.py", "quickstart_torch.py",
             "serve_decode_torch.py", "fl_llm_train_torch.py")
 
@@ -95,7 +98,10 @@ def no_cuda():
                                    "fl_llm_train_torch", "moe LM",
                                    "llama4 LM", "moe DecodeEngine",
                                    "moe load_servable",
-                                   "serve_decode_torch moe"])
+                                   "serve_decode_torch moe", "vlm LM",
+                                   "vlm DecodeEngine", "encdec LM",
+                                   "prefill_cross", "lockstep_decode encdec",
+                                   "serve_decode_torch whisper"])
 def test_default_device_raises_without_cuda(no_cuda, entry):
     params = LM(TINY, device="cpu").init(torch.Generator().manual_seed(0))
     data = build_lm_federated_data(
@@ -146,12 +152,36 @@ def test_default_device_raises_without_cuda(no_cuda, entry):
                                          max_new_tokens=4))
             else:
                 load_servable({"params": mp, "model_config": MOE}, "dense")
+        elif entry == "vlm LM":
+            LM(get_config("qwen2-vl-7b"), attn_impl="pallas")
+        elif entry == "vlm DecodeEngine":
+            vlm = LM(VLM, device="cpu")
+            DecodeEngine(vlm, vlm.init(torch.Generator().manual_seed(0)),
+                         ServeConfig(slots=1, cache_len=8, max_prompt=4,
+                                     max_new_tokens=4))
+        elif entry == "encdec LM":
+            LM(get_config("whisper-small"), attn_impl="pallas")
+        elif entry in ("prefill_cross", "lockstep_decode encdec"):
+            wp = LM(WHISPER, device="cpu").init(
+                torch.Generator().manual_seed(0))
+            frames = torch.zeros((1, WHISPER.encoder.frames, WHISPER.d_model))
+            if entry == "prefill_cross":
+                model = LM(WHISPER)
+                model.prefill_cross(wp, model.init_cache(1, 8),
+                                    {"enc_embeds": frames})
+            else:
+                lockstep_decode(LM(WHISPER), wp,
+                                torch.zeros((1, 2), dtype=torch.int32), 2,
+                                enc_embeds=frames)
         elif entry in ("fl_paper_repro_torch", "serve_decode_torch",
-                       "fl_llm_train_torch", "serve_decode_torch moe"):
+                       "fl_llm_train_torch", "serve_decode_torch moe",
+                       "serve_decode_torch whisper"):
             args = {"fl_paper_repro_torch": ["--rounds", "1", "--out",
                                              str(REPO / "build" / "x")],
                     "serve_decode_torch": ["--arch", "xlstm-125m"],
                     "serve_decode_torch moe": ["--arch", "arctic-480b"],
+                    "serve_decode_torch whisper": ["--arch",
+                                                   "whisper-small"],
                     "fl_llm_train_torch": ["--rounds", "1"]}[entry]
             script = entry.split()[0]
             proc = subprocess.run(

@@ -140,10 +140,12 @@ class TestDecodeStep:
             np.testing.assert_allclose(lm_.numpy(), ls_.numpy(), **TOL)
 
     def test_non_dense_family_is_refused(self):
-        """A family the port does not run yet (VLM) is refused by name."""
-        cfg = dataclasses.replace(_port_cfg(TINY), family="vlm",
-                                  name="vlm-tiny")
-        with pytest.raises(ValueError, match="'vlm'"):
+        """A family name that no model has is refused by name (the port runs
+        all six of the reference's: ``tests/test_torch_vlm.py`` and
+        ``tests/test_torch_encdec.py`` hold the last two)."""
+        cfg = dataclasses.replace(_port_cfg(TINY), family="rnn",
+                                  name="rnn-tiny")
+        with pytest.raises(ValueError, match="'rnn'"):
             LM(cfg, device="cpu")
 
 
@@ -214,7 +216,7 @@ class TestLayers:
                                 torch.from_numpy(x), kind)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
-    @pytest.mark.parametrize("kind", ["1d", "2d"])
+    @pytest.mark.parametrize("kind", ["1d", "2d", "mrope"])
     def test_rope_equals_jax(self, kind):
         """Interleaved-pair rotation with f32 angles, per-slot offsets."""
         rng = np.random.default_rng(4)
@@ -230,9 +232,25 @@ class TestLayers:
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
     def test_mrope_not_ported_yet(self):
-        with pytest.raises(ValueError, match="mrope"):
+        """M-RoPE is ported: with three different streams (the t, h and w
+        ids of a patch grid) each head_dim section turns by its own stream,
+        as in the reference, and an unknown kind is still refused."""
+        rng = np.random.default_rng(5)
+        x = rng.standard_normal((2, 6, 4, 64)).astype(np.float32)
+        pos = np.stack([np.full((2, 6), 3), np.arange(12).reshape(2, 6),
+                        np.arange(12).reshape(2, 6) % 4]).astype(np.int32)
+        want = jax_layers.apply_rope(jnp.asarray(x), jnp.asarray(pos), "mrope")
+        got = layers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                                "mrope")
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        one = layers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos[:1])
+                                .expand(3, 2, 6), "mrope")
+        assert float((one[..., 32:] - got[..., 32:]).abs().max()) > 1e-3
+        np.testing.assert_array_equal(one[..., :32].numpy(),
+                                      got[..., :32].numpy())
+        with pytest.raises(ValueError, match="3d"):
             layers.apply_rope(torch.zeros(1, 1, 1, 8),
-                              layers.default_positions(1, 1, "mrope"), "mrope")
+                              layers.default_positions(1, 1, "mrope"), "3d")
 
     @pytest.mark.parametrize("act", ["silu", "gelu"])
     @pytest.mark.parametrize("masked", [False, True])
@@ -376,6 +394,52 @@ class TestConfigAndInterop:
         back = interop.params_to_numpy(port)
         for a, b in zip(jax.tree.leaves(jp), jax.tree.leaves(back)):
             np.testing.assert_array_equal(np.asarray(a, np.float32), b)
+
+    def test_registry_equals_the_reference(self):
+        """The port registers the reference's ten architectures, in its
+        order, each config equal field for field."""
+        from repro.configs import ARCH_NAMES as JAX_ARCH_NAMES
+
+        from repro_torch.configs import ARCH_NAMES
+
+        assert ARCH_NAMES == JAX_ARCH_NAMES
+        for arch in ARCH_NAMES:
+            assert get_config(arch).to_dict() == \
+                jax_get_config(arch).to_dict(), arch
+            assert get_config(arch).reduced().to_dict() == \
+                jax_get_config(arch).reduced().to_dict(), arch
+
+    def test_chatglm3_reduced_logits_equal_jax(self):
+        """chatglm3-6b reduced: GLM's 2d rope (two streams, one per half of
+        head_dim) over GQA (4 heads over 2 kv heads), logits within 1e-5 of
+        max(1, max |logit|) from default and from two different position
+        streams, and its decode steps."""
+        cfg = jax_get_config("chatglm3-6b").reduced()
+        assert (cfg.rope, cfg.num_heads, cfg.num_kv_heads) == ("2d", 4, 2)
+        jm = JaxLM(cfg)
+        jp = jax.jit(jm.init)(jax.random.key(3))
+        model = LM(get_config("chatglm3-6b").reduced(), device="cpu")
+        params = interop.params_from_jax(_np_tree(jp), "cpu")
+        rng = np.random.default_rng(7)
+        tok = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+        pos = np.stack([np.arange(32).reshape(2, 16),
+                        rng.integers(0, 64, (2, 16))]).astype(np.int32)
+        for batch in ({"tokens": tok}, {"tokens": tok, "positions": pos}):
+            want, _ = jax.jit(jm.apply)(jp, jax.tree.map(jnp.asarray, batch))
+            with torch.no_grad():
+                got = model.apply(params, {k: torch.from_numpy(v)
+                                           for k, v in batch.items()})
+            want = np.asarray(want)
+            scale = max(1.0, float(np.abs(want).max()))
+            assert float(np.abs(got.numpy() - want).max()) <= 1e-5 * scale
+        jc, pc = jm.init_cache(2, 8), model.init_cache(2, 8)
+        step = jax.jit(jm.decode_step)
+        for t in range(4):
+            jl, jc = step(jp, jc, {"tokens": jnp.asarray(tok[:, t:t + 1])})
+            with torch.no_grad():
+                pl, pc = model.decode_step(
+                    params, pc, {"tokens": torch.from_numpy(tok[:, t:t + 1])})
+            np.testing.assert_allclose(pl.numpy(), np.asarray(jl), **TOL)
 
     def test_kept_and_masks_cross(self):
         jm = JaxLM(TINY)

@@ -3,7 +3,8 @@
 ``examples/fl_llm_train_torch.py`` (federated LM training through a
 TrainPlan with a FedAP Prune event) and ``examples/serve_decode_torch.py``
 (the continuous-batching engine for the dense family, pruned and masked,
-and for the moe family; the lockstep loop for the ssm family) each run once in a subprocess with
+and for the moe family; the lockstep loop for the ssm, vlm and encdec
+families) each run once in a subprocess with
 ``--device cpu`` at tiny sizes, and their printed lines are checked: the
 lines of the reference's scripts, with finite numbers.
 """
@@ -59,12 +60,16 @@ def test_fl_llm_train_prints_rounds_and_the_prune():
     (("--arch", "llama4-maverick-400b-a17b"),
      r"arch=llama4-maverick-400b-a17b \(reduced, dense\) slots=4 "
      r"requests=8"),
+    (("--arch", "qwen2-vl-7b"),
+     r"arch=qwen2-vl-7b \(reduced\) batch=4"),
+    (("--arch", "whisper-small"),
+     r"arch=whisper-small \(reduced\) batch=4"),
 ], ids=["xlstm-lockstep", "olmo-masked-engine", "arctic-engine",
-        "llama4-engine"])
+        "llama4-engine", "qwen2-vl-lockstep", "whisper-lockstep"])
 def test_serve_decode_prints_its_lines(args, head):
     lines = _run("serve_decode_torch.py", *args)
     assert len(lines) == 3 and re.fullmatch(head, lines[0]), lines
-    if "xlstm-125m" in args:
+    if args[1] in ("xlstm-125m", "qwen2-vl-7b", "whisper-small"):
         rate = re.fullmatch(rf"prefill 16 tok: {NUM}s; decode 32 tok: {NUM}s "
                             rf"\({NUM} tok/s\)", lines[1])
     else:
@@ -82,6 +87,20 @@ def test_serve_decode_refuses_a_prune_rate_on_a_moe_arch():
     proc = subprocess.run(
         [sys.executable, str(REPO / "examples" / "serve_decode_torch.py"),
          "--arch", "arctic-480b", "--prune-rate", "0.5", "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+             "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 1
+    assert "use a dense-family --arch" in proc.stderr
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-small"])
+def test_serve_decode_refuses_a_prune_rate_on_the_lockstep_path(arch):
+    """``--prune-rate`` prunes the engine's dense FFN stack: the lockstep
+    families exit with the same message."""
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "examples" / "serve_decode_torch.py"),
+         "--arch", arch, "--prune-rate", "0.5", "--device", "cpu"],
         cwd=REPO, capture_output=True, text=True, timeout=300,
         env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
              "OMP_NUM_THREADS": "1"})
