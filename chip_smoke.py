@@ -39,7 +39,7 @@ Phases, in order; any failure raises and the script exits non-zero:
               versions), dense and masked at prune rate 0.5, plus the
               masked model against its shrunk twin;
 5. hybrid-parity — zamba2 at full width, 6 layers (one group), float32:
-              80 teacher-forced decode steps on the card against the CPU,
+              72 teacher-forced decode steps on the card against the CPU,
               with the model's window, with a 64-row window (the steps
               cross into the ring buffer) and masked on that ring;
 6. train-parity — olmo-1b and zamba2 at full width, 2 layers, float32: the
@@ -58,7 +58,7 @@ Phases, in order; any failure raises and the script exits non-zero:
               wave run under ``torch.cuda.set_sync_debug_mode("error")``,
               and the modes' device kernel time per step on adjacent lines;
               then zamba2-1.2b, all 38 layers, bfloat16, through
-              ``lockstep_decode`` (8 prompts of 64 tokens, 64 new) in the
+              ``lockstep_decode`` (8 prompts of 64 tokens, 32 new) in the
               same three modes: tokens/s, ms/step, K5 7 and K1 76 (masked)
               launches a step, a profiled window and a sync-checked one;
 9. score-parity — float32 logits of ``attn_impl="pallas"`` (K4, K6)
@@ -84,9 +84,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               ``SyntheticSpec()`` data, 100 clients of 400 samples, 2,000
               server samples, 10 clients a round, E = 5, B = 10, FedAP with
               a probe of 32 and 6 participants; SimpleCNN with a prune at
-              round 2 (shrink and mask for 3 rounds, mask then shrink at 3
-              for 4) and
-              VGG11 (32x32x3) for 2 rounds with a shrink at round 1: s/round,
+              round 1 (shrink and mask for 2 rounds, mask then shrink at 2
+              for 3) and
+              VGG11 (32x32x3) for 2 rounds with a shrink at round 1: s/round
+              (the median of the rounds after the first, each timed alone),
               local samples/s, peak memory, the busy share of a profiled
               round, p*, kept counts, MFLOPs before and after, the accuracy
               trajectory, and 0 launches of masked_matmul (no paper CNN
@@ -114,7 +115,8 @@ Phases, in order; any failure raises and the script exits non-zero:
               and peak of guard off / reject / skip taken in turns; kill and
               resume (``KillAfterChunk(2)``, a checkpoint every chunk, a
               fresh trainer's ``resume``) of olmo-1b at 2 layers and of the
-              paper protocol's FedDUMAP SimpleCNN run with a shrink, each
+              paper protocol's FedDUMAP SimpleCNN run with a shrink (2
+              clients x 1 epoch a round), each
               after two uninterrupted runs that must be bitwise equal (the
               determinism check), with the snapshot's bytes and its write
               and load seconds; and an olmo-1b ``DecodeEngine`` run with
@@ -136,10 +138,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               tokens/s, launches a step and busy share of a profiled window,
               a window under sync-debug "error"), f32 FedDUM training at S =
               128 (s/round, tokens/s, peak), then
-              ``examples/serve_decode_torch.py`` and
-              ``examples/fl_llm_train_torch.py`` at their defaults as
-              subprocesses, which must exit 0.  No TPU kernel lies on the
-              family's path;
+              ``examples/serve_decode_torch.py`` at its defaults and
+              ``examples/fl_llm_train_torch.py --rounds 5 --backend mesh``
+              (a world of one over NCCL) as subprocesses, which must exit
+              0.  No TPU kernel lies on the family's path;
 18. moe-parity — arctic-480b and llama4-maverick reduced (2 layers, d
               256, 4 experts) with their own head layouts (56 and 40 heads
               of 128 padded to 64 and 48 over 8 kv heads), f32, card against
@@ -203,6 +205,26 @@ Phases, in order; any failure raises and the script exits non-zero:
               and whisper's lockstep lengths, and K1-K3 at qwen2-vl's FFN
               (K 3584, N 18944) against their plain versions, timed beside
               SDPA and ``torch.matmul``.
+24. steps   — ``launch.steps`` at olmo-1b's full width and depth (f32, the
+              training phase's world and batch): one ``make_fl_train_step``
+              round in kernel mode bitwise equal to
+              ``FederatedTrainer.round_step``, K1-K3 192 each a round,
+              ``with_masks`` moving no state tensor, the serve steps equal
+              to ``LM.apply``/``decode_step``; whisper-small f32 at full
+              width and depth trained 2 rounds through the step (finite,
+              bitwise repeatable; s/round, peak) and at 2 + 2 layers card
+              against CPU; one olmo-1b kernel-masked gradient with remat
+              none / block / dots (equal losses and gradients, memory held
+              after the forward, peak, time, K1 recomputed by block and
+              dots);
+25. mesh    — ``FederatedTrainer(backend="mesh")`` as a world of one over
+              NCCL: the training phase's olmo-1b plan, its history, final
+              params and K1-K3 launches bitwise equal to that phase's
+              local run; s/round against local, the all-reduce count and
+              time a round; ``experiments.run_one(backend="mesh")`` for the
+              paper phase's FedDUMAP run (a shrink) equal to its local
+              record; a mesh kill and resume of the reliability phase's
+              cut SimpleCNN plan, bitwise.
 
 Each phase after the build prints its peak device memory; ``[time]`` lines
 give each phase's wall seconds and the total.
@@ -1237,7 +1259,7 @@ def phase_parity(torch) -> None:
                         f"{rel:.3e} over tolerance")
 
 
-HYBRID_STEPS = 80   # decode steps of the hybrid parity: past a 64-row ring
+HYBRID_STEPS = 72   # decode steps of the hybrid parity: past a 64-row ring
 
 
 def phase_hybrid_parity(torch) -> None:
@@ -1494,7 +1516,7 @@ def phase_training(torch, arch="olmo-1b", num_layers=None) -> dict:
     from repro_torch.data.synthetic import TokenSpec
     from repro_torch.kernels import masked_matmul as k1
     from repro_torch.models.lm import LM
-    from repro_torch.utils.tree import tree_size
+    from repro_torch.utils.tree import tree_leaves, tree_size
 
     cfg = dataclasses.replace(get_config(arch), param_dtype="float32",
                               remat="none")
@@ -1542,6 +1564,13 @@ def phase_training(torch, arch="olmo-1b", num_layers=None) -> dict:
                 "masked_matmul_dw": k1.dw_launches}
     del params
     h = res.history
+    if arch == "olmo-1b" and num_layers is None:
+        # the [mesh] phase holds its world-of-one run to this one
+        LOCAL_RUN.update(
+            history={k: list(v) for k, v in h.items() if k != "time"},
+            params=[t.cpu() for t in tree_leaves(res.params)],
+            kept=res.artifacts["prune"]["kept_counts"],
+            launches=dict(launches), plan_s=wall, rounds=rounds)
     for r, loss, acc, tau, t in zip(h["round"], h["loss"], h["acc"],
                                     h["tau_eff"], h["time"]):
         log(f"{tag} round {r}: test loss {loss:.6f} acc {acc:.4f} "
@@ -1579,6 +1608,8 @@ def phase_training(torch, arch="olmo-1b", num_layers=None) -> dict:
     log(f"{tag} steady state: {round_s:.3f} s/round -> "
         f"{1 / round_s:.3f} rounds/s, {tokens_per_round / round_s:.1f} "
         f"tokens/s trained")
+    if arch == "olmo-1b" and num_layers is None:
+        LOCAL_RUN["steady_s"] = round_s
     _profile_round(torch, backend, state, rounds + 2, round_s,
                    tag.replace("[training]", "training"))
     del res, state, trainer, backend
@@ -1767,9 +1798,9 @@ def _sync_free_wave(torch, sv, scfg, prompts) -> None:
         f"set_sync_debug_mode('error') without a host sync")
 
 
-# zamba2 serving: 8 sequences, prompts of 64 tokens, 64 new, 512 cache rows;
+# zamba2 serving: 8 sequences, prompts of 64 tokens, 32 new, 512 cache rows;
 # prefill runs a token a step (67-91 ms), so the prompt sets the phase's time
-HYBRID_SERVE = dict(batch=8, prompt=64, new=64, cache_len=512)
+HYBRID_SERVE = dict(batch=8, prompt=64, new=32, cache_len=512)
 
 
 def phase_serving_hybrid(torch) -> dict:
@@ -2374,13 +2405,15 @@ def _cnn_round_parity(torch, cpu, gpu, params_c, params_g, rng, shape):
 # rule gives SimpleCNN p* = 0 (nothing pruned): the mask run keeps that
 # config and prints it as a finding, and every other run takes the
 # quickstart's compression floor, min_rate 0.3, and must prune.
+# each round is timed alone, so a run needs no round before its prune to
+# measure s/round
 CNN_RUNS = (
-    dict(model="SimpleCNN", shape=(16, 16, 3), rounds=3, prune_round=2,
+    dict(model="SimpleCNN", shape=(16, 16, 3), rounds=2, prune_round=1,
          mode="shrink", min_rate=0.3),
-    dict(model="SimpleCNN", shape=(16, 16, 3), rounds=3, prune_round=2,
+    dict(model="SimpleCNN", shape=(16, 16, 3), rounds=2, prune_round=1,
          mode="mask"),
-    dict(model="SimpleCNN", shape=(16, 16, 3), rounds=4, prune_round=2,
-         mode="mask", shrink_round=3, min_rate=0.3),
+    dict(model="SimpleCNN", shape=(16, 16, 3), rounds=3, prune_round=1,
+         mode="mask", shrink_round=2, min_rate=0.3),
     dict(model="VGG11", shape=(32, 32, 3), rounds=2, prune_round=1,
          mode="shrink", lr=0.01, min_rate=0.3),
 )
@@ -2449,32 +2482,22 @@ def phase_training_cnn(torch) -> dict:
         torch.cuda.reset_peak_memory_stats()
         k1.launches = k1.dx_launches = k1.dw_launches = 0
         t0 = time.perf_counter()
-        res = trainer.run(plan, params=params)
+        with _RoundClock(torch) as clock:   # each round alone, synced
+            res = trainer.run(plan, params=params)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n_k1 = k1.launches + k1.dx_launches + k1.dw_launches
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         h = res.history
-        # every round ends in its Eval (a host read), so the gaps between
-        # Evals are rounds; a prune's gap also holds its decision or apply
-        gaps = [b - a for a, b in zip([0.0] + h["time"], h["time"])]
-        events = {prune_round, shrink_round}
-        plain = [g for r, g in zip(h["round"], gaps)
-                 if r > 1 and r - 1 not in events]
         state = res.state
-        if plain:
-            round_s = statistics.median(plain)
-            how = f"median of rounds {[r for r in h['round'] if r > 1 and r - 1 not in events]}"
-        else:
-            t1 = time.perf_counter()
-            state, _ = backend.run_rounds(state, rounds, 1)
-            torch.cuda.synchronize()
-            round_s = time.perf_counter() - t1
-            how = "one more round on the final state"
-        for r, loss, acc, tau, g in zip(h["round"], h["loss"], h["acc"],
-                                        h["tau_eff"], gaps):
+        secs = {r: sec for r, sec, _ in clock.rows}
+        later = [r for r in secs if r > 1]      # round 1 holds the warm-up
+        round_s = statistics.median(secs[r] for r in later)
+        how = f"median of rounds {later}, each timed alone"
+        for r, loss, acc, tau in zip(h["round"], h["loss"], h["acc"],
+                                     h["tau_eff"]):
             log(f"{tag} round {r}: test loss {loss:.6f} acc {acc:.4f} "
-                f"tau_eff {tau:.6f}, {g:.3f} s")
+                f"tau_eff {tau:.6f}, {secs[r]:.3f} s")
         art = res.artifacts["prune"]
         before = art.get("params_before", params)
         after = res.params
@@ -2526,21 +2549,22 @@ def phase_training_cnn(torch) -> dict:
         launches["masked_matmul"] += n_k1
         del res, state, trainer, backend, params, before, after
     same = all(np.array_equal(kept_by_run["shrink", "SimpleCNN"][k], v)
-               for k, v in kept_by_run["mask-then-shrink@3",
+               for k, v in kept_by_run["mask-then-shrink@2",
                                        "SimpleCNN"].items())
     log(f"[training cnn] SimpleCNN's shrink and mask-then-shrink runs kept "
-        f"{'the same' if same else 'different'} filters at round 2 (same "
+        f"{'the same' if same else 'different'} filters at round 1 (same "
         f"params, draws and min_rate; cuDNN's weight gradients sum in no "
         f"fixed order)")
     return launches
 
 
-PROFILE_LOCAL_STEPS = 40    # one local epoch of a paper client (400 / B=10)
+PROFILE_LOCAL_STEPS = 10    # a quarter of a paper client's local epoch
+                            # (400 / B=10)
 
 
 def _profile_one_client(torch, backend, state, t, label):
     """The device busy share of a round cut to its first client's first
-    local epoch (PROFILE_LOCAL_STEPS steps, then every server step),
+    PROFILE_LOCAL_STEPS local steps, then every server step,
     unprofiled on the host clock and then under torch.profiler recording
     device work only: a whole paper round launches ~2 x 10^5 kernels, and
     the profiler spends ~13x the round's own time on them.  Returns the
@@ -2576,7 +2600,8 @@ def _profile_one_client(torch, backend, state, t, label):
     dev_s = sum(e.self_device_time_total for e in kernels) / 1e6
     n = sum(e.count for e in kernels)
     busy = 100 * dev_s / wall
-    log(f"[profile] {label}: a round of 1 client, 1 epoch ({steps} gradient "
+    log(f"[profile] {label}: a round of 1 client, {PROFILE_LOCAL_STEPS} "
+        f"local steps ({steps} gradient "
         f"evaluations) takes {wall:.3f} s on the host clock and {dev_s:.3f} s"
         f" of kernels ({n} launches, {n / steps:.1f} a step, "
         f"{1e6 * wall / n:.1f} us of host time each) -> busy {busy:.1f}%, "
@@ -3083,8 +3108,10 @@ def phase_reliability(torch) -> dict:
             "decode_attention": k5.launches}
 
 
-def _olmo_trainer(torch, num_layers=None, faults=()):
-    """phase_training's olmo-1b FedDUMAP trainer (f32, kernel mode)."""
+def _olmo_trainer(torch, num_layers=None, faults=(), backend="local",
+                  mesh=None):
+    """phase_training's olmo-1b FedDUMAP trainer (f32, kernel mode) on
+    ``backend``."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3107,7 +3134,8 @@ def _olmo_trainer(torch, num_layers=None, faults=()):
                          lr_decay=1.0, masked_compute="kernel", faults=faults,
                          fedap=FedAPConfig(align=128, min_rate=0.5,
                                            probe_size=4, participants=2))
-    return FederatedTrainer(LM(cfg, device="cuda"), data, fl, device="cuda")
+    return FederatedTrainer(LM(cfg, device="cuda"), data, fl, device="cuda",
+                            backend=backend, mesh=mesh)
 
 
 def _gib(n) -> float:
@@ -3367,33 +3395,40 @@ def _resume_olmo(torch, root) -> None:
                      events, os.path.join(root, "olmo"))
 
 
-def _resume_cnn(torch, root) -> None:
-    """The paper protocol's FedDUMAP SimpleCNN run (``experiments``), its
-    FedAP at min_rate 0.3 so the shrink prunes."""
+CNN_RESUME = dict(clients_per_round=2, local_epochs=1)   # of the paper
+                    # protocol's 10 clients x 5 epochs a round
+
+
+def _resume_cnn(torch, root, backend="local", mesh=None,
+                tag="[reliability] resume SimpleCNN") -> None:
+    """The paper protocol's FedDUMAP SimpleCNN run (``experiments``) cut to
+    CNN_RESUME a round, its FedAP at min_rate 0.3 so the shrink prunes, on
+    ``backend``."""
     from repro_torch import experiments
     from repro_torch.core.plan import Eval, Prune, Scan
     from repro_torch.core.pruning import FedAPConfig
     from repro_torch.core.rounds import FederatedTrainer, feddumap_config
     from repro_torch.data.pipeline import build_federated_data
 
-    tag = "[reliability] resume SimpleCNN"
     data = build_federated_data(
         num_clients=experiments.NUM_CLIENTS, server_fraction=0.05,
         device_pool=experiments.DEVICE_POOL, spec=experiments.SPEC, seed=0)
     events = (Scan(1), Eval(), Prune(mode="shrink"), Scan(1), Eval(),
               Scan(1))
+    common = dict(experiments.COMMON, **CNN_RESUME)
     log(f"{tag}: the paper protocol ({experiments.SPEC.image_shape}, "
         f"{experiments.NUM_CLIENTS} clients over {experiments.DEVICE_POOL} "
-        f"images, {experiments.COMMON}), FedAP probe 32 / 6 participants / "
-        f"min_rate 0.3; plan {events}")
+        f"images, {common}), FedAP probe 32 / 6 participants / min_rate "
+        f"0.3, backend {backend!r}; plan {events}")
 
     def make(faults):
-        cfg = feddumap_config(**experiments.COMMON, seed=0, faults=faults,
+        cfg = feddumap_config(**common, seed=0, faults=faults,
                               fedap=FedAPConfig(probe_size=32,
                                                 participants=6,
                                                 min_rate=0.3))
         return FederatedTrainer(experiments.make_model("cnn", "cuda"), data,
-                                cfg, device="cuda")
+                                cfg, device="cuda", backend=backend,
+                                mesh=mesh)
 
     _kill_and_resume(torch, tag, make, events, os.path.join(root, "cnn"))
 
@@ -3631,8 +3666,12 @@ XLSTM_SCORE = (4, 2048)                         # B x S per forward
 # forward at S = 2048 launches ~150k kernels (the sLSTM's loop over S)
 XLSTM_PROFILE_S = 256
 XLSTM_SERVE = dict(batch=8, prompt=64, new=64)
-XLSTM_EXAMPLES = (("serve_decode_torch.py", r"arch=olmo-1b \(reduced, dense\)"),
-                  ("fl_llm_train_torch.py", r"round +20  loss "))
+# each example script's arguments (none: its defaults) and a line it must
+# print
+XLSTM_EXAMPLES = (("serve_decode_torch.py", (),
+                   r"arch=olmo-1b \(reduced, dense\)"),
+                  ("fl_llm_train_torch.py", ("--rounds", "5", "--backend",
+                                             "mesh"), r"round +5  loss "))
 
 
 def phase_xlstm(torch) -> dict:
@@ -3642,8 +3681,8 @@ def phase_xlstm(torch) -> dict:
     serving through ``lockstep_decode`` (8 prompts of 64 tokens, 64 new) with
     a profiled window and one under sync-debug "error", f32 FedDUM training
     at S = 128 (the training phase's config without FedAP: one round and an
-    Eval, then two timed rounds), then the two LM example scripts at their
-    defaults as subprocesses.  No TPU kernel lies on the family's path:
+    Eval, then two timed rounds), then the two LM example scripts as
+    subprocesses (XLSTM_EXAMPLES).  No TPU kernel lies on the family's path:
     returns {}."""
     import dataclasses
     import re
@@ -3778,18 +3817,20 @@ def phase_xlstm(torch) -> dict:
     del res, state, trainer, backend, model
     log(f"[xlstm] training part: {time.perf_counter() - t_part:.1f} s")
 
-    # the two LM example scripts at their defaults
+    # the two LM example scripts (the training one on the mesh backend, a
+    # world of one over NCCL in its own process)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    for script, first in XLSTM_EXAMPLES:
+    for script, args, first in XLSTM_EXAMPLES:
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable,
-                               os.path.join(ROOT, "examples", script)],
+                               os.path.join(ROOT, "examples", script),
+                               *args],
                               cwd=ROOT, env=env, capture_output=True,
                               text=True, timeout=300)
         lines = proc.stdout.strip().splitlines()
         for line in lines[-4:]:
             log(f"[xlstm] {script}: {line}")
-        log(f"[xlstm] {script} exited {proc.returncode} in "
+        log(f"[xlstm] {script} {' '.join(args)} exited {proc.returncode} in "
             f"{time.perf_counter() - t0:.1f} s")
         require(proc.returncode == 0, f"{script} failed:\n{proc.stderr}")
         require(any(re.match(first, line) for line in lines),
@@ -4916,6 +4957,443 @@ def phase_whisper(torch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 24-25: the batch-dict FL step and the mesh backend
+# ---------------------------------------------------------------------------
+
+LOCAL_RUN: dict = {}    # the training phase's olmo-1b local run, for [mesh]
+STEPS_TOL = 1e-5        # whisper f32 card against CPU, of a leaf's max
+REMAT_TOL = 1e-6        # a remat variant's gradient against "none", of a
+                        # leaf's max
+REMAT_BATCH = (4, 1024)     # B x S of the remat gradients
+WHISPER_STEP = (2, 2, 64)   # clients, rows a client step, decoder tokens
+
+
+def _k123(k1) -> dict:
+    return {"masked_matmul": k1.launches, "masked_matmul_dx": k1.dx_launches,
+            "masked_matmul_dw": k1.dw_launches}
+
+
+def _rel_leaf_errs(torch, got, want) -> float:
+    """The largest over leaves of max |got - want| / max |want|."""
+    from repro_torch.utils.tree import tree_leaves
+
+    worst = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        err = float((g.detach().cpu().double() - w.detach().cpu().double())
+                    .abs().max())
+        worst = max(worst, _ratio(err, float(w.detach().abs().max())))
+    return worst
+
+
+def phase_steps(torch) -> dict:
+    """``launch.steps`` on the card.  olmo-1b at full width and depth (f32,
+    the training phase's world and batch shape: 2 clients x 2 local steps
+    of B = 4 + 2 server steps, S = 128): one ``make_fl_train_step`` round
+    in ``FLRunConfig(use_masks=True, masked_compute="kernel")`` bitwise
+    equal to ``FederatedTrainer.round_step`` on the same batch, K1-K3
+    counted; ``with_masks`` injecting a FedAP decision (every state tensor
+    keeps its storage and shape), then a timed round; ``make_prefill_step``
+    and ``make_decode_step`` against ``LM.apply``/``decode_step``.  Then
+    whisper-small at full width and depth in f32 trained 2 rounds through
+    the step on ``enc_embeds`` + tokens (finite, bitwise repeatable; s/round
+    and peak), and at 2 + 2 layers one round card against CPU within
+    STEPS_TOL of each leaf's max.  Last, one olmo-1b kernel-mode gradient
+    (REMAT_BATCH) with remat none / block / dots: equal losses, gradients
+    within REMAT_TOL of a leaf's max, peak, time and K1-K3 launches of each.
+    Returns {kernel name: launches} of the step's two rounds."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import masked_matmul as k1
+    from repro_torch.launch import steps
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    trainer = _olmo_trainer(torch)
+    model, cfg, fl = trainer.model, trainer.model.cfg, trainer.cfg
+    kw = trainer.backend(use_masks=True).sample_kw
+    c, seq = kw["clients_per_round"], trainer.data.client_x.shape[-1]
+    run = steps.FLRunConfig(
+        lr=fl.lr, beta_local=fl.feddum.beta_local,
+        beta_server=fl.feddum.beta_server, eta_server=fl.feddum.eta_server,
+        local_steps=kw["local_steps"], server_tau=kw["server_tau"],
+        server_batch=kw["server_batch"], feddu=fl.feddu, use_masks=True,
+        masked_compute="kernel")
+    init_state, train_step = steps.make_fl_train_step(cfg, run, c,
+                                                      model=model)
+    batch = steps.fl_batch_specs(
+        cfg, InputShape("olmo-steps", seq, c * kw["batch_size"], "train"),
+        c, run, abstract=False, seed=5)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = init_state(gen, filter_masks={"mlp": torch.ones(
+        (cfg.num_layers, cfg.d_ff), device="cuda")})
+    twin = tree_map(torch.clone, state)
+    tup = dict(batch, client=(batch["client"]["tokens"],
+                              batch["client"]["labels"]),
+               server=(batch["server"]["tokens"], batch["server"]["labels"]))
+    log(f"[steps] olmo-1b f32 full width ({cfg.num_layers} layers): "
+        f"make_fl_train_step(FLRunConfig(use_masks=True, masked_compute="
+        f"'kernel')), {c} clients x {run.local_steps} local steps of "
+        f"{kw['batch_size']} x {seq} tokens + {run.server_tau} server steps "
+        f"of {run.server_batch}; client batch {tuple(batch['client']['tokens'].shape)}")
+    launches = {"masked_matmul": 0, "masked_matmul_dx": 0,
+                "masked_matmul_dw": 0}
+    times = []
+    for r in range(2):
+        if r == 1:
+            kept = model.decide_kept(state["params"], 0.5)
+            ptrs = [(t.data_ptr(), tuple(t.shape))
+                    for t in tree_leaves(state)]
+            state = steps.with_masks(
+                state, model.param_masks(state["params"], kept),
+                model.filter_masks(state["params"], kept))
+            kept_n = {k: int(v.shape[-1]) for k, v in kept.items()}
+            same = ptrs == [(t.data_ptr(), tuple(t.shape))
+                            for t in tree_leaves(state)]
+            log(f"[steps] with_masks: a FedAP decision at rate 0.5 (kept "
+                f"{kept_n} of {cfg.d_ff}) injected; every one of "
+                f"{len(ptrs)} state tensors kept its storage and shape: "
+                f"{same}")
+            require(same, "with_masks moved or reshaped a state tensor")
+            del twin
+        torch.cuda.synchronize()
+        k1.launches = k1.dx_launches = k1.dw_launches = 0
+        t0 = time.perf_counter()
+        state, tau = train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        got = _k123(k1)
+        for k, n in got.items():
+            launches[k] += n
+        want = 6 * 2 * cfg.num_layers
+        log(f"[steps] round {r + 1}: tau_eff {float(tau):.6f}, "
+            f"{times[-1]:.3f} s; launches K1 {got['masked_matmul']} K2 "
+            f"{got['masked_matmul_dx']} K3 {got['masked_matmul_dw']} "
+            f"(expected {want} each: 6 gradient evaluations x 2 products x "
+            f"{cfg.num_layers} layers)")
+        require(all(n == want for n in got.values()),
+                f"steps: launches {got}, expected {want} each")
+        if r == 0:
+            twin, mets = trainer.round_step(twin, tup)
+            diff = [i for i, (a, b) in enumerate(zip(tree_leaves(state),
+                                                     tree_leaves(twin)))
+                    if not torch.equal(a, b)]
+            log(f"[steps] make_fl_train_step round against "
+                f"FederatedTrainer.round_step on the same batch (tuples): "
+                f"{'bitwise equal' if not diff else f'{len(diff)} leaves differ'}"
+                f" over {len(tree_leaves(state))} state tensors; tau_eff "
+                f"{float(tau):.6f} / {float(mets['tau_eff']):.6f}")
+            require(not diff and torch.equal(tau, mets["tau_eff"]),
+                    "steps: train_step differs from round_step")
+    log(f"[steps] olmo-1b s/round through the step: {times[0]:.3f} (all-ones"
+        f" masks), {times[1]:.3f} (masked at 0.5; training phase local: "
+        f"{LOCAL_RUN.get('steady_s', float('nan')):.3f}); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    require(all(math.isfinite(float(t.float().abs().max()))
+                for t in tree_leaves(state["params"])), "steps: not finite")
+
+    # the serve steps on the trained params
+    params = state["params"]
+    del state
+    _, prefill = steps.make_prefill_step(cfg)
+    _, decode = steps.make_decode_step(cfg)
+    tok = torch.randint(0, cfg.vocab_size, (2, 64), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(6))
+    with torch.no_grad():
+        last = prefill(params, {"tokens": tok})
+        same_p = torch.equal(last, model.apply(params, {"tokens": tok})[:, -1])
+        logits, _ = decode(params, model.init_cache(2, 128),
+                           {"tokens": tok[:, :1]})
+        want, _ = model.decode_step(params, model.init_cache(2, 128),
+                                    {"tokens": tok[:, :1]})
+        same_d = torch.equal(logits, want)
+    log(f"[steps] make_prefill_step {tuple(last.shape)} equal to "
+        f"LM.apply(...)[:, -1]: {same_p}; make_decode_step equal to "
+        f"LM.decode_step: {same_d}")
+    require(same_p and same_d, "steps: prefill/decode step differs")
+    del params, trainer, model
+
+    _whisper_steps(torch)
+    _remat_gradients(torch)
+    return launches
+
+
+def _whisper_steps(torch) -> None:
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import steps
+    from repro_torch.utils.tree import tree_leaves, tree_map, tree_size
+
+    c, b_c, seq = WHISPER_STEP
+    cfg = dataclasses.replace(get_config("whisper-small"),
+                              param_dtype="float32")
+    run = steps.FLRunConfig(lr=3e-3, local_steps=1, server_tau=1,
+                            server_batch=b_c)
+    shape = InputShape("whisper-steps", seq, c * b_c, "train")
+    init_state, train_step = steps.make_fl_train_step(cfg, run, c)
+    batches = [steps.fl_batch_specs(cfg, shape, c, run, abstract=False,
+                                    seed=20 + r) for r in range(2)]
+    start = init_state(torch.Generator(device="cuda").manual_seed(0))
+    tag = "[steps] whisper-small"
+    log(f"{tag} f32 full width and depth ({cfg.encoder.num_layers} + "
+        f"{cfg.num_layers} layers, {cfg.encoder.frames} frames, "
+        f"{tree_size(start['params']) / 1e6:.1f} M params): "
+        f"make_fl_train_step, {c} clients x 1 local step of {b_c} x {seq} "
+        f"tokens + 1 server step of {b_c}; batch keys "
+        f"{sorted(batches[0]['client'])}")
+    runs = []
+    for _ in range(2):
+        st = tree_map(torch.clone, start)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        taus = []
+        for b in batches:
+            st, tau = train_step(st, b)
+            taus.append(float(tau))
+        torch.cuda.synchronize()
+        runs.append((st, taus, (time.perf_counter() - t0) / len(batches),
+                     torch.cuda.max_memory_allocated() / 2 ** 30))
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(runs[0][0]),
+                                                 tree_leaves(runs[1][0])))
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in tree_leaves(runs[0][0]["params"]))
+    log(f"{tag}: 2 rounds, tau_eff {runs[0][1]}, finite {finite}, two runs "
+        f"bitwise equal {same}; {runs[0][2]:.3f} / {runs[1][2]:.3f} s/round, "
+        f"peak {runs[1][3]:.2f} GiB")
+    require(finite and same, "whisper through the step: not finite or not "
+            "repeatable")
+    del runs, start, st
+
+    # 2 + 2 layers: one round card against CPU from the same params and batch
+    small = dataclasses.replace(cfg, num_layers=2, encoder=dataclasses.replace(
+        cfg.encoder, num_layers=2))
+    run1 = dataclasses.replace(run, server_batch=1)
+    shape1 = dataclasses.replace(shape, global_batch=c)
+    init_c, step_c = steps.make_fl_train_step(small, run1, c, device="cpu")
+    init_g, step_g = steps.make_fl_train_step(small, run1, c)
+    sc = init_c(torch.Generator().manual_seed(3))
+    sg = tree_map(lambda t: t.cuda(), sc)
+    bc = steps.fl_batch_specs(small, shape1, c, run1, abstract=False,
+                              seed=30, device="cpu")
+    bg = steps.fl_batch_specs(small, shape1, c, run1, abstract=False,
+                              seed=30)
+    sc, tc = step_c(sc, bc)
+    sg, tg = step_g(sg, bg)
+    err = _rel_leaf_errs(torch, sg["params"], sc["params"])
+    log(f"{tag} 2 + 2 layers (rows of 1 x {seq} tokens), one round card "
+        f"against CPU: params "
+        f"{err:.3e} of a leaf's max (tol {STEPS_TOL:.0e}), tau_eff "
+        f"{float(tg):.6f} / {float(tc):.6f}")
+    require(err <= STEPS_TOL, f"whisper step card vs CPU {err}")
+
+
+def _remat_gradients(torch) -> None:
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine
+    from repro_torch.kernels import masked_matmul as k1
+    from repro_torch.models.lm import LM
+
+    cfg = dataclasses.replace(get_config("olmo-1b"), param_dtype="float32",
+                              remat="none")
+    base = LM(cfg, device="cuda")
+    params = base.init(torch.Generator(device="cuda").manual_seed(0))
+    masks = base.filter_masks(params, base.decide_kept(params, 0.5))
+    b, s = REMAT_BATCH
+    tok = torch.randint(0, cfg.vocab_size, (b, s + 1), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(7))
+    x, y = tok[:, :-1], tok[:, 1:]
+    ref = None
+    rows = {}
+    for remat in ("none", "block", "dots"):
+        model = LM(dataclasses.replace(cfg, remat=remat), device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        k1.launches = k1.dx_launches = k1.dw_launches = 0
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            q, leaves = engine._detached_leaves(params)
+            loss, _ = model.loss_and_acc(q, x, y, masks=masks)
+            torch.cuda.synchronize()
+            held = (torch.cuda.memory_allocated() - base_mem) / 2 ** 30
+            grads = torch.autograd.grad(loss, leaves)
+            loss = loss.detach()
+            del q, leaves
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+        n = _k123(k1)
+        if ref is None:
+            ref, err = (float(loss), grads), 0.0
+        else:
+            err = _rel_leaf_errs(torch, grads, ref[1])
+        rows[remat] = (float(loss), err, peak, wall, n, held)
+        log(f"[steps] remat={remat!r}: olmo-1b f32 kernel-masked (rate 0.5) "
+            f"gradient at B={b} x S={s}: loss {float(loss):.6f}, gradients "
+            f"{err:.3e} of a leaf's max against 'none', held after the "
+            f"forward {held:.2f} GiB, peak {peak:.2f} GiB (both above the "
+            f"params), {wall:.3f} s; launches K1 "
+            f"{n['masked_matmul']} K2 {n['masked_matmul_dx']} K3 "
+            f"{n['masked_matmul_dw']}")
+        del grads
+    lay = cfg.num_layers
+    require(all(r[0] == rows["none"][0] and r[1] <= REMAT_TOL
+                for r in rows.values()), f"remat variants differ: {rows}")
+    require(rows["none"][4]["masked_matmul"] == 2 * lay
+            and rows["block"][4]["masked_matmul"] == 4 * lay
+            and rows["dots"][4]["masked_matmul"] == 4 * lay,
+            "remat: K1 not recomputed as expected (2 / 4 / 4 a layer)")
+    log(f"[steps] remat none / block / dots: held after the forward "
+        f"{rows['none'][5]:.2f} / {rows['block'][5]:.2f} / "
+        f"{rows['dots'][5]:.2f} GiB, peaks {rows['none'][2]:.2f} / "
+        f"{rows['block'][2]:.2f} / {rows['dots'][2]:.2f} GiB; dots between "
+        f"the others (held): "
+        f"{rows['block'][5] < rows['dots'][5] < rows['none'][5]}; K1 "
+        f"recomputed in the backward by block and dots "
+        f"({rows['dots'][4]['masked_matmul']} launches, 2 a layer forward)")
+
+
+def phase_mesh(torch) -> dict:
+    """``FederatedTrainer(backend="mesh")`` as a world of one over NCCL: the
+    training phase's olmo-1b FedDUMAP plan (``fedap_plan(4, prune_round=2,
+    mode="mask")``, kernel mode, f32, all 16 layers), its history, final
+    params and K1-K3 launches bitwise equal to that phase's local run (its
+    digests, not a second local run); then three more rounds each of the
+    mesh and a local backend on copies of the pruned state, in turns
+    (s/round of each), and the all-reduce count and time a round (a
+    profiled round's NCCL kernels).  Then the paper phase's FedDUMAP run (a shrink
+    at round 1) through ``experiments.run_one(backend="mesh")``, equal to
+    its local record, and a kill and resume of a cut SimpleCNN FedDUMAP
+    plan (the reliability phase's, CNN_RESUME) on the mesh backend, bitwise
+    equal to the uninterrupted run.  Returns {kernel name: launches} of the
+    olmo-1b plan."""
+    import shutil
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import experiments
+    from repro_torch.core.backend import LocalBackend
+    from repro_torch.core.plan import fedap_plan
+    from repro_torch.kernels import masked_matmul as k1
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    require(bool(LOCAL_RUN), "mesh: the training phase's local run is missing")
+    mesh = make_host_mesh()
+    log(f"[mesh] process group {dist.get_backend()!r}, world "
+        f"{dist.get_world_size()}, mesh {mesh.mesh_dim_names} "
+        f"{tuple(mesh.shape)} on {mesh.device_type}")
+    require(str(dist.get_backend()) == "nccl", "mesh: not NCCL")
+    trainer = _olmo_trainer(torch, backend="mesh", mesh=mesh)
+    params = trainer.model.init(torch.Generator(device="cuda").manual_seed(0))
+    rounds = LOCAL_RUN["rounds"]
+    torch.cuda.synchronize()
+    k1.launches = k1.dx_launches = k1.dw_launches = 0
+    t0 = time.perf_counter()
+    res = trainer.run(fedap_plan(rounds, prune_round=2, mode="mask"),
+                      params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _k123(k1)
+    del params
+    backend = trainer.backend(use_masks=True)
+    hist = {k: list(v) for k, v in res.history.items() if k != "time"}
+    same_h = hist == LOCAL_RUN["history"]
+    diff = [i for i, (a, b) in enumerate(zip(tree_leaves(res.params),
+                                             LOCAL_RUN["params"]))
+            if not torch.equal(a.cpu(), b)]
+    same_k = res.artifacts["prune"]["kept_counts"] == LOCAL_RUN["kept"]
+    log(f"[mesh] olmo-1b world of one (rank {backend.rank} of "
+        f"{backend.world}; {rounds} rounds, prune at 2): history "
+        f"{'bitwise equal' if same_h else 'DIFFERS'} to the training "
+        f"phase's local run, final params "
+        f"{'bitwise equal' if not diff else f'{len(diff)} leaves differ'} "
+        f"({len(LOCAL_RUN['params'])} leaves), kept {same_k}; launches "
+        f"{launches} (local {LOCAL_RUN['launches']}); plan {wall:.3f} s "
+        f"(local {LOCAL_RUN['plan_s']:.3f} s)")
+    require(same_h and not diff and same_k, "mesh differs from local")
+    require(launches == LOCAL_RUN["launches"], "mesh: K1-K3 launches differ")
+    local_steady = LOCAL_RUN.get("steady_s", float("nan"))
+    LOCAL_RUN.clear()
+
+    # steady-state rounds in turns (local, mesh, mesh, local, local, mesh)
+    # on two copies of the pruned state, so both see the same host
+    state = res.state
+    del res
+    local = LocalBackend(trainer.model, trainer.data, trainer.cfg,
+                         use_masks=True, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1))
+    states = {"mesh": state, "local": tree_map(torch.clone, state)}
+    backends = {"mesh": backend, "local": local}
+    backend.reductions, backend.reduce_seconds = 0, 0.0
+    times = {"mesh": [], "local": []}
+    for i, name in enumerate(("local", "mesh", "mesh", "local", "local",
+                              "mesh")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states[name], _ = backends[name].run_rounds(states[name],
+                                                    rounds + i, 1)
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+    del states["local"], local
+    round_s = statistics.median(times["mesh"])
+    local_s = statistics.median(times["local"])
+    n = len(times["mesh"])
+    per, host = backend.reductions / n, backend.reduce_seconds / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        backend.run_rounds(state, rounds + 6, 1)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    nccl = [e for e in kern if "nccl" in e.key.lower()]
+    nccl_s = sum(e.self_device_time_total for e in nccl) / 1e6
+    dev_s = sum(e.self_device_time_total for e in kern) / 1e6
+    log(f"[mesh] olmo-1b steady state, rounds in turns: mesh {round_s:.3f}"
+        f" s/round {[round(t, 3) for t in times['mesh']]}, local "
+        f"{local_s:.3f} {[round(t, 3) for t in times['local']]} (the "
+        f"training phase's local: {local_steady:.3f}); all-reduce {per:.0f} tensors a round, "
+        f"{host * 1e3:.3f} ms of host time a round in the calls; a profiled"
+        f" round: {len(nccl)} NCCL kernel kinds, {nccl_s * 1e3:.3f} ms on "
+        f"the device of {dev_s:.3f} s of kernels")
+    del state, trainer, backend
+
+    # the paper phase's FedDUMAP run (shrink) through run_one on the mesh
+    local_rec = os.path.join(ROOT, "build", "chip_smoke_paper",
+                             "main_cnn_feddumap.json")
+    with open(local_rec) as f:
+        local = json.load(f)
+    out = os.path.join(ROOT, "build", "chip_smoke_mesh")
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    rec = experiments.run_one("main_cnn_feddumap", algo="feddumap",
+                              rounds=PAPER_ROUNDS, prune_round=PAPER_PRUNE,
+                              out_dir=out, backend="mesh", device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    same = all(rec["history"][k] == local["history"][k]
+               for k in ("round", "loss", "acc", "tau_eff"))
+    same_ap = rec["fedap"] == local["fedap"]
+    log(f"[mesh] run_one FedDUMAP SimpleCNN ({PAPER_ROUNDS} rounds, shrink at"
+        f" {PAPER_PRUNE}) on the mesh backend: history "
+        f"{'bitwise equal' if same else 'DIFFERS'} to the paper phase's "
+        f"local record, FedAP {rec['fedap']['kept_counts']} "
+        f"{'equal' if same_ap else 'DIFFERS'}; {wall:.2f} s")
+    require(same and same_ap, "mesh run_one differs from local")
+
+    # kill and resume on the mesh backend: the reliability phase's plan
+    _resume_cnn(torch, out, backend="mesh", mesh=mesh,
+                tag="[mesh] resume SimpleCNN")
+    shutil.rmtree(out, ignore_errors=True)
+    return launches
+
+
 PHASE_SECONDS: dict = {}    # phase -> wall seconds, for the [time] lines
 
 
@@ -4975,9 +5453,15 @@ def main() -> int:
             ("vlm-parity", lambda: phase_vlm_parity(torch) or {}),
             ("vlm", lambda: phase_vlm(torch)),
             ("whisper-parity", lambda: phase_whisper_parity(torch)),
-            ("whisper", lambda: phase_whisper(torch))):
+            ("whisper", lambda: phase_whisper(torch)),
+            ("steps", lambda: phase_steps(torch)),
+            ("mesh", lambda: phase_mesh(torch))):
         for name, n in _phase(torch, label, path).items():
             launches[name] = launches.get(name, 0) + n
+    import torch.distributed as dist
+
+    if dist.is_initialized():       # the mesh phase's world of one
+        dist.destroy_process_group()
     for name, sec in PHASE_SECONDS.items():
         log(f"[time] {name}: {sec:.1f} s")
     log(f"[time] total: {time.perf_counter() - start:.1f} s (limit 1200 s)")

@@ -9,7 +9,10 @@ runs the same TrainPlan/PlanExecutor stack as the CNN repro:
     server pool, a held-out test split);
   * :class:`repro_torch.models.lm.LM` plugs into the executor through the
     simulation-model contract (``loss_and_acc(params, x, y, masks=)``), so
-    ``FederatedTrainer`` drives it over the local backend on one device;
+    ``FederatedTrainer`` drives it over the local backend on one device,
+    or with ``--backend mesh`` over ``MeshBackend``, the round's clients
+    split over the ranks of ``torch.distributed`` (a world of one unless
+    launched by ``torchrun``);
   * ``--prune-round K`` schedules FedAP as a ``Prune`` event
     (:func:`repro_torch.core.plan.fedap_plan`): the layer-adaptive decision
     (Fisher eigen-gap rates -> Formula 15 -> a uniform 128-lane-aligned
@@ -29,10 +32,18 @@ Examples::
   PYTHONPATH=src python examples/fl_llm_train_torch.py --rounds 2 \\
       --prune-round 1 --clients 4 --device cpu
 
---scale 25m/100m train larger models.  ``--device`` defaults to ``cuda``;
-``--backend mesh`` (the multi-device backend) is not ported yet.
+  torchrun --nproc-per-node 4 examples/fl_llm_train_torch.py \
+      --backend mesh --clients-per-round 4
+
+--scale 25m/100m train larger models.  ``--device`` defaults to ``cuda``.
+Under ``torchrun`` each rank takes the card of its ``LOCAL_RANK`` and
+joins the group from the launcher's environment; rank 0 prints.
 """
 import argparse
+import os
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan import TrainPlan, fedap_plan
@@ -74,10 +85,14 @@ def main():
                     help="FedAPConfig.min_rate compression-budget floor")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
-    if args.backend != "local":
-        raise ValueError(f"backend={args.backend!r} is not ported yet: the "
-                         f"multi-device (mesh) backend comes with slice F; "
-                         f"use backend='local'")
+    rank = 0
+    if args.backend == "mesh" and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        # launched by torchrun: one rank per card, env:// rendezvous
+        cuda = torch.device(args.device).type == "cuda"
+        if cuda:
+            torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        dist.init_process_group("nccl" if cuda else "gloo")
+        rank = dist.get_rank()
 
     mcfg = ModelConfig(name=f"dense-{args.scale}", family="dense",
                        rope="1d", norm="rmsnorm", act="silu",
@@ -104,7 +119,8 @@ def main():
         fedap=FedAPConfig(align=128, min_rate=args.prune_floor,
                           probe_size=8,
                           participants=min(4, args.clients)))
-    trainer = FederatedTrainer(model, data, cfg, device=args.device)
+    trainer = FederatedTrainer(model, data, cfg, device=args.device,
+                               backend=args.backend)
 
     if args.prune_round:
         plan = fedap_plan(args.rounds, prune_round=args.prune_round,
@@ -113,6 +129,8 @@ def main():
         plan = TrainPlan.standard(args.rounds, eval_every=args.eval_every)
 
     res = trainer.run(plan)
+    if rank:
+        return
     for r, loss, acc, tau, dt in zip(res.history["round"],
                                      res.history["loss"],
                                      res.history["acc"],

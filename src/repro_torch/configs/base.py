@@ -1,6 +1,7 @@
 """Architecture configuration dataclasses (the port's own copy).
 
-A field-for-field copy of the reference's ``configs/base.py`` so that a
+A field-for-field copy of the reference's ``configs/base.py`` (with the
+four input shapes, :data:`INPUT_SHAPES`) so that a
 ``meta.json`` written by either package rebuilds the same config.  Configs
 are pure data; models are assembled from them by ``repro_torch.models``.
 """
@@ -171,3 +172,19 @@ class ModelConfig:
             small["sliding_window"] = 64
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                 # 'train' | 'prefill' | 'decode'
+
+
+INPUT_SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

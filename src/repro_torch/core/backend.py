@@ -1,11 +1,13 @@
-"""The plan executor and the local backend it drives.
+"""The plan executor and the backends it drives.
 
-Counterpart of the reference's ``core/backend.py`` for one device.  A
+Counterpart of the reference's ``core/backend.py``.  A
 :class:`~repro_torch.core.plan.TrainPlan` says WHAT happens (Scan / Eval /
 Prune / Snapshot / Callback); :class:`PlanExecutor` owns the schedule loop
 (history, artifacts, the Prune decision/apply split, the Callback restart)
-and drives :class:`LocalBackend`, which runs the rounds of
-:func:`repro_torch.core.engine.round_core` eagerly.
+and drives a backend: :class:`LocalBackend`, which runs the rounds of
+:func:`repro_torch.core.engine.round_core` eagerly on one device, or
+:class:`MeshBackend`, the same rounds with the clients split over the ranks
+of a ``torch.distributed`` device mesh.
 
 Where the reference compiles a scan chunk, the port runs one eager round
 after another, and a ``Prune(mode="mask")`` writes the masks into the
@@ -29,7 +31,7 @@ atomics (``dgrad_engine``, ``wgrad_alg0_engine``), one step's gradients
 differed by 6e-8 over three calls and two runs of a 3-round plan by 2e-3.
 So the executor runs its plan with cuDNN restricted to deterministic
 algorithms (:func:`deterministic_cudnn`; no measurable cost a round
-there).  The mesh backend comes with a later slice.
+there).
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import engine, pruning
 from repro_torch.core.engine import EngineConfig
@@ -159,6 +162,7 @@ class LocalBackend:
     """
 
     name = "local"
+    is_writer = True    # writes the plan's checkpoints
 
     def __init__(self, model, data, cfg, *, use_masks: bool = False,
                  device, generator: torch.Generator | None = None,
@@ -241,6 +245,12 @@ class LocalBackend:
             n0=int(d["server_x"].shape[0]), **kw)
         return engine.sample_round_batches(d, *draws, **kw)
 
+    def barrier(self) -> None:
+        """Wait for the other ranks (none here)."""
+
+    def _round_shard(self):
+        return None
+
     def run_rounds(self, state: dict, t: int, n: int):
         """Rounds ``t .. t+n-1`` on ``state`` (in place); returns (state,
         per-round metrics)."""
@@ -248,7 +258,8 @@ class LocalBackend:
         for r in range(t, t + n):
             state, met = engine.round_core(self.eng, self.grad_fn,
                                            self.la_fn, state,
-                                           self.round_batch(r))
+                                           self.round_batch(r),
+                                           self._round_shard())
             mets.append(met)
         return state, mets
 
@@ -297,6 +308,200 @@ class LocalBackend:
                                                      kept)
         new_state["round"] = state["round"]
         return new_state, {"params_before": params}
+
+
+class MeshBackend(LocalBackend):
+    """The same rounds with the FL clients split over the ranks of a device
+    mesh (``launch.mesh``; a world of one by default), the counterpart of
+    the reference's ``MeshBackend``.
+
+    * Each round's C clients split over the mesh's client axes (``data``, x
+      ``pod``) by position in the round batch, as
+      ``sharding.fl_specs.fl_sim_batch_specs`` places them: rank r trains
+      its block of C / ranks clients, and ``round_core`` sums the FedAvg
+      partial sums (and communicated momentum, FedDyn's drift and rows of
+      ``h``, the guard's totals) over the ranks before it divides them
+      (:class:`~repro_torch.core.engine.RoundShard`).  A C that does not
+      divide runs replicated: every rank trains every client.
+    * ``shard_server`` (default on): each server step's rows split the same
+      way; the step's gradient is a partial gradient over the rank's rows,
+      weighted by their share and summed over the ranks, and so is the
+      first step's gate accuracy.  That is the gradient of the batch mean
+      for a loss that is a mean over the rows (the CNNs' and the LM's), so
+      the moe family, whose auxiliary loss is not, needs
+      ``shard_server=False``.
+    * Evaluation: the test split's rows split over the ranks, padded with
+      row-0 copies to a multiple of them; the padded rows' contribution is
+      subtracted back out exactly, ``mean = (mean_pad n_pad - k f(row 0)) /
+      n``.
+    * The state stays replicated on every rank (``fl_state_specs`` with no
+      model axes), FedDyn's per-client ``h`` too.  Every rank holds the
+      whole federated dataset and gathers its own clients' rows: the
+      reference stores only a rank's clients, which narrows nothing here
+      but memory (ROADMAP P3).  Every rank draws the same round indices
+      from a generator seeded alike.
+    * ``Prune`` events: the decision is ``fedap.fedap_decision_sharded``
+      (participants split, rates all-gathered, the same decision on every
+      rank); a mask goes in through ``launch.steps.with_masks`` (every
+      state tensor keeps its storage and shape); a shrink runs on each
+      rank as on one device.
+    * Rank 0 writes the plan's checkpoints; every rank reads them back.
+
+    Other mesh dims than the client axes must have size 1.  At a world of
+    one every sum over the ranks is a copy, and the run is bitwise the
+    local backend's.  ``reductions`` counts the tensors summed over the
+    ranks, ``reduce_seconds`` the host time of those calls.
+    """
+
+    name = "mesh"
+
+    def __init__(self, model, data, cfg, *, use_masks: bool = False,
+                 device, generator: torch.Generator | None = None,
+                 batches: Callable | None = None, mesh=None,
+                 shard_server: bool = True):
+        from repro_torch.core.fedap import _client_rank
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.sharding.fl_specs import fl_sim_batch_specs
+        from repro_torch.sharding.specs import MeshPlan, axis_sizes
+
+        super().__init__(model, data, cfg, use_masks=use_masks,
+                         device=device, generator=generator,
+                         batches=batches)
+        self.mesh = (mesh if mesh is not None
+                     else make_host_mesh(device=self.device))
+        if self.mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh is a {self.mesh.device_type} mesh, "
+                             f"the backend runs on {self.device}")
+        axes = axis_sizes(self.mesh)
+        if "data" not in axes:
+            raise ValueError(
+                f"MeshBackend needs a 'data' mesh axis to host FL clients; "
+                f"got axes {tuple(axes)}")
+        client_axes = ("pod", "data") if "pod" in axes else ("data",)
+        wide = {k: n for k, n in axes.items()
+                if k not in client_axes and n != 1}
+        if wide:
+            raise ValueError(f"MeshBackend splits clients only: mesh dims "
+                             f"{wide} beyond the client axes {client_axes} "
+                             f"must have size 1")
+        if shard_server and getattr(model, "moe", False):
+            raise ValueError(
+                "shard_server=True takes a server loss that is a mean over "
+                "the batch's rows; the moe family's auxiliary loss is not: "
+                "pass shard_server=False")
+        self.plan = MeshPlan(
+            mesh=self.mesh, multi_pod="pod" in axes, client_axes=client_axes,
+            fsdp_axes=(), tp_axes=(("model",) if "model" in axes else ()),
+            batch_axes=(), num_clients=1)
+        self.rank, self.world = _client_rank(self.mesh, client_axes)
+        specs = fl_sim_batch_specs(
+            cfg.clients_per_round, self.plan,
+            server_batch=cfg.server_batch_size if shard_server else None,
+            with_active=bool(self.sample_kw["dropout_rate"]))
+        r, w = self.rank, self.world
+        clients = server_rows = None
+        weight = 1.0
+        if specs["sizes"].parts:          # the clients split over the ranks
+            per = cfg.clients_per_round // w
+            clients = range(r * per, (r + 1) * per)
+        if specs["server"][0].parts:      # each server step's rows too
+            per = cfg.server_batch_size // w
+            server_rows = slice(r * per, (r + 1) * per)
+            weight = per / cfg.server_batch_size
+        self._shard = engine.RoundShard(reduce=self._reduce, clients=clients,
+                                        server_rows=server_rows,
+                                        server_weight=weight)
+        self.reductions = 0
+        self.reduce_seconds = 0.0
+
+    @property
+    def is_writer(self) -> bool:
+        return self.rank == 0
+
+    def barrier(self) -> None:
+        dist.barrier()
+
+    def _reduce(self, tensors) -> None:
+        """Each tensor summed over the ranks, in place."""
+        t0 = time.perf_counter()
+        for t in tensors:
+            dist.all_reduce(t)
+        self.reductions += len(tensors)
+        self.reduce_seconds += time.perf_counter() - t0
+
+    def _round_shard(self):
+        return self._shard
+
+    def round_batch(self, t: int) -> dict:
+        """Round ``t``'s batch with only this rank's clients in
+        ``"client"`` (every rank draws the same indices)."""
+        mine = self._shard.clients
+        if self.batches is not None:
+            batch = super().round_batch(t)
+            if mine is not None:
+                batch["client"] = tree_map(
+                    lambda x: x[mine.start:mine.stop], batch["client"])
+            return batch
+        d = self.device_data()
+        kw = self.sample_kw
+        draws = engine.draw_round_indices(
+            self.generator, num_clients=int(d["client_x"].shape[0]),
+            n_k=int(d["client_x"].shape[1]),
+            n0=int(d["server_x"].shape[0]), **kw)
+        return engine.sample_round_batches(d, *draws, **kw, clients=mine)
+
+    def evaluate(self, state):
+        """(loss, acc) on the test split, its rows split over the ranks."""
+        d = self.device_data()
+        x, y = d["test_x"], d["test_y"]
+        n = x.shape[0]
+        per = -(-n // self.world)
+        n_pad = per * self.world
+        lo = self.rank * per
+        if lo + per <= n:
+            xs, ys = x[lo:lo + per], y[lo:lo + per]
+        else:   # the padded tail: copies of row 0
+            idx = torch.arange(lo, lo + per, device=x.device)
+            idx = torch.where(idx < n, idx, 0)
+            xs, ys = x[idx], y[idx]
+        params = state["params"]
+        with torch.no_grad():
+            loss, acc = self.model.loss_and_acc(params, xs, ys)
+            wt = per / n_pad
+            sums = torch.stack([loss.float() * wt, acc.float() * wt])
+            self._reduce([sums])
+            loss, acc = sums.unbind(0)
+            if n_pad != n:
+                k = float(n_pad - n)
+                l0, a0 = self.model.loss_and_acc(params, x[:1], y[:1])
+                loss = (loss * n_pad - k * l0) / n
+                acc = (acc * n_pad - k * a0) / n
+        return loss, acc
+
+    def prune_decision(self, state, init_params):
+        from repro_torch.core import fedap
+
+        return fedap.fedap_decision_sharded(
+            self.model, self.data, self.cfg.fedap, state["params"],
+            init_params=init_params,
+            rng=np.random.default_rng(self.cfg.seed),
+            mesh=self.mesh, client_axes=self.plan.client_axes)
+
+    def apply_prune(self, state: dict, mode: str, kept, *,
+                    compact_existing: bool = False):
+        """mask: ``launch.steps.with_masks`` into the live state; shrink:
+        as on one device, on every rank."""
+        if mode != "mask":
+            return super().apply_prune(state, mode, kept,
+                                       compact_existing=compact_existing)
+        from repro_torch.launch.steps import with_masks
+
+        params = state["params"]
+        masks = param_masks_for(self.model, params, kept)
+        fmasks = filter_masks_for(self.model, params, kept)
+        state = with_masks(state, masks,
+                           filter_masks=fmasks if self._kernel_masks else None)
+        return state, {"filter_masks": fmasks}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -386,6 +591,10 @@ class PlanExecutor:
             artifacts[k] = value
 
         def write_checkpoint(cursor):
+            # one writer (rank 0 of a mesh); the others wait for the file
+            if not backend.is_writer:
+                backend.barrier()
+                return
             ckpt.save_checkpoint(ckpt_dir, {
                 "state": state,
                 "generator_state": None if gen is None else gen.get_state(),
@@ -398,6 +607,7 @@ class PlanExecutor:
                 "backend": backend.name,
                 "elapsed": time.perf_counter() - t0,
             })
+            backend.barrier()
 
         with deterministic_cudnn():
             for idx, ev in enumerate(plan.compiled()):

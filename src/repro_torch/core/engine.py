@@ -49,8 +49,12 @@ model (olmo-1b in f32 is 4.71 GB per param-sized tree):
   and the FedDU proposal no longer overwrites ``w_half`` (its fallback):
   one param-sized tree more than an unguarded round.
 
-Model access is two callables over an opaque batch (``(x, y)`` tuples for
-the simulation models), as in the reference:
+Batches are pytrees, as in the reference: ``(x, y)`` tuples for the
+simulation models, dicts (``tokens``, ``labels``, ``embeds``,
+``positions``, ``loss_mask``, ``enc_embeds``) for the batch-dict step of
+``launch.steps``; a round indexes clients, local steps and server steps
+through every leaf's leading dims.  Model access is two callables over an
+opaque step batch:
 
   grad_fn(params, batch[, filter_masks])          -> grads tree
   loss_and_acc_fn(params, batch[, filter_masks])  -> (loss, acc)
@@ -58,6 +62,15 @@ the simulation models), as in the reference:
 the filter masks being passed iff ``use_masks`` and
 ``masked_compute == "kernel"`` (:func:`build_model_fns`).  The Formula-7
 accuracy gate comes from the FIRST server step's own forward.
+
+A :class:`RoundShard` runs the round as one rank of several (the mesh
+backend, ``core.backend.MeshBackend``): the rank trains its own clients
+and sums the round's client sums over the ranks (FedAvg's ``w_half``,
+communicated momentum, FedDyn's drift and rows of ``h``, the guard's
+totals) before anything divides them, and each server step's gradient may
+be a partial one over the rank's rows, summed over the ranks.  Clients keep
+their weights from the whole round's ``sizes``, so at a world of one the
+round is bitwise the unsharded one.
 
 Randomness is an input: :func:`sample_round_batches` gathers one round's
 batches at given client and sample indices, and :func:`draw_round_indices`
@@ -107,6 +120,27 @@ class FedDynConfig:
 ALGORITHMS = ("fedavg", "fedprox", "feddyn")
 
 GUARD_MODES = ("off", "reject_client", "skip_round")
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundShard:
+    """One rank's part of a round.
+
+    ``reduce(tensors)`` sums each tensor of a list over the ranks, in place.
+    ``clients`` are the positions in the round batch of the clients this
+    rank trains; ``batch["client"]`` then holds exactly their rows, while
+    ``sizes``, ``sel`` and ``active`` stay whole.  ``None``: every rank
+    trains every client and the client sums are not reduced (the replicated
+    fallback).  ``server_rows`` are this rank's rows of every server step's
+    batch, whose gradient (and the gate accuracy) is then taken over them,
+    scaled by ``server_weight`` (the rows' share of the batch) and summed
+    over the ranks: the gradient of the batch's mean loss, for a loss that
+    is a mean over rows.  ``None``: whole batches on every rank."""
+
+    reduce: Callable
+    clients: range | None = None
+    server_rows: slice | None = None
+    server_weight: float = 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -314,6 +348,11 @@ def local_train(cfg: EngineConfig, grad_fn: Callable, params: Any, m: Any,
     return params, m
 
 
+def _take(tree, i):
+    """Entry ``i`` of every leaf's leading dim."""
+    return tree_map(lambda x: x[i], tree)
+
+
 def _add_weighted(acc, tree, w):
     """``acc + w * tree`` in f32, consuming ``tree`` (its buffer becomes
     the sum when ``acc`` is None and it is already f32)."""
@@ -324,13 +363,14 @@ def _add_weighted(acc, tree, w):
 
 
 def round_core(cfg: EngineConfig, grad_fn: Callable, loss_and_acc_fn: Callable,
-               state: dict, batch: dict) -> tuple[dict, dict]:
+               state: dict, batch: dict,
+               shard: RoundShard | None = None) -> tuple[dict, dict]:
     """One federated round (paper steps 2-5) on ``state``, IN PLACE.
 
     batch (tensors on the state's device):
-      client    (x, y), leading dims [C, steps, ...] — per-client batches
+      client    pytree, leading dims [C, steps, ...] — per-client batches
       sizes     [C] f32 n_k
-      server    (x, y), leading dim [tau, ...] — server SGD batches
+      server    pytree, leading dim [tau, ...] — server SGD batches
       d_round   D(Pbar'^t), non-IID degree of this round's selection
       d_server  D(P0), non-IID degree of the server data
       n0        number of server samples
@@ -351,12 +391,14 @@ def round_core(cfg: EngineConfig, grad_fn: Callable, loss_and_acc_fn: Callable,
     advances.  The guard's decisions are 0-d device tensors: a guarded
     round reads nothing to the host.
 
+    ``shard`` runs the round as one rank of several (:class:`RoundShard`).
+
     Returns ``(state, {"tau_eff", "server_acc", "health"})`` as 0-d f32
     tensors; ``health`` counts the rejected active clients plus 1 for a
     rejected server step (0 with the guard off).
     """
     with torch.no_grad():
-        return _round(cfg, grad_fn, loss_and_acc_fn, state, batch)
+        return _round(cfg, grad_fn, loss_and_acc_fn, state, batch, shard)
 
 
 def _all_finite(*trees) -> torch.Tensor:
@@ -371,7 +413,7 @@ def _where_(cond, a, b) -> None:
     tree_map(lambda x, y: torch.where(cond, x, y, out=x), a, b)
 
 
-def _round(cfg, grad_fn, loss_and_acc_fn, state, batch):
+def _round(cfg, grad_fn, loss_and_acc_fn, state, batch, shard=None):
     if cfg.use_masks:
         masks = state["masks"]
 
@@ -400,8 +442,13 @@ def _round(cfg, grad_fn, loss_and_acc_fn, state, batch):
     # (2)-(4) local epochs client after client, FedAvg as a running sum;
     # with an "active" vector or the guard in the delta form around the
     # broadcast point
-    cx, cy = batch["client"]
+    client = batch["client"]
+    local_steps = tree_leaves(client)[0].shape[1]
     sizes = batch["sizes"].float()
+    clients = range(sizes.shape[0])
+    reduce = None   # sums over the ranks of the client sums
+    if shard is not None and shard.clients is not None:
+        clients, reduce = shard.clients, shard.reduce
     active = batch.get("active")
     act = active.float() if active is not None else None
     guard = cfg.guard != "off"
@@ -436,9 +483,10 @@ def _round(cfg, grad_fn, loss_and_acc_fn, state, batch):
     if cfg.faults:
         sel_ids = batch.get("sel")
         if sel_ids is None:
-            sel_ids = torch.arange(cx.shape[0], device=lr.device)
+            sel_ids = torch.arange(sizes.shape[0], device=lr.device)
     w_half = new_global_m = None
-    for c in range(cx.shape[0]):
+    new_rows = {}   # sharded FedDyn: this rank's clients' new rows of h
+    for j, c in enumerate(clients):
         p = tree_map(torch.clone, params)
         if communicated:
             m = tree_map(torch.clone, m0)
@@ -450,7 +498,8 @@ def _round(cfg, grad_fn, loss_and_acc_fn, state, batch):
         if feddyn:
             row = sel[c:c + 1]
             h = _m(tree_map(lambda x: x.index_select(0, row)[0], h_all))
-        steps = [(cx[c, s], cy[c, s]) for s in range(cx.shape[1])]
+        mine = _take(client, j)
+        steps = [_take(mine, s) for s in range(local_steps)]
         p, m = local_train(cfg, grad_fn, p, m, steps, lr, anchor=anchor,
                            h=h)
         for f in cfg.faults:
@@ -479,7 +528,11 @@ def _round(cfg, grad_fn, loss_and_acc_fn, state, batch):
             # the client's row; sum_k act_k drift_k for the shared h
             coef = alpha if a_c is None else a_c * alpha
             tree_map(lambda hk, dk: hk.sub_(dk * coef), h, d)
-            tree_map(lambda x, hk: x.index_copy_(0, row, hk[None]), h_all, h)
+            if reduce is None:
+                tree_map(lambda x, hk: x.index_copy_(0, row, hk[None]),
+                         h_all, h)
+            else:
+                new_rows[c] = h
             if a_c is None:
                 ad = d if drift_sum is not None else tree_map(torch.clone, d)
             else:
@@ -501,6 +554,27 @@ def _round(cfg, grad_fn, loss_and_acc_fn, state, batch):
             else:
                 new_global_m = _add_weighted(new_global_m, m, wc)
         del p, m
+    if reduce is not None:
+        # the ranks' partial sums, summed before anything divides them
+        trees = [w_half] + ([new_global_m] if communicated else []) + (
+            [drift_sum] if feddyn else [])
+        if guard:
+            totals = torch.stack([w_total, survivors, rejected])
+            reduce(tree_leaves(trees) + [totals])
+            w_total, survivors, rejected = totals.unbind(0)
+        else:
+            reduce(tree_leaves(trees))
+        if feddyn:
+            # each selected client's new row comes from the one rank that
+            # trained it: the others add zeros
+            rows = tree_map(lambda x: torch.zeros(
+                (sel.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                device=x.device), h_all)
+            for c, hc in new_rows.items():
+                tree_map(lambda r, hk: r[c].copy_(hk), rows, hc)
+            reduce(tree_leaves(rows))
+            tree_map(lambda x, r: x.index_copy_(0, sel, r), h_all, rows)
+            del rows, new_rows
     if delta_form:
         if guard:
             total = torch.clamp(w_total, min=1e-12)
@@ -534,13 +608,26 @@ def _round(cfg, grad_fn, loss_and_acc_fn, state, batch):
     # (5a) FedDU dynamic server update (Formulas 4-7); acc from the FIRST
     # server step's own forward
     if cfg.use_server_update:
-        sx, sy = batch["server"]
-        tau = sx.shape[0]
+        server = batch["server"]
+        tau = tree_leaves(server)[0].shape[0]
+        server_rows = None if shard is None else shard.server_rows
         w_end = tree_map(torch.clone, w_half)
         acc = None
         for i in range(tau):
-            (_, acc_i), g = value_and_grad_aux(loss_and_acc_fn, w_end,
-                                               (sx[i], sy[i]))
+            step = _take(server, i)
+            if server_rows is not None:   # rows lead every leaf
+                step = tree_map(lambda x: x[server_rows], step)
+            (_, acc_i), g = value_and_grad_aux(loss_and_acc_fn, w_end, step)
+            if server_rows is not None:
+                # this rank's share of the batch mean, summed over the ranks
+                wt = shard.server_weight
+                if wt != 1.0:
+                    tree_map(lambda t: t.mul_(wt), g)
+                sums = tree_leaves(g)
+                if acc is None:
+                    acc_i = acc_i.float() * wt
+                    sums.append(acc_i)
+                shard.reduce(sums)
             g = _m(g)
             if acc is None:
                 acc = acc_i.float()
@@ -660,13 +747,17 @@ def draw_round_indices(generator: torch.Generator, *, num_clients: int,
 def sample_round_batches(data: dict, sel, idx, sidx, active=None, *,
                          clients_per_round: int, batch_size: int,
                          local_steps: int, server_batch: int,
-                         server_tau: int, dropout_rate: float = 0.0) -> dict:
+                         server_tau: int, dropout_rate: float = 0.0,
+                         clients: range | None = None) -> dict:
     """One round's :func:`round_core` batch gathered from the device-resident
     dataset (``FederatedData.device_arrays``) at the given indices: ``sel``
     [C] clients, ``idx`` [C, local_steps * batch_size] samples of each,
     ``sidx`` [server_tau * server_batch] server samples, and ``active``
     [C] 0/1, the dropout draw, which the batch carries as ``"active"``
-    (required iff ``dropout_rate`` > 0, the rate it was drawn at)."""
+    (required iff ``dropout_rate`` > 0, the rate it was drawn at).
+    ``clients`` (a range of positions in ``sel``) gathers only those
+    clients' samples into ``"client"`` (one rank's part of a round,
+    :class:`RoundShard`); the per-client vectors stay whole."""
     if bool(dropout_rate) != (active is not None):
         raise ValueError(
             f"dropout_rate={dropout_rate} needs an active vector iff it is "
@@ -674,10 +765,13 @@ def sample_round_batches(data: dict, sel, idx, sidx, active=None, *,
     sel = torch.as_tensor(sel, device=data["sizes"].device).long()
     idx = torch.as_tensor(idx, device=sel.device).long()
     sidx = torch.as_tensor(sidx, device=sel.device).long()
-    cx = data["client_x"][sel[:, None], idx]
-    cy = data["client_y"][sel[:, None], idx]
-    cx = cx.reshape(clients_per_round, local_steps, batch_size, *cx.shape[2:])
-    cy = cy.reshape(clients_per_round, local_steps, batch_size, *cy.shape[2:])
+    mine = (slice(None) if clients is None
+            else slice(clients.start, clients.stop))
+    cx = data["client_x"][sel[mine, None], idx[mine]]
+    cy = data["client_y"][sel[mine, None], idx[mine]]
+    n = cx.shape[0]
+    cx = cx.reshape(n, local_steps, batch_size, *cx.shape[2:])
+    cy = cy.reshape(n, local_steps, batch_size, *cy.shape[2:])
     sx = data["server_x"][sidx].reshape(server_tau, server_batch,
                                         *data["server_x"].shape[1:])
     sy = data["server_y"][sidx].reshape(server_tau, server_batch,

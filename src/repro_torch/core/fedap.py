@@ -12,6 +12,10 @@ draw is numpy, so it equals the reference's for the same seed.
 
 Per-sample gradients are computed one sample at a time (the reference
 vmaps them): at olmo-1b's width each is a 4.71 GB tree.
+
+:func:`fedap_decision_sharded` is the mesh backend's step 1: the
+participants split over the ranks, each rank probes its own, the rates are
+all-gathered, and every rank finishes the same decision.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+import torch.distributed as dist
 
 from repro_torch.core import engine, niid
 from repro_torch.core.pruning import (
@@ -35,7 +41,8 @@ from repro_torch.core.pruning import (
     per_layer_rates,
     select_filters,
 )
-from repro_torch.utils.tree import tree_leaves
+from repro_torch.utils.arrays import pad_rows_with_first
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 def participant_rate(model, params, init_params, x, y,
@@ -58,6 +65,42 @@ def participant_rate(model, params, init_params, x, y,
 
     lip = lipschitz_estimate(grad_fn, params, init_params, probe)
     return expected_rate_from_spectrum(eigs, lip, cfg.max_rate)
+
+
+def participant_rate_padded(model, params, init_params, x, y, row_mask,
+                            n_valid: int, cfg: FedAPConfig) -> torch.Tensor:
+    """p*_k from a PADDED probe: ``x``/``y`` hold ``n_valid`` real samples
+    then padding rows (copies; their values never matter), ``row_mask`` the
+    matching [rows] 0/1 validity.  Padded rows add nothing: their
+    per-sample gradients are zeroed before the Gram products (the spectrum
+    is the valid one plus exact zeros, skipped by ``valid=n_valid``), and
+    the Lipschitz estimate differentiates the validity-weighted mean loss.
+    With every row valid this is :func:`participant_rate` up to summation
+    order."""
+    def loss_one(p, xi, yi):
+        return model.loss_and_acc(p, xi[None], yi[None])[0]
+
+    def per_sample_grads(p, batch):
+        bx, by, bm = batch
+        return [tree_map(lambda t, mi=mi: t.mul_(mi),
+                         engine.grad(loss_one, p, xi, yi))
+                for xi, yi, mi in zip(bx, by, bm)]
+
+    batch = (x, y, row_mask)
+    eigs = fisher_spectrum(per_sample_grads, params, batch, n_valid=n_valid)
+
+    def grad_fn(p, b):
+        bx, by, bm = b
+
+        def masked_loss(q):
+            losses = torch.stack([loss_one(q, xi, yi)
+                                  for xi, yi in zip(bx, by)])
+            return (losses * bm).sum() / float(n_valid)
+        return engine.grad(masked_loss, p)
+
+    lip = lipschitz_estimate(grad_fn, params, init_params, batch)
+    return expected_rate_from_spectrum(eigs, lip, cfg.max_rate,
+                                       valid=n_valid)
 
 
 @dataclasses.dataclass
@@ -165,3 +208,83 @@ def fedap_decision(model, data, cfg: FedAPConfig, params: Any, *,
     return _finish_decision(model, data, cfg, params,
                             torch.stack([r.cpu() for r in rates]),
                             torch.tensor(sizes), torch.stack(degrees))
+
+
+def _client_rank(mesh, client_axes: tuple) -> tuple[int, int]:
+    """(this rank's index, the count) along the mesh's client axes."""
+    names = tuple(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    rank, size = 0, 1
+    for ax in client_axes:
+        n = mesh.size(names.index(ax))
+        rank = rank * n + coord[names.index(ax)]
+        size *= n
+    return rank, size
+
+
+def fedap_decision_sharded(model, data, cfg: FedAPConfig, params: Any, *,
+                           init_params: Any,
+                           rng: np.random.Generator | None = None,
+                           mesh=None, client_axes: tuple = ("data",)
+                           ) -> FedAPDecision:
+    """Algorithm 3 with step 1 split over the ranks of ``mesh``'s client
+    axes (the mesh backend's Prune; every other mesh dim must have size 1).
+
+    The probes (the server's first, then each drawn client's, as
+    :func:`fedap_decision` draws them) are cut to ``cfg.probe_size`` rows
+    and padded to the widest with copies of their own first row
+    (:func:`~repro_torch.utils.arrays.pad_rows_with_first`).  Rank r probes
+    its contiguous block of participants: :func:`participant_rate` for
+    rectangular probes (the host path's step 1 verbatim), or
+    :func:`participant_rate_padded` with a row mask when they are ragged.
+    The rates are all-gathered, and every rank runs the same steps 2-4
+    (``_finish_decision``), so every rank makes the host path's decision up
+    to float tolerance, and exactly it where the probes are rectangular.
+    ``mesh=None`` probes everything here."""
+    rng = np.random.default_rng(0) if rng is None else rng
+    dev = tree_leaves(params)[0].device
+    p_bar = niid.global_distribution(data.client_dists, data.sizes)
+    ids = _draw_participants(data, cfg, rng)
+
+    probe = cfg.probe_size
+    n0, n_k = data.server_x.shape[0], data.client_x.shape[1]
+    takes = np.asarray([min(probe, n0)] + [min(probe, n_k)] * len(ids))
+    p_max = int(takes.max())
+    ragged = bool((takes != p_max).any())
+    pools = ([(data.server_x, data.server_y)]
+             + [(data.client_x[k], data.client_y[k]) for k in ids])
+    rank, world = (0, 1) if mesh is None else _client_rank(mesh, client_axes)
+    if world > 1 and dist.get_world_size() != world:
+        raise ValueError(
+            f"fedap_decision_sharded gathers over the process group, which "
+            f"has {dist.get_world_size()} ranks, but the mesh's client axes "
+            f"{client_axes} have {world}: other mesh dims must have size 1")
+    n_part = len(pools)
+    per = -(-n_part // world)
+    mine = range(rank * per, min((rank + 1) * per, n_part))
+
+    def probe_rows(a, take):
+        return torch.as_tensor(pad_rows_with_first(np.asarray(a[:take]),
+                                                   p_max), device=dev)
+
+    local = torch.zeros((per,), dtype=torch.float32, device=dev)
+    for j, i in enumerate(mine):
+        (xa, ya), take = pools[i], int(takes[i])
+        x, y = probe_rows(xa, take), probe_rows(ya, take)
+        if ragged:
+            row_mask = (torch.arange(p_max, device=dev) < take).float()
+            r = participant_rate_padded(model, params, init_params, x, y,
+                                        row_mask, take, cfg)
+        else:
+            r = participant_rate(model, params, init_params, x, y, cfg)
+        local[j] = r.to(dev)
+    if world > 1:
+        parts = [torch.empty_like(local) for _ in range(world)]
+        dist.all_gather(parts, local)
+        local = torch.cat(parts)
+    rates = local[:n_part].cpu()
+    sizes = torch.tensor([float(n0)] + [float(data.sizes[k]) for k in ids])
+    degrees = torch.stack(
+        [niid.non_iid_degree(data.server_dist, p_bar)]
+        + [niid.non_iid_degree(data.client_dists[k], p_bar) for k in ids])
+    return _finish_decision(model, data, cfg, params, rates, sizes, degrees)

@@ -99,7 +99,7 @@ class PruneSpec:
 
 
 def fisher_spectrum(per_sample_grad_fn: Callable, params: Any,
-                    probe_batch: Any) -> torch.Tensor:
+                    probe_batch: Any, *, n_valid=None) -> torch.Tensor:
     """Empirical-Fisher eigenvalues via the Gram trick, ascending, clipped
     at 0.
 
@@ -108,6 +108,11 @@ def fisher_spectrum(per_sample_grad_fn: Callable, params: Any,
     [n, P] matrix; here ``G G^T`` is summed leaf by leaf in f32 from dot
     products, so no second copy of the gradients is made.  The two agree
     up to summation order.
+
+    ``n_valid`` (a padded probe whose padded rows' gradients are zero)
+    normalises by the valid rows: the spectrum is then the valid rows' plus
+    exact zeros, which :func:`expected_rate_from_spectrum`'s ``valid=``
+    skips.
     """
     grads = [tree_leaves(g) for g in per_sample_grad_fn(params, probe_batch)]
     n = len(grads)
@@ -119,7 +124,8 @@ def fisher_spectrum(per_sample_grad_fn: Callable, params: Any,
             for j in range(i + 1):
                 gram[i, j] += torch.dot(flat[i], flat[j])
     gram = torch.tril(gram) + torch.tril(gram, -1).T
-    eigs = torch.linalg.eigvalsh(gram / n)
+    eigs = torch.linalg.eigvalsh(gram / (n if n_valid is None
+                                         else float(n_valid)))
     return eigs.clamp_min(0.0)
 
 
@@ -139,16 +145,24 @@ def lipschitz_estimate(grad_fn: Callable, params_a: Any, params_b: Any,
 
 
 def expected_rate_from_spectrum(eigs: torch.Tensor, lipschitz,
-                                max_rate: float = 0.9) -> torch.Tensor:
+                                max_rate: float = 0.9, *,
+                                valid=None) -> torch.Tensor:
     """p*_k = m / d for the FIRST ascending index m with eig[m+1] - eig[m]
     > 4 L (the modes below the first spectral gap are the prunable
-    complement of the inertial manifold); 0 when no gap clears the bar."""
-    d = eigs.shape[0]
+    complement of the inertial manifold); 0 when no gap clears the bar.
+
+    ``valid`` searches only a padded spectrum's last ``valid`` entries (the
+    padded rows' zero eigenvalues sort first), with the indices re-based
+    and the gap at the pad|valid boundary excluded: the search the unpadded
+    spectrum gets."""
+    d_pad = eigs.shape[0]
+    d = d_pad if valid is None else int(valid)
     gaps = eigs[1:] - eigs[:-1]
-    idx = torch.arange(1, d, dtype=torch.int32, device=eigs.device)
-    ok = gaps > 4.0 * torch.as_tensor(lipschitz, dtype=torch.float32,
-                                      device=eigs.device)
-    m = int(torch.where(ok, idx, d).min()) if d > 1 else d
+    idx = torch.arange(1, d_pad, dtype=torch.int32,
+                       device=eigs.device) - (d_pad - d)
+    ok = (gaps > 4.0 * torch.as_tensor(lipschitz, dtype=torch.float32,
+                                       device=eigs.device)) & (idx >= 1)
+    m = int(torch.where(ok, idx, d).min()) if d_pad > 1 else d
     m = 0 if m >= d else m
     rate = (torch.tensor(m, dtype=torch.float32)
             / torch.tensor(d, dtype=torch.float32))

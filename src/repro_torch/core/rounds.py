@@ -1,6 +1,6 @@
 """The simulation trainer: configuration and the user-facing facade.
 
-Counterpart of the reference's ``core/rounds.py`` for the local backend.
+Counterpart of the reference's ``core/rounds.py``.
 One round (Section 3.1): select a device subset, each device runs E local
 epochs (SGD, or restart-SGDM for FedDUM; FedProx and FedDyn correct the
 local gradient), the server aggregates with FedAvg weights n_k/n' (dropped
@@ -16,6 +16,12 @@ clients weigh 0), then updates on its shared data with the dynamic tau_eff
 A plan with ``checkpoint_dir`` is snapshotted at chunk boundaries, and a
 killed run continues with ``FederatedTrainer(...).resume(checkpoint_dir)``.
 
+``backend="mesh"`` runs the same rounds with the clients split over the
+ranks of a ``torch.distributed`` device mesh (:class:`~repro_torch.core.
+backend.MeshBackend`): a world of one by default, more ranks under
+``torchrun``.  ``round_step`` runs one round at explicit batches, the
+engine as ``launch.steps.make_fl_train_step`` runs it.
+
 The round engine is :mod:`repro_torch.core.engine`, the schedule loop
 :class:`repro_torch.core.backend.PlanExecutor`.
 """
@@ -27,7 +33,13 @@ from typing import Callable
 import torch
 
 from repro_torch import device as _device
-from repro_torch.core.backend import LocalBackend, PlanExecutor
+from repro_torch.core import engine
+from repro_torch.core.backend import (
+    LocalBackend,
+    MeshBackend,
+    PlanExecutor,
+    _tensor,
+)
 from repro_torch.core.engine import (
     ALGORITHMS,
     GUARD_MODES,
@@ -41,6 +53,9 @@ from repro_torch.core.pruning import FedAPConfig
 from repro_torch.core.server_update import FedDUConfig
 from repro_torch.reliability import checkpoint as ckpt
 from repro_torch.reliability.faults import device_faults
+from repro_torch.utils.tree import tree_map
+
+_BACKENDS = {"local": LocalBackend, "mesh": MeshBackend}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,9 +159,13 @@ def engine_config(cfg: FLConfig) -> EngineConfig:
 
 
 class FederatedTrainer:
-    """Binds (model, data, config) to the local backend on ``device``
-    (default ``"cuda"``, which raises when CUDA is missing) and runs
-    TrainPlans.
+    """Binds (model, data, config) to a backend on ``device`` (default
+    ``"cuda"``, which raises when CUDA is missing) and runs TrainPlans.
+
+    backend: ``"local"`` (one device) or ``"mesh"`` (the clients split over
+        the ranks of ``mesh``, by default ``launch.mesh.make_host_mesh``:
+        every rank of the process group, or a world of one started here);
+        ``backend_opts`` go to :class:`MeshBackend` (``shard_server``).
 
     model: ``init(generator)``, ``loss_and_acc(params, x, y[, masks=])``
         and, for Prune events, the FedAP seam (``decide_kept``,
@@ -155,30 +174,58 @@ class FederatedTrainer:
     data: :class:`repro_torch.data.pipeline.FederatedData`.
     """
 
-    def __init__(self, model, data, cfg: FLConfig, *, device="cuda"):
+    def __init__(self, model, data, cfg: FLConfig, *, device="cuda",
+                 backend: str = "local", mesh=None,
+                 backend_opts: dict | None = None):
+        if backend not in _BACKENDS:
+            raise ValueError(f"backend must be one of {tuple(_BACKENDS)}, "
+                             f"got {backend!r}")
+        if backend == "local" and (mesh is not None or backend_opts):
+            raise ValueError("mesh= and backend_opts= belong to "
+                             "backend='mesh'")
         self.device = _device.resolve(device)
         model_dev = getattr(model, "device", self.device)
         if torch.device(model_dev) != self.device:
             raise ValueError(f"the model lives on {model_dev}, the trainer "
                              f"on {self.device}")
         self.model, self.data, self.cfg = model, data, cfg
+        self.backend_name = backend
+        self._mesh = mesh
+        self._backend_opts = dict(backend_opts or {})
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
         self._backends: dict = {}
 
     def backend(self, *, use_masks: bool = False,
                 batches: Callable | None = None) -> LocalBackend:
-        """The local backend for a mask mode (cached when it samples its
-        own batches, so the device-resident dataset is built once)."""
+        """The backend for a mask mode (cached when it samples its own
+        batches, so the device-resident dataset is built once)."""
+        kw = {}
+        if self.backend_name == "mesh":
+            if self._mesh is None:
+                # one mesh for every backend instance of this trainer
+                from repro_torch.launch.mesh import make_host_mesh
+                self._mesh = make_host_mesh(device=self.device)
+            kw = dict(self._backend_opts, mesh=self._mesh)
+        cls = _BACKENDS[self.backend_name]
         if batches is not None:
-            return LocalBackend(self.model, self.data, self.cfg,
-                                use_masks=use_masks, device=self.device,
-                                batches=batches)
+            return cls(self.model, self.data, self.cfg, use_masks=use_masks,
+                       device=self.device, batches=batches, **kw)
         if use_masks not in self._backends:
-            self._backends[use_masks] = LocalBackend(
+            self._backends[use_masks] = cls(
                 self.model, self.data, self.cfg, use_masks=use_masks,
-                device=self.device, generator=self.generator)
+                device=self.device, generator=self.generator, **kw)
         return self._backends[use_masks]
+
+    def round_step(self, state: dict, batch: dict):
+        """One round of ``engine.round_core`` on ``state`` (in place) at an
+        explicit batch (numpy or tensors; ``(x, y)`` tuples), with this
+        trainer's engine config (masks on iff the state has a mask slot);
+        returns ``(state, metrics)``.  The round the batch-dict step of
+        ``launch.steps`` runs."""
+        be = self.backend(use_masks="masks" in state)
+        batch = tree_map(lambda a: _tensor(a, self.device), batch)
+        return engine.round_core(be.eng, be.grad_fn, be.la_fn, state, batch)
 
     def run(self, plan: TrainPlan | int, *, eval_every: int = 1,
             params=None, batches: Callable | None = None) -> RunResult:
@@ -215,10 +262,10 @@ class FederatedTrainer:
         state (a run on injected batches, or one the reference package
         wrote) needs it."""
         payload = ckpt.load_checkpoint(checkpoint_dir)
-        if payload.get("backend") != LocalBackend.name:
+        if payload.get("backend") != self.backend_name:
             raise CheckpointError(
                 f"checkpoint was written by the {payload.get('backend')!r} "
-                f"backend but this trainer runs {LocalBackend.name!r}: "
+                f"backend but this trainer runs {self.backend_name!r}: "
                 f"resume on the same backend (bit-identity is per-backend)")
         if plan is None:
             plan = ckpt.plan_from_spec(

@@ -10,7 +10,9 @@ held-out images, pruning at round 30:
   PYTHONPATH=src python -m repro_torch.experiments --suite ablations --device cpu
 
 The heterogeneity scenario matrix (client algorithm x Dirichlet skew x
-participation and dropout) runs on the local backend:
+participation and dropout) runs on either backend (``--backend mesh``:
+the clients split over the ranks of ``torch.distributed``, a world of one
+unless launched by ``torchrun``):
 
   PYTHONPATH=src python -m repro_torch.experiments --grid smoke
 
@@ -92,11 +94,13 @@ def _json_safe(x):
     return x
 
 
+BACKENDS = ("local", "mesh")
+
+
 def _check_backend(backend: str) -> None:
-    if backend != "local":
-        raise ValueError(f"backend={backend!r} is not ported yet: the "
-                         f"multi-device (mesh) backend comes with slice F; "
-                         f"use backend='local'")
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
 
 
 def run_one(tag: str, *, model_name="cnn", algo="fedavg", p=0.05,
@@ -187,7 +191,7 @@ def run_one(tag: str, *, model_name="cnn", algo="fedavg", p=0.05,
     else:
         raise ValueError(algo)
 
-    trainer = FederatedTrainer(model, data, cfg, device=dev)
+    trainer = FederatedTrainer(model, data, cfg, device=dev, backend=backend)
     init_params = model.init(torch.Generator(device=dev).manual_seed(seed))
     flops_before = model.flops_per_example(init_params, SPEC.image_shape)
     res = trainer.run(plan, params=init_params)
@@ -252,7 +256,7 @@ def suite_lenet(**kw):
 
 # ---------------------------------------------------------------------------
 # Heterogeneity scenario matrix: client algorithm x Dirichlet skew x
-# participation and dropout, on the local backend
+# participation and dropout, on either backend
 # ---------------------------------------------------------------------------
 
 SCEN_CLIENTS = 16
@@ -314,7 +318,8 @@ def run_scenario_cell(cell: dict, *, rounds: int, backend: str = "local",
     cfg = _scenario_config(cell, seed)
     t0 = time.time()
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
-    res = FederatedTrainer(model, data, cfg, device=dev).run(
+    res = FederatedTrainer(model, data, cfg, device=dev,
+                           backend=backend).run(
         TrainPlan.standard(rounds, eval_every=1), params=params)
     return {**cell, "backend": backend, "rounds": rounds,
             "base_seed": base_seed, "cell_index": cell_index, "seed": seed,
@@ -367,7 +372,7 @@ def main(argv=None):
     ap.add_argument("--grid", default=None, choices=["smoke", "full"],
                     help="run the heterogeneity scenario matrix instead of "
                          "the paper suites")
-    ap.add_argument("--backend", default="local", choices=["local"])
+    ap.add_argument("--backend", default="local", choices=BACKENDS)
     ap.add_argument("--base-seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=str(OUT))

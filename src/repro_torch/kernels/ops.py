@@ -98,6 +98,16 @@ def masked_matmul_dw(x, dy, block_mask):
     return ref.masked_matmul_dw_ref(x, dy, block_mask)
 
 
+_masked_depth = 0   # MaskedMatmul forwards running (see inside_masked_matmul)
+
+
+def inside_masked_matmul() -> bool:
+    """True while :class:`MaskedMatmul`'s forward runs: a selective
+    checkpoint policy (``remat="dots"``) reads it to recompute the masked
+    product rather than save it."""
+    return _masked_depth > 0
+
+
 class MaskedMatmul(torch.autograd.Function):
     """The differentiable masked matmul, the counterpart of the reference's
     ``jax.custom_vjp`` around its three Pallas kernels: the forward is K1,
@@ -107,8 +117,13 @@ class MaskedMatmul(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, block_mask):
+        global _masked_depth
         ctx.save_for_backward(x, w, block_mask)
-        return masked_matmul_fwd(x, w, block_mask)
+        _masked_depth += 1
+        try:
+            return masked_matmul_fwd(x, w, block_mask)
+        finally:
+            _masked_depth -= 1
 
     @staticmethod
     def backward(ctx, dy):

@@ -434,6 +434,8 @@ def _init_normal_sliced(shape, scale, dtype, generator, device):
     arctic-480b expert stack is 17.8 GB in bf16, 35.7 GB in f32).  The draws
     differ from one draw of the whole tensor, and are as seeded."""
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.device.type == "meta":       # shapes only (LM.param_shapes)
+        return out
     flat = out.view(-1, *shape[-2:])
     for i in range(flat.shape[0]):
         flat[i].copy_(torch.randn(shape[-2:], generator=generator,

@@ -60,18 +60,100 @@ without the mask at Sq != Skv) under ``"pallas"``.
 """
 from __future__ import annotations
 
+import copy
+import functools
 import math
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "encdec")
+REMAT = ("none", "block", "dots")
+
+# remat="dots": the 2-D products (a projection of [B,S,d] activations folds
+# into one ``aten.mm``) are saved; everything else in the block, the
+# attention's batched products (``aten.bmm``) and every elementwise op, is
+# recomputed in the backward.  The counterpart of JAX's
+# ``dots_with_no_batch_dims_saveable``.
+_SAVED_PRODUCTS = frozenset((torch.ops.aten.mm.default,
+                             torch.ops.aten.addmm.default))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the 2-D products, except inside ``ops.MaskedMatmul``'s forward:
+    the masked product (K1) is recomputed, as the reference's policy
+    recomputes its ``pallas_call``, which is no ``dot_general``.  On the card
+    K1 is a launch the dispatcher never sees; on the CPU its plain version's
+    ``aten.mm`` follows the same rule."""
+    if op in _SAVED_PRODUCTS and not ops.inside_masked_matmul():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_dots_context = functools.partial(create_selective_checkpoint_contexts,
+                                  _dots_policy)
+
+# Logical axis names of each param leaf, by the module that holds it (the
+# reference's ``init_*`` axes trees, which its ``sharding/specs.py`` reads).
+_ATTN_AXES = {"wq": ("embed", "heads", "head_dim"),
+              "wk": ("embed", "kv_heads", "head_dim"),
+              "wv": ("embed", "kv_heads", "head_dim"),
+              "wo": ("heads", "head_dim", "embed")}
+_MLP_AXES = {"wi": ("embed", "mlp"), "wg": ("embed", "mlp"),
+             "wo": ("mlp", "embed")}
+_LEAF_AXES = {
+    "attn": _ATTN_AXES, "xattn": _ATTN_AXES, "mlp": _MLP_AXES,
+    "dense": _MLP_AXES, "shared": _MLP_AXES,
+    "moe": {"router": ("embed", None),
+            "wi": ("experts", "embed", "expert_mlp"),
+            "wg": ("experts", "embed", "expert_mlp"),
+            "wo": ("experts", "expert_mlp", "embed")},
+    "mamba": {"in_proj": ("embed", "ssm_inner"), "conv": (None, "ssm_inner"),
+              "A_log": (None,), "D": (None,), "dt_bias": (None,),
+              "norm_scale": ("ssm_inner",), "out_proj": ("ssm_inner", "embed")},
+    "mlstm": {"up": ("embed", "mlp"), "wq": ("mlp", "heads", "head_dim"),
+              "wk": ("mlp", "heads", "head_dim"),
+              "wv": ("mlp", "heads", "head_dim"), "w_if": ("mlp", None),
+              "norm_scale": ("mlp",), "down": ("mlp", "embed")},
+    "slstm": {"w_x": ("embed", "mlp"), "w_h": ("embed", "mlp"),
+              "bias": (None,), "down": ("embed", "embed")},
+    "norm": {"scale": ("embed",), "bias": ("embed",)},
+    "top": {"embed": ("vocab", "embed"), "unembed": ("embed", "vocab"),
+            "enc_pos": (None, "embed")},
+}
+
+
+def _axes_of(tree, module="top", lead=()):
+    """The logical-axis tree of a param (sub)tree held by ``module``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            if k.startswith("norm"):
+                sub = "norm"
+            elif k == "cell":
+                sub = "slstm" if "w_x" in v else "mlstm"
+            elif k in _LEAF_AXES:
+                sub = k
+            else:           # containers: layers, encoder/decoder, l<i>, ...
+                sub = module
+            out[k] = _axes_of(v, sub, lead + (("layers",) if k == "layers"
+                                              else ()))
+        else:
+            table = _LEAF_AXES["norm" if module == "top" and k.startswith(
+                "norm") else module]
+            out[k] = lead + table[k]
+    return out
 
 
 def _unstack(stacked) -> list:
@@ -80,6 +162,25 @@ def _unstack(stacked) -> list:
     leaves = [t.unbind(0) for t in tree_leaves(stacked)]
     return [tree_unflatten(stacked, [leaf[i] for leaf in leaves])
             for i in range(len(leaves[0]))]
+
+
+def loss_and_acc_of(logits, aux, batch):
+    """(mean next-token cross-entropy + ``aux``, token accuracy) of
+    ``logits`` [B,S,V] against ``batch["labels"]`` [B,S], over
+    ``batch["loss_mask"]`` when given (log-softmax in f32); ``aux`` None adds
+    nothing.  The one loss of every LM entry point (``LM.loss``,
+    ``LM.loss_and_acc``, ``launch.steps.loss_and_accuracy``)."""
+    labels = batch["labels"].long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    ok = (logits.argmax(-1) == labels).float()
+    mask = batch.get("loss_mask")
+    if mask is None:
+        loss, acc = nll.sum() / nll.numel(), ok.mean()
+    else:
+        denom = mask.sum().clamp_min(1.0)
+        loss, acc = (nll * mask).sum() / denom, (ok * mask).sum() / denom
+    return (loss if aux is None else loss + aux), acc
 
 
 class LM:
@@ -100,6 +201,9 @@ class LM:
         if attn_impl not in L.ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {L.ATTN_IMPLS}, got "
                              f"{attn_impl!r}")
+        if cfg.remat not in REMAT:
+            raise ValueError(f"remat must be one of {REMAT}, got "
+                             f"{cfg.remat!r}")
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.device = _device.resolve(device)
@@ -183,6 +287,20 @@ class LM:
             "norm": L.init_norm(cfg, self.dtype, self.device)}
         return params
 
+    def param_shapes(self) -> dict:
+        """The param tree on the meta device: every leaf's shape and dtype,
+        with no storage (any arch, at any size)."""
+        meta = copy.copy(self)
+        meta.device = torch.device("meta")
+        return meta.init(torch.Generator())
+
+    def axes(self) -> dict:
+        """The logical-axis tree of the params: one tuple of axis names per
+        leaf (``"layers"`` first on a stacked leaf), the reference's
+        ``LM.axes()``, which ``sharding.specs.param_specs`` maps onto a
+        device mesh."""
+        return _axes_of(self.param_shapes())
+
     # -- forward pieces ---------------------------------------------------------
     def _embed_in(self, params, batch):
         """The input embeddings: ``batch["embeds"]`` cast to the param dtype
@@ -203,8 +321,9 @@ class LM:
                 f"embeddings from batch['enc_embeds'] [B, "
                 f"{cfg.encoder.frames}, {cfg.d_model}]; this batch has only "
                 f"{sorted(batch)} (loss_and_acc takes tokens and labels, so "
-                f"federated training of this family is refused, as the "
-                f"reference's fails; use LM.loss with a batch dict)")
+                f"FederatedTrainer cannot train this family, as the "
+                f"reference's cannot; train it on batch dicts through "
+                f"launch.steps.make_fl_train_step)")
         x = batch["enc_embeds"].to(self.dtype) + params["enc_pos"][None]
         for i in range(cfg.encoder.num_layers):
             blk = params["encoder"][f"l{i}"]
@@ -282,7 +401,10 @@ class LM:
         The stacked ``[L, ...]`` layer params are unbound once, so the
         backward writes each layer's gradient into one stacked tensor.
         ``cfg.remat == "block"`` recomputes each layer in the backward
-        (``torch.utils.checkpoint``), launching its forward kernels twice.
+        (``torch.utils.checkpoint``), launching its forward kernels twice;
+        ``"dots"`` checkpoints each layer selectively: the outputs of its
+        2-D products are saved and the rest recomputed, the masked product
+        (K1) included (:func:`_dots_policy`).
         Only the logits return: the moe family's auxiliary loss is summed by
         :meth:`loss` and :meth:`loss_and_acc`.
 
@@ -292,6 +414,12 @@ class LM:
         refuse ``masks=``.
         """
         return self._forward(params, batch, window, masks)[0]
+
+    def apply_with_aux(self, params, batch, *, window="auto", masks=None):
+        """``(logits, aux)``: :meth:`apply`'s logits and the layers' summed
+        auxiliary loss (the moe family's ``load_balance + router_z``; None
+        for the other families), the reference's ``LM.apply`` pair."""
+        return self._forward(params, batch, window, masks)
 
     def _forward(self, params, batch, window, masks):
         """(logits, the layers' summed auxiliary loss or None)."""
@@ -315,9 +443,6 @@ class LM:
                 cell = L.apply_slstm if self._is_slstm(i) else L.apply_mlstm
                 x = x + cell(blk["cell"], h, self._meta, cfg)
             return self._head(params, x), None
-        if cfg.remat not in ("none", "block"):
-            raise ValueError(f"remat={cfg.remat!r} is not ported (the port "
-                             f"takes 'none' and 'block')")
         layers = _unstack(params["layers"])
         rows = (masks["mlp"].unbind(0) if masks is not None
                 else (None,) * len(layers))
@@ -328,6 +453,10 @@ class LM:
             if cfg.remat == "block":
                 x, aux = checkpoint(self._block, layers[i], x, pos, rows[i],
                                     window, use_reentrant=False)
+            elif cfg.remat == "dots":
+                x, aux = checkpoint(self._block, layers[i], x, pos, rows[i],
+                                    window, use_reentrant=False,
+                                    context_fn=_dots_context)
             else:
                 x, aux = self._block(layers[i], x, pos, rows[i], window)
             if aux is not None:
@@ -362,22 +491,13 @@ class LM:
         (the loss as :meth:`loss` gives it).  An encdec model raises a
         ``ValueError`` naming the missing ``enc_embeds`` (the reference
         raises ``KeyError``), so ``FederatedTrainer`` cannot train that
-        family; :meth:`loss` on a batch dict is its differentiable entry."""
+        family; ``launch.steps.make_fl_train_step`` trains it on batch
+        dicts."""
         return self._loss_acc(params, {"tokens": x, "labels": y}, masks)
 
     def _loss_acc(self, params, batch, masks, window="auto"):
         logits, aux = self._forward(params, batch, window, masks)
-        labels = batch["labels"].long()
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
-        ok = (logits.argmax(-1) == labels).float()
-        mask = batch.get("loss_mask")
-        if mask is None:
-            loss, acc = nll.sum() / nll.numel(), ok.mean()
-        else:
-            denom = mask.sum().clamp_min(1.0)
-            loss, acc = (nll * mask).sum() / denom, (ok * mask).sum() / denom
-        return (loss if aux is None else loss + aux), acc
+        return loss_and_acc_of(logits, aux, batch)
 
     # -- FedAP seam -------------------------------------------------------------
     def decide_kept(self, params, p_star, *, align=128) -> dict:

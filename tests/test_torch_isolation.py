@@ -28,7 +28,10 @@ from repro_torch.kernels import decode_attention as k5
 from repro_torch.kernels import flash_attention as k4
 from repro_torch.kernels import masked_matmul as k1
 from repro_torch.kernels import ssd_scan as k6
-from repro_torch.models import cnn
+from repro_torch.configs.base import InputShape
+from repro_torch.launch import mesh as lmesh
+from repro_torch.launch import steps
+from repro_torch.models import api, cnn
 from repro_torch.models.lm import LM
 from repro_torch.serving import (DecodeEngine, ServeConfig, load_servable,
                                  lockstep_decode)
@@ -101,7 +104,11 @@ def no_cuda():
                                    "serve_decode_torch moe", "vlm LM",
                                    "vlm DecodeEngine", "encdec LM",
                                    "prefill_cross", "lockstep_decode encdec",
-                                   "serve_decode_torch whisper"])
+                                   "serve_decode_torch whisper",
+                                   "build_model", "input_specs",
+                                   "make_fl_train_step", "make_prefill_step",
+                                   "make_host_mesh", "mesh trainer",
+                                   "fl_llm_train_torch mesh"])
 def test_default_device_raises_without_cuda(no_cuda, entry):
     params = LM(TINY, device="cpu").init(torch.Generator().manual_seed(0))
     data = build_lm_federated_data(
@@ -173,16 +180,35 @@ def test_default_device_raises_without_cuda(no_cuda, entry):
                 lockstep_decode(LM(WHISPER), wp,
                                 torch.zeros((1, 2), dtype=torch.int32), 2,
                                 enc_embeds=frames)
+        elif entry == "build_model":
+            api.build_model(TINY)
+        elif entry == "input_specs":
+            api.input_specs(TINY, InputShape("s", 8, 2, "train"),
+                            abstract=False)
+        elif entry == "make_fl_train_step":
+            steps.make_fl_train_step(TINY, steps.FLRunConfig(), 2)
+        elif entry == "make_prefill_step":
+            steps.make_prefill_step(TINY)
+        elif entry == "make_host_mesh":
+            lmesh.make_host_mesh()
+        elif entry == "mesh trainer":
+            FederatedTrainer(LM(TINY, device="cpu"), data,
+                             feddumap_config(num_clients=2,
+                                             clients_per_round=1),
+                             backend="mesh")
         elif entry in ("fl_paper_repro_torch", "serve_decode_torch",
                        "fl_llm_train_torch", "serve_decode_torch moe",
-                       "serve_decode_torch whisper"):
+                       "serve_decode_torch whisper",
+                       "fl_llm_train_torch mesh"):
             args = {"fl_paper_repro_torch": ["--rounds", "1", "--out",
                                              str(REPO / "build" / "x")],
                     "serve_decode_torch": ["--arch", "xlstm-125m"],
                     "serve_decode_torch moe": ["--arch", "arctic-480b"],
                     "serve_decode_torch whisper": ["--arch",
                                                    "whisper-small"],
-                    "fl_llm_train_torch": ["--rounds", "1"]}[entry]
+                    "fl_llm_train_torch": ["--rounds", "1"],
+                    "fl_llm_train_torch mesh": ["--rounds", "1",
+                                                "--backend", "mesh"]}[entry]
             script = entry.split()[0]
             proc = subprocess.run(
                 [sys.executable, str(REPO / "examples" / f"{script}.py"),

@@ -357,9 +357,91 @@ class TestFullSequence:
         for a, b in zip(jax.tree.leaves(interop.params_to_numpy(g0)),
                         jax.tree.leaves(interop.params_to_numpy(g1))):
             np.testing.assert_allclose(a, b, atol=1e-7, rtol=0)
-        with pytest.raises(ValueError, match="remat='dots'"):
-            LM(dataclasses.replace(cfg, remat="dots"), device="cpu").apply(
-                params, {"tokens": x})
+        # remat="dots": the same loss and gradients
+        (l2, _), g2 = run(LM(dataclasses.replace(cfg, remat="dots"),
+                             device="cpu"))
+        assert float(l0) == float(l2)
+        for a, b in zip(jax.tree.leaves(interop.params_to_numpy(g0)),
+                        jax.tree.leaves(interop.params_to_numpy(g2))):
+            np.testing.assert_allclose(a, b, atol=1e-7, rtol=0)
+
+    @pytest.mark.parametrize("masked", [False, True])
+    def test_remat_dots_gradient_matches_jax_dots(self, world, masked):
+        """remat="dots" against the JAX LM's ``dots_with_no_batch_dims_
+        saveable`` checkpoint: logits equal remat="none", the loss and every
+        gradient leaf within 1e-5 of JAX's (dense and kernel-masked)."""
+        from repro_torch.core import engine
+
+        cfg, jparams, model, params = world
+        dots_j = dataclasses.replace(cfg, remat="dots")
+        dots = LM(_port_cfg(dots_j), device="cpu")
+        rng = np.random.default_rng(12)
+        b = {"tokens": rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)}
+        kept = model.decide_kept(params, 0.5) if masked else None
+        masks = model.filter_masks(params, kept) if masked else None
+        jmasks = (jax_pruning.ffn_filter_masks(jparams, kept) if masked
+                  else None)
+        bt = {k: torch.from_numpy(v) for k, v in b.items()}
+        with torch.no_grad():
+            assert torch.equal(dots.apply(params, bt, masks=masks),
+                               model.apply(params, bt, masks=masks))
+        (loss, _), grads = engine.value_and_grad_aux(
+            lambda p: (dots.loss(p, bt, masks=masks), torch.zeros(())),
+            params)
+        jloss, jg = jax.value_and_grad(
+            lambda p: JaxLM(dots_j).loss(p, jax.tree.map(jnp.asarray, b),
+                                         masks=jmasks))(jparams)
+        np.testing.assert_allclose(float(loss), float(jloss), **TOL)
+        for got, want in zip(jax.tree.leaves(interop.params_to_numpy(grads)),
+                             jax.tree.leaves(_np_tree(jg))):
+            np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+    def test_remat_dots_backward_recomputes_no_mm(self):
+        """Counted in the backward by a ``TorchDispatchMode``: "dots" runs as
+        many ``aten.mm`` as "none" (the 2-D products are saved, not
+        recomputed) and recomputes the attention's ``aten.bmm`` as "block"
+        does; kernel-masked, it recomputes the masked product's plain
+        version, 2 a layer (K1 on the card), and nothing else."""
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        from repro_torch.core import engine
+
+        class Count(TorchDispatchMode):
+            def __init__(self):
+                super().__init__()
+                self.n = {}
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                self.n[func] = self.n.get(func, 0) + 1
+                return func(*args, **(kwargs or {}))
+
+        cfg = _port_cfg(TINY)
+        params = LM(cfg, device="cpu").init(torch.Generator().manual_seed(3))
+        x = torch.randint(0, cfg.vocab_size, (2, 8),
+                          generator=torch.Generator().manual_seed(4))
+        mm, bmm = torch.ops.aten.mm.default, torch.ops.aten.bmm.default
+        for masked in (False, True):
+            masks = None
+            if masked:
+                plain = LM(cfg, device="cpu")
+                masks = plain.filter_masks(params,
+                                           plain.decide_kept(params, 0.5))
+            counts = {}
+            for remat in ("none", "block", "dots"):
+                model = LM(dataclasses.replace(cfg, remat=remat),
+                           device="cpu")
+                with torch.enable_grad():
+                    q, leaves = engine._detached_leaves(params)
+                    loss = model.loss_and_acc(q, x, x, masks=masks)[0]
+                    with Count() as c:
+                        torch.autograd.grad(loss, leaves)
+                counts[remat] = c.n
+            extra = 2 * cfg.num_layers if masked else 0
+            assert counts["dots"][mm] == counts["none"][mm] + extra
+            assert counts["block"][mm] > counts["dots"][mm]
+            assert counts["dots"][bmm] == counts["block"][bmm] > \
+                counts["none"][bmm]
 
     @pytest.mark.parametrize("h,kv", [(4, 2), (4, 4), (8, 1)])
     def test_attention_equals_attention_ref(self, h, kv):

@@ -187,11 +187,38 @@ def test_run_one_finishes_with_the_reference_record(tiny_records, algo):
         assert rec["mflops_after"] == rec["mflops_before"]
 
 
-def test_mesh_backend_raises_naming_its_slice():
-    with pytest.raises(ValueError, match="slice F"):
-        experiments.run_one("x", backend="mesh", device="cpu")
-    with pytest.raises(ValueError, match="slice F"):
-        experiments.suite_scenario_matrix("smoke", backends=("mesh",),
+def test_mesh_backend_raises_naming_its_slice(tiny_records, tmp_path,
+                                             monkeypatch):
+    """``run_one(backend="mesh")`` at a world of one (gloo, this process)
+    is bitwise the local run of the module's tiny world, FedDUMAP with its
+    prune; an unknown backend is refused."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(experiments, "NUM_CLIENTS", 8)
+    monkeypatch.setattr(experiments, "DEVICE_POOL", 400)
+    monkeypatch.setattr(experiments, "SPEC", SyntheticSpec(
+        num_classes=10, image_shape=SHAPE, train_size=1600, test_size=200,
+        noise_scale=0.45))
+    monkeypatch.setattr(experiments, "COMMON", dict(
+        num_clients=8, clients_per_round=2, local_epochs=1, batch_size=10,
+        lr=0.1, lr_decay=0.99))
+    fresh = not dist.is_initialized()
+    try:
+        # the local record's tag: the cell's seed is the tag's hash
+        rec = experiments.run_one("tiny_feddumap", algo="feddumap",
+                                  rounds=2, prune_round=1, backend="mesh",
+                                  out_dir=tmp_path, device="cpu")
+    finally:
+        if fresh and dist.is_initialized():
+            dist.destroy_process_group()
+    local = tiny_records["feddumap"]
+    for k in ("round", "loss", "acc", "tau_eff"):
+        assert rec["history"][k] == local["history"][k], k
+    assert rec["fedap"] == local["fedap"]
+    with pytest.raises(ValueError, match="backend must be one of"):
+        experiments.run_one("x", backend="tpu", device="cpu")
+    with pytest.raises(ValueError, match="backend must be one of"):
+        experiments.suite_scenario_matrix("smoke", backends=("tpu",),
                                           device="cpu")
     assert experiments.cell_seed(0, 3) == experiments.cell_seed(0, 3) != \
         experiments.cell_seed(0, 4)
