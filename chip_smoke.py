@@ -138,10 +138,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               tokens/s, launches a step and busy share of a profiled window,
               a window under sync-debug "error"), f32 FedDUM training at S =
               128 (s/round, tokens/s, peak), then
-              ``examples/serve_decode_torch.py`` at its defaults and
-              ``examples/fl_llm_train_torch.py --rounds 5 --backend mesh``
-              (a world of one over NCCL) as subprocesses, which must exit
-              0.  No TPU kernel lies on the family's path;
+              ``examples/serve_decode_torch.py`` and
+              ``examples/fl_llm_train_torch.py`` at their defaults, and the
+              latter again with ``--rounds 2 --backend mesh`` (a world of
+              one over NCCL), as subprocesses, which must exit 0.  No TPU kernel lies on the family's path;
 18. moe-parity — arctic-480b and llama4-maverick reduced (2 layers, d
               256, 4 experts) with their own head layouts (56 and 40 heads
               of 128 padded to 64 and 48 over 8 kv heads), f32, card against
@@ -3667,11 +3667,13 @@ XLSTM_SCORE = (4, 2048)                         # B x S per forward
 XLSTM_PROFILE_S = 256
 XLSTM_SERVE = dict(batch=8, prompt=64, new=64)
 # each example script's arguments (none: its defaults) and a line it must
-# print
+# print; the LM training driver runs at its defaults (the local backend)
+# and on the mesh backend
 XLSTM_EXAMPLES = (("serve_decode_torch.py", (),
                    r"arch=olmo-1b \(reduced, dense\)"),
-                  ("fl_llm_train_torch.py", ("--rounds", "5", "--backend",
-                                             "mesh"), r"round +5  loss "))
+                  ("fl_llm_train_torch.py", (), r"round +20  loss "),
+                  ("fl_llm_train_torch.py", ("--rounds", "2", "--backend",
+                                             "mesh"), r"round +2  loss "))
 
 
 def phase_xlstm(torch) -> dict:

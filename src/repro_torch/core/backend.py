@@ -233,17 +233,25 @@ class LocalBackend:
         return new_state
 
     def round_batch(self, t: int) -> dict:
-        """Round ``t``'s batch: from the injected source, or drawn."""
+        """Round ``t``'s batch: from the injected source, or drawn.  Where a
+        mesh splits the clients, ``"client"`` holds only this rank's (every
+        rank draws the same indices)."""
+        shard = self._round_shard()
+        mine = shard.clients if shard is not None else None
         if self.batches is not None:
-            return tree_map(lambda a: _tensor(a, self.device),
-                            self.batches(t))
+            batch = tree_map(lambda a: _tensor(a, self.device),
+                             self.batches(t))
+            if mine is not None:
+                batch["client"] = tree_map(
+                    lambda x: x[mine.start:mine.stop], batch["client"])
+            return batch
         d = self.device_data()
         kw = self.sample_kw
         draws = engine.draw_round_indices(
             self.generator, num_clients=int(d["client_x"].shape[0]),
             n_k=int(d["client_x"].shape[1]),
             n0=int(d["server_x"].shape[0]), **kw)
-        return engine.sample_round_batches(d, *draws, **kw)
+        return engine.sample_round_batches(d, *draws, **kw, clients=mine)
 
     def barrier(self) -> None:
         """Wait for the other ranks (none here)."""
@@ -323,19 +331,22 @@ class MeshBackend(LocalBackend):
       ``h``, the guard's totals) over the ranks before it divides them
       (:class:`~repro_torch.core.engine.RoundShard`).  A C that does not
       divide runs replicated: every rank trains every client.
-    * ``shard_server`` (default on): each server step's rows split the same
-      way; the step's gradient is a partial gradient over the rank's rows,
-      weighted by their share and summed over the ranks, and so is the
-      first step's gate accuracy.  That is the gradient of the batch mean
-      for a loss that is a mean over the rows (the CNNs' and the LM's), so
-      the moe family, whose auxiliary loss is not, needs
-      ``shard_server=False``.
+    * Each server step's rows split the same way: the step's gradient is
+      a partial gradient over the rank's rows, weighted by their share and
+      summed over the ranks, and so is the first step's gate accuracy.
+      That is the gradient of the batch mean for a loss that is a mean over
+      the rows (the CNNs' and the LM's).  The moe family's auxiliary loss
+      is not, so a model with ``moe`` set takes whole server batches on
+      every rank.  ``shard_server`` (the reference's switch) overrides that
+      choice; by default it follows the model, and True is refused for
+      moe.
     * Evaluation: the test split's rows split over the ranks, padded with
       row-0 copies to a multiple of them; the padded rows' contribution is
       subtracted back out exactly, ``mean = (mean_pad n_pad - k f(row 0)) /
       n``.
-    * The state stays replicated on every rank (``fl_state_specs`` with no
-      model axes), FedDyn's per-client ``h`` too.  Every rank holds the
+    * The state stays replicated on every rank, FedDyn's per-client ``h``
+      too: no placement is applied (``fl_state_specs`` with no model axes
+      describes the same layout).  Every rank holds the
       whole federated dataset and gathers its own clients' rows: the
       reference stores only a rank's clients, which narrows nothing here
       but memory (ROADMAP P3).  Every rank draws the same round indices
@@ -358,7 +369,7 @@ class MeshBackend(LocalBackend):
     def __init__(self, model, data, cfg, *, use_masks: bool = False,
                  device, generator: torch.Generator | None = None,
                  batches: Callable | None = None, mesh=None,
-                 shard_server: bool = True):
+                 shard_server: bool | None = None):
         from repro_torch.core.fedap import _client_rank
         from repro_torch.launch.mesh import make_host_mesh
         from repro_torch.sharding.fl_specs import fl_sim_batch_specs
@@ -384,11 +395,13 @@ class MeshBackend(LocalBackend):
             raise ValueError(f"MeshBackend splits clients only: mesh dims "
                              f"{wide} beyond the client axes {client_axes} "
                              f"must have size 1")
-        if shard_server and getattr(model, "moe", False):
+        moe = bool(getattr(model, "moe", False))
+        if shard_server is None:
+            shard_server = not moe
+        if shard_server and moe:
             raise ValueError(
                 "shard_server=True takes a server loss that is a mean over "
-                "the batch's rows; the moe family's auxiliary loss is not: "
-                "pass shard_server=False")
+                "the batch's rows; the moe family's auxiliary loss is not")
         self.plan = MeshPlan(
             mesh=self.mesh, multi_pod="pod" in axes, client_axes=client_axes,
             fsdp_axes=(), tp_axes=(("model",) if "model" in axes else ()),
@@ -431,24 +444,6 @@ class MeshBackend(LocalBackend):
 
     def _round_shard(self):
         return self._shard
-
-    def round_batch(self, t: int) -> dict:
-        """Round ``t``'s batch with only this rank's clients in
-        ``"client"`` (every rank draws the same indices)."""
-        mine = self._shard.clients
-        if self.batches is not None:
-            batch = super().round_batch(t)
-            if mine is not None:
-                batch["client"] = tree_map(
-                    lambda x: x[mine.start:mine.stop], batch["client"])
-            return batch
-        d = self.device_data()
-        kw = self.sample_kw
-        draws = engine.draw_round_indices(
-            self.generator, num_clients=int(d["client_x"].shape[0]),
-            n_k=int(d["client_x"].shape[1]),
-            n0=int(d["server_x"].shape[0]), **kw)
-        return engine.sample_round_batches(d, *draws, **kw, clients=mine)
 
     def evaluate(self, state):
         """(loss, acc) on the test split, its rows split over the ranks."""

@@ -165,7 +165,8 @@ class FederatedTrainer:
     backend: ``"local"`` (one device) or ``"mesh"`` (the clients split over
         the ranks of ``mesh``, by default ``launch.mesh.make_host_mesh``:
         every rank of the process group, or a world of one started here);
-        ``backend_opts`` go to :class:`MeshBackend` (``shard_server``).
+        ``backend_opts`` go to :class:`MeshBackend` (``shard_server``,
+        which by default follows the model).
 
     model: ``init(generator)``, ``loss_and_acc(params, x, y[, masks=])``
         and, for Prune events, the FedAP seam (``decide_kept``,

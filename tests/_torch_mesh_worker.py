@@ -128,15 +128,24 @@ def case_config(case: str, clients: int, sbatch: int) -> FLConfig:
                     **MODES[mode], **extra)
 
 
-def engine_history(case: str, backend: str, *, clients=4, sbatch=6):
+class MoeSoftmax(Softmax):
+    """The same model flagged ``moe``: the mesh backend then keeps each
+    server batch whole on every rank, as for the moe family."""
+
+    moe = True
+
+
+def engine_history(case: str, backend: str, *, clients=4, sbatch=6,
+                   model=Softmax, backend_opts=None):
     """Per round (params, server_m, tau_eff) of ``case`` on a backend."""
     data, rounds = softmax_world(clients, sbatch)
     rounds = case_rounds(case, rounds)
-    trainer = FederatedTrainer(Softmax(), data,
+    trainer = FederatedTrainer(model(), data,
                                case_config(case, clients, sbatch),
-                               device="cpu", backend=backend)
+                               device="cpu", backend=backend,
+                               backend_opts=backend_opts)
     be = trainer.backend(batches=lambda t: rounds[t])
-    state = be.init_state(Softmax().init())
+    state = be.init_state(model().init())
     hist = []
     for t in range(ROUNDS):
         state, mets = be.run_rounds(state, t, 1)
@@ -199,12 +208,17 @@ def rank_main():
     out = {"cases": {c: engine_history(c, "mesh") for c in CASES},
            "replicated": engine_history("feddum", "mesh", clients=3,
                                         sbatch=5),
+           "whole_server": {
+               "moe": engine_history("feddum", "mesh", model=MoeSoftmax),
+               "opt": engine_history("feddum", "mesh", backend_opts={
+                   "shard_server": False})},
            "eval": evaluate("mesh", 7),
            "decision": sharded_decision(make_host_mesh(device="cpu"))}
     data, _ = softmax_world(4, 6)
-    be = FederatedTrainer(Softmax(), data, case_config("feddyn", 4, 6),
-                          device="cpu", backend="mesh").backend()
-    out["split"] = (be.rank, be.world, tuple(be._shard.clients),
+    for key, model in (("split", Softmax), ("moe_split", MoeSoftmax)):
+        be = FederatedTrainer(model(), data, case_config("feddyn", 4, 6),
+                              device="cpu", backend="mesh").backend()
+        out[key] = (be.rank, be.world, tuple(be._shard.clients),
                     be._shard.server_rows, be._shard.server_weight)
     return out
 

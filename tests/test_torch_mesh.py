@@ -369,9 +369,7 @@ def _ref_history(case, clients=4, sbatch=6):
     return hist
 
 
-@pytest.mark.parametrize("case", sorted(W.CASES))
-def test_two_ranks_match_local_and_the_oracle(two_ranks, case):
-    mesh = two_ranks["cases"][case]
+def _assert_matches_local_and_the_oracle(mesh, case):
     local = W.engine_history(case, "local")
     ref = _ref_history(case)
     for r in range(W.ROUNDS):
@@ -384,6 +382,12 @@ def test_two_ranks_match_local_and_the_oracle(two_ranks, case):
                     mesh[r][1][k].numpy(), np.asarray(m[k]), atol=TOL,
                     rtol=0, err_msg=f"{case} server_m vs {leg}, round {r}")
             assert abs(mesh[r][2] - tau) <= TOL, (case, leg, r)
+
+
+@pytest.mark.parametrize("case", sorted(W.CASES))
+def test_two_ranks_match_local_and_the_oracle(two_ranks, case):
+    mesh = two_ranks["cases"][case]
+    _assert_matches_local_and_the_oracle(mesh, case)
     if case == "guard":   # the NaN client was scrubbed, the round went on
         assert all(np.isfinite(h[0]["w"].numpy()).all() for h in mesh)
 
@@ -392,6 +396,17 @@ def test_two_ranks_split_the_round(two_ranks):
     rank, world, clients, rows, weight = two_ranks["split"]
     assert (rank, world, clients) == (0, 2, (0, 1))
     assert rows == slice(0, 3) and weight == 0.5
+
+
+@pytest.mark.parametrize("how", ["moe", "opt"])
+def test_two_ranks_whole_server_batches_match_local_and_the_oracle(
+        two_ranks, how):
+    """The clients split while every rank takes each server batch whole:
+    the default for a model flagged ``moe`` (its auxiliary loss is not a
+    mean over rows), or asked for with ``shard_server=False``."""
+    assert two_ranks["moe_split"] == (0, 2, (0, 1), None, 1.0)
+    _assert_matches_local_and_the_oracle(two_ranks["whole_server"][how],
+                                         "feddum")
 
 
 def test_replicated_fallback_is_bitwise_local(two_ranks):
