@@ -73,7 +73,12 @@ Phases, in order; any failure raises and the script exits non-zero:
               S = 8192; tokens/s, the device's busy share and time per
               kernel (torch.profiler), peak memory, and the launch counts
               (K4 16 per olmo forward, K1 32 in masked mode; K4 7 and K6 38
-              per zamba2 forward);
+              per zamba2 forward); then ``launch.cost.CostCounter`` on the
+              masked olmo forward and on one masked decode step (8 slots x
+              512 rows), each count equal to the meta device's, the
+              counter's K4/K1/K5 calls equal to the wrappers' launches, and
+              the counted FLOPs over the timed forward as TFLOP/s and as a
+              share of the bf16 peak;
 11. cnn-parity — the paper's CNNs at full width in float32 (TF32 off), card
               against CPU from the same params: SimpleCNN (16x16x3), VGG11
               (32x32x3) and ResNet18-GN (32x32x3, 100 classes) logits and
@@ -224,7 +229,12 @@ Phases, in order; any failure raises and the script exits non-zero:
               time a round; ``experiments.run_one(backend="mesh")`` for the
               paper phase's FedDUMAP run (a shrink) equal to its local
               record; a mesh kill and resume of the reliability phase's
-              cut SimpleCNN plan, bitwise.
+              cut SimpleCNN plan, bitwise; then ``DecodeEngine(mesh=)``
+              serving the serving phase's masked olmo-1b (16 prompts, K1
+              and K5): completions token for token and launches equal to
+              that phase's mesh-less engine, one wave and its all-gather
+              under sync-debug "error", and waves of both engines timed in
+              turns (ms/step).
 
 Each phase after the build prints its peak device memory; ``[time]`` lines
 give each phase's wall seconds and the total.
@@ -404,25 +414,27 @@ def _k5_case(torch, gen, b, s, kvh, g, hd, dtype, lengths):
     return q, k, v
 
 
+def _bound(flops, nbytes, dtype_name):
+    """(bound ms, "bytes" or "operations") of work that moves ``nbytes`` and
+    does ``flops`` at the H100's published peaks."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def _k5_bound_ms(b, h, kvh, hd, lens_sum, elt, dtype_name) -> float:
-    nbytes = elt * (2 * b * h * hd + 2 * lens_sum * kvh * hd) + 4 * b
-    flops = 4 * lens_sum * h * hd
-    return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name])
+    """K5's bound from its wrapper's ``work`` at this call's lengths."""
+    from repro_torch.kernels import decode_attention as k5
+
+    return _bound(*k5.work(b, h, kvh, hd, elt, lens_sum), dtype_name)[0]
 
 
 def _mm_bound(kind, m, k, n, kept_blocks, elt, dtype_name):
-    """(bound ms, "bytes" or "operations") of one masked product: the kept
-    128-column blocks are read, the others are not, every output element
-    is written once, and only kept blocks cost multiply-adds."""
-    kn = 128 * kept_blocks
-    any_kept = 1 if kept_blocks else 0
-    elems = {"fwd": m * k * any_kept + k * kn + m * n,     # x, w kept, y
-             "dx": m * kn + k * kn + m * k,               # dy, w kept, dx
-             "dw": m * k * any_kept + m * kn + k * n}[kind]  # x, dy, dw
-    t_bytes = (elt * elems + 4 * (n // 128)) / HBM_BYTES_PER_S
-    t_ops = 2 * m * k * kn / PEAK_FLOPS[dtype_name]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """(bound ms, "bytes" or "operations") of one masked product, from the
+    wrappers' ``work`` at this call's kept blocks."""
+    from repro_torch.kernels import masked_matmul as k1
+
+    return _bound(*k1.work(kind, m, k, n, elt, kept_blocks), dtype_name)
 
 
 def phase_kernels(torch, timer) -> dict:
@@ -951,18 +963,15 @@ BF16_STEP = 2.0 ** -7
 
 
 def _k4_bound(b, sq, skv, h, kvh, hd, causal, window, elt, dtype_name):
-    """(bound ms, "bytes" or "operations", flops): q, k, v read once and the
-    output written once; 4 flops per visible (query, key, head-dim) triple
-    (QK^T and PV), the pairs counted from this mask."""
-    from repro_torch.kernels import ref
+    """(bound ms, "bytes" or "operations", flops) from K4's ``work``: q, k,
+    v read once and the output written once; 4 flops per visible (query,
+    key, head-dim) triple (QK^T and PV), the pairs counted from this
+    mask."""
+    from repro_torch.kernels import flash_attention as k4
 
-    pairs = int(ref.visible(sq, skv, causal=causal, window=window,
-                            device="cuda").sum())
-    flops = 4 * b * h * hd * pairs
-    nbytes = elt * (2 * b * sq * h * hd + 2 * b * skv * kvh * hd)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations"), flops
+    flops, nbytes = k4.work(b, sq, skv, h, kvh, hd, elt, causal=causal,
+                            window=window)
+    return (*_bound(flops, nbytes, dtype_name), flops)
 
 
 def _k4_check(torch, label, dname, got, want, again=None):
@@ -989,16 +998,13 @@ def _k4_check(torch, label, dname, got, want, again=None):
 
 def _k6_bound(b, s, nh, p, n, elt, dtype_name):
     """(bound ms, "bytes" or "operations", flops) of the function, not of
-    one way to compute it: x, B, C, dt read and y written once; the
-    sequential recurrence's 4 B S nh p N flops (the state update dt x B^T
-    and decay, and y = C H: two multiply-adds per state element a step) at
-    the type's peak."""
-    flops = 4 * b * s * nh * p * n
-    nbytes = elt * (2 * b * s * nh * p + 2 * b * s * n + b * s * nh) \
-        + 3 * 4 * nh
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations"), flops
+    one way to compute it (K6's ``work``): x, B, C, dt read and y written
+    once; the sequential recurrence's 4 B S nh p N flops at the type's
+    peak."""
+    from repro_torch.kernels import ssd_scan as k6
+
+    flops, nbytes = k6.work(b, s, nh, p, n, elt)
+    return (*_bound(flops, nbytes, dtype_name), flops)
 
 
 def _scoring_kernels(torch, timer, gen) -> dict:
@@ -1223,7 +1229,7 @@ def phase_parity(torch) -> None:
     shrunk_model = LM(dataclasses.replace(cfg, d_ff=kept["mlp"].shape[1]),
                       device="cuda")
     b, s_len = 4, 64
-    rng = torch.Generator().manual_seed(2)
+    rng = torch.Generator().manual_seed(2)  # lint: generator-ok (params and batch: two fixed inputs)
     start = torch.tensor([0, 3, 7, 12], dtype=torch.int32)
     caches = {"cpu": cpu.init_cache(b, s_len),
               "cpu_m": cpu.init_cache(b, s_len),
@@ -1714,6 +1720,12 @@ def phase_serving(torch) -> dict:
         launches["decode_attention"] += n5
         launches["masked_matmul"] += n1
         tokens_by_mode[mode] = [c.tokens for c in done]
+        if mode == "masked":    # the mesh phase's serving run matches it
+            SERVING_RUN.update(done=[(c.uid, c.tokens.tolist(), c.status)
+                                     for c in done], steps=eng.steps,
+                               launches={"decode_attention": n5,
+                                         "masked_matmul": n1},
+                               prompts=prompts, scfg=scfg)
         kernel_ms[mode] = _profile_wave(torch, mode, sv, scfg, prompts)
         if mode == "masked":
             _sync_free_wave(torch, sv, scfg, prompts)
@@ -2151,6 +2163,8 @@ def phase_scoring(torch) -> dict:
                     launches[name] += n
                 losses[(arch, mode)] = float(loss)
                 _profile_forward(torch, f"{arch} {mode}", forward, wall)
+                if (arch, mode) == ("olmo-1b", "masked"):
+                    _cost_olmo(torch, sv, x, y, wall)
             del sv
         del params, source
     # masked and shrunk score the same pruned model (bf16 products differ)
@@ -2160,6 +2174,86 @@ def phase_scoring(torch) -> dict:
     require(abs(lm - ls) <= 2e-2 * abs(ls), "scoring: masked and shrunk "
             "olmo-1b losses disagree")
     return launches
+
+
+def _counted_twice(torch, label, run, meta_run, kernels):
+    """``run()`` counted on the card and ``meta_run()`` on the meta device
+    (each warmed once first: the rope tables are cached per device), with
+    the kernels' launch counters reset around the card's count; the two
+    totals must be equal and each kernel's counted calls its launches.
+    Returns the card's totals."""
+    from repro_torch.launch.cost import CostCounter
+
+    run()
+    meta_run()
+    torch.cuda.synchronize()
+    for mod, attr in kernels.values():
+        setattr(mod, attr, 0)
+    with CostCounter() as card:
+        run()
+    torch.cuda.synchronize()
+    launched = {k: getattr(mod, attr) for k, (mod, attr) in kernels.items()}
+    with CostCounter() as meta:
+        meta_run()
+    got, want = card.totals.as_dict(), meta.totals.as_dict()
+    calls = {k: v["calls"] for k, v in got["kernel_work"].items()}
+    log(f"[cost] {label}: counted on the card {got['flops']:.6e} flops "
+        f"({got['product_flops']:.6e} in products, the rest the kernels' "
+        f"work), {got['bytes']:.6e} bytes; on the meta device "
+        f"{want['flops']:.6e} flops, {want['bytes']:.6e} bytes: "
+        f"{'equal' if got == want else 'DIFFERENT'}; kernel calls {calls}, "
+        f"launches {launched}")
+    require(got == want, f"cost {label}: the card's count {got} differs from"
+            f" the meta device's {want}")
+    require(calls == {k: n for k, n in launched.items() if n},
+            f"cost {label}: counted kernel calls {calls}, launches "
+            f"{launched}")
+    return card.totals
+
+
+def _cost_olmo(torch, sv, x, y, wall) -> None:
+    """The counter on olmo-1b's masked bf16 scoring forward (4 x 2048,
+    attn_impl="pallas": K4 and K1) and on one masked decode step at the
+    serving phase's shape (K5 and K1), each equal to its count on the meta
+    device; the forward's counted FLOPs over its measured time as TFLOP/s
+    and as a share of the bf16 peak."""
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.kernels import masked_matmul as k1
+    from repro_torch.utils.tree import tree_map
+
+    meta = sv.model.on_meta()
+
+    def to_meta(tree):
+        return tree_map(lambda t: t.to("meta"), tree)
+
+    params_m, masks_m = to_meta(sv.params), to_meta(sv.masks)
+    x_m, y_m = x.to("meta"), y.to("meta")
+    tot = _counted_twice(
+        torch, "olmo-1b masked scoring forward (4 x 2048)",
+        lambda: sv.model.loss_and_acc(sv.params, x, y, masks=sv.masks),
+        lambda: meta.loss_and_acc(params_m, x_m, y_m, masks=masks_m),
+        {"flash_attention": (k4, "launches"),
+         "masked_matmul": (k1, "launches")})
+    rate = tot.flops / wall
+    log(f"[cost] olmo-1b masked scoring: {tot.flops:.6e} counted flops in "
+        f"the timed forward's {wall:.4f} s -> {rate / 1e12:.1f} TFLOP/s, "
+        f"{100 * rate / PEAK_FLOPS['bfloat16']:.1f}% of 989 TFLOP/s (bf16 "
+        f"dense peak); {CARD}")
+    cache = sv.model.init_cache(8, 512)
+    cache["index"] = torch.zeros(8, dtype=torch.int32, device="cuda")
+    tok = {"tokens": torch.zeros((8, 1), dtype=torch.int32, device="cuda")}
+    cache_m, tok_m = to_meta(cache), to_meta(tok)
+    with torch.inference_mode():
+        _counted_twice(
+            torch, "olmo-1b masked decode step (8 slots x 512 rows)",
+            lambda: sv.model.decode_step(sv.params, cache, tok,
+                                         masks=sv.masks),
+            lambda: meta.decode_step(params_m, cache_m, tok_m,
+                                     masks=masks_m),
+            {"decode_attention": (k5, "launches"),
+             "masked_matmul": (k1, "launches")})
+    log(f"[cost] {CARD}")
 
 
 def _profile_forward(torch, label, forward, wall) -> None:
@@ -3619,7 +3713,7 @@ def phase_xlstm_parity(torch) -> None:
     # bf16: the blocks on one input, then the LM against its f32 logits
     cfg16 = dataclasses.replace(cfg, param_dtype="bfloat16")
     cpu16, gpu16 = LM(cfg16, device="cpu"), LM(cfg16, device="cuda")
-    p16_c = cpu16.init(torch.Generator().manual_seed(13))
+    p16_c = cpu16.init(torch.Generator().manual_seed(13))  # lint: generator-ok (the bf16 model: a fixed input of its own)
     p16_g = interop.params_from_jax(p16_c, "cuda")
     h = torch.randn((b, s_len, cfg.d_model), generator=torch.Generator()
                     .manual_seed(14)).to(torch.bfloat16)
@@ -3792,7 +3886,7 @@ def phase_xlstm(torch) -> dict:
     tokens_per_round = seq_len * (kw["clients_per_round"] * kw["local_steps"]
                                   * kw["batch_size"]
                                   + kw["server_tau"] * kw["server_batch"])
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))  # lint: generator-ok (the training run: a fixed input of its own)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     res = trainer.run(TrainPlan.standard(1), params=params)
@@ -3897,7 +3991,7 @@ def phase_moe_parity(torch) -> None:
             f"{cfg.moe.top_k}, f32, B={b} S={s_len}")
 
         h = torch.randn((b, s_len, cfg.d_model),
-                        generator=torch.Generator().manual_seed(23))
+                        generator=torch.Generator().manual_seed(23))  # lint: generator-ok (the layer input: a fixed input of its own)
         layer_c = tree_map(lambda t: t[0], params_c["layers"]["moe"])
         layer_g = interop.params_from_jax(layer_c, "cuda")
         with torch.no_grad():
@@ -4156,7 +4250,7 @@ def phase_moe(torch) -> dict:
     fl = feddumap_config(num_clients=4, clients_per_round=2, batch_size=4,
                          server_batch_size=4, local_epochs=1, lr=3e-3,
                          lr_decay=1.0)
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))  # lint: generator-ok (the training run: a fixed input of its own)
     runs = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4848,7 +4942,7 @@ def phase_whisper(torch) -> dict:
         f" {tree_size(params) / 1e6:.1f} M params, {cfg.param_dtype}, "
         f"{cfg.padded_num_heads} heads over {cfg.padded_num_kv_heads} of "
         f"{cfg.resolved_head_dim}, {frames_n} frames")
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    gen = torch.Generator(device="cuda").manual_seed(1)  # lint: generator-ok (the scoring inputs: a fixed input of its own)
     b, s_len = WHISPER_SCORE
     tokens = torch.randint(0, cfg.vocab_size, (b, s_len + 1), generator=gen,
                            device="cuda")
@@ -5098,7 +5192,7 @@ def phase_steps(torch) -> dict:
     _, prefill = steps.make_prefill_step(cfg)
     _, decode = steps.make_decode_step(cfg)
     tok = torch.randint(0, cfg.vocab_size, (2, 64), device="cuda",
-                        generator=torch.Generator(device="cuda").manual_seed(6))
+                        generator=torch.Generator(device="cuda").manual_seed(6))  # lint: generator-ok (the tokens: a fixed input of its own)
     with torch.no_grad():
         last = prefill(params, {"tokens": tok})
         same_p = torch.equal(last, model.apply(params, {"tokens": tok})[:, -1])
@@ -5174,7 +5268,7 @@ def _whisper_steps(torch) -> None:
     shape1 = dataclasses.replace(shape, global_batch=c)
     init_c, step_c = steps.make_fl_train_step(small, run1, c, device="cpu")
     init_g, step_g = steps.make_fl_train_step(small, run1, c)
-    sc = init_c(torch.Generator().manual_seed(3))
+    sc = init_c(torch.Generator().manual_seed(3))  # lint: generator-ok (the small model: a fixed input of its own)
     sg = tree_map(lambda t: t.cuda(), sc)
     bc = steps.fl_batch_specs(small, shape1, c, run1, abstract=False,
                               seed=30, device="cpu")
@@ -5205,7 +5299,7 @@ def _remat_gradients(torch) -> None:
     masks = base.filter_masks(params, base.decide_kept(params, 0.5))
     b, s = REMAT_BATCH
     tok = torch.randint(0, cfg.vocab_size, (b, s + 1), device="cuda",
-                        generator=torch.Generator(device="cuda").manual_seed(7))
+                        generator=torch.Generator(device="cuda").manual_seed(7))  # lint: generator-ok (the tokens: a fixed input of its own)
     x, y = tok[:, :-1], tok[:, 1:]
     ref = None
     rows = {}
@@ -5329,7 +5423,7 @@ def phase_mesh(torch) -> dict:
     del res
     local = LocalBackend(trainer.model, trainer.data, trainer.cfg,
                          use_masks=True, device="cuda",
-                         generator=torch.Generator(device="cuda")
+                         generator=torch.Generator(device="cuda")  # lint: generator-ok (the local backend's draws: a fixed input of its own)
                          .manual_seed(1))
     states = {"mesh": state, "local": tree_map(torch.clone, state)}
     backends = {"mesh": backend, "local": local}
@@ -5393,10 +5487,114 @@ def phase_mesh(torch) -> dict:
     _resume_cnn(torch, out, backend="mesh", mesh=mesh,
                 tag="[mesh] resume SimpleCNN")
     shutil.rmtree(out, ignore_errors=True)
+    for name, n in _serving_mesh(torch, mesh).items():
+        launches[name] = launches.get(name, 0) + n
     return launches
 
 
+SERVING_RUN: dict = {}      # the serving phase's masked olmo-1b run
+MESH_TURNS = 3              # waves each engine runs in a turn
+
+
+def _serving_mesh(torch, mesh) -> dict:
+    """``DecodeEngine(mesh=)`` over the NCCL world of one: the serving
+    phase's masked olmo-1b (full width, 16 layers, bf16, the same seeded
+    params and keep decision) on its 16 prompts, its completions token for
+    token and its K1/K5 launches equal to that phase's mesh-less engine,
+    one wave and the gather under sync-debug "error", then waves of both
+    engines timed in turns (ms/step).  Returns {kernel: launches}."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import masked_matmul as k1
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import DecodeEngine, load_servable
+
+    require(bool(SERVING_RUN), "serving mesh: the serving phase's run is "
+            "missing")
+    cfg = get_config("olmo-1b")
+    model = LM(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    sv = load_servable({"params": params,
+                        "kept": model.decide_kept(params, 0.5),
+                        "mode": "mask", "model_config": cfg}, "masked",
+                       device="cuda")
+    del params, model
+    scfg, prompts = SERVING_RUN["scfg"], SERVING_RUN["prompts"]
+
+    def engine(on_mesh):
+        return DecodeEngine(sv.model, sv.params, scfg, masks=sv.masks,
+                            mesh=mesh if on_mesh else None, device="cuda")
+
+    engine(True).run(prompts[:2])                       # warm-up
+    eng = engine(True)
+    torch.cuda.synchronize()
+    k5.launches = k1.launches = 0
+    t0 = time.perf_counter()
+    done = eng.run(prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {"decode_attention": k5.launches, "masked_matmul": k1.launches}
+    same = [(c.uid, c.tokens.tolist(), c.status) for c in done] \
+        == SERVING_RUN["done"]
+    log(f"[serving mesh] olmo-1b masked, DecodeEngine(mesh=) on a world of "
+        f"{mesh.size()} ({mesh.mesh_dim_names} {tuple(mesh.shape)}, "
+        f"slots {eng._lo}..{eng._lo + eng._n - 1} on this rank): "
+        f"{len(done)} requests, {eng.steps} decode steps in {wall:.3f} s; "
+        f"completions {'equal token for token' if same else 'DIFFER'} to "
+        f"the mesh-less engine's; launches {got} (mesh-less "
+        f"{SERVING_RUN['launches']}, {SERVING_RUN['steps']} steps)")
+    require(same and eng.steps == SERVING_RUN["steps"],
+            "serving mesh: completions differ from the mesh-less engine")
+    require(got == SERVING_RUN["launches"],
+            "serving mesh: K1/K5 launches differ from the mesh-less engine")
+
+    # one wave and the gather with no host sync
+    eng = engine(True)
+    for p in prompts[: scfg.slots]:
+        eng.submit(p)
+    eng.step_wave()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._wave()
+        eng._gather(eng._state["active"].to(torch.uint8))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"[serving mesh] one wave ({scfg.steps_per_wave} steps) and its "
+        f"all-gather ran under set_sync_debug_mode('error') without a host "
+        f"sync")
+
+    # waves in turns: mesh-less, mesh, mesh, mesh-less (every slot busy)
+    engines = {}
+    for on_mesh in (False, True):
+        engines[on_mesh] = engine(on_mesh)
+        for p in prompts[: scfg.slots]:
+            engines[on_mesh].submit(p)
+        engines[on_mesh].step_wave()
+    ms = {False: [], True: []}
+    for on_mesh in (False, True, True, False):
+        e = engines[on_mesh]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_TURNS):
+            e.step_wave()
+        torch.cuda.synchronize()
+        ms[on_mesh].append(1e3 * (time.perf_counter() - t0)
+                           / (MESH_TURNS * scfg.steps_per_wave))
+    log(f"[serving mesh] waves in turns ({MESH_TURNS} waves of "
+        f"{scfg.steps_per_wave} steps each): mesh-less "
+        f"{np.mean(ms[False]):.3f} ms/step {[round(t, 3) for t in ms[False]]}"
+        f", mesh {np.mean(ms[True]):.3f} ms/step "
+        f"{[round(t, 3) for t in ms[True]]}; {CARD}")
+    del engines, eng, sv
+    return got
+
+
 PHASE_SECONDS: dict = {}    # phase -> wall seconds, for the [time] lines
+CARD = ""                   # nvidia-smi's name and power limit of the card
 
 
 def _phase(torch, name, fn, *args):
@@ -5423,8 +5621,9 @@ def main() -> int:
         return 2
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    global CARD
     start = time.perf_counter()
-    phase_device(torch)
+    CARD = phase_device(torch)
     t0 = time.perf_counter()
     phase_build()
     PHASE_SECONDS["build"] = time.perf_counter() - t0

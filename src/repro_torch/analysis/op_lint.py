@@ -1,0 +1,289 @@
+"""Invariants of the operations a round or a wave runs: the port's
+counterpart of the reference's ``analysis/hlo_lint.py``.
+
+The reference inspects a lowered program's text; the port records the
+operations a round or a serving wave dispatches (``launch.cost.
+CostCounter(record=True)``) and checks the invariants that have an eager
+meaning, on the CPU:
+
+* **No f64 op** in an f32 round: the canonical CNN world (a SimpleCNN
+  FedDUMAP round), the same world with ``guard="reject_client"`` (the
+  health guard is device data-flow), and the LM world in kernel mode (the
+  FFN keep-masks through ``masked_matmul``), as well as in the serving
+  wave, dense and masked.
+* **No collective** in a ``LocalBackend`` round or a mesh-less wave.
+* **No host read** inside a round or a wave: no ``_local_scalar_dense``,
+  ``is_nonzero``, ``nonzero`` or ``equal`` recorded between the round's or
+  the wave's first and last operation (the card's check is
+  ``torch.cuda.set_sync_debug_mode("error")``; this one runs anywhere).
+* **The mesh backend's collectives a round** at 2 gloo ranks (the LM
+  world, kernel mode) equal the count recorded in ``op_budget.json``, the
+  part the reference's ``compile_budget.json`` ``"hlo"`` section plays: a
+  new collective in the round fails the check.  Re-record after an
+  intended change with ``python -m repro_torch.analysis.op_lint --update``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import pathlib
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.launch.cost import HOST_READS, CostCounter
+
+BUDGET_PATH = pathlib.Path(__file__).with_name("op_budget.json")
+MESH_RANKS = 2
+
+
+# ---------------------------------------------------------------------------
+# what a recorded stream violates
+
+
+def f64_ops(ops: list) -> list[str]:
+    """The recorded operations that touch a float64 tensor."""
+    return [name for name, dtypes in ops if "float64" in dtypes]
+
+
+def host_reads(ops: list) -> list[str]:
+    return [name for name, _ in ops if name in HOST_READS]
+
+
+def collectives(ops: list) -> list[str]:
+    return [name for name, _ in ops if name.startswith("c10d.")]
+
+
+def check_stream(label: str, ops: list, *, mesh_less: bool = True
+                 ) -> list[str]:
+    """Failure messages for one recorded round or wave."""
+    errors = []
+    if f64_ops(ops):
+        errors.append(f"{label}: {len(f64_ops(ops))} f64 op(s) in an f32 "
+                      f"program: {sorted(set(f64_ops(ops)))}")
+    if host_reads(ops):
+        errors.append(f"{label}: host read(s) inside it: "
+                      f"{sorted(set(host_reads(ops)))}")
+    if mesh_less and collectives(ops):
+        errors.append(f"{label}: collectives in a single-device program: "
+                      f"{sorted(set(collectives(ops)))}")
+    return errors
+
+
+# ---------------------------------------------------------------------------
+# the canonical worlds (the reference's compile_budget.make_world)
+
+
+def cnn_world(guard: str = "off"):
+    """(trainer, params): 8 clients of 8x8x3 synthetic images, a
+    (4, 8, 8)-channel SimpleCNN, FedDUMAP."""
+    from repro_torch.core.pruning import FedAPConfig
+    from repro_torch.core.rounds import FederatedTrainer, feddumap_config
+    from repro_torch.data.pipeline import build_federated_data
+    from repro_torch.data.synthetic import SyntheticSpec
+    from repro_torch.models.cnn import SimpleCNN
+
+    spec = SyntheticSpec(num_classes=10, image_shape=(8, 8, 3),
+                         train_size=1700, test_size=100, noise_scale=0.5)
+    data = build_federated_data(num_clients=8, server_fraction=0.1,
+                                device_pool=640, spec=spec)
+    cfg = feddumap_config(num_clients=8, clients_per_round=8,
+                          local_epochs=1, batch_size=10, lr=0.05,
+                          guard=guard,
+                          fedap=FedAPConfig(probe_size=8, participants=7,
+                                            min_rate=0.5))
+    model = SimpleCNN(num_classes=10, image_shape=(8, 8, 3),
+                      channels=(4, 8, 8), fc_width=16, device="cpu")
+    trainer = FederatedTrainer(model, data, cfg, device="cpu")
+    return trainer, model.init(torch.Generator().manual_seed(0))
+
+
+def lm_model():
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models.lm import LM
+
+    return LM(ModelConfig(name="dense-tiny", family="dense", rope="1d",
+                          norm="rmsnorm", act="silu", param_dtype="float32",
+                          remat="none", num_layers=2, d_model=128,
+                          num_heads=4, num_kv_heads=2, d_ff=512,
+                          vocab_size=2048), device="cpu")
+
+
+def lm_world(backend: str = "local"):
+    """(trainer, params): 8 clients of topic-sharded 16-token sequences, the
+    2-layer d 128 LM with a 128-aligned d_ff 512 FFN, FedDUMAP in kernel
+    mode (the masks' products through ``masked_matmul``)."""
+    from repro_torch.core.pruning import FedAPConfig
+    from repro_torch.core.rounds import FederatedTrainer, feddumap_config
+    from repro_torch.data.pipeline import build_lm_federated_data
+    from repro_torch.data.synthetic import TokenSpec
+
+    data = build_lm_federated_data(
+        num_clients=8, spec=TokenSpec(vocab_size=2048, num_topics=16,
+                                      seq_len=17, num_sequences=256))
+    cfg = feddumap_config(num_clients=8, clients_per_round=4,
+                          local_epochs=1, batch_size=4, server_batch_size=8,
+                          lr=3e-3, lr_decay=1.0, masked_compute="kernel",
+                          fedap=FedAPConfig(align=128, probe_size=4,
+                                            participants=2, min_rate=0.5))
+    model = lm_model()
+    trainer = FederatedTrainer(model, data, cfg, device="cpu",
+                               backend=backend)
+    return trainer, model.init(torch.Generator().manual_seed(0))
+
+
+def record_round(trainer, params, *, use_masks: bool = False) -> list:
+    """The operations of round 0's ``round_core`` (its batch drawn first,
+    outside the record)."""
+    from repro_torch.core import engine
+
+    be = trainer.backend(use_masks=use_masks)
+    state = be.init_state(params)
+    batch = be.round_batch(0)
+    with CostCounter(record=True) as c:
+        engine.round_core(be.eng, be.grad_fn, be.la_fn, state, batch,
+                          be._round_shard())
+    return c.ops
+
+
+def record_wave(*, masked: bool = False) -> list:
+    """The operations of one serving wave with every slot admitted."""
+    from repro_torch.serving import DecodeEngine, ServeConfig
+
+    model = lm_model()
+    params = model.init(torch.Generator().manual_seed(0))
+    masks = None
+    if masked:
+        masks = model.filter_masks(params, model.decide_kept(params, 0.5))
+    eng = DecodeEngine(model, params,
+                       ServeConfig(slots=2, cache_len=12, max_prompt=4,
+                                   max_new_tokens=4, steps_per_wave=2),
+                       masks=masks, device="cpu")
+    for p in ([3, 1], [5, 9, 2]):
+        eng.submit(np.asarray(p, np.int32))
+    eng.step_wave()
+    with CostCounter(record=True) as c:
+        eng._wave()
+    return c.ops
+
+
+# ---------------------------------------------------------------------------
+# the mesh round at MESH_RANKS gloo ranks
+
+
+def mesh_round_collectives() -> dict:
+    """{kind: count} of the collectives of one LM-world round on the mesh
+    backend (run on every rank of a process group with MESH_RANKS
+    ranks)."""
+    trainer, params = lm_world(backend="mesh")
+    ops = record_round(trainer, params)
+    counts: dict = {}
+    for name in collectives(ops):
+        counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def _rank(rank: int, world: int, store: str, out: str) -> None:
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        counts = mesh_round_collectives()
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(counts, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_mesh_round(timeout: float = 240.0) -> dict:
+    """:func:`mesh_round_collectives` at MESH_RANKS spawned gloo ranks that
+    meet over a ``FileStore`` in a temporary directory; rank 0's counts."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store, out = os.path.join(tmp, "store"), os.path.join(tmp, "out")
+        ctx = mp.start_processes(_rank, args=(MESH_RANKS, store, out),
+                                 nprocs=MESH_RANKS, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + timeout
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"the {MESH_RANKS} ranks did not "
+                                       f"finish in {timeout} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+        with open(out) as f:
+            return json.load(f)
+
+
+def load_budget() -> dict:
+    return json.loads(BUDGET_PATH.read_text())
+
+
+def check_mesh_budget(counts: dict, budget: dict | None = None
+                      ) -> list[str]:
+    budget = load_budget() if budget is None else budget
+    want = budget["mesh_round"]["collectives"]
+    if counts != want:
+        return [f"mesh round at {MESH_RANKS} ranks: collectives {counts}, "
+                f"the recorded budget says {want} — an unbudgeted "
+                f"collective is on every round's critical path"]
+    return []
+
+
+# ---------------------------------------------------------------------------
+
+
+def check(*, mesh: bool = True) -> list[str]:
+    """Every invariant; failure messages (empty: clean).  ``mesh=False``
+    skips the spawned mesh round."""
+    errors = []
+    trainer, params = cnn_world()
+    errors += check_stream("CNN round", record_round(trainer, params))
+    trainer, params = cnn_world(guard="reject_client")
+    errors += check_stream("guarded CNN round",
+                           record_round(trainer, params))
+    trainer, params = lm_world()
+    errors += check_stream("LM round (kernel masks)",
+                           record_round(trainer, params, use_masks=True))
+    for label, masked in (("serving wave", False),
+                          ("serving wave (masked)", True)):
+        errors += check_stream(label, record_wave(masked=masked))
+    if mesh:
+        errors += check_mesh_budget(spawn_mesh_round())
+    return errors
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="repro_torch.analysis.op_lint",
+                                 description=__doc__.splitlines()[0])
+    ap.add_argument("--update", action="store_true",
+                    help="re-record the mesh round's collectives into "
+                         "op_budget.json")
+    args = ap.parse_args(argv)
+    if args.update:
+        budget = load_budget()
+        budget["mesh_round"]["collectives"] = spawn_mesh_round()
+        BUDGET_PATH.write_text(json.dumps(budget, indent=2) + "\n")
+        print(f"recorded: {budget['mesh_round']}")
+        return 0
+    errors = check()
+    for e in errors:
+        print(f"FAIL {e}")
+    print(f"repro_torch.analysis.op_lint: {len(errors)} violation(s)")
+    return 1 if errors else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

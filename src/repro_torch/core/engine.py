@@ -265,13 +265,22 @@ def _detached_leaves(params):
     return q, tree_leaves(q)
 
 
+def _grads(value, leaves) -> list:
+    """d value / d leaves; a leaf the value does not use gets zeros, as
+    ``jax.grad`` gives it (a vlm batch of ``embeds`` never reads the token
+    embedding table)."""
+    grads = torch.autograd.grad(value, leaves, allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g
+            for g, t in zip(grads, leaves)]
+
+
 def grad(loss_fn: Callable, params: Any, *args) -> Any:
     """The gradient tree of the scalar ``loss_fn(params, *args)`` (the
     counterpart of ``jax.grad``); ``params`` are not modified."""
     with torch.enable_grad():
         q, leaves = _detached_leaves(params)
         loss = loss_fn(q, *args)
-        return tree_unflatten(params, torch.autograd.grad(loss, leaves))
+        return tree_unflatten(params, _grads(loss, leaves))
 
 
 def value_and_grad_aux(fn: Callable, params: Any, *args):
@@ -280,7 +289,7 @@ def value_and_grad_aux(fn: Callable, params: Any, *args):
     with torch.enable_grad():
         q, leaves = _detached_leaves(params)
         value, aux = fn(q, *args)
-        grads = torch.autograd.grad(value, leaves)
+        grads = _grads(value, leaves)
     return (value.detach(), aux.detach()), tree_unflatten(params, grads)
 
 

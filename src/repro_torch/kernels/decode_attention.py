@@ -84,6 +84,19 @@ def _workspace(device, stream: int, floats: int, counters: int):
     return have[2], have[3]
 
 
+def work(b: int, h: int, kvh: int, hd: int, elt: int, lens_sum: int, *,
+         with_lengths: bool = True) -> tuple[int, int]:
+    """(flops, HBM bytes) of one call: q read and the output written once,
+    each sequence's attended K/V rows (``lens_sum`` over the batch) read
+    once, ``lengths`` (int32) read; 4 flops per attended (row, head-dim)
+    pair of each query head.  The lengths lie on the device, so a count
+    from shapes alone passes all S rows of every sequence: the most the
+    call can attend."""
+    return (4 * lens_sum * h * hd,
+            elt * (2 * b * h * hd + 2 * lens_sum * kvh * hd)
+            + (4 * b if with_lengths else 0))
+
+
 def check_shapes(q, k, v, lengths=None) -> None:
     """The reference's shape errors (``ValueError``), for either path."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:

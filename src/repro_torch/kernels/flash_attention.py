@@ -24,6 +24,7 @@ are masked.  The designs are described in the source.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -34,6 +35,31 @@ launches = 0    # kernel launches since the caller last reset it
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)    # head sizes the kernel is instantiated for (zamba2, olmo-1b)
+
+
+@functools.lru_cache(maxsize=None)
+def visible_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """How many (query, key) pairs the mask lets through: query ``i`` sees
+    key ``j`` iff ``j <= i`` (causal) and ``j > i - window`` (a window),
+    positions from 0 on both sides (``ref.visible``'s count, from shapes
+    alone)."""
+    total = 0
+    for i in range(sq):
+        hi = min(i, skv - 1) if causal else skv - 1
+        lo = 0 if window is None else max(0, i - int(window) + 1)
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def work(b: int, sq: int, skv: int, h: int, kvh: int, hd: int, elt: int, *,
+         causal: bool = True, window=None) -> tuple[int, int]:
+    """(flops, HBM bytes) of one call: q, k, v read once and the output
+    written once; 4 flops per visible (query, key, head-dim) triple (QK^T
+    and PV)."""
+    pairs = visible_pairs(sq, skv, bool(causal),
+                          None if window is None else int(window))
+    return (4 * b * h * hd * pairs,
+            elt * (2 * b * sq * h * hd + 2 * b * skv * kvh * hd))
 
 
 def check_shapes(q, k, v, window=None) -> None:

@@ -116,7 +116,7 @@ def _decode_splits(m: int, k: int, n: int, index: int) -> int:
     sms = _build.sm_count(index)
     splits = decode_plan(m, k, n, sms)[0]
     lib = _build.launcher("masked_matmul_decode_splits")(m, k, n, sms)
-    if lib != splits:
+    if lib != splits:  # lint: static-branch (an int from the library)
         raise RuntimeError(f"masked_matmul: the library splits M={m} K={k} "
                            f"N={n} on {sms} SMs {lib} ways, the host "
                            f"{splits}")
@@ -146,6 +146,25 @@ def dx_splits(m: int, k: int, n: int, sms: int) -> int:
     (z + 1) * kept // splits)`` in mask order, counted on the device."""
     tiles = -(-m // DX_ROWS) * (k // DX_COLS)
     return max(1, min(n // BLOCK_N, sms // max(tiles, 1)))
+
+
+def work(kind: str, m: int, k: int, n: int, elt: int,
+         kept_blocks: int | None = None) -> tuple[int, int]:
+    """(flops, HBM bytes) of one call of K1 (``kind="fwd"``), K2 (``"dx"``)
+    or K3 (``"dw"``) at x [M,K], w [K,N] with ``elt``-byte operands: the
+    kept 128-column blocks are read, the others are not, every output
+    element is written once, the mask is read (f32), and only kept blocks
+    cost multiply-adds.  ``kept_blocks=None`` counts all N/128 blocks: the
+    mask's values lie on the device, so that is the upper bound a count
+    from shapes alone can give."""
+    blocks = n // BLOCK_N
+    kept = blocks if kept_blocks is None else kept_blocks
+    kn = BLOCK_N * kept
+    any_kept = 1 if kept else 0
+    elems = {"fwd": m * k * any_kept + k * kn + m * n,      # x, w kept, y
+             "dx": m * kn + k * kn + m * k,                # dy, w kept, dx
+             "dw": m * k * any_kept + m * kn + k * n}[kind]  # x, dy, dw
+    return 2 * m * k * kn, elt * elems + 4 * blocks
 
 
 def _check_blocks(kdim: int, n: int, block_mask) -> None:

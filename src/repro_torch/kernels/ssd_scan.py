@@ -33,6 +33,17 @@ HEAD_DIM_STEP = 8     # p must be a multiple of it
 KERNEL_CHUNK = types.MappingProxyType({torch.float32: 64, torch.bfloat16: 128})
 
 
+def work(b: int, s: int, nh: int, p: int, n: int, elt: int
+         ) -> tuple[int, int]:
+    """(flops, HBM bytes) of the function, not of one way to compute it: x,
+    B, C, dt read and y written once, a_log/d/dt_bias (f32) read; the
+    sequential recurrence's 4 B S nh p N flops (the state update dt x B^T
+    and decay, and y = C H: two multiply-adds per state element a step)."""
+    return (4 * b * s * nh * p * n,
+            elt * (2 * b * s * nh * p + 2 * b * s * n + b * s * nh)
+            + 3 * 4 * nh)
+
+
 def check_shapes(x, bmat, cmat, dt, a_log, d, dt_bias, chunk=128) -> None:
     """Shape errors (``ValueError``) naming the shapes, for either path."""
     if x.ndim != 4 or bmat.ndim != 3 or cmat.ndim != 3 or dt.ndim != 3:

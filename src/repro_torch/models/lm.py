@@ -287,12 +287,18 @@ class LM:
             "norm": L.init_norm(cfg, self.dtype, self.device)}
         return params
 
+    def on_meta(self) -> "LM":
+        """This model on the meta device: every method then makes and takes
+        tensors with shapes and dtypes but no storage (any arch, at any
+        size); the kernels' wrappers give empty outputs there."""
+        meta = copy.copy(self)
+        meta.device = torch.device("meta")
+        return meta
+
     def param_shapes(self) -> dict:
         """The param tree on the meta device: every leaf's shape and dtype,
         with no storage (any arch, at any size)."""
-        meta = copy.copy(self)
-        meta.device = torch.device("meta")
-        return meta.init(torch.Generator())
+        return self.on_meta().init(torch.Generator())
 
     def axes(self) -> dict:
         """The logical-axis tree of the params: one tuple of axis names per

@@ -21,6 +21,18 @@ FedAP-pruned) checkpoint is served from a fixed pool of decode slots.
   faults (``faults=``, e.g. ``reliability.NaNLogits``) poison a slot's
   logits on the device just before that guard, for tests.
 
+* **Mesh serving** (optional): ``mesh=`` (a ``launch.mesh`` ``DeviceMesh``)
+  splits the slot pool over the mesh axis ``mesh_axis``.  Each rank owns
+  ``slots / n`` slots (the rows of every state tensor and KV page at its
+  coordinate on that axis, the split ``sharding.specs.cache_specs`` and
+  ``sharding.fl_specs.serve_batch_specs`` give) and decodes only those;
+  params and masks are replicated.  The host protocol is SPMD: every rank
+  calls ``submit``/``step_wave``/``run`` with the same arguments, so the
+  queue, the uids and the admission order agree.  After a wave's steps one
+  all-gather over the axis brings every slot's ``active`` bit to every
+  rank (and, when some slot finished, a second one its count, tokens and
+  error bit), so every rank returns the same completions.
+
 Where the reference compiles two programs (admit, wave), the port runs
 eagerly; capturing the wave as a CUDA graph is later work.
 """
@@ -34,6 +46,8 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch.sharding import fl_specs, specs
+from repro_torch.utils.tree import tree_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,10 +135,18 @@ class DecodeEngine:
     model, params and masks must live on ``device`` (default ``"cuda"``).
     ``faults`` keeps the serving faults of a fault tuple (objects with an
     ``apply_logits`` hook) and ignores the others.
+
+    ``mesh`` (optional) splits the slots over ``mesh_axis`` (see the module
+    docstring); ``slots`` must divide over that axis.  Ranks on the mesh's
+    other axes hold the same slots.  A moe model's slots do not split: its
+    routing couples them (each expert's top-C is taken over all slots, as
+    the reference's GSPMD program computes it), so every rank serves every
+    slot and no collective runs.
     """
 
     def __init__(self, model, params, cfg: ServeConfig | None = None, *,
-                 masks=None, device="cuda", faults: tuple = ()):
+                 masks=None, mesh=None, mesh_axis: str = "data",
+                 device="cuda", faults: tuple = ()):
         if model.cfg.family not in _SERVABLE_FAMILIES:
             raise ValueError(
                 f"DecodeEngine serves the scanned-KV families "
@@ -140,6 +162,11 @@ class DecodeEngine:
         self._params = params
         self._masks = masks
         self._faults = tuple(f for f in faults if hasattr(f, "apply_logits"))
+        # the slots this rank owns: [lo, lo + n); the axis group gathers the
+        # wave's results (None: every slot is this rank's, nothing gathered)
+        self._lo, self._n, self._group = 0, self.cfg.slots, None
+        if mesh is not None:
+            self._split(mesh, mesh_axis)
         self._state = self._init_state()
         self._occupants: list[Optional[tuple[int, np.ndarray]]] = \
             [None] * self.cfg.slots
@@ -148,34 +175,90 @@ class DecodeEngine:
         self.rejected = 0   # requests dropped by on_full="reject"
         self.steps = 0      # decode steps run (each one model.decode_step)
 
+    # -- mesh ----------------------------------------------------------------
+    def _split(self, mesh, axis: str) -> None:
+        """This rank's slots from the mesh's placement trees: the pages'
+        ``cache_specs`` and the slot state's ``serve_batch_specs`` must
+        shard the slot dim (dim 1 of ``[L, slots, S, KV, hd]``, dim 0 of
+        the rest) over ``axis``; the rank's coordinate there picks its
+        block."""
+        sizes = specs.axis_sizes(mesh)
+        if axis not in sizes:
+            raise ValueError(f"mesh has no axis {axis!r}: {tuple(sizes)}")
+        n = sizes[axis]
+        if self.cfg.slots % n:
+            raise ValueError(f"slots={self.cfg.slots} must divide over the "
+                             f"{n}-way mesh axis {axis!r}")
+        if self.model.moe:      # routing couples the slots: keep them whole
+            return
+        plan = specs.make_plan(mesh, self.model.cfg)
+        shapes = self._make_state(self.model.on_meta(), self.cfg.slots)
+        cache = shapes.pop("cache")
+        placed = [(leaf, spec, 1 if leaf.ndim == 5 else 0) for leaf, spec in
+                  zip(tree_leaves(cache),
+                      tree_leaves(specs.cache_specs(cache, plan,
+                                                self.model.cfg)))]
+        placed += [(shapes[k], spec, 0) for k, spec in
+                   fl_specs.serve_batch_specs(shapes, plan).items()]
+        for leaf, spec, dim in placed:
+            on = [d for d, p in enumerate(spec.parts)
+                  if p == axis or (isinstance(p, tuple) and axis in p)]
+            if on != [dim]:
+                raise ValueError(
+                    f"the placement of a {tuple(leaf.shape)} state tensor "
+                    f"shards dims {on} over {axis!r}, not its slot dim "
+                    f"{dim} ({spec.parts})")
+        self._n = self.cfg.slots // n
+        self._lo = mesh.get_local_rank(axis) * self._n
+        self._group = mesh.get_group(axis)
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of ``t`` over the axis group, in slot order."""
+        parts = [torch.empty_like(t)
+                 for _ in range(self.cfg.slots // self._n)]
+        torch.distributed.all_gather(parts, t.contiguous(),
+                                     group=self._group)
+        return torch.cat(parts)
+
     # -- state (every state tensor is made and updated in inference mode) --
-    @torch.inference_mode()
-    def _init_state(self) -> dict:
-        c, dev = self.cfg, self.device
+    def _make_state(self, model, slots: int) -> dict:
+        c, dev = self.cfg, model.device
 
         def zeros(*shape, dtype=torch.int32):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
-        cache = self.model.init_cache(c.slots, c.cache_len)
-        cache["index"] = zeros(c.slots)
+        cache = model.init_cache(slots, c.cache_len)
+        cache["index"] = zeros(slots)
         return {
             "cache": cache,
-            "active": zeros(c.slots, dtype=torch.bool),
-            "last_tok": zeros(c.slots),
-            "prompt": zeros(c.slots, c.max_prompt),
-            "prompt_len": torch.ones((c.slots,), dtype=torch.int32,
+            "active": zeros(slots, dtype=torch.bool),
+            "last_tok": zeros(slots),
+            "prompt": zeros(slots, c.max_prompt),
+            "prompt_len": torch.ones((slots,), dtype=torch.int32,
                                      device=dev),
-            "n_out": zeros(c.slots),
-            "out": zeros(c.slots, c.max_new_tokens),
-            "error": zeros(c.slots, dtype=torch.bool),
+            "n_out": zeros(slots),
+            "out": zeros(slots, c.max_new_tokens),
+            "error": zeros(slots, dtype=torch.bool),
         }
+
+    @torch.inference_mode()
+    def _init_state(self) -> dict:
+        """The state of this rank's slots (all of them without a mesh)."""
+        return self._make_state(self.model, self._n)
 
     @torch.inference_mode()
     def _admit(self, slots: list, prompts: np.ndarray, plens: np.ndarray):
         """Write queued requests into freed slots: one host-to-device copy
         of the padded prompts.  A slot's cache page is not cleared — index 0
         regrows the valid prefix, so the previous occupant's rows are only
-        attended after being overwritten."""
+        attended after being overwritten.  A rank writes only the slots it
+        owns."""
+        mine = [i for i, s in enumerate(slots)
+                if self._lo <= s < self._lo + self._n]
+        if not mine:
+            return
+        slots = [slots[i] - self._lo for i in mine]
+        prompts, plens = prompts[mine], plens[mine]
         st = self._state
         dev = self.device
         rows = torch.as_tensor(slots, dtype=torch.int64).to(dev)
@@ -294,15 +377,26 @@ class DecodeEngine:
                         np.asarray(plens, np.int32))
         self._wave()
         # the wave's only host sync: the done-mask (then, for finished
-        # slots, their token counts and output rows)
-        active = self._state["active"].cpu().numpy()
+        # slots, their token counts and output rows); on a split mesh every
+        # slot's, gathered from the ranks that own them
+        st = self._state
+        active = st["active"]
+        if self._group is not None:     # NCCL has no bool: as uint8
+            active = self._gather(active.to(torch.uint8))
+        active = active.cpu().numpy()
         done = [slot for slot, occ in enumerate(self._occupants)
                 if occ is not None and not active[slot]]
         if not done:
             return []
-        n_out = self._state["n_out"].cpu().numpy()
-        out = self._state["out"].cpu().numpy()
-        error = self._state["error"].cpu().numpy()
+        if self._group is None:
+            n_out = st["n_out"].cpu().numpy()
+            out = st["out"].cpu().numpy()
+            error = st["error"].cpu().numpy()
+        else:
+            rows = self._gather(torch.cat(
+                [st["n_out"][:, None], st["error"][:, None].to(torch.int32),
+                 st["out"]], 1)).cpu().numpy()
+            n_out, error, out = rows[:, 0], rows[:, 1], rows[:, 2:]
         completions = []
         for slot in done:
             uid, prompt = self._occupants[slot]

@@ -201,8 +201,58 @@ def sharded_decision(mesh):
     return {"p_star": d.p_star, "kept": d.kept}
 
 
+SERVE = dict(slots=4, cache_len=24, max_prompt=8, max_new_tokens=12,
+             steps_per_wave=4)
+
+
+def serving_world(arch: str):
+    """A reduced model of ``arch``, its params and masks (None for moe), and
+    ragged prompts, built alike on every rank and in the test process."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+
+    cfg = get_config(arch).reduced()
+    model = LM(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    masks = (None if model.moe else
+             model.filter_masks(params, model.decide_kept(params, 0.5)))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(1, 9)))
+               .astype(np.int32) for _ in range(7)]
+    return model, params, masks, prompts
+
+
+def serve(arch: str, masked: bool, mesh=None):
+    """(uid, tokens) of every completion of ``arch``'s engine."""
+    from repro_torch.serving import DecodeEngine, ServeConfig
+
+    model, params, masks, prompts = serving_world(arch)
+    eng = DecodeEngine(model, params, ServeConfig(**SERVE),
+                       masks=masks if masked else None, mesh=mesh,
+                       device="cpu")
+    done = eng.run(prompts)
+    return {"split": (eng._lo, eng._n), "steps": eng.steps,
+            "done": [(c.uid, c.tokens.tolist(), c.status) for c in done]}
+
+
+def serving_mesh(mesh):
+    """The mesh engine's completions on this rank, and whether every rank
+    returned the same ones."""
+    out = {}
+    for key, arch, masked in (("dense", "olmo-1b", False),
+                              ("masked", "olmo-1b", True),
+                              ("moe", "arctic-480b", False)):
+        got = serve(arch, masked, mesh)
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, got["done"])
+        out[key] = dict(got, same_on_ranks=all(e == got["done"]
+                                               for e in every))
+    return out
+
+
 def rank_main():
     """Everything a rank of the 2-rank world checks, in one spawn."""
+    from repro_torch.analysis import op_lint
     from repro_torch.launch.mesh import make_host_mesh
 
     out = {"cases": {c: engine_history(c, "mesh") for c in CASES},
@@ -213,7 +263,9 @@ def rank_main():
                "opt": engine_history("feddum", "mesh", backend_opts={
                    "shard_server": False})},
            "eval": evaluate("mesh", 7),
-           "decision": sharded_decision(make_host_mesh(device="cpu"))}
+           "decision": sharded_decision(make_host_mesh(device="cpu")),
+           "serving": serving_mesh(make_host_mesh(device="cpu")),
+           "mesh_round": op_lint.mesh_round_collectives()}
     data, _ = softmax_world(4, 6)
     for key, model in (("split", Softmax), ("moe_split", MoeSoftmax)):
         be = FederatedTrainer(model(), data, case_config("feddyn", 4, 6),

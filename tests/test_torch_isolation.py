@@ -241,23 +241,29 @@ def test_engine_refuses_a_model_on_another_device():
 
 
 def test_dispatch_raises_on_a_non_cpu_tensor():
-    """A meta tensor is neither CPU nor CUDA: no plain version serves it."""
+    """A device that is neither CPU, CUDA nor meta finds no kernel and no
+    plain version.  A meta tensor (shapes only, for counting a step's work)
+    gets an empty meta output of the kernel's shape: nothing is computed."""
+    other = type("OnXpu", (), {"device": torch.device("xpu")})()
+    for name in ("decode_attention", "masked_matmul", "masked_matmul_dx",
+                 "masked_matmul_dw"):
+        with pytest.raises(ValueError, match="no kernel for device xpu"):
+            ops._route(name, other)
     q = torch.empty((2, 1, 4, 32), device="meta")
     kv = torch.empty((2, 16, 2, 32), device="meta")
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.decode_attention(q, kv, kv)
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.masked_matmul(torch.empty((8, 128), device="meta"),
-                          torch.empty((128, 256), device="meta"),
-                          torch.ones(2, device="meta"))
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.masked_matmul_dx(torch.empty((8, 256), device="meta"),
-                             torch.empty((128, 256), device="meta"),
-                             torch.ones(2, device="meta"))
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.masked_matmul_dw(torch.empty((8, 128), device="meta"),
-                             torch.empty((8, 256), device="meta"),
-                             torch.ones(2, device="meta"))
+    outs = [ops.decode_attention(q, kv, kv),
+            ops.masked_matmul(torch.empty((8, 128), device="meta"),
+                              torch.empty((128, 256), device="meta"),
+                              torch.ones(2, device="meta")),
+            ops.masked_matmul_dx(torch.empty((8, 256), device="meta"),
+                                 torch.empty((128, 256), device="meta"),
+                                 torch.ones(2, device="meta")),
+            ops.masked_matmul_dw(torch.empty((8, 128), device="meta"),
+                                 torch.empty((8, 256), device="meta"),
+                                 torch.ones(2, device="meta"))]
+    assert [tuple(o.shape) for o in outs] == [(2, 1, 4, 32), (8, 256),
+                                              (8, 128), (128, 256)]
+    assert all(o.device.type == "meta" for o in outs)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -290,14 +296,18 @@ def _ssd_args(device):
 
 
 def test_full_sequence_dispatch_raises_on_a_non_cpu_tensor():
-    """K4 and K6 serve CPU tensors with their plain versions and nothing
-    else: a meta tensor finds no kernel."""
+    """K4 and K6 serve CPU tensors with their plain versions, CUDA tensors
+    with their kernels, meta tensors with an empty output of the kernel's
+    shape, and nothing else."""
+    other = type("OnXpu", (), {"device": torch.device("xpu")})()
+    for name in ("flash_attention", "ssd_scan"):
+        with pytest.raises(ValueError, match="no kernel for device xpu"):
+            ops._route(name, other)
     q = torch.empty((1, 8, 4, 32), device="meta")
     kv = torch.empty((1, 8, 2, 32), device="meta")
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.flash_attention(q, kv, kv)
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.ssd_scan(*_ssd_args("meta"))
+    assert ops.flash_attention(q, kv, kv).shape == q.shape
+    y = ops.ssd_scan(*_ssd_args("meta"))
+    assert y.shape == (1, 8, 2, 4) and y.device.type == "meta"
 
 
 def test_full_sequence_kernel_wrappers_refuse_cpu_tensors():

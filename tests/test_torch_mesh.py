@@ -20,7 +20,9 @@ so these hold the semantics instead: mesh equals local equals the oracle.
   the oracle; C = 3 over 2 ranks bitwise local (the replicated fallback);
   a sharded eval of 7 test rows (padded to 8) equal to local within 1e-6;
   ``fedap_decision_sharded`` with ragged probes (a 5-sample server pool
-  against a probe of 8) equal to the host decision.
+  against a probe of 8) equal to the host decision; ``DecodeEngine(mesh=)``
+  (2 of 4 slots a rank; a moe model keeps all 4) returning the mesh-less
+  engine's completions on every rank.
 """
 import subprocess
 import sys
@@ -437,3 +439,31 @@ def test_sharded_decision_with_ragged_probes_is_the_host_decision(
         assert abs(got["p_star"] - host.p_star) <= 1e-6
         assert {k: v.tolist() for k, v in got["kept"].items()} == \
             {k: v.tolist() for k, v in host.kept.items()}
+
+
+@pytest.mark.parametrize("key", ["dense", "masked", "moe"])
+def test_two_ranks_serve_the_mesh_less_tokens(two_ranks, key):
+    """``DecodeEngine(mesh=)`` at 2 ranks: each rank decodes its 2 of 4
+    slots (a moe model keeps all 4 on both) and every rank returns the
+    mesh-less engine's completions, token for token."""
+    got = two_ranks["serving"][key]
+    arch, masked = {"dense": ("olmo-1b", False), "masked": ("olmo-1b", True),
+                    "moe": ("arctic-480b", False)}[key]
+    want = W.serve(arch, masked)
+    assert got["split"] == ((0, 4) if key == "moe" else (0, 2))
+    assert got["same_on_ranks"]
+    assert got["done"] == want["done"] and got["steps"] == want["steps"]
+
+
+def test_two_ranks_round_collectives_equal_the_budget(two_ranks):
+    """``analysis.op_lint``'s LM world on the mesh backend at 2 ranks: the
+    round's collectives equal ``op_budget.json``'s record (25 all-reduces:
+    the FedAvg sum's leaves, the server step's gradient, the gate's
+    accuracy), and a changed count fails."""
+    from repro_torch.analysis import op_lint
+
+    got = two_ranks["mesh_round"]
+    assert got == {"c10d.allreduce_": 25}
+    assert op_lint.check_mesh_budget(got) == []
+    assert op_lint.check_mesh_budget(dict(got, **{"c10d.allgather_": 1}))
+

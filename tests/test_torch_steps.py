@@ -310,6 +310,39 @@ def test_kernel_mode_step_with_a_mask_matches_jax_and_round_step():
     assert int((wi.abs().sum(1) == 0).sum()) == 2 * 256
 
 
+QWEN_T = get_config("qwen2-vl-7b").reduced()
+QWEN_J = jax_get_config("qwen2-vl-7b").reduced()
+
+
+def test_vlm_step_on_embeds_matches_jax():
+    """Reduced qwen2-vl-7b through the step on its ``embeds`` + 3-stream
+    ``positions`` batch: the token embedding table is not read, and its
+    gradient is zero (``jax.grad``'s), not an autograd error; two rounds
+    against the jitted JAX step at 1e-5."""
+    run_j, run_t = _run_cfgs(lr=3e-3, local_steps=1, server_tau=1,
+                             server_batch=2)
+    init_j, step_j = jsteps.make_fl_train_step(QWEN_J, run_j, 2)
+    sj = init_j(jax.random.key(3))
+    init_t, step_t = steps.make_fl_train_step(QWEN_T, run_t, 2,
+                                              device="cpu")
+    st = init_t(torch.Generator().manual_seed(0))
+    tree_map(lambda dst, src: dst.copy_(src), st["params"],
+             interop.params_from_jax(sj["params"], device="cpu"))
+    bj = jsteps.fl_batch_specs(QWEN_J, SHAPE_J, 2, run_j, abstract=False,
+                               seed=5)
+    bt = steps.fl_batch_specs(QWEN_T, SHAPE_T, 2, run_t, abstract=False,
+                              seed=5, device="cpu")
+    assert "embeds" in bt["client"] and "tokens" not in bt["client"]
+    embed = st["params"]["embed"].clone()
+    step_j = jax.jit(step_j)
+    for r in range(2):
+        sj, tj = step_j(sj, bj)
+        st, tt = step_t(st, bt)
+        _assert_trees_close(st["params"], sj["params"], what=f"round {r}")
+        assert abs(float(tt) - float(tj)) <= TOL
+    assert torch.equal(st["params"]["embed"], embed)
+
+
 def _lm_data():
     z = np.zeros
     return FederatedData(
