@@ -203,6 +203,9 @@ def sharded_decision(mesh):
 
 SERVE = dict(slots=4, cache_len=24, max_prompt=8, max_new_tokens=12,
              steps_per_wave=4)
+# case -> (arch, masked) of the mesh engine's 2-rank runs
+SERVED = {"dense": ("olmo-1b", False), "masked": ("olmo-1b", True),
+          "vlm": ("qwen2-vl-7b", False), "moe": ("arctic-480b", False)}
 
 
 def serving_world(arch: str):
@@ -239,9 +242,7 @@ def serving_mesh(mesh):
     """The mesh engine's completions on this rank, and whether every rank
     returned the same ones."""
     out = {}
-    for key, arch, masked in (("dense", "olmo-1b", False),
-                              ("masked", "olmo-1b", True),
-                              ("moe", "arctic-480b", False)):
+    for key, (arch, masked) in SERVED.items():
         got = serve(arch, masked, mesh)
         every = [None] * dist.get_world_size()
         dist.all_gather_object(every, got["done"])

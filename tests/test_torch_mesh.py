@@ -441,15 +441,14 @@ def test_sharded_decision_with_ragged_probes_is_the_host_decision(
             {k: v.tolist() for k, v in host.kept.items()}
 
 
-@pytest.mark.parametrize("key", ["dense", "masked", "moe"])
+@pytest.mark.parametrize("key", sorted(W.SERVED))
 def test_two_ranks_serve_the_mesh_less_tokens(two_ranks, key):
     """``DecodeEngine(mesh=)`` at 2 ranks: each rank decodes its 2 of 4
     slots (a moe model keeps all 4 on both) and every rank returns the
-    mesh-less engine's completions, token for token."""
+    mesh-less engine's completions, token for token (a reduced olmo-1b
+    dense and masked, qwen2-vl-7b fed tokens, arctic-480b)."""
     got = two_ranks["serving"][key]
-    arch, masked = {"dense": ("olmo-1b", False), "masked": ("olmo-1b", True),
-                    "moe": ("arctic-480b", False)}[key]
-    want = W.serve(arch, masked)
+    want = W.serve(*W.SERVED[key])
     assert got["split"] == ((0, 4) if key == "moe" else (0, 2))
     assert got["same_on_ranks"]
     assert got["done"] == want["done"] and got["steps"] == want["steps"]
