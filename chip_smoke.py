@@ -48,9 +48,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. training — a FedDUMAP ``FederatedTrainer`` run of ``fedap_plan(4,
               prune_round=2, mode="mask")`` in kernel mode, float32, at full
               width: olmo-1b (all 16 layers), then zamba2 (12 layers, two
-              groups), with each masked_matmul kernel's launch count
-              checked against the gradient evaluations, then timed and
-              profiled rounds;
+              groups), then qwen2-vl-7b (2 of 28 layers), with each
+              masked_matmul kernel's launch count checked against the
+              gradient evaluations, then timed and profiled rounds (every
+              round after the first on a state a CUDA graph replay);
 8. serving  — olmo-1b at full width, all 16 layers, bfloat16: the
               continuous-batching DecodeEngine over ``load_servable`` in
               dense, masked@0.5 and shrunk@0.5 modes, with each kernel's
@@ -187,8 +188,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               patches (K4 28, K1 56 masked a forward; the dense loss against
               ``"xla"``), serving through ``DecodeEngine`` (8 prompts of
               1-64 tokens, 32 new; K5 28, K1 56 masked a step; a profiled
-              wave and one under sync-debug "error"), then the training
-              phase's FedDUMAP plan in f32 at 3 of 28 layers (K1-K3);
+              wave and one under sync-debug "error"; the captured engine
+              against its eager body, ``[capture] qwen2-vl-7b dense``); its
+              training phase's FedDUMAP plan in f32 at 2 of 28 layers
+              (K1-K3) runs after phase 7's two, as ``training qwen2-vl``;
 22. whisper-parity — whisper-small reduced (2 + 2 layers, d 256, 64
               frames) with its own head layout (12 heads padded to 16, KV
               alongside), f32, card against CPU: the encoder, logits
@@ -234,7 +237,21 @@ Phases, in order; any failure raises and the script exits non-zero:
               and K5): completions token for token and launches equal to
               that phase's mesh-less engine, one wave and its all-gather
               under sync-debug "error", and waves of both engines timed in
-              turns (ms/step).
+              turns (ms/step);
+26. capture — the reference's compiled programs as CUDA graphs
+              (``core.programs``), each against its eager body: olmo-1b's
+              ``DecodeEngine`` at the serving phase's settings in dense,
+              masked@0.5 and shrunk@0.5 modes (completions token for token,
+              K1/K5 launches equal, ``program_counts()`` {"admit": 1,
+              "wave": 1}, replays under sync-debug "error", ms/step in
+              turns and busy share; qwen2-vl-7b dense in the vlm phase),
+              SimpleCNN's FedDUMAP round at the paper protocol and olmo-1b's
+              kernel-mode round (8 layers, f32): states and metrics bitwise
+              equal, s/round in turns, busy share and peaks; then
+              ``analysis.compile_budget.check(device="cuda")`` over the
+              local and serving scenarios.  Every other phase runs the
+              captured engine and rounds too: the training phases' rounds
+              after the first on a state are graph replays.
 
 Each phase after the build prints its peak device memory; ``[time]`` lines
 give each phase's wall seconds and the total.
@@ -244,6 +261,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -1743,27 +1761,62 @@ def phase_serving(torch) -> dict:
     return launches
 
 
-def _full_engine(torch, sv, scfg, prompts):
-    """An engine with every slot admitted and one wave run."""
+def _eager_programs(eng):
+    """``eng`` with its admit and wave programs made eager: the bodies its
+    captures hold, run op by op (keys still counted)."""
+    from repro_torch.core.programs import Program
+
+    eng._admit_program = Program(eng._admit_body, name="admit",
+                                 device=eng.device, capture=False)
+    eng._wave_program = Program(eng._wave_body, name="wave",
+                                device=eng.device, capture=False)
+    return eng
+
+
+def _eager_rounds(backend):
+    """``backend`` with its round program made eager (keys still
+    counted)."""
+    from repro_torch.core.programs import Program
+
+    backend.chunk = Program(backend._round_body, name="round",
+                            device=backend.device, capture=False)
+    return backend
+
+
+def _capture_wave(eng):
+    """Capture ``eng``'s wave program now (a program captures at its second
+    call), so that the next wave is a replay: a capture synchronizes."""
+    eng._wave_program.lower(eng._state, eng._params, eng._masks)
+    return eng
+
+
+def _full_engine(torch, sv, scfg, prompts, eager=False):
+    """An engine with every slot admitted and one wave run, its wave then
+    captured unless ``eager``."""
     from repro_torch.serving import DecodeEngine
 
     eng = DecodeEngine(sv.model, sv.params, scfg, masks=sv.masks,
                        device="cuda")
+    if eager:
+        _eager_programs(eng)
     for p in prompts[: scfg.slots]:
         eng.submit(p)
     eng.step_wave()
+    if not eager:
+        _capture_wave(eng)
     torch.cuda.synchronize()
     return eng
 
 
 def _profile_wave(torch, mode, sv, scfg, prompts):
-    """Where a decode step's time goes: the host-clock time of one wave
-    (no profiler), and the device time of the kernels of another wave under
-    torch.profiler — their ratio is the device's busy share.  Returns the
-    kernel ms per step, or None where the profiler saw no kernels."""
+    """Where a decode step's time goes: the host-clock time of one eager
+    wave (no profiler), and the device time of the kernels of another eager
+    wave under torch.profiler — their ratio is the eager wave's busy share
+    (the captured wave's is in the [capture] lines).  Returns the kernel ms
+    per step, or None where the profiler saw no kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    eng = _full_engine(torch, sv, scfg, prompts)
+    eng = _full_engine(torch, sv, scfg, prompts, eager=True)
     t0 = time.perf_counter()
     eng._wave()
     torch.cuda.synchronize()
@@ -1797,17 +1850,294 @@ def _profile_wave(torch, mode, sv, scfg, prompts):
 
 
 def _sync_free_wave(torch, sv, scfg, prompts) -> None:
-    """One wave of masked serving under sync-debug "error": any host sync
-    inside the decode steps raises."""
-    eng = _full_engine(torch, sv, scfg, prompts)
+    """One eager wave and one replay of the captured wave under sync-debug
+    "error": any host sync inside the decode steps raises.  (The capture
+    itself synchronizes on entry, so the engine captures first.)"""
+    for eager in (True, False):
+        eng = _full_engine(torch, sv, scfg, prompts, eager=eager)
+        replays = eng._wave_program.replays
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng._wave()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        require(eager or eng._wave_program.replays == replays + 1,
+                "the checked wave was not a replay")
+    log(f"[serving] one eager wave and one captured replay "
+        f"({scfg.steps_per_wave} steps each) ran under "
+        f"set_sync_debug_mode('error') without a host sync")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the captured programs (CUDA graphs) against their eager bodies
+# ---------------------------------------------------------------------------
+
+CAPTURE_TURNS = 2           # waves an engine runs in a timed turn
+CAPTURE_ROUNDS = 3          # rounds each backend runs before the turns
+CAPTURE_OLMO_LAYERS = 8     # olmo-1b's captured round: two states must fit
+
+
+def _graph_ms(torch, run) -> float:
+    """Device ms of ``run()`` (one replay) between two CUDA events."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def _capture_serving(torch, label, sv, scfg, prompts) -> None:
+    """The engine with captured programs against the same engine with its
+    eager bodies: completions token for token, K1 and K5 launches equal,
+    program counts {"admit": 1, "wave": 1}, replays clean under sync-debug
+    "error", ms/step of waves in turns, the device's busy share (one
+    replay's device time over each path's host-clock time) and peaks."""
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import masked_matmul as k1
+    from repro_torch.serving import DecodeEngine
+
+    tag = f"[capture] {label}"
+    runs = {}
+    for captured in (False, True):
+        eng = DecodeEngine(sv.model, sv.params, scfg, masks=sv.masks,
+                           device="cuda")
+        if not captured:
+            _eager_programs(eng)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        k5.launches = k1.launches = 0
+        t0 = time.perf_counter()
+        done = eng.run(prompts)
+        torch.cuda.synchronize()
+        runs[captured] = dict(
+            done=[(c.uid, c.tokens.tolist(), c.status) for c in done],
+            launches=(k5.launches, k1.launches), steps=eng.steps,
+            wall=time.perf_counter() - t0, counts=eng.program_counts(),
+            replays=eng._wave_program.replays,
+            peak=torch.cuda.max_memory_reserved() / 2**30)
+        del eng
+    e, c = runs[False], runs[True]
+    log(f"{tag}: {len(prompts)} requests, {c['steps']} steps: captured "
+        f"completions {'equal' if c['done'] == e['done'] else 'DIFFER'} "
+        f"token for token to the eager body's; launches K5/K1 captured "
+        f"{c['launches']} eager {e['launches']}; program_counts "
+        f"{c['counts']}, {c['replays']} wave replays (the first wave eager, "
+        f"the second captured); whole run "
+        f"{e['wall']:.3f} s eager, {c['wall']:.3f} s captured (capture "
+        f"included); peak reserved {e['peak']:.2f} GiB eager, "
+        f"{c['peak']:.2f} captured; {CARD}")
+    require(c["done"] == e["done"] and c["steps"] == e["steps"],
+            f"{tag}: captured completions differ from the eager body's")
+    require(c["launches"] == e["launches"],
+            f"{tag}: K5/K1 launches {c['launches']} against {e['launches']}")
+    require(c["counts"] == {"admit": 1, "wave": 1}
+            and c["replays"] == c["steps"] // scfg.steps_per_wave - 1,
+            f"{tag}: programs {c['counts']}, {c['replays']} replays")
+
+    engines = {eager: _full_engine(torch, sv, scfg, prompts, eager=eager)
+               for eager in (True, False)}
+    eng = engines[False]
+    replays = eng._wave_program.replays
     torch.cuda.set_sync_debug_mode("error")
     try:
+        eng._wave()
         eng._wave()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    log(f"[serving] one wave ({scfg.steps_per_wave} steps) ran under "
-        f"set_sync_debug_mode('error') without a host sync")
+    require(eng._wave_program.replays == replays + 2,
+            f"{tag}: the sync-checked waves were not replays")
+    ms = {True: [], False: []}
+    for eager in (True, False, False, True):
+        e = engines[eager]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CAPTURE_TURNS):
+            e.step_wave()
+        torch.cuda.synchronize()
+        ms[eager].append(1e3 * (time.perf_counter() - t0)
+                         / (CAPTURE_TURNS * scfg.steps_per_wave))
+    dev = _graph_ms(torch, eng._wave) / scfg.steps_per_wave
+    me, mc = sum(ms[True]) / 2, sum(ms[False]) / 2
+    log(f"{tag}: two replays under set_sync_debug_mode('error') without a "
+        f"host sync; ms/step in turns (eager, captured, captured, eager; "
+        f"{CAPTURE_TURNS} waves of {scfg.steps_per_wave} steps each): eager "
+        f"{me:.3f} {[round(t, 3) for t in ms[True]]}, captured {mc:.3f} "
+        f"{[round(t, 3) for t in ms[False]]} ({me / mc:.2f}x); a replay's "
+        f"device time {dev:.3f} ms/step -> busy {100 * dev / me:.1f}% "
+        f"eager, {100 * dev / mc:.1f}% captured; {CARD}")
+    del engines, eng
+    gc.collect()                # the captured engines' graphs and pools
+    torch.cuda.empty_cache()
+
+
+def _capture_rounds(torch, label, make_backend, params) -> None:
+    """Two backends drawing from generators seeded alike, one with the
+    round program captured (the default) and one eager, CAPTURE_ROUNDS
+    rounds each from one start: states and metrics bitwise equal, every
+    captured round after the first a replay; then rounds timed in turns
+    (eager, captured, captured, eager), the device's busy share (one
+    replay's device time over each path's host-clock time) and peaks."""
+    from repro_torch.core.backend import deterministic_cudnn
+    from repro_torch.utils.tree import tree_leaves
+
+    tag = f"[capture] {label}"
+    backends, states, mets, peak = {}, {}, {}, {}
+    for eager in (False, True):
+        be = make_backend()
+        if eager:
+            _eager_rounds(be)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with deterministic_cudnn():     # as the plan executor runs rounds
+            st, m = be.run_rounds(be.init_state(params), 0, CAPTURE_ROUNDS)
+        torch.cuda.synchronize()
+        peak[eager] = (torch.cuda.max_memory_allocated() / 2**30,
+                       torch.cuda.max_memory_reserved() / 2**30)
+        backends[eager], states[eager], mets[eager] = be, st, m
+    cap, eag = backends[False], backends[True]
+    diff = [i for i, (a, b) in enumerate(zip(tree_leaves(states[False]),
+                                             tree_leaves(states[True])))
+            if not torch.equal(a, b)]
+    same_m = all(torch.equal(a[k], b[k]) for a, b in
+                 zip(mets[False], mets[True]) for k in a)
+    ids = {id(a[k]) for a in mets[False] for k in a}
+    log(f"{tag}: {CAPTURE_ROUNDS} rounds captured against eager from one "
+        f"start and one draw: {len(tree_leaves(states[False]))} state "
+        f"tensors, {len(diff)} differ; metrics "
+        f"{'bitwise equal' if same_m else 'DIFFER'}; {cap.chunk.replays} "
+        f"replays (round 1 eager, round 2 captured), "
+        f"{cap.chunk.captures} capture; peak allocated / "
+        f"reserved {peak[True][0]:.2f} / {peak[True][1]:.2f} GiB eager, "
+        f"{peak[False][0]:.2f} / {peak[False][1]:.2f} captured; {CARD}")
+    if diff:
+        leaves = list(zip(tree_leaves(states[False]),
+                          tree_leaves(states[True])))
+        worst = max(float((a.float() - b.float()).abs().max())
+                    / max(float(b.float().abs().max()), 1e-30)
+                    for a, b in (leaves[i] for i in diff))
+        log(f"{tag}: largest difference over a leaf's max {worst:.3e}")
+    require(not diff and same_m, f"{tag}: the captured rounds differ from "
+            f"the eager ones (state leaves {diff})")
+    require(cap.chunk.replays == CAPTURE_ROUNDS - 1
+            and cap.chunk._cache_size() == cap.chunk.captures == 1
+            and len(ids) == 3 * CAPTURE_ROUNDS,
+            f"{tag}: {cap.chunk.replays} replays, "
+            f"{cap.chunk.captures} captures, {len(ids)} metric tensors")
+    secs = {True: [], False: []}
+    for eager in (True, False, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with deterministic_cudnn():
+            backends[eager].run_rounds(states[eager], CAPTURE_ROUNDS, 1)
+        torch.cuda.synchronize()
+        secs[eager].append(time.perf_counter() - t0)
+    capture = next(iter(cap.chunk._cache.values()))
+    dev = _graph_ms(torch, lambda: capture.graph.replay()) / 1e3
+    se, sc = sum(secs[True]) / 2, sum(secs[False]) / 2
+    log(f"{tag}: s/round in turns (eager, captured, captured, eager): eager "
+        f"{se:.4f} {[round(x, 4) for x in secs[True]]}, captured {sc:.4f} "
+        f"{[round(x, 4) for x in secs[False]]} ({se / sc:.2f}x); a replay's "
+        f"device time {dev:.4f} s -> busy {100 * dev / se:.1f}% eager, "
+        f"{100 * dev / sc:.1f}% captured; {CARD}")
+    del backends, states, mets, cap, eag, capture
+    gc.collect()                # the captured backend's graph and its pool
+    torch.cuda.empty_cache()
+
+
+def phase_capture(torch) -> dict:
+    """The reference's compiled programs as CUDA graphs: olmo-1b's
+    DecodeEngine (dense, masked@0.5, shrunk@0.5 at the serving phase's
+    settings), SimpleCNN's FedDUMAP round at the paper protocol and
+    olmo-1b's kernel-mode round (CAPTURE_OLMO_LAYERS layers, f32), each
+    against its eager body; then ``analysis.compile_budget.check`` over the
+    local and serving scenarios on the card.  Returns {kernel name:
+    launches} of the captured engines' runs."""
+    import numpy as np
+
+    from repro_torch import experiments
+    from repro_torch.analysis import compile_budget
+    from repro_torch.configs import get_config
+    from repro_torch.core.backend import LocalBackend
+    from repro_torch.core.pruning import FedAPConfig
+    from repro_torch.core.rounds import feddumap_config
+    from repro_torch.data.pipeline import build_federated_data
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import masked_matmul as k1
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import ServeConfig, load_servable
+
+    launches = {"decode_attention": 0, "masked_matmul": 0}
+    cfg = get_config("olmo-1b")
+    model = LM(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))  # lint: generator-ok (every stream of this phase is seed 0 on purpose: each model is its phase's seed-0 init, and the captured and eager backends must draw alike)
+    source = {"params": params, "kept": model.decide_kept(params, 0.5),
+              "mode": "mask", "model_config": cfg}
+    scfg = ServeConfig(slots=8, cache_len=512, max_prompt=64,
+                       max_new_tokens=64, steps_per_wave=8)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(1, 65)))
+               .astype(np.int32) for _ in range(16)]
+    for mode in ("dense", "masked", "shrunk"):
+        src = source if mode != "dense" else {**source, "kept": None}
+        sv = load_servable(src, mode, device="cuda")
+        n5, n1 = k5.launches, k1.launches
+        _capture_serving(torch, f"olmo-1b {mode}", sv, scfg, prompts)
+        launches["decode_attention"] += k5.launches - n5
+        launches["masked_matmul"] += k1.launches - n1
+        del sv
+    del params, source, src, model
+    torch.cuda.empty_cache()
+
+    data = build_federated_data(
+        num_clients=experiments.NUM_CLIENTS, server_fraction=0.05,
+        device_pool=experiments.DEVICE_POOL, spec=experiments.SPEC, seed=0)
+    fl = feddumap_config(**experiments.COMMON, seed=0,
+                         fedap=FedAPConfig(probe_size=32, participants=6))
+    cnn = experiments.make_model("cnn", "cuda")
+    _capture_rounds(
+        torch, f"SimpleCNN FedDUMAP round (paper protocol: {fl.clients_per_round}"
+        f" clients x {fl.local_epochs} epochs, masks on)",
+        lambda: LocalBackend(cnn, data, fl, use_masks=True, device="cuda",
+                             generator=torch.Generator(
+                                 device="cuda").manual_seed(0)),
+        cnn.init(torch.Generator(device="cuda").manual_seed(0)))
+
+    trainer = _olmo_trainer(torch, num_layers=CAPTURE_OLMO_LAYERS)
+    params = trainer.model.init(
+        torch.Generator(device="cuda").manual_seed(0))
+    n = {k: getattr(k1, k) for k in ("launches", "dx_launches",
+                                     "dw_launches")}
+    _capture_rounds(
+        torch, f"olmo-1b kernel-mode round ({CAPTURE_OLMO_LAYERS} layers, "
+        f"f32)",
+        lambda: LocalBackend(trainer.model, trainer.data, trainer.cfg,
+                             use_masks=True, device="cuda",
+                             generator=torch.Generator(
+                                 device="cuda").manual_seed(0)),
+        params)
+    log(f"[capture] olmo-1b rounds: K1/K2/K3 launched "
+        f"{ {k: getattr(k1, k) - v for k, v in n.items()} } over both "
+        f"backends' {2 * (CAPTURE_ROUNDS + 2)} rounds (the timed replay "
+        f"runs no wrapper); {CARD}")
+    del trainer, params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    todo = [sc for sc in compile_budget.scenarios() if sc.backend == "local"]
+    errors = compile_budget.check(scenario_list=todo, device="cuda")
+    for e in errors:
+        log(f"[capture] compile_budget FAIL {e}")
+    log(f"[capture] compile_budget.check(device='cuda'): {len(todo)} local "
+        f"and serving scenarios, {len(errors)} violation(s) in "
+        f"{time.perf_counter() - t0:.1f} s; {CARD}")
+    require(not errors, "compile budget exceeded on the card")
+    return launches
 
 
 # zamba2 serving: 8 sequences, prompts of 64 tokens, 32 new, 512 cache rows;
@@ -3551,6 +3881,7 @@ def _nan_logits_wave(torch) -> None:
     clean = DecodeEngine(model, params, scfg, device="cuda").run(prompts)
     eng = DecodeEngine(model, params, scfg, device="cuda",
                        faults=(NaNLogits(slot=1, n_out=3),))
+    eng.lower_wave()    # the capture (which synchronizes) before any wave
     inner = eng._wave
 
     def checked_wave():
@@ -3562,6 +3893,8 @@ def _nan_logits_wave(torch) -> None:
 
     eng._wave = checked_wave
     got = eng.run(prompts)
+    require(eng._wave_program.replays == eng.steps // scfg.steps_per_wave,
+            f"{tag}: {eng._wave_program.replays} of the waves were replays")
     status = [c.status for c in got]
     log(f"{tag}: {len(got)} requests, NaNLogits(slot=1, n_out=3), every wave "
         f"under set_sync_debug_mode('error'): status {status}; uid 1 emitted "
@@ -4645,7 +4978,9 @@ def phase_vlm_parity(torch) -> None:
 VLM_SCORE = (4, 64, (32, 32), 960)      # B; text, patch grid, text
 VLM_SERVE = dict(slots=8, cache_len=512, max_prompt=64, max_new_tokens=32,
                  steps_per_wave=8)
-VLM_TRAIN_LAYERS = 3    # of qwen2-vl-7b's 28, f32: 4 peaked at 75.2 GiB
+# of qwen2-vl-7b's 28, f32: 4 peaked at 75.2 GiB eagerly; at 3 the captured
+# round's graph pool (42.9 GiB) left too little for the FedAP decision
+VLM_TRAIN_LAYERS = 2
 VLM_PROFILE_STEPS = 2   # steps of the profiled wave (~1900 launches a step)
 VLM_XLA_TOL = 1e-2      # bf16 loss, "pallas" against "xla", relative
 
@@ -4662,8 +4997,10 @@ def phase_vlm(torch) -> dict:
     through ``DecodeEngine`` (8 prompts of 1-64 tokens, 32 new; K5 28 a
     step, K1 56 masked; a profiled wave of :data:`VLM_PROFILE_STEPS` steps,
     a wave under sync-debug "error");
-    then FedDUMAP training in f32 cut to :data:`VLM_TRAIN_LAYERS` layers
-    (:func:`phase_training`: K1-K3).  Returns {kernel name: launches}."""
+    its FedDUMAP training in f32, cut to :data:`VLM_TRAIN_LAYERS` layers,
+    is the ``training qwen2-vl`` phase (:func:`phase_training`: K1-K3),
+    run beside the other training phases on a card with nothing else
+    held.  Returns {kernel name: launches}."""
     import dataclasses
 
     import numpy as np
@@ -4781,6 +5118,8 @@ def phase_vlm(torch) -> dict:
         _profile_wave(torch, f"qwen2-vl-7b {mode}", sv, dataclasses.replace(
             scfg, steps_per_wave=VLM_PROFILE_STEPS), prompts)
         _sync_free_wave(torch, sv, scfg, prompts)
+        if mode == "dense":
+            _capture_serving(torch, "qwen2-vl-7b dense", sv, scfg, prompts)
         del sv, eng, done
         torch.cuda.empty_cache()
     log(f"[vlm] qwen2-vl-7b scoring losses dense {losses['dense']:.6f}, "
@@ -4790,15 +5129,12 @@ def phase_vlm(torch) -> dict:
     require(abs(losses["masked"] - losses["shrunk"])
             <= 2e-2 * losses["shrunk"], "scoring qwen2-vl: masked and shrunk "
             "losses disagree")
-    del params, source, batch, forward
+    del params, source, src, batch, forward
+    gc.collect()
     torch.cuda.empty_cache()
     log(f"[vlm] scoring and serving part: {time.perf_counter() - t_part:.1f}"
-        f" s")
-    t_part = time.perf_counter()
-    for name, n in phase_training(torch, "qwen2-vl-7b",
-                                  num_layers=VLM_TRAIN_LAYERS).items():
-        launches[name] = launches.get(name, 0) + n
-    log(f"[vlm] training part: {time.perf_counter() - t_part:.1f} s")
+        f" s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
+        f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} reserved")
     return launches
 
 
@@ -5555,6 +5891,7 @@ def _serving_mesh(torch, mesh) -> dict:
     for p in prompts[: scfg.slots]:
         eng.submit(p)
     eng.step_wave()
+    _capture_wave(eng)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -5563,9 +5900,11 @@ def _serving_mesh(torch, mesh) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    log(f"[serving mesh] one wave ({scfg.steps_per_wave} steps) and its "
-        f"all-gather ran under set_sync_debug_mode('error') without a host "
-        f"sync")
+    require(eng._wave_program.replays == 1,
+            "serving mesh: the sync-checked wave was not a replay")
+    log(f"[serving mesh] one captured wave ({scfg.steps_per_wave} steps, a "
+        f"replay) and its all-gather ran under set_sync_debug_mode('error') "
+        f"without a host sync")
 
     # waves in turns: mesh-less, mesh, mesh, mesh-less (every slot busy)
     engines = {}
@@ -5599,8 +5938,11 @@ CARD = ""                   # nvidia-smi's name and power limit of the card
 
 def _phase(torch, name, fn, *args):
     """Run one phase with the device's peak memory and its wall time
-    measured around it."""
+    measured around it.  A backend or an engine and its programs form a
+    reference cycle, so an earlier phase's CUDA graphs (and their memory
+    pools) go when the collector runs: collect first."""
     torch.cuda.synchronize()
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -5638,6 +5980,8 @@ def main() -> int:
             ("training", lambda: phase_training(torch)),
             ("training zamba2", lambda: phase_training(
                 torch, "zamba2-1.2b", num_layers=12)),
+            ("training qwen2-vl", lambda: phase_training(
+                torch, "qwen2-vl-7b", num_layers=VLM_TRAIN_LAYERS)),
             ("serving", lambda: phase_serving(torch)),
             ("serving zamba2", lambda: phase_serving_hybrid(torch)),
             ("score-parity", lambda: phase_score_parity(torch) or {}),
@@ -5656,7 +6000,8 @@ def main() -> int:
             ("whisper-parity", lambda: phase_whisper_parity(torch)),
             ("whisper", lambda: phase_whisper(torch)),
             ("steps", lambda: phase_steps(torch)),
-            ("mesh", lambda: phase_mesh(torch))):
+            ("mesh", lambda: phase_mesh(torch)),
+            ("capture", lambda: phase_capture(torch))):
         for name, n in _phase(torch, label, path).items():
             launches[name] = launches.get(name, 0) + n
     import torch.distributed as dist

@@ -16,6 +16,10 @@ meaning, on the CPU:
   ``is_nonzero``, ``nonzero`` or ``equal`` recorded between the round's or
   the wave's first and last operation (the card's check is
   ``torch.cuda.set_sync_debug_mode("error")``; this one runs anywhere).
+* **No host-made tensor** inside a round or a wave: no ``lift_fresh`` (a
+  tensor made from a host value, ``torch.tensor(x)``), which on the card is
+  a host-to-device copy that a CUDA graph capture refuses.  The wave is the
+  one ``DecodeEngine.lower_wave`` records.
 * **The mesh backend's collectives a round** at 2 gloo ranks (the LM
   world, kernel mode) equal the count recorded in ``op_budget.json``, the
   part the reference's ``compile_budget.json`` ``"hlo"`` section plays: a
@@ -35,6 +39,9 @@ import torch
 
 from repro_torch.launch.cost import HOST_READS, CostCounter
 
+# a tensor made from a host value (``torch.tensor``, ``torch.as_tensor``)
+HOST_MADE = ("aten.lift_fresh", "aten.lift_fresh_copy")
+
 BUDGET_PATH = pathlib.Path(__file__).with_name("op_budget.json")
 MESH_RANKS = 2
 
@@ -52,6 +59,10 @@ def host_reads(ops: list) -> list[str]:
     return [name for name, _ in ops if name in HOST_READS]
 
 
+def host_made(ops: list) -> list[str]:
+    return [name for name, _ in ops if name in HOST_MADE]
+
+
 def collectives(ops: list) -> list[str]:
     return [name for name, _ in ops if name.startswith("c10d.")]
 
@@ -66,6 +77,10 @@ def check_stream(label: str, ops: list, *, mesh_less: bool = True
     if host_reads(ops):
         errors.append(f"{label}: host read(s) inside it: "
                       f"{sorted(set(host_reads(ops)))}")
+    if host_made(ops):
+        errors.append(f"{label}: {len(host_made(ops))} tensor(s) made from a "
+                      f"host value inside it (a copy a CUDA graph capture "
+                      f"refuses)")
     if mesh_less and collectives(ops):
         errors.append(f"{label}: collectives in a single-device program: "
                       f"{sorted(set(collectives(ops)))}")
@@ -135,16 +150,14 @@ def lm_world(backend: str = "local"):
 
 
 def record_round(trainer, params, *, use_masks: bool = False) -> list:
-    """The operations of round 0's ``round_core`` (its batch drawn first,
-    outside the record)."""
-    from repro_torch.core import engine
-
+    """The operations of round 0's round program (the batch's gather and
+    ``round_core``: what the card captures), its indices drawn first,
+    outside the record."""
     be = trainer.backend(use_masks=use_masks)
     state = be.init_state(params)
-    batch = be.round_batch(0)
+    inputs = be._round_inputs(0)
     with CostCounter(record=True) as c:
-        engine.round_core(be.eng, be.grad_fn, be.la_fn, state, batch,
-                          be._round_shard())
+        be._round_body(state, inputs)
     return c.ops
 
 
@@ -164,9 +177,7 @@ def record_wave(*, masked: bool = False) -> list:
     for p in ([3, 1], [5, 9, 2]):
         eng.submit(np.asarray(p, np.int32))
     eng.step_wave()
-    with CostCounter(record=True) as c:
-        eng._wave()
-    return c.ops
+    return eng.lower_wave().ops
 
 
 # ---------------------------------------------------------------------------

@@ -9,12 +9,20 @@ and drives a backend: :class:`LocalBackend`, which runs the rounds of
 :class:`MeshBackend`, the same rounds with the clients split over the ranks
 of a ``torch.distributed`` device mesh.
 
-Where the reference compiles a scan chunk, the port runs one eager round
-after another, and a ``Prune(mode="mask")`` writes the masks into the
-existing state tensors (``copy_``/``mul_``/``zero_``): every state tensor
-keeps its storage and shape, the eager analogue of the reference's "zero
-added programs".  A shrink gathers the kept indices into new tensors, so it
-reads the old state before anything is reused.  The state changes in
+Where the reference compiles a scan chunk, the port runs each round
+through one round program (``LocalBackend.chunk``, a
+:class:`~repro_torch.core.programs.Program`): on the card the first round
+on a state runs eagerly, the second is captured as a CUDA graph and
+replayed, and every later round on that state is one replay, whatever the
+chunk's length.  The
+round's indices are drawn outside the program, as before, and copied into
+input buffers kept across rounds; the gather of the batch runs inside it.
+A ``Prune(mode="mask")`` writes the masks into the existing state tensors
+(``copy_``/``mul_``/``zero_``): every state tensor keeps its storage and
+shape, so the capture replays on, the reference's "zero added programs".
+A shrink gathers the kept indices into new tensors (it reads the old state
+before anything is reused), and the new state is a new program, as a
+``Callback``'s new params and a resumed state are.  The state changes in
 place, so a ``Snapshot`` or a ``Callback`` gets a copy of the params taken
 at the event (the reference loans its immutable arrays and copies them
 lazily).
@@ -45,7 +53,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.core import engine, pruning
+from repro_torch.core import engine, programs, pruning
 from repro_torch.core.engine import EngineConfig
 from repro_torch.core.plan import (
     Callback,
@@ -59,7 +67,7 @@ from repro_torch.core.plan import (
 )
 from repro_torch.reliability import checkpoint as ckpt
 from repro_torch.reliability.faults import SimulatedCrash, host_faults
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 def model_fns(model, eng: EngineConfig):
@@ -152,17 +160,20 @@ def masked_round_state(state: dict, masks: Any, filter_masks: Any = None
 
 
 class LocalBackend:
-    """Rounds on one device, eagerly, with the whole federated dataset
-    resident there.
+    """Rounds on one device, with the whole federated dataset resident
+    there, each round through the round program :attr:`chunk` (captured on
+    the card: see the module docstring).
 
     ``batches`` (optional) is a per-round batch source: ``batches(t)``
     returns round ``t``'s ``round_core`` batch (0-based over the run; numpy
     or tensors).  Without it, rounds sample with :func:`engine.
-    draw_round_indices` from ``generator``.
+    draw_round_indices` from ``generator``.  Evaluation stays eager, as the
+    reference keeps its eval program outside its budget.
     """
 
     name = "local"
     is_writer = True    # writes the plan's checkpoints
+    captures = True     # the round program is a CUDA graph on the card
 
     def __init__(self, model, data, cfg, *, use_masks: bool = False,
                  device, generator: torch.Generator | None = None,
@@ -178,6 +189,10 @@ class LocalBackend:
         self.generator = generator
         self.batches = batches
         self._data = None
+        self._inputs: dict = {}     # a round's input buffers, by shapes
+        self.chunk = programs.Program(self._round_body, name="round",
+                                      device=self.device,
+                                      capture=self.captures)
 
     @property
     def _kernel_masks(self) -> bool:
@@ -236,22 +251,56 @@ class LocalBackend:
         """Round ``t``'s batch: from the injected source, or drawn.  Where a
         mesh splits the clients, ``"client"`` holds only this rank's (every
         rank draws the same indices)."""
-        shard = self._round_shard()
-        mine = shard.clients if shard is not None else None
+        return self._batch(self._source(t))
+
+    def _source(self, t: int):
+        """Round ``t``'s inputs: the injected batch, or the drawn indices
+        (``draw_round_indices``' tuple)."""
         if self.batches is not None:
-            batch = tree_map(lambda a: _tensor(a, self.device),
-                             self.batches(t))
-            if mine is not None:
-                batch["client"] = tree_map(
-                    lambda x: x[mine.start:mine.stop], batch["client"])
-            return batch
+            return tree_map(lambda a: _tensor(a, self.device),
+                            self.batches(t))
         d = self.device_data()
-        kw = self.sample_kw
-        draws = engine.draw_round_indices(
+        return engine.draw_round_indices(
             self.generator, num_clients=int(d["client_x"].shape[0]),
             n_k=int(d["client_x"].shape[1]),
-            n0=int(d["server_x"].shape[0]), **kw)
-        return engine.sample_round_batches(d, *draws, **kw, clients=mine)
+            n0=int(d["server_x"].shape[0]), **self.sample_kw)
+
+    def _batch(self, src) -> dict:
+        """The ``round_core`` batch of a round's inputs (the gather at the
+        drawn indices, or the injected batch's rows of this rank)."""
+        shard = self._round_shard()
+        mine = shard.clients if shard is not None else None
+        if self.batches is None:
+            return engine.sample_round_batches(self.device_data(), *src,
+                                               **self.sample_kw,
+                                               clients=mine)
+        batch = dict(src)
+        if mine is not None:
+            batch["client"] = tree_map(lambda x: x[mine.start:mine.stop],
+                                       batch["client"])
+        return batch
+
+    def _round_inputs(self, t: int):
+        """Round ``t``'s inputs copied into buffers kept across rounds (one
+        set per structure and shapes), so that every round on a state runs
+        the round program on the same storages."""
+        src = self._source(t)
+        key = repr(tree_map(lambda x: (tuple(x.shape), x.dtype), src))
+        buf = self._inputs.get(key)
+        if buf is None:
+            buf = self._inputs[key] = tree_map(torch.empty_like, src)
+        tree_map(lambda b, x: b.copy_(x), buf, src)
+        return buf
+
+    def _round_body(self, state: dict, inputs) -> dict:
+        """The round program: the batch gathered from ``inputs``, one
+        ``round_core`` on ``state`` in place, every state tensor left in the
+        storage it started in; returns the round's metrics."""
+        old = tree_leaves(state)
+        _, met = engine.round_core(self.eng, self.grad_fn, self.la_fn, state,
+                                   self._batch(inputs), self._round_shard())
+        programs.settle(state, old)
+        return met
 
     def barrier(self) -> None:
         """Wait for the other ranks (none here)."""
@@ -260,15 +309,13 @@ class LocalBackend:
         return None
 
     def run_rounds(self, state: dict, t: int, n: int):
-        """Rounds ``t .. t+n-1`` on ``state`` (in place); returns (state,
-        per-round metrics)."""
+        """Rounds ``t .. t+n-1`` on ``state`` (in place), each through the
+        round program; returns (state, per-round metrics), each round's
+        metrics tensors of its own (a replay overwrites the program's)."""
         mets = []
         for r in range(t, t + n):
-            state, met = engine.round_core(self.eng, self.grad_fn,
-                                           self.la_fn, state,
-                                           self.round_batch(r),
-                                           self._round_shard())
-            mets.append(met)
+            met = self.chunk(state, self._round_inputs(r))
+            mets.append(tree_map(torch.clone, met))
         return state, mets
 
     def evaluate(self, state):
@@ -357,6 +404,11 @@ class MeshBackend(LocalBackend):
       state tensor keeps its storage and shape); a shrink runs on each
       rank as on one device.
     * Rank 0 writes the plan's checkpoints; every rank reads them back.
+    * The rounds stay eager on the card: :attr:`chunk` counts its keys as
+      the local backend's does but never captures.  A round calls
+      ``dist.all_reduce`` once per tensor (:meth:`_reduce`), each call on
+      the host; capturing the round waits for a flat-bucket reduce
+      (ROADMAP).
 
     Other mesh dims than the client axes must have size 1.  At a world of
     one every sum over the ranks is a copy, and the run is bitwise the
@@ -365,6 +417,7 @@ class MeshBackend(LocalBackend):
     """
 
     name = "mesh"
+    captures = False
 
     def __init__(self, model, data, cfg, *, use_masks: bool = False,
                  device, generator: torch.Generator | None = None,

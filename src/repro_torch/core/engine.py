@@ -792,8 +792,10 @@ def sample_round_batches(data: dict, sel, idx, sidx, active=None, *,
         "server": (sx, sy),
         "d_round": niid.non_iid_degree(p_round, data["p_bar"]),
         "d_server": data["d_server"],
-        "n0": torch.tensor(float(data["server_y"].shape[0]),
-                           dtype=torch.float32, device=sel.device),
+        # a fill on the device: a host-made tensor is a copy that a CUDA
+        # graph capture refuses
+        "n0": torch.full((), float(data["server_y"].shape[0]),
+                         dtype=torch.float32, device=sel.device),
         "sel": sel.to(torch.int32),
     }
     if active is not None:

@@ -64,7 +64,7 @@ def tau_eff(cfg: FedDUConfig, *, acc, round_idx, n0, n_prime, d_round,
     den = num + n_prime * _f32(d_server).to(dev) + cfg.eps
     gate = f_prime(acc, cfg.f_prime_kind, cfg.eps)
     t = _f32(round_idx).to(dev)
-    return gate * (num / den) * cfg.C * (cfg.decay ** t) * _f32(tau).to(dev)
+    return gate * (num / den) * cfg.C * (cfg.decay ** t) * tau
 
 
 def normalized_server_gradient(params: Any, server_batches: Sequence,

@@ -34,6 +34,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SPLIT_ROWS = 128      # the most cache rows a split holds
 # (device index, stream) -> (floats, counters, f32 workspace, int32 counters)
 _scratch: dict = {}
+# workspaces a larger one replaced: a captured graph (``core.programs``) may
+# still address them, so they are never freed
+_retired: list = []
 
 
 def decode_splits(s: int) -> int:
@@ -77,6 +80,8 @@ def _workspace(device, stream: int, floats: int, counters: int):
     the kernel leaves the counters at zero."""
     have = _scratch.get((device.index, stream))
     if have is None or have[0] < floats or have[1] < counters:
+        if have is not None:
+            _retired.append(have)
         have = (floats, counters,
                 torch.empty(floats, dtype=torch.float32, device=device),
                 torch.zeros(counters, dtype=torch.int32, device=device))

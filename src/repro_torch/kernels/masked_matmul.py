@@ -75,6 +75,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (device index, stream, N) -> int32 decode workspace: arrival counters, then
 # f32 partials
 _scratch: dict = {}
+# workspaces a larger one replaced: a captured graph (``core.programs``) may
+# still address them, so they are never freed
+_retired: list = []
 
 
 def decode_plan(m: int, k: int, n: int, sms: int) -> tuple[int, int]:
@@ -132,6 +135,8 @@ def _workspace(device, stream: int, n: int, elems: int):
     key = (device.index, stream, n)
     have = _scratch.get(key)
     if have is None or have.numel() < elems:
+        if have is not None:
+            _retired.append(have)
         have = torch.zeros(elems, dtype=torch.int32, device=device)
         _scratch[key] = have
     return have

@@ -108,7 +108,7 @@ def _group_mean(xg):
     ``jnp.mean``: the sum times the float32 reciprocal of the count."""
     n = xg.shape[2] * xg.shape[3] * xg.shape[4]
     return xg.sum(dim=(2, 3, 4), keepdim=True) * torch.reciprocal(
-        torch.tensor(float(n), dtype=xg.dtype, device=xg.device))
+        torch.full((), float(n), dtype=xg.dtype, device=xg.device))
 
 
 def _mask_channels(h, masks, name):

@@ -33,8 +33,19 @@ FedAP-pruned) checkpoint is served from a fixed pool of decode slots.
   rank (and, when some slot finished, a second one its count, tokens and
   error bit), so every rank returns the same completions.
 
-Where the reference compiles two programs (admit, wave), the port runs
-eagerly; capturing the wave as a CUDA graph is later work.
+* **Two programs.**  As the reference compiles exactly two programs, the
+  engine keeps two ``core.programs.Program`` objects, and on
+  the card each is a CUDA graph: ``admit`` (one fixed-shape write of an
+  ``[slots]`` admit mask, ``[slots, max_prompt]`` prompts and ``[slots]``
+  lengths, which the host fills in one pinned buffer and copies in once)
+  and ``wave`` (``steps_per_wave`` steps, every state tensor left in the
+  storage it started in).  Each runs eagerly the first time, is captured
+  the second and replayed from then on, for every later admission and
+  wave (:meth:`DecodeEngine.program_counts`);
+  :meth:`DecodeEngine.lower_wave` gives the wave program and one wave's
+  recorded operations without running it on the engine's state.  On the
+  CPU both run eagerly and count their keys.  On a mesh the wave's steps
+  are captured and the all-gather after them stays eager.
 """
 from __future__ import annotations
 
@@ -46,8 +57,9 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch.core import programs
 from repro_torch.sharding import fl_specs, specs
-from repro_torch.utils.tree import tree_leaves
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,6 +180,19 @@ class DecodeEngine:
         if mesh is not None:
             self._split(mesh, mesh_axis)
         self._state = self._init_state()
+        # the admit program's input: per slot of this rank [admit, length,
+        # prompt...], filled on the host (pinned on the card) after the
+        # wave's host read and copied in once
+        width = 2 + self.cfg.max_prompt
+        self._adm = torch.zeros((self._n, width), dtype=torch.int32,
+                                device=self.device)
+        self._adm_host = torch.zeros(
+            (self._n, width), dtype=torch.int32,
+            pin_memory=self.device.type == "cuda")
+        self._admit_program = programs.Program(
+            self._admit_body, name="admit", device=self.device)
+        self._wave_program = programs.Program(
+            self._wave_body, name="wave", device=self.device)
         self._occupants: list[Optional[tuple[int, np.ndarray]]] = \
             [None] * self.cfg.slots
         self._queue: collections.deque = collections.deque()
@@ -246,32 +271,37 @@ class DecodeEngine:
         """The state of this rank's slots (all of them without a mesh)."""
         return self._make_state(self.model, self._n)
 
-    @torch.inference_mode()
     def _admit(self, slots: list, prompts: np.ndarray, plens: np.ndarray):
-        """Write queued requests into freed slots: one host-to-device copy
-        of the padded prompts.  A slot's cache page is not cleared — index 0
-        regrows the valid prefix, so the previous occupant's rows are only
-        attended after being overwritten.  A rank writes only the slots it
-        owns."""
-        mine = [i for i, s in enumerate(slots)
-                if self._lo <= s < self._lo + self._n]
-        if not mine:
-            return
-        slots = [slots[i] - self._lo for i in mine]
-        prompts, plens = prompts[mine], plens[mine]
-        st = self._state
-        dev = self.device
-        rows = torch.as_tensor(slots, dtype=torch.int64).to(dev)
-        prm = torch.from_numpy(prompts).to(dev)
-        st["cache"]["index"][rows] = 0
-        st["active"][rows] = True
-        st["prompt"][rows] = prm
-        st["prompt_len"][rows] = torch.from_numpy(plens).to(dev)
-        st["last_tok"][rows] = prm[:, 0]
-        st["n_out"][rows] = 0
-        st["error"][rows] = False
+        """Write queued requests into freed slots through the admit program:
+        the host fills the admit buffer for this rank's slots (the others'
+        rows stay 0: not admitted) and copies it to the device once."""
+        host = self._adm_host.numpy()
+        host[:] = 0
+        for slot, prompt, plen in zip(slots, prompts, plens):
+            if self._lo <= slot < self._lo + self._n:
+                host[slot - self._lo] = (1, plen, *prompt)
+        self._adm.copy_(self._adm_host, non_blocking=True)
+        self._admit_program(self._state, self._adm)
 
-    def _step(self, state: dict) -> dict:
+    @torch.inference_mode()
+    def _admit_body(self, state: dict, adm: torch.Tensor) -> None:
+        """The admit program: every slot whose admit flag is set restarts
+        with its prompt, in place.  A slot's cache page is not cleared —
+        index 0 regrows the valid prefix, so the previous occupant's rows
+        are only attended after being overwritten."""
+        on = adm[:, 0] > 0
+        prompt = adm[:, 2:]
+        state["cache"]["index"].masked_fill_(on, 0)
+        state["active"].logical_or_(on)
+        torch.where(on[:, None], prompt, state["prompt"], out=state["prompt"])
+        torch.where(on, adm[:, 1], state["prompt_len"],
+                    out=state["prompt_len"])
+        torch.where(on, prompt[:, 0], state["last_tok"],
+                    out=state["last_tok"])
+        state["n_out"].masked_fill_(on, 0)
+        state["error"].masked_fill_(on, False)
+
+    def _step(self, state: dict, params, masks) -> dict:
         """One lockstep decode step for every slot (done slots frozen).
         Reads nothing back to the host."""
         c = self.cfg
@@ -279,8 +309,8 @@ class DecodeEngine:
         idx = cache["index"]                         # [B] pre-step fill
         active = state["active"]
         logits, cache = self.model.decode_step(
-            self._params, cache, {"tokens": state["last_tok"][:, None]},
-            masks=self._masks)
+            params, cache, {"tokens": state["last_tok"][:, None]},
+            masks=masks)
         for f in self._faults:
             logits = f.apply_logits(logits, state)
         logits = logits[:, 0]
@@ -311,7 +341,6 @@ class DecodeEngine:
         last_tok = torch.where(
             live, torch.where(in_prefill, nxt_prompt, sampled),
             state["last_tok"])
-        self.steps += 1
         return {
             "cache": cache,
             "active": active & ~finished & ~bad,
@@ -323,11 +352,21 @@ class DecodeEngine:
             "error": state["error"] | bad,
         }
 
-    @torch.inference_mode()
     def _wave(self) -> None:
-        """``steps_per_wave`` decode steps, with no host sync."""
+        """One wave through the wave program (a graph replay on the card
+        once captured), with no host sync."""
+        self._wave_program(self._state, self._params, self._masks)
+        self.steps += self.cfg.steps_per_wave
+
+    @torch.inference_mode()
+    def _wave_body(self, state: dict, params, masks) -> None:
+        """The wave program: ``steps_per_wave`` decode steps, each state
+        tensor then copied back into the storage it started in where a step
+        replaced it (the fill levels, the counts, the flags)."""
+        old = tree_leaves(state)
         for _ in range(self.cfg.steps_per_wave):
-            self._state = self._step(self._state)
+            state = self._step(state, params, masks)
+        programs.settle(state, old)
 
     # -- host protocol ----------------------------------------------------
     def submit(self, prompt) -> Optional[int]:
@@ -415,3 +454,42 @@ class DecodeEngine:
         while self.pending:
             done.extend(self.step_wave())
         return sorted(done, key=lambda comp: comp.uid)
+
+    # -- introspection -----------------------------------------------------
+    def lower_wave(self) -> "LoweredWave":
+        """The wave program for the current state, without running it on
+        that state: ``ops`` is one wave's operation record
+        (``launch.cost.CostCounter(record=True)``, which
+        ``analysis.op_lint`` reads), taken over a copy of the state; on the
+        card ``graph`` is the captured ``torch.cuda.CUDAGraph`` (made now if
+        the engine has not run a wave on this state yet), None on the CPU.
+        The engine's state, steps and completions do not change."""
+        from repro_torch.launch.cost import CostCounter
+
+        with torch.inference_mode():
+            copy = tree_map(torch.clone, self._state)
+        with CostCounter(record=True) as counter:
+            self._wave_body(copy, self._params, self._masks)
+        cap = self._wave_program.lower(
+            self._state, self._params, self._masks,
+            scratch=(copy, self._params, self._masks))
+        return LoweredWave(ops=counter.ops, totals=counter.totals,
+                           graph=None if cap is None else cap.graph)
+
+    def program_counts(self) -> dict:
+        """Programs of the session's two entry points: captures on the card,
+        keys on the CPU; ``{"admit": 1, "wave": 1}`` however many requests
+        are admitted and retired."""
+        return {"admit": self._admit_program._cache_size(),
+                "wave": self._wave_program._cache_size()}
+
+
+@dataclasses.dataclass(frozen=True)
+class LoweredWave:
+    """:meth:`DecodeEngine.lower_wave`'s result: one wave's recorded
+    operations (``(name, dtypes)`` in order) and counted work, and its
+    CUDA graph on the card (None on the CPU)."""
+
+    ops: list
+    totals: object
+    graph: object = None
