@@ -61,7 +61,11 @@ Phases, in order; any failure raises and the script exits non-zero:
               then zamba2-1.2b, all 38 layers, bfloat16, through
               ``lockstep_decode`` (8 prompts of 64 tokens, 32 new) in the
               same three modes: tokens/s, ms/step, K5 7 and K1 76 (masked)
-              launches a step, a profiled window and a sync-checked one;
+              launches a step, a profiled window and a sync-checked one of
+              captured steps, and (dense, masked) the captured step against
+              its eager body (``[capture] zamba2 <mode> lockstep``: two
+              requests of 32 + 16 token for token, launches equal, ms/step
+              in turns, busy share, peaks);
 9. score-parity — float32 logits of ``attn_impl="pallas"`` (K4, K6)
               against ``attn_impl="xla"`` (plain attention, chunked scan) on
               the card: zamba2-1.2b at full width, 12 layers, S = 8192, and
@@ -142,7 +146,8 @@ Phases, in order; any failure raises and the script exits non-zero:
               256 under the profiler), bf16 serving through
               ``lockstep_decode`` (8 prompts of 64 tokens, 64 new: ms/step,
               tokens/s, launches a step and busy share of a profiled window,
-              a window under sync-debug "error"), f32 FedDUM training at S =
+              a window under sync-debug "error", the captured step against
+              its eager body), f32 FedDUM training at S =
               128 (s/round, tokens/s, peak), then
               ``examples/serve_decode_torch.py`` and
               ``examples/fl_llm_train_torch.py`` at their defaults, and the
@@ -205,7 +210,8 @@ Phases, in order; any failure raises and the script exits non-zero:
               cross-attention of each decoder layer; the loss against
               ``"xla"``), ``lockstep_decode`` of 8 sequences with a 4-token
               prompt and 124 new tokens after ``prefill_cross`` (K5 12 a
-              step, a profiled window, one under sync-debug "error"), and
+              step, a profiled window, one under sync-debug "error", the
+              captured step against its eager body), and
               an f32 loss gradient, finite and bitwise equal over two runs.
               The kernels phase also holds K4 at qwen2-vl's scoring shape
               and whisper's self- and cross-attention shapes (Sq 448 over
@@ -216,7 +222,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 24. steps   — ``launch.steps`` at olmo-1b's full width and depth (f32, the
               training phase's world and batch): one ``make_fl_train_step``
               round in kernel mode bitwise equal to
-              ``FederatedTrainer.round_step``, K1-K3 192 each a round,
+              ``FederatedTrainer.round_step`` (the first round on each
+              state eager, the step's second captured), K1-K3 192 each a
+              round,
               ``with_masks`` moving no state tensor, the serve steps equal
               to ``LM.apply``/``decode_step``; whisper-small f32 at full
               width and depth trained 2 rounds through the step (finite,
@@ -226,10 +234,12 @@ Phases, in order; any failure raises and the script exits non-zero:
               after the forward, peak, time, K1 recomputed by block and
               dots);
 25. mesh    — ``FederatedTrainer(backend="mesh")`` as a world of one over
-              NCCL: the training phase's olmo-1b plan, its history, final
+              NCCL, its rounds captured with the all-reduces inside: the
+              training phase's olmo-1b plan, its history, final
               params and K1-K3 launches bitwise equal to that phase's
-              local run; s/round against local, the all-reduce count and
-              time a round; ``experiments.run_one(backend="mesh")`` for the
+              local (captured) run; s/round of the mesh's replays, the
+              all-reduces a round (one per ``_reduce`` call and dtype) and
+              their host time; ``experiments.run_one(backend="mesh")`` for the
               paper phase's FedDUMAP run (a shrink) equal to its local
               record; a mesh kill and resume of the reliability phase's
               cut SimpleCNN plan, bitwise; then ``DecodeEngine(mesh=)``
@@ -247,9 +257,13 @@ Phases, in order; any failure raises and the script exits non-zero:
               turns and busy share; qwen2-vl-7b dense in the vlm phase),
               SimpleCNN's FedDUMAP round at the paper protocol and olmo-1b's
               kernel-mode round (8 layers, f32): states and metrics bitwise
-              equal, s/round in turns, busy share and peaks; then
-              ``analysis.compile_budget.check(device="cuda")`` over the
-              local and serving scenarios.  Every other phase runs the
+              equal, s/round in turns, busy share and peaks; on that world
+              ``FederatedTrainer.round_step`` captured against eager and
+              the mesh round (the NCCL world of one) against the local
+              captured round, each bitwise; whisper-small's batch-dict
+              ``train_step`` (f32, full depth) captured against eager,
+              bitwise; then ``analysis.compile_budget.check(device="cuda")``
+              over the local, mesh and serving scenarios.  Every other phase runs the
               captured engine and rounds too: the training phases' rounds
               after the first on a state are graph replays.
 
@@ -2050,14 +2064,226 @@ def _capture_rounds(torch, label, make_backend, params) -> None:
     torch.cuda.empty_cache()
 
 
+def _eager_step(step):
+    """A ``launch.steps.TrainStep`` with its step program made eager."""
+    from repro_torch.core.programs import Program
+
+    step.program = Program(step.body, name="fl_step", device="cuda",
+                           capture=False)
+    return step
+
+
+def _ab_rounds(torch, tag, make, names=("eager", "captured")) -> dict:
+    """Two round paths from one start, CAPTURE_ROUNDS rounds each:
+    ``make(name)`` gives (state, step(state, r) -> (state, metrics),
+    program()).  States and metrics must be bitwise equal, and K1-K3
+    launches equal; then one round of each in turns (a, b, b, a) on the
+    host clock, a replay's device time (CUDA events) as the busy share of
+    each path, and each path's peaks.  Returns {name: (state, program)}."""
+    from repro_torch.core.backend import deterministic_cudnn
+    from repro_torch.kernels import masked_matmul as k1
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    runs = {}
+    for name in names:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, step, program = make(name)
+        n0 = _k123(k1)
+        mets = []
+        with deterministic_cudnn():
+            for r in range(CAPTURE_ROUNDS):
+                state, met = step(state, r)
+                mets.append(tree_map(torch.clone, met))
+        torch.cuda.synchronize()
+        runs[name] = dict(
+            state=state, step=step, program=program, mets=mets,
+            launches={k: v - n0[k] for k, v in _k123(k1).items()},
+            peak=(torch.cuda.max_memory_allocated() / 2**30,
+                  torch.cuda.max_memory_reserved() / 2**30))
+    a, b = (runs[n] for n in names)
+    leaves = list(zip(tree_leaves(a["state"]), tree_leaves(b["state"])))
+    diff = [i for i, (x, y) in enumerate(leaves) if not torch.equal(x, y)]
+    same_m = all(torch.equal(x[k], y[k]) for x, y in
+                 zip(a["mets"], b["mets"]) for k in x)
+    log(f"{tag}: {CAPTURE_ROUNDS} rounds {names[1]} against {names[0]} from "
+        f"one start: {len(leaves)} state tensors, {len(diff)} differ; "
+        f"metrics {'bitwise equal' if same_m else 'DIFFER'}; launches "
+        f"K1/K2/K3 {names[1]} {b['launches']} {names[0]} {a['launches']}; "
+        f"peak allocated / reserved {a['peak'][0]:.2f} / {a['peak'][1]:.2f} "
+        f"GiB {names[0]}, {b['peak'][0]:.2f} / {b['peak'][1]:.2f} "
+        f"{names[1]}; {CARD}")
+    require(not diff and same_m, f"{tag}: {names[1]} differs from "
+            f"{names[0]} (state leaves {diff})")
+    require(a["launches"] == b["launches"],
+            f"{tag}: K1-K3 launches {b['launches']} against {a['launches']}")
+    secs = {n: [] for n in names}
+    for name in (names[0], names[1], names[1], names[0]):
+        run = runs[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with deterministic_cudnn():
+            run["state"], _ = run["step"](run["state"], 0)
+        torch.cuda.synchronize()
+        secs[name].append(time.perf_counter() - t0)
+    parts = []
+    for name in names:
+        caps = [c for c in runs[name]["program"]()._cache.values()
+                if c is not None]
+        if caps:
+            dev = _graph_ms(torch, caps[0].graph.replay) / 1e3
+            parts.append(f"{name}'s replay {dev:.4f} s on the device -> busy "
+                         + ", ".join(f"{100 * dev / (sum(secs[n]) / 2):.1f}% "
+                                     f"of {n}" for n in names))
+    log(f"{tag}: s/round in turns ({', '.join((*names, *names[::-1]))}): "
+        + ", ".join(f"{n} {sum(secs[n]) / 2:.4f} "
+                    f"{[round(x, 4) for x in secs[n]]}" for n in names)
+        + f"; {'; '.join(parts)}; {CARD}")
+    return {n: (runs[n]["state"], runs[n]["program"]()) for n in names}
+
+
+def _capture_round_step(torch, trainer, params) -> None:
+    """``FederatedTrainer.round_step`` (the backend's round program on
+    explicit batches) captured against its eager body: olmo-1b at
+    CAPTURE_OLMO_LAYERS layers, kernel mode, masks on, on batches drawn
+    once from a seed-0 generator."""
+    from repro_torch.core.backend import LocalBackend
+    from repro_torch.core.rounds import FederatedTrainer
+    from repro_torch.utils.tree import tree_map
+
+    src = LocalBackend(trainer.model, trainer.data, trainer.cfg,
+                       use_masks=True, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+    batches = [tree_map(torch.clone, src.round_batch(t))
+               for t in range(CAPTURE_ROUNDS)]
+    del src
+
+    def make(name):
+        tr = FederatedTrainer(trainer.model, trainer.data, trainer.cfg,
+                              device="cuda")
+        be = tr.backend(use_masks=True)
+        if name == "eager":
+            _eager_rounds(be)
+        return (be.init_state(params),
+                lambda st, r: tr.round_step(st, batches[r]),
+                lambda: be.chunk)
+
+    got = _ab_rounds(torch, f"[capture] olmo-1b round_step "
+                     f"({CAPTURE_OLMO_LAYERS} layers, f32, kernel masks)",
+                     make)
+    prog = got["captured"][1]
+    require(prog._cache_size() == prog.captures == 1,
+            f"round_step: {prog._cache_size()} keys, {prog.captures} "
+            f"captures")
+    del got, prog, batches
+    gc.collect()                # the captured program's graph and its pool
+    torch.cuda.empty_cache()
+
+
+def _capture_train_step(torch) -> None:
+    """whisper-small's batch-dict ``train_step`` (f32, full width and depth,
+    WHISPER_STEP) captured against its eager body, on the
+    ``fl_batch_specs`` batches of seeds 20, 21, 22."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import steps
+    from repro_torch.models.api import build_model
+    from repro_torch.utils.tree import tree_map
+
+    c, b_c, seq = WHISPER_STEP
+    cfg = dataclasses.replace(get_config("whisper-small"),
+                              param_dtype="float32")
+    run = steps.FLRunConfig(lr=3e-3, local_steps=1, server_tau=1,
+                            server_batch=b_c)
+    shape = InputShape("whisper-steps", seq, c * b_c, "train")
+    model = build_model(cfg, device="cuda")
+    init_state, _ = steps.make_fl_train_step(cfg, run, c, model=model)
+    start = init_state(torch.Generator(device="cuda").manual_seed(0))
+    batches = [steps.fl_batch_specs(cfg, shape, c, run, abstract=False,
+                                    seed=20 + r)
+               for r in range(CAPTURE_ROUNDS)]
+
+    def make(name):
+        _, ts = steps.make_fl_train_step(cfg, run, c, model=model)
+        if name == "eager":
+            _eager_step(ts)
+
+        def step(st, r):
+            st, tau = ts(st, batches[r])
+            return st, {"tau_eff": tau}
+
+        return tree_map(torch.clone, start), step, lambda: ts.program
+
+    got = _ab_rounds(torch, f"[capture] whisper-small train_step (f32, "
+                     f"{cfg.encoder.num_layers} + {cfg.num_layers} layers)",
+                     make)
+    prog = got["captured"][1]
+    require(prog._cache_size() == prog.captures == 1,
+            f"whisper train_step: {prog._cache_size()} keys, "
+            f"{prog.captures} captures")
+    del got, prog, start, model
+    gc.collect()                # the captured program's graph and its pool
+    torch.cuda.empty_cache()
+
+
+def _capture_mesh_round(torch, trainer, params) -> None:
+    """The mesh backend's captured round (the NCCL world of one of the mesh
+    phase) against the local backend's captured round: olmo-1b at
+    CAPTURE_OLMO_LAYERS layers, kernel mode, masks on, generators seeded
+    alike; bitwise, each one key and one capture, the mesh's all-reduces a
+    round counted on replay."""
+    from repro_torch.core.backend import LocalBackend, MeshBackend
+
+    require(bool(MESH), "capture: the mesh phase's world is missing")
+    backends = {}
+
+    def make(name):
+        cls = MeshBackend if name == "mesh" else LocalBackend
+        kw = {"mesh": MESH[0]} if name == "mesh" else {}
+        be = backends[name] = cls(
+            trainer.model, trainer.data, trainer.cfg, use_masks=True,
+            device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(0), **kw)
+        return (be.init_state(params),
+                lambda st, r: (st, be.run_rounds(st, r, 1)[1][0]),
+                lambda: be.chunk)
+
+    got = _ab_rounds(torch, f"[capture] olmo-1b mesh round at a world of "
+                     f"one against the local round, both captured "
+                     f"({CAPTURE_OLMO_LAYERS} layers, f32, kernel masks)",
+                     make, names=("local", "mesh"))
+    be = backends["mesh"]
+    n = CAPTURE_ROUNDS + 2
+    want = n * (1 + be.sample_kw["server_tau"])
+    log(f"[capture] mesh round: {be.reductions} all-reduces over {n} rounds "
+        f"(expected {want}: one per _reduce call and dtype, counted on "
+        f"replay), {1e3 * be.reduce_seconds:.3f} ms of host time in the "
+        f"eager calls (a replay runs no Python); {CARD}")
+    require(all(p._cache_size() == p.captures == 1
+                for _, p in got.values()) and be.reductions == want,
+            f"mesh round: keys/captures "
+            f"{[(p._cache_size(), p.captures) for _, p in got.values()]}, "
+            f"{be.reductions} all-reduces (expected {want})")
+    del got, backends, be
+    gc.collect()                # both backends' graphs and their pools
+    torch.cuda.empty_cache()
+
+
 def phase_capture(torch) -> dict:
     """The reference's compiled programs as CUDA graphs: olmo-1b's
     DecodeEngine (dense, masked@0.5, shrunk@0.5 at the serving phase's
     settings), SimpleCNN's FedDUMAP round at the paper protocol and
-    olmo-1b's kernel-mode round (CAPTURE_OLMO_LAYERS layers, f32), each
-    against its eager body; then ``analysis.compile_budget.check`` over the
-    local and serving scenarios on the card.  Returns {kernel name:
-    launches} of the captured engines' runs."""
+    olmo-1b's kernel-mode round (CAPTURE_OLMO_LAYERS layers, f32), then
+    ``FederatedTrainer.round_step`` on that world and whisper-small's
+    batch-dict ``train_step``, each against its eager body, and the mesh
+    round at the mesh phase's NCCL world of one against the local captured
+    round; then ``analysis.compile_budget.check`` over the local, mesh and
+    serving scenarios on the card.  (The lockstep steps' captures are held
+    against their eager bodies in the zamba2, xlstm and whisper phases.)
+    Returns {kernel name: launches} of the captured engines' runs."""
     import numpy as np
 
     from repro_torch import experiments
@@ -2125,24 +2351,33 @@ def phase_capture(torch) -> dict:
         f"{ {k: getattr(k1, k) - v for k, v in n.items()} } over both "
         f"backends' {2 * (CAPTURE_ROUNDS + 2)} rounds (the timed replay "
         f"runs no wrapper); {CARD}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _capture_round_step(torch, trainer, params)
+    _capture_mesh_round(torch, trainer, params)
     del trainer, params
     torch.cuda.empty_cache()
+    _capture_train_step(torch)
 
     t0 = time.perf_counter()
-    todo = [sc for sc in compile_budget.scenarios() if sc.backend == "local"]
+    todo = compile_budget.scenarios()
     errors = compile_budget.check(scenario_list=todo, device="cuda")
     for e in errors:
         log(f"[capture] compile_budget FAIL {e}")
-    log(f"[capture] compile_budget.check(device='cuda'): {len(todo)} local "
-        f"and serving scenarios, {len(errors)} violation(s) in "
-        f"{time.perf_counter() - t0:.1f} s; {CARD}")
+    log(f"[capture] compile_budget.check(device='cuda'): {len(todo)} local, "
+        f"mesh (the NCCL world of one) and serving scenarios, "
+        f"{len(errors)} violation(s) in {time.perf_counter() - t0:.1f} s; "
+        f"{CARD}")
     require(not errors, "compile budget exceeded on the card")
     return launches
 
 
 # zamba2 serving: 8 sequences, prompts of 64 tokens, 32 new, 512 cache rows;
-# prefill runs a token a step (67-91 ms), so the prompt sets the phase's time
+# prefill runs a token a step (67-91 ms eager), so the prompt sets the
+# phase's time.  The captured-against-eager requests: 32 prompt tokens and
+# 16 new (two requests of 48 eager steps a mode).
 HYBRID_SERVE = dict(batch=8, prompt=64, new=32, cache_len=512)
+HYBRID_AB = (32, 16)
 
 
 def phase_serving_hybrid(torch) -> dict:
@@ -2218,6 +2453,10 @@ def phase_serving_hybrid(torch) -> dict:
         tokens[mode] = got
         _profile_lockstep(torch, f"zamba2 {mode}", sv, prompt, cache_len)
         _sync_free_lockstep(torch, f"zamba2 {mode}", sv, prompt, cache_len)
+        if mode != "shrunk":
+            a, n = HYBRID_AB
+            _capture_lockstep(torch, f"zamba2 {mode}", sv, prompt[:, :a], n,
+                              cache_len)
         del sv
     same = (tokens["masked"] == tokens["shrunk"]).float()
     log(f"[serving] zamba2 masked and shrunk agree on "
@@ -2230,56 +2469,78 @@ def phase_serving_hybrid(torch) -> dict:
 
 
 WINDOW = (2, 2)     # prefill and decode steps of a profiled or checked window
+LOCKSTEP_TURN = (4, 4)  # prefill and decode steps of a timed turn
 
 
-def _lockstep_window(torch, sv, prompt, cache_len, enc=None):
-    """A fresh cache and the first prompt tokens on the card: a window of 4
-    steps (2 prefill, 2 decode) for the profile and the sync check (a
-    profile of ~3100 launches a step costs the profiler ~2 s a step).  An
-    encdec model's cross K/V are written from the frames ``enc`` first."""
-    cache = sv.model.init_cache(prompt.shape[0], cache_len)
+def _eager_lockstep(session):
+    """``session`` with its step program made eager: the body its capture
+    holds, run op by op (keys still counted)."""
+    from repro_torch.core.programs import Program
+
+    session._program = Program(session._step_body, name="lockstep",
+                               device=session.model.device, capture=False)
+    return session
+
+
+def _lockstep_session(torch, sv, prompt, cache_len, enc=None):
+    """A session over a fresh cache of ``prompt``'s batch, its step captured
+    by one request of the first WINDOW prompt tokens, then reset (an encdec
+    cache's cross K/V written from the frames ``enc``): the steps it runs
+    next are replays.  Returns (session, the window's prompt on the
+    card)."""
+    from repro_torch.serving import LockstepSession
+
+    session = LockstepSession.new(sv.model, sv.params, prompt.shape[0],
+                                  cache_len, masks=sv.masks)
+    p = prompt[:, :WINDOW[0]].to("cuda", torch.int32)
+    session.decode(p, WINDOW[1], enc_embeds=enc)
+    _reset(torch, session, enc)
+    torch.cuda.synchronize()
+    return session, p
+
+
+def _reset(torch, session, enc) -> None:
+    """``session``'s cache back to its start, an encdec cache's cross K/V
+    written from the frames ``enc``."""
+    session.reset()
     if enc is not None:
-        sv.model.prefill_cross(sv.params, cache, {"enc_embeds": enc})
-    return cache, prompt[:, :WINDOW[0]].cuda()
+        with torch.inference_mode():
+            session.model.prefill_cross(session.params, session.cache,
+                                        {"enc_embeds": enc})
 
 
 def _profile_lockstep(torch, tag, sv, prompt, cache_len, enc=None) -> None:
-    """The host-clock time of a window of lockstep steps (no profiler)
-    against the device time of the kernels of another under torch.profiler:
-    their ratio is the device's busy share."""
+    """The host-clock time of a window of captured lockstep steps (replays,
+    no profiler) against the device time of the kernels of another under
+    torch.profiler: their ratio is the device's busy share."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serving.lockstep import run_steps
-
     n = sum(WINDOW)
-    with torch.inference_mode():
-        cache, p = _lockstep_window(torch, sv, prompt, cache_len, enc)
+    session, p = _lockstep_session(torch, sv, prompt, cache_len, enc)
+    t0 = time.perf_counter()
+    session.run(p, WINDOW[1])
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    _reset(torch, session, enc)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        session.run(p, WINDOW[1])
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run_steps(sv.model, sv.params, cache, p, WINDOW[1],
-                  masks=sv.masks)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / n
-        cache, p = _lockstep_window(torch, sv, prompt, cache_len, enc)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run_steps(sv.model, sv.params, cache, p, WINDOW[1],
-                      masks=sv.masks)
-            torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type.name == "CUDA"
                and e.self_device_time_total > 0]
     if not kernels:
-        log(f"[profile] {tag}: {wall_ms:.3f} ms/step on the host clock; "
-            f"device time not measured (the profiler saw no CUDA kernels)")
+        log(f"[profile] {tag}: {wall_ms:.3f} ms/step on the host clock "
+            f"(captured); device time not measured (the profiler saw no "
+            f"CUDA kernels)")
         return
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     busy = 100 * dev_ms / wall_ms
-    log(f"[profile] {tag}: {wall_ms:.3f} ms/step on the host clock, "
-        f"kernels {dev_ms:.3f} ms/step on the device -> busy {busy:.1f}%, "
-        f"idle {100 - busy:.1f}%; launches "
-        f"{sum(e.count for e in kernels) // n}/step")
+    log(f"[profile] {tag}: captured steps (graph replays) {wall_ms:.3f} "
+        f"ms/step on the host clock, kernels {dev_ms:.3f} ms/step on the "
+        f"device -> busy {busy:.1f}%, idle {100 - busy:.1f}%; launches "
+        f"{sum(e.count for e in kernels) // n}/step; {CARD}")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     own = [e for e in ranked[8:] if "decode_" in e.key or "masked_" in e.key]
     for e in ranked[:8] + own:
@@ -2289,22 +2550,104 @@ def _profile_lockstep(torch, tag, sv, prompt, cache_len, enc=None) -> None:
 
 
 def _sync_free_lockstep(torch, tag, sv, prompt, cache_len, enc=None) -> None:
-    """A window of lockstep steps under sync-debug "error": any host sync
-    inside the steps raises."""
-    from repro_torch.serving.lockstep import run_steps
-
-    with torch.inference_mode():
-        cache, p = _lockstep_window(torch, sv, prompt, cache_len, enc)
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            run_steps(sv.model, sv.params, cache, p, WINDOW[1],
-                      masks=sv.masks)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-    log(f"[serving] {tag}: {sum(WINDOW)} steps ran under "
+    """A window of captured lockstep steps (replays, the prompt columns
+    copied in and the tokens out) under sync-debug "error": any host sync
+    raises.  (A capture synchronizes, so the session captures first.)"""
+    session, p = _lockstep_session(torch, sv, prompt, cache_len, enc)
+    replays = session._program.replays
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        session.run(p, WINDOW[1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    require(session._program.replays == replays + sum(WINDOW),
+            f"{tag}: the sync-checked steps were not replays")
+    log(f"[serving] {tag}: {sum(WINDOW)} captured steps (replays) ran under "
         f"set_sync_debug_mode('error') without a host sync")
+
+
+def _capture_lockstep(torch, tag, sv, prompt, n_new, cache_len,
+                      enc=None) -> None:
+    """The captured lockstep step against its eager body: two requests of
+    ``prompt`` and ``n_new`` tokens on each session, the tokens token for
+    token and the K5/K1 launches equal, the captured session's
+    ``program_counts()`` {"step": 1} with every step after its first a
+    replay; then ms/step of LOCKSTEP_TURN windows in turns (eager,
+    captured, captured, eager), a replay's device time (CUDA events) as the
+    busy share of each, and each session's peak memory."""
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import masked_matmul as k1
+    from repro_torch.serving import LockstepSession
+
+    tag = f"[capture] {tag} lockstep"
+    b, steps = prompt.shape[0], prompt.shape[1] + n_new
+    pd = prompt.to("cuda", torch.int32)
+    runs, sessions = {}, {}
+    for captured in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        session = LockstepSession.new(sv.model, sv.params, b, cache_len,
+                                      masks=sv.masks)
+        if not captured:
+            _eager_lockstep(session)
+        k5.launches = k1.launches = 0
+        t0 = time.perf_counter()
+        toks = [session.decode(pd, n_new, enc_embeds=enc).cpu()
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        runs[captured] = dict(
+            toks=toks, launches=(k5.launches, k1.launches),
+            wall=time.perf_counter() - t0, counts=session.program_counts(),
+            captures=session._program.captures,
+            replays=session._program.replays,
+            peak=torch.cuda.max_memory_reserved() / 2**30)
+        sessions[captured] = session
+    e, c = runs[False], runs[True]
+    same = all(torch.equal(x, y) for x, y in zip(c["toks"], e["toks"]))
+    log(f"{tag}: 2 requests of {b} x ({prompt.shape[1]} + {n_new}) steps: "
+        f"captured tokens {'equal' if same else 'DIFFER'} token for token "
+        f"to the eager body's; launches K5/K1 captured {c['launches']} eager "
+        f"{e['launches']}; program_counts {c['counts']}, {c['captures']} "
+        f"capture, {c['replays']} replays; both requests {e['wall']:.3f} s "
+        f"eager, {c['wall']:.3f} s captured (capture included); peak "
+        f"reserved {e['peak']:.2f} GiB eager, {c['peak']:.2f} captured; "
+        f"{CARD}")
+    require(same, f"{tag}: captured tokens differ from the eager body's")
+    require(c["launches"] == e["launches"],
+            f"{tag}: K5/K1 launches {c['launches']} against {e['launches']}")
+    require(c["counts"] == {"step": 1} and c["captures"] == 1
+            and c["replays"] == 2 * steps - 1,
+            f"{tag}: programs {c['counts']}, {c['captures']} captures, "
+            f"{c['replays']} replays")
+
+    turn = pd[:, :LOCKSTEP_TURN[0]]
+    ms = {True: [], False: []}
+    for eager in (True, False, False, True):
+        s_ = sessions[not eager]
+        _reset(torch, s_, enc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s_.run(turn, LOCKSTEP_TURN[1])
+        torch.cuda.synchronize()
+        ms[eager].append(1e3 * (time.perf_counter() - t0)
+                         / sum(LOCKSTEP_TURN))
+    capture = next(iter(sessions[True]._program._cache.values()))
+    n = sum(LOCKSTEP_TURN)      # back to back, as a turn's replays run
+    dev = _graph_ms(torch, lambda: [capture.graph.replay()
+                                    for _ in range(n)]) / n
+    me, mc = sum(ms[True]) / 2, sum(ms[False]) / 2
+    log(f"{tag}: ms/step in turns (eager, captured, captured, eager; "
+        f"{LOCKSTEP_TURN[0]} prompt + {LOCKSTEP_TURN[1]} decode steps each):"
+        f" eager {me:.3f} {[round(t, 3) for t in ms[True]]}, captured "
+        f"{mc:.3f} {[round(t, 3) for t in ms[False]]} ({me / mc:.2f}x); {n} "
+        f"replays' device time {dev:.3f} ms/step -> busy "
+        f"{100 * dev / me:.1f}% eager, {100 * dev / mc:.1f}% captured; "
+        f"{CARD}")
+    del sessions, capture
+    gc.collect()                # the captured session's graph and its pool
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -4198,6 +4541,7 @@ def phase_xlstm(torch) -> dict:
             "serving xlstm: malformed tokens")
     _profile_lockstep(torch, "xlstm-125m", sv, prompt, cache_len)
     _sync_free_lockstep(torch, "xlstm-125m", sv, prompt, cache_len)
+    _capture_lockstep(torch, "xlstm-125m", sv, prompt, n_new, cache_len)
     del sv
     log(f"[xlstm] serving part: {time.perf_counter() - t_part:.1f} s")
 
@@ -5354,6 +5698,8 @@ def phase_whisper(torch) -> dict:
     _profile_lockstep(torch, "whisper-small", sv, prompt, cache_len, enc=enc)
     _sync_free_lockstep(torch, "whisper-small", sv, prompt, cache_len,
                         enc=enc)
+    _capture_lockstep(torch, "whisper-small", sv, prompt, n_new, cache_len,
+                      enc=enc)
     del sv, params, batch, frames, enc
     torch.cuda.empty_cache()
 
@@ -5516,7 +5862,8 @@ def phase_steps(torch) -> dict:
             require(not diff and torch.equal(tau, mets["tau_eff"]),
                     "steps: train_step differs from round_step")
     log(f"[steps] olmo-1b s/round through the step: {times[0]:.3f} (all-ones"
-        f" masks), {times[1]:.3f} (masked at 0.5; training phase local: "
+        f" masks, eager: a state's first round), {times[1]:.3f} (masked at "
+        f"0.5, the step's capture included; training phase local: "
         f"{LOCAL_RUN.get('steady_s', float('nan')):.3f}); peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     require(all(math.isfinite(float(t.float().abs().max()))
@@ -5591,7 +5938,8 @@ def _whisper_steps(torch) -> None:
     finite = all(bool(torch.isfinite(t).all())
                  for t in tree_leaves(runs[0][0]["params"]))
     log(f"{tag}: 2 rounds, tau_eff {runs[0][1]}, finite {finite}, two runs "
-        f"bitwise equal {same}; {runs[0][2]:.3f} / {runs[1][2]:.3f} s/round, "
+        f"bitwise equal {same}; {runs[0][2]:.3f} / {runs[1][2]:.3f} s/round "
+        f"(round 2 each the capture of its run's state), "
         f"peak {runs[1][3]:.2f} GiB")
     require(finite and same, "whisper through the step: not finite or not "
             "repeatable")
@@ -5694,9 +6042,10 @@ def phase_mesh(torch) -> dict:
     training phase's olmo-1b FedDUMAP plan (``fedap_plan(4, prune_round=2,
     mode="mask")``, kernel mode, f32, all 16 layers), its history, final
     params and K1-K3 launches bitwise equal to that phase's local run (its
-    digests, not a second local run); then three more rounds each of the
-    mesh and a local backend on copies of the pruned state, in turns
-    (s/round of each), and the all-reduce count and time a round (a
+    digests, not a second local run; both captured, every round after the
+    first on a state a graph replay); then MESH_ROUNDS more rounds of the
+    mesh on the pruned state (s/round of the replays), and the all-reduce
+    count (one per ``_reduce`` call and dtype) and host time a round (a
     profiled round's NCCL kernels).  Then the paper phase's FedDUMAP run (a shrink
     at round 1) through ``experiments.run_one(backend="mesh")``, equal to
     its local record, and a kill and resume of a cut SimpleCNN FedDUMAP
@@ -5709,14 +6058,14 @@ def phase_mesh(torch) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import experiments
-    from repro_torch.core.backend import LocalBackend
     from repro_torch.core.plan import fedap_plan
     from repro_torch.kernels import masked_matmul as k1
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.utils.tree import tree_leaves, tree_map
+    from repro_torch.utils.tree import tree_leaves
 
     require(bool(LOCAL_RUN), "mesh: the training phase's local run is missing")
     mesh = make_host_mesh()
+    MESH[:] = [mesh]
     log(f"[mesh] process group {dist.get_backend()!r}, world "
         f"{dist.get_world_size()}, mesh {mesh.mesh_dim_names} "
         f"{tuple(mesh.shape)} on {mesh.device_type}")
@@ -5753,47 +6102,45 @@ def phase_mesh(torch) -> dict:
     local_steady = LOCAL_RUN.get("steady_s", float("nan"))
     LOCAL_RUN.clear()
 
-    # steady-state rounds in turns (local, mesh, mesh, local, local, mesh)
-    # on two copies of the pruned state, so both see the same host
+    # steady-state rounds of the mesh's captured round program (replays) on
+    # the pruned state; a local backend's captured round beside it would
+    # hold a second 16-layer graph pool: the two run in turns at
+    # CAPTURE_OLMO_LAYERS layers in [capture]
     state = res.state
     del res
-    local = LocalBackend(trainer.model, trainer.data, trainer.cfg,
-                         use_masks=True, device="cuda",
-                         generator=torch.Generator(device="cuda")  # lint: generator-ok (the local backend's draws: a fixed input of its own)
-                         .manual_seed(1))
-    states = {"mesh": state, "local": tree_map(torch.clone, state)}
-    backends = {"mesh": backend, "local": local}
     backend.reductions, backend.reduce_seconds = 0, 0.0
-    times = {"mesh": [], "local": []}
-    for i, name in enumerate(("local", "mesh", "mesh", "local", "local",
-                              "mesh")):
+    times = []
+    for i in range(MESH_ROUNDS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        states[name], _ = backends[name].run_rounds(states[name],
-                                                    rounds + i, 1)
+        state, _ = backend.run_rounds(state, rounds + i, 1)
         torch.cuda.synchronize()
-        times[name].append(time.perf_counter() - t0)
-    del states["local"], local
-    round_s = statistics.median(times["mesh"])
-    local_s = statistics.median(times["local"])
-    n = len(times["mesh"])
-    per, host = backend.reductions / n, backend.reduce_seconds / n
+        times.append(time.perf_counter() - t0)
+    round_s = statistics.median(times)
+    per = backend.reductions / MESH_ROUNDS
+    host = backend.reduce_seconds / MESH_ROUNDS
+    want = 1 + backend.sample_kw["server_tau"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        backend.run_rounds(state, rounds + 6, 1)
+        backend.run_rounds(state, rounds + MESH_ROUNDS, 1)
         torch.cuda.synchronize()
     kern = [e for e in prof.key_averages()
             if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
     nccl = [e for e in kern if "nccl" in e.key.lower()]
     nccl_s = sum(e.self_device_time_total for e in nccl) / 1e6
     dev_s = sum(e.self_device_time_total for e in kern) / 1e6
-    log(f"[mesh] olmo-1b steady state, rounds in turns: mesh {round_s:.3f}"
-        f" s/round {[round(t, 3) for t in times['mesh']]}, local "
-        f"{local_s:.3f} {[round(t, 3) for t in times['local']]} (the "
-        f"training phase's local: {local_steady:.3f}); all-reduce {per:.0f} tensors a round, "
-        f"{host * 1e3:.3f} ms of host time a round in the calls; a profiled"
-        f" round: {len(nccl)} NCCL kernel kinds, {nccl_s * 1e3:.3f} ms on "
-        f"the device of {dev_s:.3f} s of kernels")
+    log(f"[mesh] olmo-1b steady state, captured rounds (graph replays): "
+        f"mesh {round_s:.3f} s/round {[round(t, 3) for t in times]} against "
+        f"the training phase's captured local {local_steady:.3f}; "
+        f"all-reduces {per:g} a round (one per _reduce call and dtype, "
+        f"counted on replay; expected {want}), host time in the calls "
+        f"{host * 1e3:.3f} ms a round (eager calls only: a replay runs no "
+        f"Python); a profiled round: {len(nccl)} NCCL kernel kinds, "
+        f"{nccl_s * 1e3:.3f} ms on the device of {dev_s:.3f} s of kernels; "
+        f"{CARD}")
+    require(per == want and backend.chunk.captures == 1,
+            f"mesh: {per} all-reduces a round (expected {want}), "
+            f"{backend.chunk.captures} captures")
     del state, trainer, backend
 
     # the paper phase's FedDUMAP run (shrink) through run_one on the mesh
@@ -5830,6 +6177,8 @@ def phase_mesh(torch) -> dict:
 
 SERVING_RUN: dict = {}      # the serving phase's masked olmo-1b run
 MESH_TURNS = 3              # waves each engine runs in a turn
+MESH_ROUNDS = 3             # timed steady-state rounds of the mesh program
+MESH: list = []             # the mesh phase's NCCL world of one, for [capture]
 
 
 def _serving_mesh(torch, mesh) -> dict:

@@ -13,7 +13,9 @@ kernel at dense shapes) or ``shrunk`` (compacted d_ff).
   PYTHONPATH=src python examples/serve_decode_torch.py --arch arctic-480b
 
 The hybrid, ssm, vlm and encdec families decode with the lockstep loop
-(``repro_torch.serving.lockstep_decode``): every sequence at the same depth.
+(a ``repro_torch.serving.LockstepSession``): every sequence at the same
+depth, each step one program (a CUDA graph replay on the card once
+captured).
 A vlm step's input is the one-hot embedding of its token, as in the
 reference's loop; whisper's encoder frames are random, drawn from
 ``--seed``, and its cross K/V are computed once before the prompt.
@@ -37,7 +39,7 @@ import torch
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core import pruning_lm
 from repro_torch.models.lm import LM
-from repro_torch.serving import DecodeEngine, ServeConfig, lockstep_decode
+from repro_torch.serving import DecodeEngine, LockstepSession, ServeConfig
 from repro_torch.utils.tree import tree_map
 
 
@@ -113,8 +115,10 @@ def serve_lockstep(cfg, args):
     prompt = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (args.slots, args.prompt)).astype(np.int32))
     timings = {}
-    gen, _ = lockstep_decode(model, params, prompt, args.tokens,
-                             timings=timings, enc_embeds=enc)
+    session = LockstepSession.new(model, params, args.slots,
+                                  args.prompt + args.tokens)
+    gen = session.decode(prompt, args.tokens, timings=timings,
+                         enc_embeds=enc).cpu()
     prefill_s, decode_s = timings["prefill_s"], timings["decode_s"]
     print(f"arch={cfg.name} (reduced) batch={args.slots}")
     print(f"prefill {args.prompt} tok: {prefill_s:.2f}s; "

@@ -19,12 +19,14 @@ port's design differs; each such entry in the JSON carries the reference's
 count (``reference_programs``) and a ``note`` saying why.  The one today:
 ``*/two_chunk_lengths`` is 1 program here and 2 in the reference, because
 a chunk is a run of captured rounds, so one round graph replays for any
-chunk length.  The mesh backend's rounds count keys and never capture
-(``MeshBackend``); its scenarios run on an in-process gloo world of one.
+chunk length.  The mesh scenarios run on the process group there is (an
+in-process gloo world of one on the CPU, started and destroyed here).
 
-``device="cuda"`` runs the scenarios on the card with real captures (the
-mesh ones need a process group on the card, so ``chip_smoke.py`` runs the
-local and serving ones there).
+``device="cuda"`` runs the scenarios on the card with real captures, the
+mesh ones too: their rounds are captured with the NCCL all-reduces inside
+(``MeshBackend``), over the process group of the caller (``chip_smoke.py``
+runs them on its mesh phase's NCCL world of one), or a world of one
+started here.
 
 Regenerate the baseline after an intended change with::
 

@@ -14,7 +14,8 @@ R1  **Explicit generators.**  No draw from a global random state: no
 
 R2  **No host read inside a round or a wave.**  Functions reachable from
     ``core/engine.py::round_core``, ``serving/engine.py::DecodeEngine._step``
-    or ``serving/lockstep.py::run_steps`` must not call ``.item()``,
+    or ``serving/lockstep.py``'s ``run_steps`` and ``LockstepSession.
+    _step_body`` must not call ``.item()``,
     ``.cpu()``, ``.tolist()``, ``.numpy()``, or ``float()``/``int()``/
     ``bool()`` on a non-static value: each waits for the device and copies
     to the host, which stalls the stream and breaks a CUDA-graph capture.
@@ -103,7 +104,8 @@ _R4_MODULE_RE = re.compile(r"(^|/)kernels/[^/]+\.py$")
 # R2 roots: (module name suffix, qualname)
 _R2_ROOTS = ((".core.engine", "round_core"),
              (".serving.engine", "DecodeEngine._step"),
-             (".serving.lockstep", "run_steps"))
+             (".serving.lockstep", "run_steps"),
+             (".serving.lockstep", "LockstepSession._step_body"))
 _HOST_METHODS = ("item", "cpu", "tolist", "numpy")
 
 

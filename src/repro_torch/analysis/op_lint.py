@@ -20,6 +20,11 @@ meaning, on the CPU:
   tensor made from a host value, ``torch.tensor(x)``), which on the card is
   a host-to-device copy that a CUDA graph capture refuses.  The wave is the
   one ``DecodeEngine.lower_wave`` records.
+* **The lockstep step** (``LockstepSession.lower_step``) keeps the wave's
+  rules (no f64 op, no host read, no host-made tensor, no collective) for
+  each family the lockstep loop serves: the hybrid (reduced zamba2, dense
+  and masked), ssm (reduced xlstm), encdec (reduced whisper) and vlm
+  (reduced qwen2-vl, the one-hot step input).
 * **The mesh backend's collectives a round** at 2 gloo ranks (the LM
   world, kernel mode) equal the count recorded in ``op_budget.json``, the
   part the reference's ``compile_budget.json`` ``"hlo"`` section plays: a
@@ -180,6 +185,40 @@ def record_wave(*, masked: bool = False) -> list:
     return eng.lower_wave().ops
 
 
+LOCKSTEP_ARCHS = (("zamba2-1.2b", False), ("zamba2-1.2b", True),
+                  ("xlstm-125m", False), ("whisper-small", False),
+                  ("qwen2-vl-7b", False))
+
+
+def record_lockstep(arch: str, *, masked: bool = False) -> list:
+    """The operations of one lockstep step of ``arch`` reduced (2 layers,
+    f32; xlstm at 4 layers, its sLSTM block included) after two prompt
+    steps, with every FFN masked at 0.5 when ``masked``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    from repro_torch.serving.lockstep import LockstepSession
+
+    kw = {"num_layers": 4} if arch.startswith("xlstm") else {}
+    cfg = dataclasses.replace(get_config(arch).reduced(**kw),
+                              param_dtype="float32")
+    model = LM(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen)
+    masks = None
+    if masked:
+        masks = model.filter_masks(params, model.decide_kept(params, 0.5))
+    session = LockstepSession.new(model, params, 2, 8, masks=masks)
+    prompt = torch.tensor([[3, 1], [5, 9]], dtype=torch.int32)
+    enc = None
+    if cfg.family == "encdec":
+        enc = torch.randn((2, cfg.encoder.frames, cfg.d_model),
+                          generator=gen)
+    session.decode(prompt, 1, enc_embeds=enc)
+    return session.lower_step().ops
+
+
 # ---------------------------------------------------------------------------
 # the mesh round at MESH_RANKS gloo ranks
 
@@ -269,6 +308,9 @@ def check(*, mesh: bool = True) -> list[str]:
     for label, masked in (("serving wave", False),
                           ("serving wave (masked)", True)):
         errors += check_stream(label, record_wave(masked=masked))
+    for arch, masked in LOCKSTEP_ARCHS:
+        label = f"lockstep step {arch}{' (masked)' if masked else ''}"
+        errors += check_stream(label, record_lockstep(arch, masked=masked))
     if mesh:
         errors += check_mesh_budget(spawn_mesh_round())
     return errors

@@ -5,13 +5,14 @@ Counterpart of the reference's ``core/backend.py``.  A
 Prune / Snapshot / Callback); :class:`PlanExecutor` owns the schedule loop
 (history, artifacts, the Prune decision/apply split, the Callback restart)
 and drives a backend: :class:`LocalBackend`, which runs the rounds of
-:func:`repro_torch.core.engine.round_core` eagerly on one device, or
+:func:`repro_torch.core.engine.round_core` on one device, or
 :class:`MeshBackend`, the same rounds with the clients split over the ranks
 of a ``torch.distributed`` device mesh.
 
 Where the reference compiles a scan chunk, the port runs each round
 through one round program (``LocalBackend.chunk``, a
-:class:`~repro_torch.core.programs.Program`): on the card the first round
+:class:`~repro_torch.core.programs.Program`, on either backend): on the
+card the first round
 on a state runs eagerly, the second is captured as a CUDA graph and
 replayed, and every later round on that state is one replay, whatever the
 chunk's length.  The
@@ -167,13 +168,15 @@ class LocalBackend:
     ``batches`` (optional) is a per-round batch source: ``batches(t)``
     returns round ``t``'s ``round_core`` batch (0-based over the run; numpy
     or tensors).  Without it, rounds sample with :func:`engine.
-    draw_round_indices` from ``generator``.  Evaluation stays eager, as the
-    reference keeps its eval program outside its budget.
+    draw_round_indices` from ``generator``.  An explicit batch
+    (``FederatedTrainer.round_step``) runs the same program
+    (:meth:`step`).  Evaluation runs eagerly: the reference compiles its
+    eval program too (outside its compile budget), and porting it is still
+    to do (ROADMAP).
     """
 
     name = "local"
     is_writer = True    # writes the plan's checkpoints
-    captures = True     # the round program is a CUDA graph on the card
 
     def __init__(self, model, data, cfg, *, use_masks: bool = False,
                  device, generator: torch.Generator | None = None,
@@ -189,10 +192,14 @@ class LocalBackend:
         self.generator = generator
         self.batches = batches
         self._data = None
-        self._inputs: dict = {}     # a round's input buffers, by shapes
+        self._inputs = programs.InputBuffers()  # a round's inputs, by shapes
         self.chunk = programs.Program(self._round_body, name="round",
                                       device=self.device,
-                                      capture=self.captures)
+                                      **self._program_kw())
+
+    def _program_kw(self) -> dict:
+        """The round program's extra arguments (the mesh's counters)."""
+        return {}
 
     @property
     def _kernel_masks(self) -> bool:
@@ -267,10 +274,11 @@ class LocalBackend:
 
     def _batch(self, src) -> dict:
         """The ``round_core`` batch of a round's inputs (the gather at the
-        drawn indices, or the injected batch's rows of this rank)."""
+        drawn indices, a tuple, or an explicit batch dict's rows of this
+        rank)."""
         shard = self._round_shard()
         mine = shard.clients if shard is not None else None
-        if self.batches is None:
+        if not isinstance(src, dict):
             return engine.sample_round_batches(self.device_data(), *src,
                                                **self.sample_kw,
                                                clients=mine)
@@ -284,13 +292,16 @@ class LocalBackend:
         """Round ``t``'s inputs copied into buffers kept across rounds (one
         set per structure and shapes), so that every round on a state runs
         the round program on the same storages."""
-        src = self._source(t)
-        key = repr(tree_map(lambda x: (tuple(x.shape), x.dtype), src))
-        buf = self._inputs.get(key)
-        if buf is None:
-            buf = self._inputs[key] = tree_map(torch.empty_like, src)
-        tree_map(lambda b, x: b.copy_(x), buf, src)
-        return buf
+        return self._inputs(self._source(t))
+
+    def step(self, state: dict, batch: dict) -> dict:
+        """One round on ``state`` (in place) at an explicit ``round_core``
+        batch (numpy or tensors), through the round program: the batch is
+        copied into the input buffers of its shapes.  Returns the round's
+        metrics, tensors of their own."""
+        src = tree_map(lambda a: _tensor(a, self.device), batch)
+        met = self.chunk(state, self._inputs(src))
+        return tree_map(torch.clone, met)
 
     def _round_body(self, state: dict, inputs) -> dict:
         """The round program: the batch gathered from ``inputs``, one
@@ -404,20 +415,24 @@ class MeshBackend(LocalBackend):
       state tensor keeps its storage and shape); a shrink runs on each
       rank as on one device.
     * Rank 0 writes the plan's checkpoints; every rank reads them back.
-    * The rounds stay eager on the card: :attr:`chunk` counts its keys as
-      the local backend's does but never captures.  A round calls
-      ``dist.all_reduce`` once per tensor (:meth:`_reduce`), each call on
-      the host; capturing the round waits for a flat-bucket reduce
-      (ROADMAP).
+    * The round program (:attr:`chunk`) is the local backend's, with its
+      collectives inside: on a CUDA mesh its first round on a state runs
+      eagerly (the NCCL communicator exists from the process group's
+      start), the second is captured on ``programs.capture_stream`` and
+      later rounds replay, each collective a node of the graph.  gloo (the
+      CPU) never captures and counts keys.  :meth:`_reduce` packs each
+      call's tensors into one flat buffer per dtype, kept across rounds,
+      runs one ``dist.all_reduce`` on it and unpacks it in place.
 
     Other mesh dims than the client axes must have size 1.  At a world of
     one every sum over the ranks is a copy, and the run is bitwise the
-    local backend's.  ``reductions`` counts the tensors summed over the
-    ranks, ``reduce_seconds`` the host time of those calls.
+    local backend's; at more ranks each element is summed as before, one
+    all-reduce per tensor.  ``reductions`` counts the all-reduces, a
+    replay adding those its capture recorded; ``reduce_seconds`` is the
+    host time of the eager calls only (a replay runs no Python).
     """
 
     name = "mesh"
-    captures = False
 
     def __init__(self, model, data, cfg, *, use_masks: bool = False,
                  device, generator: torch.Generator | None = None,
@@ -428,6 +443,8 @@ class MeshBackend(LocalBackend):
         from repro_torch.sharding.fl_specs import fl_sim_batch_specs
         from repro_torch.sharding.specs import MeshPlan, axis_sizes
 
+        self.reductions = 0         # the round program counts these
+        self.reduce_seconds = 0.0
         super().__init__(model, data, cfg, use_masks=use_masks,
                          device=device, generator=generator,
                          batches=batches)
@@ -477,8 +494,11 @@ class MeshBackend(LocalBackend):
         self._shard = engine.RoundShard(reduce=self._reduce, clients=clients,
                                         server_rows=server_rows,
                                         server_weight=weight)
-        self.reductions = 0
-        self.reduce_seconds = 0.0
+        self._buckets: dict = {}    # (dtype, sizes) -> flat buffer
+
+    def _program_kw(self) -> dict:
+        return {"counters": ((self, "reductions"),),
+                "capture_error_mode": "thread_local"}
 
     @property
     def is_writer(self) -> bool:
@@ -488,12 +508,28 @@ class MeshBackend(LocalBackend):
         dist.barrier()
 
     def _reduce(self, tensors) -> None:
-        """Each tensor summed over the ranks, in place."""
+        """Each tensor summed over the ranks, in place: per dtype, the
+        tensors packed into one flat buffer (kept per dtype and sizes, so a
+        captured round addresses the same one every replay), one
+        ``dist.all_reduce`` on it, and each tensor copied back out."""
         t0 = time.perf_counter()
+        groups: dict = {}
         for t in tensors:
-            dist.all_reduce(t)
-        self.reductions += len(tensors)
-        self.reduce_seconds += time.perf_counter() - t0
+            groups.setdefault(t.dtype, []).append(t)
+        for dtype, ts in groups.items():
+            sizes = tuple(t.numel() for t in ts)
+            flat = self._buckets.get((dtype, sizes))
+            if flat is None:
+                flat = self._buckets[(dtype, sizes)] = torch.empty(
+                    sum(sizes), dtype=dtype, device=ts[0].device)
+            torch.cat([t.reshape(-1) for t in ts], out=flat)
+            dist.all_reduce(flat)
+            for t, part in zip(ts, flat.split(sizes)):
+                t.copy_(part.view(t.shape))
+        self.reductions += len(groups)
+        if not (self.device.type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            self.reduce_seconds += time.perf_counter() - t0
 
     def _round_shard(self):
         return self._shard

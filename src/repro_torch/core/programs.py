@@ -30,7 +30,9 @@ runs eagerly.
 
 A replay runs no Python, so the kernel wrappers' launch counters would not
 move.  A capture records each counter's change during it (the capture
-launches nothing, so the counters are put back) and every replay adds it.
+launches nothing, so the counters are put back) and every replay adds it;
+a program's own ``counters`` (``MeshBackend.reductions``) are kept the same
+way.
 A ``launch.cost.CostCounter`` cannot see inside a replay either: a captured
 program refuses to run under an active counter, so nothing is undercounted
 (count the eager body instead, as ``DecodeEngine.lower_wave`` does).
@@ -68,13 +70,13 @@ def capture_stream(device: torch.device) -> torch.cuda.Stream:
     return stream
 
 
-def _counts() -> tuple:
-    return tuple(getattr(mod, name) for mod, name in COUNTERS)
+def _counts(pairs=COUNTERS) -> tuple:
+    return tuple(getattr(obj, name) for obj, name in pairs)
 
 
-def _add_counts(deltas) -> None:
-    for (mod, name), d in zip(COUNTERS, deltas):
-        setattr(mod, name, getattr(mod, name) + d)
+def _add_counts(deltas, pairs=COUNTERS) -> None:
+    for (obj, name), d in zip(pairs, deltas):
+        setattr(obj, name, getattr(obj, name) + d)
 
 
 def key_of(tree: Any) -> tuple:
@@ -93,7 +95,8 @@ def key_of(tree: Any) -> tuple:
 @dataclasses.dataclass
 class Capture:
     """One captured program: its graph, its static outputs (overwritten by
-    each replay) and each launch counter's change in one run."""
+    each replay) and each launch counter's change in one run (then each of
+    the program's own counters')."""
 
     graph: Any
     out: Any
@@ -111,10 +114,16 @@ def _refuse_cost_counter(name: str) -> None:
 class Program:
     """``fn(*args)`` kept as one capture per key of ``args`` (see the module
     docstring).  ``device`` is where the tensors live; ``capture=False``
-    counts keys and always runs eagerly (``MeshBackend``'s rounds)."""
+    counts keys and always runs eagerly (the eager bodies ``chip_smoke.py``
+    holds the captures against).  ``counters`` are ``(object, attribute)``
+    counts that a replay adds as the wrapper counters are added.
+    ``capture_error_mode`` goes to ``torch.cuda.graph`` where given
+    (``"thread_local"`` lets another thread, NCCL's watchdog, query its
+    events while the round is captured)."""
 
     def __init__(self, fn: Callable, *, name: str, device,
-                 capture: bool = True):
+                 capture: bool = True, counters: tuple = (),
+                 capture_error_mode: str | None = None):
         # a bound method is held weakly: its object owns this program, and
         # a reference cycle would keep the captures and their memory pools
         # alive after the object is dropped, until the collector runs
@@ -125,6 +134,9 @@ class Program:
         self.capture = capture and self.device.type == "cuda"
         self._cache: dict = {}
         self.replays = 0
+        self._counters = COUNTERS + tuple(counters)
+        self._graph_kw = ({} if capture_error_mode is None else
+                          {"capture_error_mode": capture_error_mode})
 
     @property
     def fn(self) -> Callable:
@@ -140,7 +152,16 @@ class Program:
         return sum(c is not None for c in self._cache.values())
 
     def __call__(self, *args):
+        return self._run(key_of(args), args)
+
+    def bind(self, *args) -> Callable[[], Any]:
+        """``lambda: self(*args)`` with the key computed once, for a caller
+        that runs the program many times on the same tensors (a lockstep
+        step: the key walks every leaf of the params)."""
         key = key_of(args)
+        return lambda: self._run(key, args)
+
+    def _run(self, key, args):
         if not self.capture:
             self._cache.setdefault(key, None)
             return self.fn(*args)
@@ -183,18 +204,42 @@ class Program:
 
     def _capture(self, args) -> Capture:
         graph = torch.cuda.CUDAGraph()
-        before = _counts()
-        with torch.cuda.graph(graph, stream=capture_stream(self.device)):
+        before = _counts(self._counters)
+        with torch.cuda.graph(graph, stream=capture_stream(self.device),
+                              **self._graph_kw):
             out = self.fn(*args)
-        deltas = tuple(a - b for a, b in zip(_counts(), before))
-        _add_counts(-d for d in deltas)     # the capture launched nothing
+        deltas = tuple(a - b for a, b in zip(_counts(self._counters),
+                                             before))
+        # the capture launched nothing
+        _add_counts((-d for d in deltas), self._counters)
         return Capture(graph, out, deltas)
 
     def _replay(self, cap: Capture):
         cap.graph.replay()
-        _add_counts(cap.launches)
+        _add_counts(cap.launches, self._counters)
         self.replays += 1
         return cap.out
+
+
+class InputBuffers:
+    """Device buffers for a program's inputs, kept across calls: one set
+    per tree structure, shapes and dtypes.  ``bufs(tree)`` copies ``tree``
+    (tensors on the program's device) into its set and returns the set, so
+    every call with inputs of one shape runs the program on the same
+    storages (a broadcast view is copied dense)."""
+
+    def __init__(self):
+        self._sets: dict = {}
+
+    def __call__(self, tree: Any) -> Any:
+        key = repr(tree_map(lambda x: (tuple(x.shape), x.dtype), tree))
+        buf = self._sets.get(key)
+        if buf is None:
+            buf = self._sets[key] = tree_map(
+                lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                      device=x.device), tree)
+        tree_map(lambda b, x: b.copy_(x), buf, tree)
+        return buf
 
 
 def settle(tree: Any, old_leaves: list) -> Any:

@@ -33,13 +33,7 @@ from typing import Callable
 import torch
 
 from repro_torch import device as _device
-from repro_torch.core import engine
-from repro_torch.core.backend import (
-    LocalBackend,
-    MeshBackend,
-    PlanExecutor,
-    _tensor,
-)
+from repro_torch.core.backend import LocalBackend, MeshBackend, PlanExecutor
 from repro_torch.core.engine import (
     ALGORITHMS,
     GUARD_MODES,
@@ -53,7 +47,6 @@ from repro_torch.core.pruning import FedAPConfig
 from repro_torch.core.server_update import FedDUConfig
 from repro_torch.reliability import checkpoint as ckpt
 from repro_torch.reliability.faults import device_faults
-from repro_torch.utils.tree import tree_map
 
 _BACKENDS = {"local": LocalBackend, "mesh": MeshBackend}
 
@@ -223,10 +216,13 @@ class FederatedTrainer:
         explicit batch (numpy or tensors; ``(x, y)`` tuples), with this
         trainer's engine config (masks on iff the state has a mask slot);
         returns ``(state, metrics)``.  The round the batch-dict step of
-        ``launch.steps`` runs."""
+        ``launch.steps`` runs.  It goes through the backend's round program
+        (``LocalBackend.step``), as the reference's ``round_step`` is its
+        compiled ``round_core``: on the card the first round on a state
+        runs eagerly, the second is captured and later rounds of the same
+        batch shapes replay."""
         be = self.backend(use_masks="masks" in state)
-        batch = tree_map(lambda a: _tensor(a, self.device), batch)
-        return engine.round_core(be.eng, be.grad_fn, be.la_fn, state, batch)
+        return state, be.step(state, batch)
 
     def run(self, plan: TrainPlan | int, *, eval_every: int = 1,
             params=None, batches: Callable | None = None) -> RunResult:

@@ -100,8 +100,8 @@ def dryrun_pair(arch: str, shape_name: str, *, mesh: str = "16x16",
         state = init_state(torch.Generator())
         params = state["params"]
         batch = fl_batch_specs(cfg, shape, clients, run, abstract=True)
-        with CostCounter() as counter:
-            train_step(state, batch)
+        with CostCounter() as counter:     # the step program's body
+            train_step.body(state, batch)
     else:
         params = model.param_shapes()
         batch = input_specs(cfg, shape, abstract=True)

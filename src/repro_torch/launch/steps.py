@@ -24,6 +24,12 @@ FedAP keep-masks ride in the state, and :func:`with_masks` injects a
 decision into the live state: every state tensor keeps its storage and
 shape.  The state is updated in place, as ``round_core`` updates it.
 
+Where the reference's callers jit ``train_step``, the port runs it as one
+``core.programs.Program`` (:class:`TrainStep`): the batch is copied into
+input buffers kept per shapes, and on the card the first round on a state
+runs eagerly, the second is captured as a CUDA graph and later rounds of
+the same shapes replay it.
+
 ``fl_batch_specs`` builds the (arch x shape) train batch over C clients:
 meta-device tensors, or seeded arrays equal to the reference's.
 """
@@ -35,6 +41,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.core import programs
 from repro_torch.core.engine import (
     EngineConfig,
     FedDynConfig,
@@ -47,6 +54,7 @@ from repro_torch.core.momentum import FedDUMConfig
 from repro_torch.core.server_update import FedDUConfig
 from repro_torch.models.api import build_model, input_specs
 from repro_torch.models.lm import loss_and_acc_of
+from repro_torch.utils.tree import tree_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,11 +160,37 @@ def make_fl_train_step(cfg: ModelConfig, run: FLRunConfig, num_clients: int,
                                 filter_masks=filter_masks,
                                 num_clients=num_clients)
 
-    def train_step(state, batch):
-        state, metrics = round_core(eng, grad_fn, la_fn, state, batch)
-        return state, metrics["tau_eff"]
+    return init_state, TrainStep(eng, grad_fn, la_fn)
 
-    return init_state, train_step
+
+class TrainStep:
+    """``train_step(state, batch) -> (state, tau_eff)``: one ``round_core``
+    on ``state`` (in place) through the step program :attr:`program` (a
+    CUDA graph per state and batch shapes on the card, keys counted on the
+    CPU), made at the first call on the device of the state's tensors;
+    ``tau_eff`` is a tensor of its own.  :meth:`body` is the program's
+    eager body (what ``launch.dryrun`` counts)."""
+
+    def __init__(self, eng: EngineConfig, grad_fn, la_fn):
+        self.eng, self.grad_fn, self.la_fn = eng, grad_fn, la_fn
+        self._inputs = programs.InputBuffers()
+        self.program = None
+
+    def body(self, state: dict, batch: dict) -> dict:
+        """One ``round_core`` with every state tensor left in the storage it
+        started in; returns the round's metrics."""
+        old = tree_leaves(state)
+        _, met = round_core(self.eng, self.grad_fn, self.la_fn, state, batch)
+        programs.settle(state, old)
+        return met
+
+    def __call__(self, state: dict, batch: dict):
+        if self.program is None:
+            self.program = programs.Program(
+                self.body, name="fl_step",
+                device=tree_leaves(state["params"])[0].device)
+        met = self.program(state, self._inputs(batch))
+        return state, met["tau_eff"].clone()
 
 
 def with_masks(state: dict, masks: Any, filter_masks: Any = None) -> dict:

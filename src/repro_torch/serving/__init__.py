@@ -7,7 +7,8 @@ from repro_torch.serving.engine import (
     QueueFull,
     ServeConfig,
 )
-from repro_torch.serving.lockstep import lockstep_decode
+from repro_torch.serving.lockstep import LockstepSession, lockstep_decode
 
-__all__ = ["SERVE_MODES", "Completion", "DecodeEngine", "QueueFull",
-           "Servable", "ServeConfig", "load_servable", "lockstep_decode"]
+__all__ = ["SERVE_MODES", "Completion", "DecodeEngine", "LockstepSession",
+           "QueueFull", "Servable", "ServeConfig", "load_servable",
+           "lockstep_decode"]

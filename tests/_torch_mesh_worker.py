@@ -136,8 +136,10 @@ class MoeSoftmax(Softmax):
 
 
 def engine_history(case: str, backend: str, *, clients=4, sbatch=6,
-                   model=Softmax, backend_opts=None):
-    """Per round (params, server_m, tau_eff) of ``case`` on a backend."""
+                   model=Softmax, backend_opts=None, programs=None):
+    """Per round (params, server_m, tau_eff) of ``case`` on a backend.
+    ``programs`` (a dict), when given, receives the round program's key
+    count and, on the mesh, the all-reduces of each round."""
     data, rounds = softmax_world(clients, sbatch)
     rounds = case_rounds(case, rounds)
     trainer = FederatedTrainer(model(), data,
@@ -146,12 +148,16 @@ def engine_history(case: str, backend: str, *, clients=4, sbatch=6,
                                backend_opts=backend_opts)
     be = trainer.backend(batches=lambda t: rounds[t])
     state = be.init_state(model().init())
-    hist = []
+    hist, reductions = [], []
     for t in range(ROUNDS):
+        before = getattr(be, "reductions", 0)
         state, mets = be.run_rounds(state, t, 1)
+        reductions.append(getattr(be, "reductions", 0) - before)
         hist.append(({k: v.clone() for k, v in state["params"].items()},
                      {k: v.clone() for k, v in state["server_m"].items()},
                      float(mets[0]["tau_eff"])))
+    if programs is not None:
+        programs.update(keys=be.chunk._cache_size(), reductions=reductions)
     return hist
 
 
@@ -276,12 +282,59 @@ def rank_main():
     return out
 
 
-def _child(rank, world, store_path, out_path):
+def program_main():
+    """The mesh round program at 2 ranks: three softmax cases' histories
+    with the program's key count and each round's all-reduces; the LM world
+    of ``analysis.op_lint`` (kernel mode) for 3 rounds on the mesh and on
+    the local backend; and ``_reduce`` twice on tensors of two dtypes."""
+    from repro_torch.analysis import op_lint
+    from repro_torch.utils.tree import tree_map
+
+    out = {"cases": {}}
+    for case in PROGRAM_CASES:
+        programs: dict = {}
+        hist = engine_history(case, "mesh", programs=programs)
+        out["cases"][case] = (hist, programs)
+    lm = {}
+    for name in ("mesh", "local"):
+        trainer, params = op_lint.lm_world(backend=name)
+        be = trainer.backend(use_masks=True)
+        state = be.init_state(params)
+        rounds = []
+        for t in range(3):
+            state, mets = be.run_rounds(state, t, 1)
+            rounds.append((tree_map(torch.clone, state["params"]),
+                           float(mets[0]["tau_eff"])))
+        lm[name] = (rounds, be.chunk._cache_size(),
+                    getattr(be, "reductions", None))
+    out["lm"] = lm
+    data, _ = softmax_world(4, 6)
+    be = FederatedTrainer(Softmax(), data, case_config("feddum", 4, 6),
+                          device="cpu", backend="mesh").backend()
+    r = dist.get_rank()
+    xs = [torch.full((3,), 1.0 + r), torch.full((2, 2), 2.0 * r,
+                                                dtype=torch.bfloat16),
+          torch.arange(4.0) + r]
+    calls = []
+    for _ in range(2):
+        be._reduce(xs)
+        calls.append(([x.clone() for x in xs], be.reductions,
+                      sorted(b.data_ptr() for b in be._buckets.values())))
+    out["reduce"] = calls
+    return out
+
+
+# cases of program_main: the plain round, FedDyn's rows (a third
+# all-reduce), the guard's totals beside the FedAvg sum
+PROGRAM_CASES = ("feddum", "feddyn", "guard")
+
+
+def _child(rank, world, store_path, out_path, main="rank_main"):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
                             rank=rank, world_size=world)
     try:
-        out = rank_main()
+        out = globals()[main]()
         if rank == 0:
             torch.save(out, out_path)
         dist.barrier()
@@ -289,12 +342,13 @@ def _child(rank, world, store_path, out_path):
         dist.destroy_process_group()
 
 
-def run_world(tmp_path, world: int = 2, timeout: float = 240.0):
-    """Spawn the ranks, wait (at most ``timeout`` seconds), return rank 0's
-    results."""
+def run_world(tmp_path, world: int = 2, timeout: float = 240.0,
+              main: str = "rank_main"):
+    """Spawn the ranks, each running ``main`` (a function of this module),
+    wait (at most ``timeout`` seconds), return rank 0's results."""
     store, out = str(tmp_path / "store"), str(tmp_path / "out.pt")
-    ctx = mp.start_processes(_child, args=(world, store, out), nprocs=world,
-                             join=False, start_method="spawn")
+    ctx = mp.start_processes(_child, args=(world, store, out, main),
+                             nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     try:
         while not ctx.join(timeout=5):

@@ -456,13 +456,14 @@ def test_two_ranks_serve_the_mesh_less_tokens(two_ranks, key):
 
 def test_two_ranks_round_collectives_equal_the_budget(two_ranks):
     """``analysis.op_lint``'s LM world on the mesh backend at 2 ranks: the
-    round's collectives equal ``op_budget.json``'s record (25 all-reduces:
-    the FedAvg sum's leaves, the server step's gradient, the gate's
-    accuracy), and a changed count fails."""
+    round's collectives equal ``op_budget.json``'s record (2 all-reduces,
+    one per ``_reduce`` call and dtype: the FedAvg sum's leaves in one
+    buffer, the server step's gradient with the gate's accuracy in
+    another), and a changed count fails."""
     from repro_torch.analysis import op_lint
 
     got = two_ranks["mesh_round"]
-    assert got == {"c10d.allreduce_": 25}
+    assert got == {"c10d.allreduce_": 2}
     assert op_lint.check_mesh_budget(got) == []
     assert op_lint.check_mesh_budget(dict(got, **{"c10d.allgather_": 1}))
 
