@@ -92,7 +92,8 @@ Phases, in order; any failure raises and the script exits non-zero:
               rate 0.5 equal) and one FedDUMAP round with a mask prune;
 12. training cnn — the paper protocol through ``FederatedTrainer``:
               ``SyntheticSpec()`` data, 100 clients of 400 samples, 2,000
-              server samples, 10 clients a round, E = 5, B = 10, FedAP with
+              server samples, 10 clients a round, E = CNN_LOCAL_EPOCHS (1;
+              the paper's 5, cut for the script's clock), B = 10, FedAP with
               a probe of 32 and 6 participants; SimpleCNN with a prune at
               round 1 (shrink and mask for 2 rounds, mask then shrink at 2
               for 3) and
@@ -1903,12 +1904,14 @@ def _graph_ms(torch, run) -> float:
     return start.elapsed_time(end)
 
 
-def _capture_serving(torch, label, sv, scfg, prompts) -> None:
+def _capture_serving(torch, label, sv, scfg, prompts) -> dict:
     """The engine with captured programs against the same engine with its
     eager bodies: completions token for token, K1 and K5 launches equal,
     program counts {"admit": 1, "wave": 1}, replays clean under sync-debug
     "error", ms/step of waves in turns, the device's busy share (one
-    replay's device time over each path's host-clock time) and peaks."""
+    replay's device time over each path's host-clock time) and peaks.
+    Returns {kernel: launches} of the captured engine's run (its counts
+    are set to 0 just before it)."""
     from repro_torch.kernels import decode_attention as k5
     from repro_torch.kernels import masked_matmul as k1
     from repro_torch.serving import DecodeEngine
@@ -1987,6 +1990,7 @@ def _capture_serving(torch, label, sv, scfg, prompts) -> None:
     del engines, eng
     gc.collect()                # the captured engines' graphs and pools
     torch.cuda.empty_cache()
+    return dict(zip(("decode_attention", "masked_matmul"), c["launches"]))
 
 
 def _capture_rounds(torch, label, make_backend, params) -> None:
@@ -2256,6 +2260,7 @@ def _capture_mesh_round(torch, trainer, params) -> None:
                      f"({CAPTURE_OLMO_LAYERS} layers, f32, kernel masks)",
                      make, names=("local", "mesh"))
     be = backends["mesh"]
+    _mesh_data_check(torch, be, "captured round")
     n = CAPTURE_ROUNDS + 2
     want = n * (1 + be.sample_kw["server_tau"])
     log(f"[capture] mesh round: {be.reductions} all-reduces over {n} rounds "
@@ -2293,7 +2298,6 @@ def phase_capture(torch) -> dict:
     from repro_torch.core.pruning import FedAPConfig
     from repro_torch.core.rounds import feddumap_config
     from repro_torch.data.pipeline import build_federated_data
-    from repro_torch.kernels import decode_attention as k5
     from repro_torch.kernels import masked_matmul as k1
     from repro_torch.models.lm import LM
     from repro_torch.serving import ServeConfig, load_servable
@@ -2312,10 +2316,9 @@ def phase_capture(torch) -> dict:
     for mode in ("dense", "masked", "shrunk"):
         src = source if mode != "dense" else {**source, "kept": None}
         sv = load_servable(src, mode, device="cuda")
-        n5, n1 = k5.launches, k1.launches
-        _capture_serving(torch, f"olmo-1b {mode}", sv, scfg, prompts)
-        launches["decode_attention"] += k5.launches - n5
-        launches["masked_matmul"] += k1.launches - n1
+        for name, n in _capture_serving(torch, f"olmo-1b {mode}", sv, scfg,
+                                        prompts).items():
+            launches[name] += n
         del sv
     del params, source, src, model
     torch.cuda.empty_cache()
@@ -3173,7 +3176,9 @@ def _cnn_round_parity(torch, cpu, gpu, params_c, params_g, rng, shape):
 # config and prints it as a finding, and every other run takes the
 # quickstart's compression floor, min_rate 0.3, and must prune.
 # each round is timed alone, so a run needs no round before its prune to
-# measure s/round
+# measure s/round.  Local epochs: 1 of the paper's 5 (the rounds are
+# host-bound and the script's clock is short; s/round scales with E)
+CNN_LOCAL_EPOCHS = 1
 CNN_RUNS = (
     dict(model="SimpleCNN", shape=(16, 16, 3), rounds=2, prune_round=1,
          mode="shrink", min_rate=0.3),
@@ -3189,7 +3194,8 @@ CNN_RUNS = (
 def phase_training_cnn(torch) -> dict:
     """The paper protocol on the card: ``SyntheticSpec()`` data (50,000
     training images), 100 clients by label shards, 400 samples each, 2,000
-    server samples; FedDUMAP with 10 clients a round, E = 5, B = 10, lr
+    server samples; FedDUMAP with 10 clients a round, E =
+    CNN_LOCAL_EPOCHS (the paper's 5 cut to 1), B = 10, lr
     decayed 0.99; FedAP with a probe of 32 and 6 participants (CNN_RUNS
     says where a run departs from that).  Returns
     {kernel name: launches}: none, since no paper CNN reaches a kernel."""
@@ -3221,7 +3227,8 @@ def phase_training_cnn(torch) -> dict:
                 f"{worlds[shape].test_x.shape[0]} test; built in "
                 f"{time.perf_counter() - t0:.1f} s on the host")
         data = worlds[shape]
-        fl = feddumap_config(clients_per_round=10, local_epochs=5,
+        fl = feddumap_config(clients_per_round=10,
+                             local_epochs=CNN_LOCAL_EPOCHS,
                              batch_size=10, lr=lr, lr_decay=0.99,
                              fedap=FedAPConfig(
                                  probe_size=32, participants=6,
@@ -6037,6 +6044,88 @@ def _remat_gradients(torch) -> None:
         f"({rows['dots'][4]['masked_matmul']} launches, 2 a layer forward)")
 
 
+EVAL_TURNS = 3              # evaluations in a timed turn
+
+
+def _eval_programs(torch, label, backends, state) -> None:
+    """Each backend's eval program on ``state``'s params: its captured
+    replays bitwise the eager body's result (``Program(capture=False)`` on
+    the same inputs), the device's reserved memory with the program's
+    graph pool and without it (a graph keeps its pool), and ms per
+    evaluation of the eager body and of the captured program in turns
+    (eager, captured, captured, eager).  Every backend's result must be
+    bitwise the first's (at a world of one the sharded eval, the whole
+    split's and the local one agree)."""
+    from repro_torch.core.programs import Program, key_of
+
+    first = None
+    for name, be in backends.items():
+        prog = be._eval_program()
+        args = be._eval_args(state)
+        eager = Program(prog.fn, name="eval", device="cuda", capture=False)
+        want = tuple(t.clone() for t in eager(*args))
+        got = [be.evaluate(state) for _ in range(3)]
+        same = all(torch.equal(a, b) for g in got for a, b in zip(g, want))
+        first = want if first is None else first
+        agree = all(torch.equal(a, b) for a, b in zip(want, first))
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        with_pool = torch.cuda.memory_reserved()
+        caps = prog.captures
+        prog._cache.pop(key_of(args))   # this key's capture and its pool
+        gc.collect()
+        torch.cuda.empty_cache()
+        without = torch.cuda.memory_reserved()
+        for _ in range(2):          # captured again for the turns
+            be.evaluate(state)
+        ms = {"eager": [], "captured": []}
+        for which in ("eager", "captured", "captured", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(EVAL_TURNS):
+                if which == "eager":
+                    eager(*args)
+                else:
+                    be.evaluate(state)
+            torch.cuda.synchronize()
+            ms[which].append(1e3 * (time.perf_counter() - t0) / EVAL_TURNS)
+        log(f"[eval] {label} {name}: loss {float(want[0]):.6f} acc "
+            f"{float(want[1]):.4f}; 3 evaluations through the program "
+            f"(eager run, capture, replay) "
+            f"{'bitwise equal' if same else 'DIFFER'} to the eager body, "
+            f"{'bitwise equal' if agree else 'DIFFERS'} to "
+            f"{next(iter(backends))}; {caps} capture(s) of the program; "
+            f"reserved "
+            f"{_gib(with_pool):.3f} GiB with the eval pool, "
+            f"{_gib(without):.3f} GiB without (the pool "
+            f"{_gib(with_pool - without):.3f} GiB); ms per eval in turns: "
+            f"eager {statistics.mean(ms['eager']):.3f} "
+            f"{[round(t, 3) for t in ms['eager']]}, captured "
+            f"{statistics.mean(ms['captured']):.3f} "
+            f"{[round(t, 3) for t in ms['captured']]}; {CARD}")
+        require(same and agree and caps >= 1 and prog.captures >= 1,
+                f"eval {label} {name}: the captured eval differs or did not "
+                f"capture")
+        del got, prog, eager, args
+
+
+def _mesh_data_check(torch, backend, label) -> None:
+    """The mesh backend's dataset is ``device_arrays(mesh=)``'s placement
+    (row 0 of the test split kept beside it); at a world of one every
+    client stays on this rank and the round fetches nothing."""
+    d = backend.device_data()
+    log(f"[mesh] {label}: dataset from device_arrays(mesh=, shard_test="
+        f"{backend.shard_eval}): client_x {tuple(d['client_x'].shape)} of "
+        f"{backend._num_clients} clients on rank {backend.rank} of "
+        f"{backend.world}, test_x {tuple(d['test_x'].shape)}; "
+        f"reduce-scatters so far {backend.scatters}")
+    require("test_x0" in d and backend._owned is None
+            and backend.scatters == 0
+            and d["client_x"].shape[0] == backend._num_clients,
+            f"mesh {label}: not the mesh placement of a world of one")
+
+
 def phase_mesh(torch) -> dict:
     """``FederatedTrainer(backend="mesh")`` as a world of one over NCCL: the
     training phase's olmo-1b FedDUMAP plan (``fedap_plan(4, prune_round=2,
@@ -6058,6 +6147,7 @@ def phase_mesh(torch) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import experiments
+    from repro_torch.core.backend import MeshBackend
     from repro_torch.core.plan import fedap_plan
     from repro_torch.kernels import masked_matmul as k1
     from repro_torch.launch.mesh import make_host_mesh
@@ -6101,6 +6191,13 @@ def phase_mesh(torch) -> dict:
     require(launches == LOCAL_RUN["launches"], "mesh: K1-K3 launches differ")
     local_steady = LOCAL_RUN.get("steady_s", float("nan"))
     LOCAL_RUN.clear()
+    _mesh_data_check(torch, backend, "olmo-1b plan")
+    _eval_programs(torch, "olmo-1b (16 layers, f32)", {
+        "mesh shard_eval=True": backend,
+        "mesh shard_eval=False": MeshBackend(
+            trainer.model, trainer.data, trainer.cfg, use_masks=True,
+            device="cuda", mesh=mesh, shard_eval=False,
+            data_cache=trainer._data_cache)}, res.state)
 
     # steady-state rounds of the mesh's captured round program (replays) on
     # the pruned state; a local backend's captured round beside it would
@@ -6165,6 +6262,7 @@ def phase_mesh(torch) -> dict:
         f"local record, FedAP {rec['fedap']['kept_counts']} "
         f"{'equal' if same_ap else 'DIFFERS'}; {wall:.2f} s")
     require(same and same_ap, "mesh run_one differs from local")
+    _paper_eval(torch, mesh)
 
     # kill and resume on the mesh backend: the reliability phase's plan
     _resume_cnn(torch, out, backend="mesh", mesh=mesh,
@@ -6173,6 +6271,35 @@ def phase_mesh(torch) -> dict:
     for name, n in _serving_mesh(torch, mesh).items():
         launches[name] = launches.get(name, 0) + n
     return launches
+
+
+def _paper_eval(torch, mesh) -> None:
+    """The eval programs on the paper protocol's SimpleCNN and its test
+    split (seed-0 params): local, and the mesh with ``shard_eval`` on and
+    off, sharing one dataset cache."""
+    from repro_torch import experiments
+    from repro_torch.core.backend import LocalBackend, MeshBackend
+    from repro_torch.core.rounds import feddumap_config
+    from repro_torch.data.pipeline import build_federated_data
+
+    data = build_federated_data(
+        num_clients=experiments.NUM_CLIENTS, server_fraction=0.05,
+        device_pool=experiments.DEVICE_POOL, spec=experiments.SPEC, seed=0)
+    fl = feddumap_config(**experiments.COMMON, seed=0)
+    cnn = experiments.make_model("cnn", "cuda")
+    cache: dict = {}
+    local = LocalBackend(cnn, data, fl, device="cuda", data_cache=cache)
+    state = local.init_state(cnn.init(torch.Generator(
+        device="cuda").manual_seed(0)))
+    _eval_programs(torch, f"SimpleCNN paper test split "
+                   f"({data.test_x.shape[0]} images)", {
+                       "local": local,
+                       "mesh shard_eval=True": MeshBackend(
+                           cnn, data, fl, device="cuda", mesh=mesh,
+                           data_cache=cache),
+                       "mesh shard_eval=False": MeshBackend(
+                           cnn, data, fl, device="cuda", mesh=mesh,
+                           shard_eval=False, data_cache=cache)}, state)
 
 
 SERVING_RUN: dict = {}      # the serving phase's masked olmo-1b run
@@ -6235,25 +6362,43 @@ def _serving_mesh(torch, mesh) -> dict:
     require(got == SERVING_RUN["launches"],
             "serving mesh: K1/K5 launches differ from the mesh-less engine")
 
-    # one wave and the gather with no host sync
+    # the wave's all-gather is a node of its graph: replays with no host
+    # sync, and the lowered wave records the collective
+    from repro_torch.analysis import op_lint
+
     eng = engine(True)
     for p in prompts[: scfg.slots]:
         eng.submit(p)
     eng.step_wave()
-    _capture_wave(eng)
+    lowered = eng.lower_wave()
+    coll = op_lint.collectives(lowered.ops)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        eng._wave()
-        eng._gather(eng._state["active"].to(torch.uint8))
+        for _ in range(2):
+            eng._wave()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    require(eng._wave_program.replays == 1,
-            "serving mesh: the sync-checked wave was not a replay")
-    log(f"[serving mesh] one captured wave ({scfg.steps_per_wave} steps, a "
-        f"replay) and its all-gather ran under set_sync_debug_mode('error') "
-        f"without a host sync")
+    gathered = eng._gathered.clone()
+    rows = torch.cat([eng._state["active"][:, None].to(torch.int32),
+                      eng._state["n_out"][:, None],
+                      eng._state["error"][:, None].to(torch.int32),
+                      eng._state["out"]], 1)
+    require(eng._wave_program.replays == 2 and lowered.graph is not None,
+            "serving mesh: the sync-checked waves were not replays")
+    require(coll == ["c10d._allgather_base_"]
+            and torch.equal(gathered, rows)
+            and eng.program_counts() == {"admit": 1, "wave": 1},
+            f"serving mesh: the wave's collectives {coll}, gathered rows "
+            f"equal {torch.equal(gathered, rows)}, programs "
+            f"{eng.program_counts()}")
+    log(f"[serving mesh] two captured waves ({scfg.steps_per_wave} steps "
+        f"each, replays) with the all-gather inside ran under "
+        f"set_sync_debug_mode('error') without a host sync; the lowered "
+        f"wave's collectives {coll}; the gathered [active, n_out, error, "
+        f"out] rows equal the slots' state; programs "
+        f"{eng.program_counts()}")
 
     # waves in turns: mesh-less, mesh, mesh, mesh-less (every slot busy)
     engines = {}
@@ -6262,6 +6407,7 @@ def _serving_mesh(torch, mesh) -> dict:
         for p in prompts[: scfg.slots]:
             engines[on_mesh].submit(p)
         engines[on_mesh].step_wave()
+        _capture_wave(engines[on_mesh])     # the turns time replays
     ms = {False: [], True: []}
     for on_mesh in (False, True, True, False):
         e = engines[on_mesh]

@@ -25,14 +25,19 @@ meaning, on the CPU:
   each family the lockstep loop serves: the hybrid (reduced zamba2, dense
   and masked), ssm (reduced xlstm), encdec (reduced whisper) and vlm
   (reduced qwen2-vl, the one-hot step input).
-* **The mesh backend's collectives a round** at 2 gloo ranks (the LM
-  world, kernel mode) equal the count recorded in ``op_budget.json``, the
-  part the reference's ``compile_budget.json`` ``"hlo"`` section plays: a
-  new collective in the round fails the check.  Re-record after an
-  intended change with ``python -m repro_torch.analysis.op_lint --update``.
+* **The mesh programs' collectives** at 2 gloo ranks equal the counts
+  recorded in ``op_budget.json``, the part the reference's
+  ``compile_budget.json`` ``"hlo"`` section plays: a round of the mesh
+  backend (the LM world, kernel mode, its clients' data rank-local: the
+  fetch of their samples, sizes and label distributions from their owners
+  counted with the round's sums), its sharded eval (one all-reduce) and a
+  ``DecodeEngine(mesh=)`` wave (one all-gather).  A new collective in one
+  of them fails the check.  Re-record after an intended change with
+  ``python -m repro_torch.analysis.op_lint --update``.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import pathlib
@@ -223,16 +228,43 @@ def record_lockstep(arch: str, *, masked: bool = False) -> list:
 # the mesh round at MESH_RANKS gloo ranks
 
 
+def _counts(ops: list) -> dict:
+    return dict(collections.Counter(collectives(ops)))
+
+
 def mesh_round_collectives() -> dict:
     """{kind: count} of the collectives of one LM-world round on the mesh
     backend (run on every rank of a process group with MESH_RANKS
     ranks)."""
     trainer, params = lm_world(backend="mesh")
-    ops = record_round(trainer, params)
-    counts: dict = {}
-    for name in collectives(ops):
-        counts[name] = counts.get(name, 0) + 1
-    return counts
+    return _counts(record_round(trainer, params))
+
+
+def mesh_collectives() -> dict:
+    """{program: {kind: count}} of the mesh programs on every rank of a
+    process group with MESH_RANKS ranks: a round (as
+    :func:`mesh_round_collectives`), the LM world's sharded eval body, and
+    one wave of a ``DecodeEngine(mesh=)`` over the ranks (a slot each)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving import DecodeEngine, ServeConfig
+
+    trainer, params = lm_world(backend="mesh")
+    out = {"mesh_round": _counts(record_round(trainer, params))}
+    be = trainer.backend()
+    with CostCounter(record=True) as c:
+        be._sharded_eval_body(*be._eval_args({"params": params}))
+    out["mesh_eval"] = _counts(c.ops)
+    model = lm_model()
+    eng = DecodeEngine(model, model.init(torch.Generator().manual_seed(0)),
+                       ServeConfig(slots=MESH_RANKS, cache_len=12,
+                                   max_prompt=4, max_new_tokens=4,
+                                   steps_per_wave=2),
+                       mesh=make_host_mesh(device="cpu"), device="cpu")
+    for p in ([3, 1], [5, 9, 2]):
+        eng.submit(np.asarray(p, np.int32))
+    eng.step_wave()
+    out["mesh_wave"] = _counts(eng.lower_wave().ops)
+    return out
 
 
 def _rank(rank: int, world: int, store: str, out: str) -> None:
@@ -242,7 +274,7 @@ def _rank(rank: int, world: int, store: str, out: str) -> None:
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     try:
-        counts = mesh_round_collectives()
+        counts = mesh_collectives()
         if rank == 0:
             with open(out, "w") as f:
                 json.dump(counts, f)
@@ -251,9 +283,9 @@ def _rank(rank: int, world: int, store: str, out: str) -> None:
         dist.destroy_process_group()
 
 
-def spawn_mesh_round(timeout: float = 240.0) -> dict:
-    """:func:`mesh_round_collectives` at MESH_RANKS spawned gloo ranks that
-    meet over a ``FileStore`` in a temporary directory; rank 0's counts."""
+def spawn_mesh_programs(timeout: float = 240.0) -> dict:
+    """:func:`mesh_collectives` at MESH_RANKS spawned gloo ranks that meet
+    over a ``FileStore`` in a temporary directory; rank 0's counts."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -279,14 +311,19 @@ def load_budget() -> dict:
     return json.loads(BUDGET_PATH.read_text())
 
 
-def check_mesh_budget(counts: dict, budget: dict | None = None
-                      ) -> list[str]:
+MESH_PROGRAMS = ("mesh_round", "mesh_eval", "mesh_wave")
+
+
+def check_mesh_budget(counts: dict, budget: dict | None = None, *,
+                      program: str = "mesh_round") -> list[str]:
+    """Failure messages for one mesh program's collectives ``counts``
+    against its record in the budget."""
     budget = load_budget() if budget is None else budget
-    want = budget["mesh_round"]["collectives"]
+    want = budget[program]["collectives"]
     if counts != want:
-        return [f"mesh round at {MESH_RANKS} ranks: collectives {counts}, "
+        return [f"{program} at {MESH_RANKS} ranks: collectives {counts}, "
                 f"the recorded budget says {want} — an unbudgeted "
-                f"collective is on every round's critical path"]
+                f"collective is on the program's critical path"]
     return []
 
 
@@ -312,7 +349,9 @@ def check(*, mesh: bool = True) -> list[str]:
         label = f"lockstep step {arch}{' (masked)' if masked else ''}"
         errors += check_stream(label, record_lockstep(arch, masked=masked))
     if mesh:
-        errors += check_mesh_budget(spawn_mesh_round())
+        got = spawn_mesh_programs()
+        for program in MESH_PROGRAMS:
+            errors += check_mesh_budget(got[program], program=program)
     return errors
 
 
@@ -322,14 +361,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="repro_torch.analysis.op_lint",
                                  description=__doc__.splitlines()[0])
     ap.add_argument("--update", action="store_true",
-                    help="re-record the mesh round's collectives into "
+                    help="re-record the mesh programs' collectives into "
                          "op_budget.json")
     args = ap.parse_args(argv)
     if args.update:
         budget = load_budget()
-        budget["mesh_round"]["collectives"] = spawn_mesh_round()
+        got = spawn_mesh_programs()
+        for program in MESH_PROGRAMS:
+            budget[program] = {"ranks": MESH_RANKS,
+                               "collectives": got[program]}
         BUDGET_PATH.write_text(json.dumps(budget, indent=2) + "\n")
-        print(f"recorded: {budget['mesh_round']}")
+        print(f"recorded: { {k: budget[k] for k in MESH_PROGRAMS} }")
         return 0
     errors = check()
     for e in errors:

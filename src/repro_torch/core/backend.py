@@ -18,6 +18,9 @@ replayed, and every later round on that state is one replay, whatever the
 chunk's length.  The
 round's indices are drawn outside the program, as before, and copied into
 input buffers kept across rounds; the gather of the batch runs inside it.
+Evaluation runs one eval program per model (:func:`eval_program`; the
+mesh's sharded one has its all-reduce inside), captured on the card at the
+second Eval on the same params.
 A ``Prune(mode="mask")`` writes the masks into the existing state tensors
 (``copy_``/``mul_``/``zero_``): every state tensor keeps its storage and
 shape, so the capture replays on, the reference's "zero added programs".
@@ -48,6 +51,7 @@ import contextlib
 import dataclasses
 import inspect
 import time
+import weakref
 from typing import Any, Callable
 
 import numpy as np
@@ -66,6 +70,7 @@ from repro_torch.core.plan import (
     Snapshot,
     TrainPlan,
 )
+from repro_torch.launch.mesh import all_gather, reduce_scatter
 from repro_torch.reliability import checkpoint as ckpt
 from repro_torch.reliability.faults import SimulatedCrash, host_faults
 from repro_torch.utils.tree import tree_leaves, tree_map
@@ -160,6 +165,38 @@ def masked_round_state(state: dict, masks: Any, filter_masks: Any = None
     return state
 
 
+# The eval programs: one per (model, device) per process, shared by every
+# backend over that model (the reference's ``_EVAL_CACHE``).  An entry
+# holds its model weakly and goes with it, and the program's CUDA graphs
+# and their memory pool with the entry.
+_EVAL_PROGRAMS: dict = {}
+
+
+def clear_eval_programs() -> None:
+    """Drop every eval program (and its captures)."""
+    _EVAL_PROGRAMS.clear()
+
+
+def eval_program(model, device) -> programs.Program:
+    """The one :class:`~repro_torch.core.programs.Program` over
+    ``model.loss_and_acc(params, x, y)`` (under ``torch.no_grad``) on
+    ``device``: its key is the params' and the split's tensors, so a
+    shrink's params make a new key, and on the card the second Eval on the
+    same params captures it."""
+    key = (id(model), str(torch.device(device)))
+    entry = _EVAL_PROGRAMS.get(key)
+    if entry is None:
+        ref = weakref.ref(model, lambda _: _EVAL_PROGRAMS.pop(key, None))
+
+        def body(params, x, y):
+            with torch.no_grad():
+                return ref().loss_and_acc(params, x, y)
+
+        entry = _EVAL_PROGRAMS[key] = (ref, programs.Program(
+            body, name="eval", device=device))
+    return entry[1]
+
+
 class LocalBackend:
     """Rounds on one device, with the whole federated dataset resident
     there, each round through the round program :attr:`chunk` (captured on
@@ -170,9 +207,13 @@ class LocalBackend:
     or tensors).  Without it, rounds sample with :func:`engine.
     draw_round_indices` from ``generator``.  An explicit batch
     (``FederatedTrainer.round_step``) runs the same program
-    (:meth:`step`).  Evaluation runs eagerly: the reference compiles its
-    eval program too (outside its compile budget), and porting it is still
-    to do (ROADMAP).
+    (:meth:`step`).  Evaluation runs :func:`eval_program`, the one program
+    per model that every backend over the model shares (outside the
+    compile budget, as the reference keeps its eval program).
+
+    ``data_cache`` (a dict, optional) holds the device-resident dataset
+    under ``"local"``: the trainer passes one to all its backends, so they
+    share one copy on the device.
     """
 
     name = "local"
@@ -180,7 +221,8 @@ class LocalBackend:
 
     def __init__(self, model, data, cfg, *, use_masks: bool = False,
                  device, generator: torch.Generator | None = None,
-                 batches: Callable | None = None):
+                 batches: Callable | None = None,
+                 data_cache: dict | None = None):
         from repro_torch.core.rounds import engine_config
 
         self.model, self.data, self.cfg = model, data, cfg
@@ -191,7 +233,7 @@ class LocalBackend:
         self.grad_fn, self.la_fn = model_fns(model, self.eng)
         self.generator = generator
         self.batches = batches
-        self._data = None
+        self._data_cache = {} if data_cache is None else data_cache
         self._inputs = programs.InputBuffers()  # a round's inputs, by shapes
         self.chunk = programs.Program(self._round_body, name="round",
                                       device=self.device,
@@ -207,13 +249,27 @@ class LocalBackend:
 
     @property
     def _num_clients(self) -> int:
-        """The total client count: sizes FedDyn's per-client state."""
+        """The total client count (the round's draw is over it)."""
         return int(self.data.client_x.shape[0])
 
+    @property
+    def _h_rows(self) -> int:
+        """Rows of FedDyn's per-client state this backend holds."""
+        return self._num_clients
+
+    def _data_key(self):
+        return "local"
+
+    def _place_data(self) -> dict:
+        return self.data.device_arrays(self.device)
+
     def device_data(self) -> dict:
-        if self._data is None:
-            self._data = self.data.device_arrays(self.device)
-        return self._data
+        """The device-resident dataset, placed once per data cache."""
+        key = self._data_key()
+        d = self._data_cache.get(key)
+        if d is None:
+            d = self._data_cache[key] = self._place_data()
+        return d
 
     def init_state(self, params) -> dict:
         """A fresh round state over a COPY of ``params`` (kernel mode: with
@@ -222,12 +278,18 @@ class LocalBackend:
                   if self._kernel_masks else None)
         return engine.init_round_state(tree_map(torch.clone, params),
                                        self.eng, filter_masks=fmasks,
-                                       num_clients=self._num_clients)
+                                       num_clients=self._h_rows)
 
     def restore_state(self, state: dict) -> dict:
         """A checkpointed round state (host numpy) back on the device, each
         leaf keeping its dtype: f32 round-trips through npz bit-exactly."""
         return tree_map(lambda a: _tensor(a, self.device), state)
+
+    def whole_state(self, state: dict) -> dict:
+        """The round state with every per-client row in it (what a
+        checkpoint and ``RunResult.state`` hold): ``state`` itself here,
+        where every row is on this device."""
+        return state
 
     def snapshot(self, state: dict):
         """A copy of the global params: later rounds leave it unchanged."""
@@ -247,7 +309,7 @@ class LocalBackend:
         new_state = engine.init_round_state(
             tree_map(torch.clone, params), self.eng,
             filter_masks=state.get("filter_masks"),
-            num_clients=self._num_clients)
+            num_clients=self._h_rows)
         new_state["round"] = state["round"]
         if "masks" in state:
             new_state["masks"] = state["masks"]
@@ -268,7 +330,7 @@ class LocalBackend:
                             self.batches(t))
         d = self.device_data()
         return engine.draw_round_indices(
-            self.generator, num_clients=int(d["client_x"].shape[0]),
+            self.generator, num_clients=self._num_clients,
             n_k=int(d["client_x"].shape[1]),
             n0=int(d["server_x"].shape[0]), **self.sample_kw)
 
@@ -281,7 +343,7 @@ class LocalBackend:
         if not isinstance(src, dict):
             return engine.sample_round_batches(self.device_data(), *src,
                                                **self.sample_kw,
-                                               clients=mine)
+                                               shard=shard)
         batch = dict(src)
         if mine is not None:
             batch["client"] = tree_map(lambda x: x[mine.start:mine.stop],
@@ -329,11 +391,20 @@ class LocalBackend:
             mets.append(tree_map(torch.clone, met))
         return state, mets
 
-    def evaluate(self, state):
+    def _eval_program(self) -> programs.Program:
+        return eval_program(self.model, self.device)
+
+    def _eval_args(self, state) -> tuple:
+        """The eval program's inputs: the params and the test split."""
         d = self.device_data()
-        with torch.no_grad():
-            return self.model.loss_and_acc(state["params"], d["test_x"],
-                                           d["test_y"])
+        return state["params"], d["test_x"], d["test_y"]
+
+    def evaluate(self, state):
+        """(loss, acc) of the params on the test split, through the eval
+        program (tensors of their own: a replay overwrites the
+        program's)."""
+        out = self._eval_program()(*self._eval_args(state))
+        return tuple(t.clone() for t in out)
 
     def prune_decision(self, state, init_params):
         from repro_torch.core import fedap
@@ -366,7 +437,7 @@ class LocalBackend:
               if self._kernel_masks else None)
         new_state = engine.init_round_state(new_params, self.eng,
                                             filter_masks=fm,
-                                            num_clients=self._num_clients)
+                                            num_clients=self._h_rows)
         if compact_existing:
             for k in ("server_m", "global_m"):
                 if k in state:
@@ -398,38 +469,50 @@ class MeshBackend(LocalBackend):
       every rank.  ``shard_server`` (the reference's switch) overrides that
       choice; by default it follows the model, and True is refused for
       moe.
-    * Evaluation: the test split's rows split over the ranks, padded with
-      row-0 copies to a multiple of them; the padded rows' contribution is
-      subtracted back out exactly, ``mean = (mean_pad n_pad - k f(row 0)) /
-      n``.
-    * The state stays replicated on every rank, FedDyn's per-client ``h``
-      too: no placement is applied (``fl_state_specs`` with no model axes
-      describes the same layout).  Every rank holds the
-      whole federated dataset and gathers its own clients' rows: the
-      reference stores only a rank's clients, which narrows nothing here
-      but memory (ROADMAP P3).  Every rank draws the same round indices
-      from a generator seeded alike.
+    * The data and FedDyn's ``h`` are rank-local, as the reference places
+      them: where the client count N divides the client ranks, each rank
+      stores only its block of clients (``FederatedData.device_arrays(
+      mesh=)``, ``fl_specs.client_rows``), and FedDyn's per-client ``h``
+      holds the same block (``fl_state_specs``).  The round program fetches
+      its clients' samples, sizes, label distributions and rows of ``h``
+      from their owners (masked sums over the ranks: a reduce-scatter for
+      the samples and rows a rank trains on, an all-reduce for the [C]
+      vectors every rank needs), and sends the new rows of ``h`` back to
+      them.  Where N does not divide (or at a world of one) every rank
+      holds everything and none of that runs.  Every rank draws the same
+      round indices from a generator seeded alike.  :meth:`whole_state`
+      gathers ``h`` whole for a checkpoint and ``RunResult.state``.
+    * Evaluation: with ``shard_eval`` (the default) the test split's rows
+      split over the ranks, padded with row-0 copies to a multiple of them
+      at placement; the padded rows' contribution is subtracted back out
+      exactly, ``mean = (mean_pad n_pad - k f(row 0)) / n``, one
+      all-reduce inside the eval program.  ``shard_eval=False`` runs
+      :func:`eval_program` on the whole test split on every rank.
     * ``Prune`` events: the decision is ``fedap.fedap_decision_sharded``
       (participants split, rates all-gathered, the same decision on every
       rank); a mask goes in through ``launch.steps.with_masks`` (every
       state tensor keeps its storage and shape); a shrink runs on each
-      rank as on one device.
+      rank as on one device, ``h`` restarting rank-local at the shrunk
+      shapes.
     * Rank 0 writes the plan's checkpoints; every rank reads them back.
-    * The round program (:attr:`chunk`) is the local backend's, with its
-      collectives inside: on a CUDA mesh its first round on a state runs
-      eagerly (the NCCL communicator exists from the process group's
-      start), the second is captured on ``programs.capture_stream`` and
-      later rounds replay, each collective a node of the graph.  gloo (the
-      CPU) never captures and counts keys.  :meth:`_reduce` packs each
-      call's tensors into one flat buffer per dtype, kept across rounds,
-      runs one ``dist.all_reduce`` on it and unpacks it in place.
+    * The round program (:attr:`chunk`) and the sharded eval program are
+      the local backend's kind, with their collectives inside: on a CUDA
+      mesh a key's first call runs eagerly (the NCCL communicator exists
+      from the process group's start), the second is captured on
+      ``programs.capture_stream`` and later calls replay, each collective
+      a node of the graph.  gloo (the CPU) never captures and counts keys.
+      :meth:`_reduce` packs each call's tensors into one flat buffer per
+      dtype, kept across rounds, runs one ``dist.all_reduce`` on it and
+      unpacks it in place; :meth:`_scatter` packs them the same way for
+      one reduce-scatter per dtype.
 
     Other mesh dims than the client axes must have size 1.  At a world of
     one every sum over the ranks is a copy, and the run is bitwise the
-    local backend's; at more ranks each element is summed as before, one
-    all-reduce per tensor.  ``reductions`` counts the all-reduces, a
-    replay adding those its capture recorded; ``reduce_seconds`` is the
-    host time of the eager calls only (a replay runs no Python).
+    local backend's.  ``reductions`` counts the all-reduces and
+    ``scatters`` the reduce-scatters, a replay adding those its capture
+    recorded; ``reduce_seconds`` is the host time of the eager all-reduce
+    calls only (a replay runs no Python).  ``data_cache`` holds the placed
+    dataset under ``("mesh", mesh, shard_eval)``.
     """
 
     name = "mesh"
@@ -437,17 +520,18 @@ class MeshBackend(LocalBackend):
     def __init__(self, model, data, cfg, *, use_masks: bool = False,
                  device, generator: torch.Generator | None = None,
                  batches: Callable | None = None, mesh=None,
-                 shard_server: bool | None = None):
-        from repro_torch.core.fedap import _client_rank
+                 data_cache: dict | None = None,
+                 shard_server: bool | None = None, shard_eval: bool = True):
         from repro_torch.launch.mesh import make_host_mesh
-        from repro_torch.sharding.fl_specs import fl_sim_batch_specs
+        from repro_torch.sharding import fl_specs
         from repro_torch.sharding.specs import MeshPlan, axis_sizes
 
-        self.reductions = 0         # the round program counts these
+        self.reductions = 0         # the programs count these
+        self.scatters = 0
         self.reduce_seconds = 0.0
         super().__init__(model, data, cfg, use_masks=use_masks,
                          device=device, generator=generator,
-                         batches=batches)
+                         batches=batches, data_cache=data_cache)
         self.mesh = (mesh if mesh is not None
                      else make_host_mesh(device=self.device))
         if self.mesh.device_type != self.device.type:
@@ -472,12 +556,13 @@ class MeshBackend(LocalBackend):
             raise ValueError(
                 "shard_server=True takes a server loss that is a mean over "
                 "the batch's rows; the moe family's auxiliary loss is not")
+        self.shard_eval = bool(shard_eval)
         self.plan = MeshPlan(
             mesh=self.mesh, multi_pod="pod" in axes, client_axes=client_axes,
             fsdp_axes=(), tp_axes=(("model",) if "model" in axes else ()),
             batch_axes=(), num_clients=1)
-        self.rank, self.world = _client_rank(self.mesh, client_axes)
-        specs = fl_sim_batch_specs(
+        self.rank, self.world = fl_specs.client_rank(self.mesh, client_axes)
+        specs = fl_specs.fl_sim_batch_specs(
             cfg.clients_per_round, self.plan,
             server_batch=cfg.server_batch_size if shard_server else None,
             with_active=bool(self.sample_kw["dropout_rate"]))
@@ -491,14 +576,24 @@ class MeshBackend(LocalBackend):
             per = cfg.server_batch_size // w
             server_rows = slice(r * per, (r + 1) * per)
             weight = per / cfg.server_batch_size
-        self._shard = engine.RoundShard(reduce=self._reduce, clients=clients,
-                                        server_rows=server_rows,
-                                        server_weight=weight)
+        # this rank's block of the clients' rows (data and FedDyn's h)
+        self._owned = fl_specs.client_rows(self.plan, client_axes,
+                                           self._num_clients)
+        self._shard = engine.RoundShard(
+            reduce=self._reduce, clients=clients, server_rows=server_rows,
+            server_weight=weight, owned=self._owned,
+            num_clients=self._num_clients, scatter=self._scatter)
         self._buckets: dict = {}    # (dtype, sizes) -> flat buffer
+        self._eval = None
 
     def _program_kw(self) -> dict:
-        return {"counters": ((self, "reductions"),),
+        return {"counters": ((self, "reductions"), (self, "scatters")),
                 "capture_error_mode": "thread_local"}
+
+    @property
+    def _h_rows(self) -> int:
+        return (self._num_clients if self._owned is None
+                else len(self._owned))
 
     @property
     def is_writer(self) -> bool:
@@ -506,6 +601,14 @@ class MeshBackend(LocalBackend):
 
     def barrier(self) -> None:
         dist.barrier()
+
+    def _data_key(self):
+        return ("mesh", self.mesh, self.shard_eval)
+
+    def _place_data(self) -> dict:
+        return self.data.device_arrays(
+            self.device, mesh=self.mesh, client_axes=self.plan.client_axes,
+            shard_test=self.shard_eval)
 
     def _reduce(self, tensors) -> None:
         """Each tensor summed over the ranks, in place: per dtype, the
@@ -531,36 +634,99 @@ class MeshBackend(LocalBackend):
                 and torch.cuda.is_current_stream_capturing()):
             self.reduce_seconds += time.perf_counter() - t0
 
+    def _scatter(self, tensors) -> list:
+        """Each ``[C, ...]`` tensor summed over the ranks, of which this
+        rank gets its block of rows (``RoundShard.clients``, C / ranks
+        rows), as new tensors: per dtype, the tensors' rows packed rank
+        block by rank block into one buffer, one reduce-scatter on it, and
+        each block cut back out."""
+        w = self.world
+        groups: dict = {}
+        for i, t in enumerate(tensors):
+            groups.setdefault(t.dtype, []).append(i)
+        out = [None] * len(tensors)
+        for dtype, ids in groups.items():
+            ts = [tensors[i] for i in ids]
+            flat = torch.cat([t.reshape(w, -1) for t in ts], 1)
+            mine = torch.empty(flat.shape[1], dtype=dtype, device=flat.device)
+            reduce_scatter(mine, flat.reshape(-1))
+            parts = mine.split([t.numel() // w for t in ts])
+            for i, t, part in zip(ids, ts, parts):
+                out[i] = part.view((t.shape[0] // w,) + tuple(t.shape[1:]))
+        self.scatters += len(groups)
+        return out
+
     def _round_shard(self):
         return self._shard
 
-    def evaluate(self, state):
-        """(loss, acc) on the test split, its rows split over the ranks."""
-        d = self.device_data()
-        x, y = d["test_x"], d["test_y"]
-        n = x.shape[0]
-        per = -(-n // self.world)
-        n_pad = per * self.world
-        lo = self.rank * per
-        if lo + per <= n:
-            xs, ys = x[lo:lo + per], y[lo:lo + per]
-        else:   # the padded tail: copies of row 0
-            idx = torch.arange(lo, lo + per, device=x.device)
-            idx = torch.where(idx < n, idx, 0)
-            xs, ys = x[idx], y[idx]
-        params = state["params"]
+    def restore_state(self, state: dict) -> dict:
+        """A checkpointed round state (whole ``h``) back on the device, with
+        this rank's rows of FedDyn's per-client ``h``."""
+        own = self._owned
+        if own is not None and "client_state" in state:
+            per = state["client_state"]["per_client"]
+            state = dict(state, client_state=dict(
+                state["client_state"], per_client=tree_map(
+                    lambda a: a[own.start:own.stop], per)))
+        return super().restore_state(state)
+
+    def whole_state(self, state: dict) -> dict:
+        """The round state with FedDyn's per-client ``h`` gathered whole from
+        the ranks (a collective: every rank calls it); ``state`` itself
+        where every rank holds every row."""
+        if self._owned is None or "client_state" not in state:
+            return state
+        cs = state["client_state"]
+
+        def gather(x):
+            whole = torch.empty((self._num_clients,) + tuple(x.shape[1:]),
+                                dtype=x.dtype, device=x.device)
+            all_gather(whole, x.contiguous())
+            return whole
+
+        return dict(state, client_state=dict(
+            cs, per_client=tree_map(gather, cs["per_client"])))
+
+    def _eval_program(self) -> programs.Program:
+        """``shard_eval=False``: :func:`eval_program` on the whole split;
+        else the sharded program (:meth:`_sharded_eval_body`), captured on
+        the card as the round is, its all-reduce inside."""
+        if not self.shard_eval:
+            return eval_program(self.model, self.device)
+        if self._eval is None:
+            self._eval = programs.Program(self._sharded_eval_body,
+                                          name="eval", device=self.device,
+                                          **self._program_kw())
+        return self._eval
+
+    def _sharded_eval_body(self, params, x, y, x0, y0):
+        """(loss, acc) of the whole test split from this rank's block ``x,
+        y`` of the split padded to ``n_pad`` rows with row-0 copies (``x0,
+        y0``): the block's means weighted by its share and summed over the
+        ranks, then the padded rows' contribution subtracted exactly."""
+        n = int(self.data.test_x.shape[0])
+        n_pad = x.shape[0] * self.world
         with torch.no_grad():
-            loss, acc = self.model.loss_and_acc(params, xs, ys)
-            wt = per / n_pad
+            loss, acc = self.model.loss_and_acc(params, x, y)
+            wt = x.shape[0] / n_pad
             sums = torch.stack([loss.float() * wt, acc.float() * wt])
             self._reduce([sums])
             loss, acc = sums.unbind(0)
             if n_pad != n:
                 k = float(n_pad - n)
-                l0, a0 = self.model.loss_and_acc(params, x[:1], y[:1])
+                l0, a0 = self.model.loss_and_acc(params, x0, y0)
                 loss = (loss * n_pad - k * l0) / n
                 acc = (acc * n_pad - k * a0) / n
         return loss, acc
+
+    def _eval_args(self, state) -> tuple:
+        """The params and this rank's block of the test split, with row 0
+        beside it where the split is sharded."""
+        args = super()._eval_args(state)
+        if not self.shard_eval:
+            return args
+        d = self.device_data()
+        return args + (d["test_x0"], d["test_y0"])
 
     def prune_decision(self, state, init_params):
         from repro_torch.core import fedap
@@ -574,7 +740,10 @@ class MeshBackend(LocalBackend):
     def apply_prune(self, state: dict, mode: str, kept, *,
                     compact_existing: bool = False):
         """mask: ``launch.steps.with_masks`` into the live state; shrink:
-        as on one device, on every rank."""
+        as on one device, on every rank (``h`` rank-local at the shrunk
+        shapes).  The shrink stays eager: a captured program's outputs
+        live in its pool, so a second apply of the same decision would
+        overwrite the state the first one returned (ROADMAP G5)."""
         if mode != "mask":
             return super().apply_prune(state, mode, kept,
                                        compact_existing=compact_existing)
@@ -675,12 +844,14 @@ class PlanExecutor:
             artifacts[k] = value
 
         def write_checkpoint(cursor):
-            # one writer (rank 0 of a mesh); the others wait for the file
+            # every rank gathers the per-client rows it holds; one writer
+            # (rank 0 of a mesh) saves them, the others wait for the file
+            whole = backend.whole_state(state)
             if not backend.is_writer:
                 backend.barrier()
                 return
             ckpt.save_checkpoint(ckpt_dir, {
-                "state": state,
+                "state": whole,
                 "generator_state": None if gen is None else gen.get_state(),
                 "cursor": cursor, "t": t, "chunks_done": chunks_done,
                 "last_tau": last_tau, "history": history,
@@ -733,7 +904,8 @@ class PlanExecutor:
                 else:  # pragma: no cover — TrainPlan validates event types
                     raise TypeError(f"unknown plan event: {ev!r}")
         return RunResult(params=state["params"], history=history,
-                         artifacts=artifacts, state=state)
+                         artifacts=artifacts,
+                         state=backend.whole_state(state))
 
     def _prune(self, ev: Prune, state: dict, init_params, artifacts: dict):
         """Decision + apply of one Prune event -> (new state, artifact).

@@ -70,7 +70,9 @@ communicated momentum, FedDyn's drift and rows of ``h``, the guard's
 totals) before anything divides them, and each server step's gradient may
 be a partial one over the rank's rows, summed over the ranks.  Clients keep
 their weights from the whole round's ``sizes``, so at a world of one the
-round is bitwise the unsharded one.
+round is bitwise the unsharded one.  Where a rank stores only its own
+clients' rows (``RoundShard.owned``), the round's gather and FedDyn's rows
+of ``h`` come from their owners through masked sums over the ranks.
 
 Randomness is an input: :func:`sample_round_batches` gathers one round's
 batches at given client and sample indices, and :func:`draw_round_indices`
@@ -135,12 +137,25 @@ class RoundShard:
     batch, whose gradient (and the gate accuracy) is then taken over them,
     scaled by ``server_weight`` (the rows' share of the batch) and summed
     over the ranks: the gradient of the batch's mean loss, for a loss that
-    is a mean over rows.  ``None``: whole batches on every rank."""
+    is a mean over rows.  ``None``: whole batches on every rank.
+
+    ``owned`` are the global client ids whose rows this rank stores (the
+    rank-local device dataset, FedDyn's per-client ``h``), of
+    ``num_clients`` in all; ``None``: every rank stores every client.  A
+    round then fetches the rows it needs from their owners at fixed shapes:
+    each rank fills a ``[C, ...]`` buffer with the selected rows it owns
+    and zeros elsewhere, and a sum over the ranks (each element has one
+    non-zero contributor, so the sum is exact) gives the rows whole, with
+    ``reduce``, or this rank's block of them, with ``scatter(tensors)``
+    (which returns the summed tensors' rows at ``clients``)."""
 
     reduce: Callable
     clients: range | None = None
     server_rows: slice | None = None
     server_weight: float = 1.0
+    owned: range | None = None
+    num_clients: int | None = None
+    scatter: Callable | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -410,6 +425,46 @@ def round_core(cfg: EngineConfig, grad_fn: Callable, loss_and_acc_fn: Callable,
         return _round(cfg, grad_fn, loss_and_acc_fn, state, batch, shard)
 
 
+def owned_rows(sel: torch.Tensor, owned: range):
+    """``(held [C] bool, local [C] long)``: which of the selected global
+    client ids ``sel`` this rank stores (``owned``), and each one's row in
+    the rank's arrays (clamped into them where it is not held)."""
+    local = sel.long() - owned.start
+    held = (local >= 0) & (local < len(owned))
+    return held, local.clamp(0, len(owned) - 1)
+
+
+def from_owners(shard: RoundShard, rows: list, held: torch.Tensor) -> list:
+    """Rows ``[C, ...]`` (one list entry per tensor) that each rank filled
+    from its own arrays at the selected clients (``held`` marks the ones
+    it owns), summed over the ranks with every other row zeroed: each
+    element has one non-zero contributor, so the sum is exact.  Returns
+    the whole rows where every rank trains every client
+    (``shard.clients`` None), else this rank's block of them."""
+    rows = [r.masked_fill(~held.view((-1,) + (1,) * (r.dim() - 1)), 0)
+            for r in rows]
+    if shard.clients is None:
+        shard.reduce(rows)
+        return rows
+    return shard.scatter(rows)
+
+
+def write_owned(tree, rows, held: torch.Tensor, local: torch.Tensor
+                ) -> None:
+    """Each leaf's selected rows ``rows[c]`` written to ``local[c]`` where
+    ``held[c]`` (a rank's own clients), the other rows left as they are:
+    one row at a time in order, so a row a clamped index also points at
+    keeps the held value whatever the order (fixed shapes, no host
+    read)."""
+    def one(x, r):
+        for c in range(r.shape[0]):
+            i = local[c:c + 1]
+            x.index_copy_(0, i, torch.where(held[c], r[c:c + 1],
+                                            x.index_select(0, i)))
+
+    tree_map(one, tree, rows)
+
+
 def _all_finite(*trees) -> torch.Tensor:
     """0-d bool tensor: every element of every leaf is finite."""
     return torch.stack([torch.isfinite(t).all() for tree in trees
@@ -487,8 +542,17 @@ def _round(cfg, grad_fn, loss_and_acc_fn, state, batch, shard=None):
         h_all = state["client_state"]["per_client"]["h"]
         alpha = cfg.feddyn.alpha
         drift_sum = None
+        owned = None if shard is None else shard.owned
+        if owned is not None:
+            # rank-local h: this rank's clients' rows from their owners
+            held, local = owned_rows(sel, owned)
+            h_keep = tree_map(lambda x: x.index_select(0, local), h_all)
+            h_mine = tree_unflatten(h_all, from_owners(
+                shard, tree_leaves(h_keep), held))
+            pos = {c: j for j, c in enumerate(clients)}
         if guard:   # the selected rows as the round found them
-            h_rows = tree_map(lambda x: x.index_select(0, sel), h_all)
+            h_rows = (h_keep if owned is not None else
+                      tree_map(lambda x: x.index_select(0, sel), h_all))
     if cfg.faults:
         sel_ids = batch.get("sel")
         if sel_ids is None:
@@ -504,7 +568,9 @@ def _round(cfg, grad_fn, loss_and_acc_fn, state, batch, shard=None):
         else:
             m = None
         h = None
-        if feddyn:
+        if feddyn and owned is not None:
+            h = _m(tree_map(lambda x: x[pos[c]], h_mine))
+        elif feddyn:
             row = sel[c:c + 1]
             h = _m(tree_map(lambda x: x.index_select(0, row)[0], h_all))
         mine = _take(client, j)
@@ -537,7 +603,7 @@ def _round(cfg, grad_fn, loss_and_acc_fn, state, batch, shard=None):
             # the client's row; sum_k act_k drift_k for the shared h
             coef = alpha if a_c is None else a_c * alpha
             tree_map(lambda hk, dk: hk.sub_(dk * coef), h, d)
-            if reduce is None:
+            if reduce is None and owned is None:
                 tree_map(lambda x, hk: x.index_copy_(0, row, hk[None]),
                          h_all, h)
             else:
@@ -582,8 +648,18 @@ def _round(cfg, grad_fn, loss_and_acc_fn, state, batch, shard=None):
             for c, hc in new_rows.items():
                 tree_map(lambda r, hk: r[c].copy_(hk), rows, hc)
             reduce(tree_leaves(rows))
-            tree_map(lambda x, r: x.index_copy_(0, sel, r), h_all, rows)
+            if owned is None:
+                tree_map(lambda x, r: x.index_copy_(0, sel, r), h_all, rows)
+            else:   # the rows back to their owners
+                write_owned(h_all, rows, held, local)
             del rows, new_rows
+    elif feddyn and owned is not None:
+        # every rank trained every client: each keeps the rows it owns
+        rows = tree_unflatten(h_all, [
+            torch.stack(r) for r in zip(*(tree_leaves(new_rows[c])
+                                          for c in clients))])
+        write_owned(h_all, rows, held, local)
+        del rows, new_rows
     if delta_form:
         if guard:
             total = torch.clamp(w_total, min=1e-12)
@@ -604,7 +680,8 @@ def _round(cfg, grad_fn, loss_and_acc_fn, state, batch, shard=None):
         # the shared h under the guard, which may discard the round)
         hs = _m(state["client_state"]["shared"]["h"])
         hs_new = tree_map(torch.clone, hs) if guard else hs
-        n_total = tree_leaves(h_all)[0].shape[0]
+        n_total = (tree_leaves(h_all)[0].shape[0] if owned is None
+                   else shard.num_clients)
         tree_map(lambda h_, s_: h_.sub_(s_.mul_(alpha / n_total)), hs_new,
                  drift_sum)
         del drift_sum
@@ -707,8 +784,11 @@ def _round(cfg, grad_fn, loss_and_acc_fn, state, batch, shard=None):
         state["global_m"] = _m(new_global_m)
     if feddyn and guard:
         _where_(discard, hs, hs_new)
-        tree_map(lambda x, old: x.index_copy_(0, sel, torch.where(
-            discard, old, x.index_select(0, sel))), h_all, h_rows)
+        if owned is None:
+            tree_map(lambda x, old: x.index_copy_(0, sel, torch.where(
+                discard, old, x.index_select(0, sel))), h_all, h_rows)
+        else:
+            write_owned(h_all, h_rows, held & discard, local)
     state["round"].add_(1.0)
     return state, {"tau_eff": t_eff, "server_acc": acc, "health": health}
 
@@ -757,16 +837,22 @@ def sample_round_batches(data: dict, sel, idx, sidx, active=None, *,
                          clients_per_round: int, batch_size: int,
                          local_steps: int, server_batch: int,
                          server_tau: int, dropout_rate: float = 0.0,
-                         clients: range | None = None) -> dict:
+                         shard: RoundShard | None = None) -> dict:
     """One round's :func:`round_core` batch gathered from the device-resident
     dataset (``FederatedData.device_arrays``) at the given indices: ``sel``
     [C] clients, ``idx`` [C, local_steps * batch_size] samples of each,
     ``sidx`` [server_tau * server_batch] server samples, and ``active``
     [C] 0/1, the dropout draw, which the batch carries as ``"active"``
     (required iff ``dropout_rate`` > 0, the rate it was drawn at).
-    ``clients`` (a range of positions in ``sel``) gathers only those
-    clients' samples into ``"client"`` (one rank's part of a round,
-    :class:`RoundShard`); the per-client vectors stay whole."""
+
+    ``shard`` (one rank's part of a round, :class:`RoundShard`) gathers
+    only the clients at ``shard.clients`` into ``"client"``; the
+    per-client vectors stay whole.  Where the rank stores only its own
+    clients (``shard.owned``), each selected client's samples, size and
+    label distribution come from the rank that stores it
+    (:func:`from_owners`: one sum over the ranks for the sizes and
+    distributions, every rank's need of them being whole, and one for the
+    samples, which hands each rank its block), at fixed shapes."""
     if bool(dropout_rate) != (active is not None):
         raise ValueError(
             f"dropout_rate={dropout_rate} needs an active vector iff it is "
@@ -774,10 +860,22 @@ def sample_round_batches(data: dict, sel, idx, sidx, active=None, *,
     sel = torch.as_tensor(sel, device=data["sizes"].device).long()
     idx = torch.as_tensor(idx, device=sel.device).long()
     sidx = torch.as_tensor(sidx, device=sel.device).long()
-    mine = (slice(None) if clients is None
-            else slice(clients.start, clients.stop))
-    cx = data["client_x"][sel[mine, None], idx[mine]]
-    cy = data["client_y"][sel[mine, None], idx[mine]]
+    clients = None if shard is None else shard.clients
+    owned = None if shard is None else shard.owned
+    if owned is None:
+        mine = (slice(None) if clients is None
+                else slice(clients.start, clients.stop))
+        cx = data["client_x"][sel[mine, None], idx[mine]]
+        cy = data["client_y"][sel[mine, None], idx[mine]]
+        sizes, dists = data["sizes"][sel], data["client_dists"][sel]
+    else:
+        held, local = owned_rows(sel, owned)
+        sizes, dists = from_owners(
+            dataclasses.replace(shard, clients=None),
+            [data["sizes"][local], data["client_dists"][local]], held)
+        cx, cy = from_owners(shard, [data["client_x"][local[:, None], idx],
+                                     data["client_y"][local[:, None], idx]],
+                             held)
     n = cx.shape[0]
     cx = cx.reshape(n, local_steps, batch_size, *cx.shape[2:])
     cy = cy.reshape(n, local_steps, batch_size, *cy.shape[2:])
@@ -785,10 +883,10 @@ def sample_round_batches(data: dict, sel, idx, sidx, active=None, *,
                                         *data["server_x"].shape[1:])
     sy = data["server_y"][sidx].reshape(server_tau, server_batch,
                                         *data["server_y"].shape[1:])
-    p_round = niid.round_distribution(data["client_dists"], data["sizes"], sel)
+    p_round = niid.global_distribution(dists, sizes)
     batch = {
         "client": (cx, cy),
-        "sizes": data["sizes"][sel],
+        "sizes": sizes,
         "server": (sx, sy),
         "d_round": niid.non_iid_degree(p_round, data["p_bar"]),
         "d_server": data["d_server"],

@@ -41,6 +41,7 @@ from repro_torch.core.pruning import (
     per_layer_rates,
     select_filters,
 )
+from repro_torch.sharding import fl_specs
 from repro_torch.utils.arrays import pad_rows_with_first
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -210,18 +211,6 @@ def fedap_decision(model, data, cfg: FedAPConfig, params: Any, *,
                             torch.tensor(sizes), torch.stack(degrees))
 
 
-def _client_rank(mesh, client_axes: tuple) -> tuple[int, int]:
-    """(this rank's index, the count) along the mesh's client axes."""
-    names = tuple(mesh.mesh_dim_names)
-    coord = mesh.get_coordinate()
-    rank, size = 0, 1
-    for ax in client_axes:
-        n = mesh.size(names.index(ax))
-        rank = rank * n + coord[names.index(ax)]
-        size *= n
-    return rank, size
-
-
 def fedap_decision_sharded(model, data, cfg: FedAPConfig, params: Any, *,
                            init_params: Any,
                            rng: np.random.Generator | None = None,
@@ -253,7 +242,8 @@ def fedap_decision_sharded(model, data, cfg: FedAPConfig, params: Any, *,
     ragged = bool((takes != p_max).any())
     pools = ([(data.server_x, data.server_y)]
              + [(data.client_x[k], data.client_y[k]) for k in ids])
-    rank, world = (0, 1) if mesh is None else _client_rank(mesh, client_axes)
+    rank, world = ((0, 1) if mesh is None
+                   else fl_specs.client_rank(mesh, client_axes))
     if world > 1 and dist.get_world_size() != world:
         raise ValueError(
             f"fedap_decision_sharded gathers over the process group, which "
@@ -261,7 +251,11 @@ def fedap_decision_sharded(model, data, cfg: FedAPConfig, params: Any, *,
             f"{client_axes} have {world}: other mesh dims must have size 1")
     n_part = len(pools)
     per = -(-n_part // world)
-    mine = range(rank * per, min((rank + 1) * per, n_part))
+    # the stack padded to a multiple of the ranks: client_rows' block
+    block = (None if mesh is None else fl_specs.client_rows(
+        fl_specs.client_plan(mesh, client_axes), client_axes, per * world))
+    block = range(per * world) if block is None else block
+    mine = range(block.start, min(block.stop, n_part))
 
     def probe_rows(a, take):
         return torch.as_tensor(pad_rows_with_first(np.asarray(a[:take]),

@@ -159,7 +159,11 @@ class FederatedTrainer:
         the ranks of ``mesh``, by default ``launch.mesh.make_host_mesh``:
         every rank of the process group, or a world of one started here);
         ``backend_opts`` go to :class:`MeshBackend` (``shard_server``,
-        which by default follows the model).
+        which by default follows the model; ``shard_eval``, default True,
+        False evaluating the whole test split on every rank, the
+        reference's baseline of its sharded eval).  Every backend of the
+        trainer (both mask modes, and those on injected ``batches``)
+        shares one device-resident dataset.
 
     model: ``init(generator)``, ``loss_and_acc(params, x, y[, masks=])``
         and, for Prune events, the FedAP seam (``decide_kept``,
@@ -177,6 +181,13 @@ class FederatedTrainer:
         if backend == "local" and (mesh is not None or backend_opts):
             raise ValueError("mesh= and backend_opts= belong to "
                              "backend='mesh'")
+        reserved = {"mesh", "use_masks", "data_cache"} & set(
+            backend_opts or {})
+        if reserved:
+            raise ValueError(
+                f"backend_opts may not override trainer-managed backend "
+                f"arguments {sorted(reserved)}; use the mesh= trainer "
+                f"parameter / plan-driven masking instead")
         self.device = _device.resolve(device)
         model_dev = getattr(model, "device", self.device)
         if torch.device(model_dev) != self.device:
@@ -189,18 +200,21 @@ class FederatedTrainer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
         self._backends: dict = {}
+        # every backend of this trainer reads ONE device-resident dataset
+        self._data_cache: dict = {}
 
     def backend(self, *, use_masks: bool = False,
                 batches: Callable | None = None) -> LocalBackend:
         """The backend for a mask mode (cached when it samples its own
-        batches, so the device-resident dataset is built once)."""
-        kw = {}
+        batches); every one shares the trainer's device-resident
+        dataset."""
+        kw = {"data_cache": self._data_cache}
         if self.backend_name == "mesh":
             if self._mesh is None:
                 # one mesh for every backend instance of this trainer
                 from repro_torch.launch.mesh import make_host_mesh
                 self._mesh = make_host_mesh(device=self.device)
-            kw = dict(self._backend_opts, mesh=self._mesh)
+            kw.update(self._backend_opts, mesh=self._mesh)
         cls = _BACKENDS[self.backend_name]
         if batches is not None:
             return cls(self.model, self.data, self.cfg, use_masks=use_masks,

@@ -5,7 +5,7 @@ next-token corpus for the LMs.
 Counterpart of the reference's ``data/pipeline.py``: the arrays are built
 in numpy exactly as the reference builds them (images stay NHWC), and
 :meth:`FederatedData.device_arrays` moves them to one device for the round
-engine.
+engine, or places a rank's part of them for the mesh backend.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from repro_torch.data.synthetic import (
     synthetic_classification,
     synthetic_tokens,
 )
+from repro_torch.utils.arrays import pad_rows_with_first
 
 
 @dataclasses.dataclass
@@ -37,35 +38,71 @@ class FederatedData:
     test_x: np.ndarray
     test_y: np.ndarray
 
-    def device_arrays(self, device="cuda") -> dict:
-        """The whole dataset as one dict of tensors on ``device`` (default
-        CUDA, which raises when it is missing): the per-client arrays, the
-        server pool, the test split, and the derived ``p_bar`` (P_bar over
-        all clients) and ``d_server`` (D(P_0)).  Token and label arrays are
-        int32."""
+    def device_arrays(self, device="cuda", *, mesh=None,
+                      client_axes: tuple = ("data",),
+                      shard_test: bool = True) -> dict:
+        """The dataset as one dict of tensors on ``device`` (default CUDA,
+        which raises when it is missing): the per-client arrays, the server
+        pool, the test split, and the derived ``p_bar`` (P_bar over all
+        clients) and ``d_server`` (D(P_0)).  Token and label arrays are
+        int32.
+
+        With ``mesh`` (a ``DeviceMesh`` over the process group) the dict is
+        this rank's part of the mesh backend's placement, as the reference
+        places it: ``client_x``, ``client_y``, ``sizes`` and
+        ``client_dists`` hold only this rank's block of clients
+        (``sharding.fl_specs.client_rows``) where the client count divides
+        the ranks of ``client_axes``, and every client otherwise.  With
+        ``shard_test`` the test split is padded with copies of row 0 to a
+        multiple of those ranks and the rank keeps its block; ``test_x0``
+        and ``test_y0`` (row 0, on every rank) are what the sharded eval
+        subtracts back out.  ``p_bar`` and ``d_server`` come from the whole
+        host arrays before the split; the server pool stays whole."""
         dev = _device.resolve(device)
         dists = torch.as_tensor(self.client_dists, dtype=torch.float32)
         sizes = torch.as_tensor(self.sizes, dtype=torch.float32)
         p_bar = niid.global_distribution(dists, sizes)
         d_server = niid.non_iid_degree(
             torch.as_tensor(self.server_dist, dtype=torch.float32), p_bar)
+        rows = test_rows = None
+        test_x, test_y = self.test_x, self.test_y
+        if mesh is not None:
+            from repro_torch.sharding import fl_specs
 
-        def arr(a, dtype=None):
-            t = torch.as_tensor(np.asarray(a))
+            plan = fl_specs.client_plan(mesh, client_axes)
+            rows = fl_specs.client_rows(plan, client_axes,
+                                        self.client_x.shape[0])
+            if shard_test:
+                ranks = plan.axis_size(client_axes)
+                n = test_x.shape[0]
+                test_x = pad_rows_with_first(test_x, n + (-n % ranks))
+                test_y = pad_rows_with_first(test_y, n + (-n % ranks))
+                test_rows = fl_specs.client_rows(plan, client_axes,
+                                                 test_x.shape[0])
+
+        def arr(a, dtype=None, block=None):
+            a = np.asarray(a)
+            if block is not None:
+                a = a[block.start:block.stop]
+            t = torch.as_tensor(np.ascontiguousarray(a))
             return t.to(device=dev, dtype=dtype or t.dtype)
 
-        return {
-            "client_x": arr(self.client_x),
-            "client_y": arr(self.client_y, torch.int32),
-            "sizes": sizes.to(dev),
-            "client_dists": dists.to(dev),
+        out = {
+            "client_x": arr(self.client_x, block=rows),
+            "client_y": arr(self.client_y, torch.int32, block=rows),
+            "sizes": arr(sizes, block=rows),
+            "client_dists": arr(dists, block=rows),
             "p_bar": p_bar.to(dev),
             "d_server": d_server.to(dev),
             "server_x": arr(self.server_x),
             "server_y": arr(self.server_y, torch.int32),
-            "test_x": arr(self.test_x),
-            "test_y": arr(self.test_y, torch.int32),
+            "test_x": arr(test_x, block=test_rows),
+            "test_y": arr(test_y, torch.int32, block=test_rows),
         }
+        if mesh is not None and shard_test:
+            out["test_x0"] = arr(self.test_x[:1])
+            out["test_y0"] = arr(self.test_y[:1], torch.int32)
+        return out
 
 
 def _dists(ys: np.ndarray, num_classes: int) -> np.ndarray:

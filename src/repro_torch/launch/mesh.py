@@ -77,3 +77,21 @@ def make_production_mesh(*, multi_pod: bool = False,
                          f"the process group has {world}")
     _process_group(dev)
     return init_device_mesh(dev.type, shape, mesh_dim_names=names)
+
+
+def reduce_scatter(out: torch.Tensor, flat: torch.Tensor,
+                   group=None) -> None:
+    """``out`` = this rank's block of ``flat`` summed over the ranks
+    (``reduce_scatter_single``, ``reduce_scatter_tensor`` before torch
+    2.13)."""
+    fn = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    fn(out, flat, group=group)
+
+
+def all_gather(out: torch.Tensor, part: torch.Tensor, group=None) -> None:
+    """``out`` = every rank's ``part`` in rank order (``all_gather_single``,
+    ``all_gather_into_tensor`` before torch 2.13)."""
+    fn = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    fn(out, part, group=group)

@@ -28,10 +28,11 @@ FedAP-pruned) checkpoint is served from a fixed pool of decode slots.
   ``sharding.fl_specs.serve_batch_specs`` give) and decodes only those;
   params and masks are replicated.  The host protocol is SPMD: every rank
   calls ``submit``/``step_wave``/``run`` with the same arguments, so the
-  queue, the uids and the admission order agree.  After a wave's steps one
-  all-gather over the axis brings every slot's ``active`` bit to every
-  rank (and, when some slot finished, a second one its count, tokens and
-  error bit), so every rank returns the same completions.
+  queue, the uids and the admission order agree.  The wave program ends
+  with one all-gather over the axis: every slot's ``active`` bit, count,
+  error bit and tokens, as one int32 row a slot (NCCL has no bool), into
+  a buffer kept across waves, so every rank returns the same completions
+  from the same one host read a wave.
 
 * **Two programs.**  As the reference compiles exactly two programs, the
   engine keeps two ``core.programs.Program`` objects, and on
@@ -44,8 +45,8 @@ FedAP-pruned) checkpoint is served from a fixed pool of decode slots.
   wave (:meth:`DecodeEngine.program_counts`);
   :meth:`DecodeEngine.lower_wave` gives the wave program and one wave's
   recorded operations without running it on the engine's state.  On the
-  CPU both run eagerly and count their keys.  On a mesh the wave's steps
-  are captured and the all-gather after them stays eager.
+  CPU both run eagerly and count their keys.  On a mesh the wave's
+  all-gather is a node of its graph.
 """
 from __future__ import annotations
 
@@ -58,6 +59,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core import programs
+from repro_torch.launch.mesh import all_gather
 from repro_torch.sharding import fl_specs, specs
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -191,8 +193,20 @@ class DecodeEngine:
             pin_memory=self.device.type == "cuda")
         self._admit_program = programs.Program(
             self._admit_body, name="admit", device=self.device)
+        # on a split mesh the wave ends with the all-gather of every slot's
+        # [active, n_out, error, out...] row into buffers kept across waves
+        wave_kw = {}
+        if self._group is not None:
+            width = 3 + self.cfg.max_new_tokens
+            self._rows = torch.zeros((self._n, width), dtype=torch.int32,
+                                     device=self.device)
+            self._gathered = torch.zeros((self.cfg.slots, width),
+                                         dtype=torch.int32,
+                                         device=self.device)
+            # NCCL's watchdog thread queries events during a capture
+            wave_kw["capture_error_mode"] = "thread_local"
         self._wave_program = programs.Program(
-            self._wave_body, name="wave", device=self.device)
+            self._wave_body, name="wave", device=self.device, **wave_kw)
         self._occupants: list[Optional[tuple[int, np.ndarray]]] = \
             [None] * self.cfg.slots
         self._queue: collections.deque = collections.deque()
@@ -237,13 +251,15 @@ class DecodeEngine:
         self._lo = mesh.get_local_rank(axis) * self._n
         self._group = mesh.get_group(axis)
 
-    def _gather(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's rows of ``t`` over the axis group, in slot order."""
-        parts = [torch.empty_like(t)
-                 for _ in range(self.cfg.slots // self._n)]
-        torch.distributed.all_gather(parts, t.contiguous(),
-                                     group=self._group)
-        return torch.cat(parts)
+    def _gather(self, state: dict) -> None:
+        """Every slot's ``[active, n_out, error, out...]`` row, gathered
+        from the ranks that own them over the axis group into
+        ``_gathered`` (slot order), through ``_rows``."""
+        torch.cat([state["active"][:, None].to(torch.int32),
+                   state["n_out"][:, None],
+                   state["error"][:, None].to(torch.int32), state["out"]],
+                  1, out=self._rows)
+        all_gather(self._gathered, self._rows, group=self._group)
 
     # -- state (every state tensor is made and updated in inference mode) --
     def _make_state(self, model, slots: int) -> dict:
@@ -367,6 +383,8 @@ class DecodeEngine:
         for _ in range(self.cfg.steps_per_wave):
             state = self._step(state, params, masks)
         programs.settle(state, old)
+        if self._group is not None:
+            self._gather(state)
 
     # -- host protocol ----------------------------------------------------
     def submit(self, prompt) -> Optional[int]:
@@ -417,12 +435,12 @@ class DecodeEngine:
         self._wave()
         # the wave's only host sync: the done-mask (then, for finished
         # slots, their token counts and output rows); on a split mesh every
-        # slot's, gathered from the ranks that own them
+        # slot's, which the wave gathered from the ranks that own them
         st = self._state
-        active = st["active"]
-        if self._group is not None:     # NCCL has no bool: as uint8
-            active = self._gather(active.to(torch.uint8))
-        active = active.cpu().numpy()
+        if self._group is None:
+            active = st["active"].cpu().numpy()
+        else:
+            active = self._gathered[:, 0].cpu().numpy()
         done = [slot for slot, occ in enumerate(self._occupants)
                 if occ is not None and not active[slot]]
         if not done:
@@ -432,9 +450,7 @@ class DecodeEngine:
             out = st["out"].cpu().numpy()
             error = st["error"].cpu().numpy()
         else:
-            rows = self._gather(torch.cat(
-                [st["n_out"][:, None], st["error"][:, None].to(torch.int32),
-                 st["out"]], 1)).cpu().numpy()
+            rows = self._gathered[:, 1:].cpu().numpy()
             n_out, error, out = rows[:, 0], rows[:, 1], rows[:, 2:]
         completions = []
         for slot in done:

@@ -7,12 +7,20 @@ mesh backend (``core.backend.MeshBackend``) reads
 over the client axes means each rank trains its block of the round's
 clients, and a server batch sharded on its row dim means each server step
 is a partial gradient per rank, summed over the ranks.
+:func:`client_dim_sharding` is the one rule for every client-leading array
+(the federated dataset, FedDyn's per-client ``h``, the FedAP probe stack),
+and :func:`client_rows` the block of it a rank holds.
 """
 from __future__ import annotations
 
 from typing import Any
 
-from repro_torch.sharding.specs import MeshPlan, _axis, param_specs
+from repro_torch.sharding.specs import (
+    MeshPlan,
+    _axis,
+    axis_sizes,
+    param_specs,
+)
 from repro_torch.utils.tree import tree_map
 
 
@@ -30,16 +38,12 @@ def fl_state_specs(state_shapes: Any, model_axes: Any, plan: MeshPlan, *,
 
     ``model_axes=None`` (simulation models publish no axis tree) replicates
     every param-structured slot: the batch's client axis is what shards."""
-    csize = plan.axis_size(client_axes) if client_axes else 1
-
     def replicated(v):
         return tree_map(lambda leaf: plan.spec(()), v)
 
     def per_client_spec(leaf):
         dim = leaf.shape[0] if len(leaf.shape) else 0
-        if client_axes and dim % csize == 0:
-            return plan.spec((_axis(client_axes),))
-        return plan.spec(())
+        return client_dim_sharding(plan, client_axes, dim)
 
     def shared_spec(v):
         if model_axes is None:
@@ -63,11 +67,49 @@ def client_dim_sharding(plan: MeshPlan, client_axes: tuple,
                         leading_dim: int):
     """The Spec of an array whose leading dim is the FL-client axis: over
     ``client_axes`` when the dim divides their size, else replicated.  One
-    rule for every client-leading placement (the round's clients, the
-    FedAP probe stack)."""
+    rule for every client-leading placement (the federated dataset,
+    FedDyn's per-client ``h``, the FedAP probe stack), so they never
+    disagree."""
     if client_axes and leading_dim % plan.axis_size(client_axes) == 0:
         return plan.spec((_axis(client_axes),))
     return plan.spec(())
+
+
+def client_rank(mesh, client_axes: tuple) -> tuple[int, int]:
+    """(this rank's index, the count) along ``mesh``'s client axes (a
+    ``DeviceMesh``: its coordinate is this process's)."""
+    names = tuple(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    rank, size = 0, 1
+    for ax in client_axes:
+        n = mesh.size(names.index(ax))
+        rank = rank * n + coord[names.index(ax)]
+        size *= n
+    return rank, size
+
+
+def client_plan(mesh, client_axes: tuple) -> MeshPlan:
+    """A plan of ``mesh`` whose only split is the FL clients over
+    ``client_axes`` (what the client-leading rules read)."""
+    return MeshPlan(mesh=mesh, multi_pod="pod" in axis_sizes(mesh),
+                    client_axes=tuple(client_axes), fsdp_axes=(),
+                    tp_axes=(), batch_axes=(), num_clients=1)
+
+
+def client_rows(plan: MeshPlan, client_axes: tuple,
+                leading_dim: int) -> range | None:
+    """The rows of a client-leading array of ``leading_dim`` rows that this
+    rank holds under :func:`client_dim_sharding`: its contiguous block of
+    ``leading_dim / ranks`` where the array is split over more than one
+    rank, None where every rank holds every row (the dim does not divide,
+    or the client axes have one rank)."""
+    size = plan.axis_size(client_axes) if client_axes else 1
+    if size == 1 or not any(client_dim_sharding(
+            plan, client_axes, leading_dim).parts):
+        return None
+    rank, _ = client_rank(plan.mesh, client_axes)
+    per = leading_dim // size
+    return range(rank * per, (rank + 1) * per)
 
 
 def fl_sim_batch_specs(clients_per_round: int, plan: MeshPlan, *,

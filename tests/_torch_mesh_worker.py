@@ -8,8 +8,10 @@ fails the test instead of the suite.
 
 The worlds the tests build are here too, so the parent and the ranks build
 them alike: a softmax-regression client world with explicit round batches
-(drawn with numpy), and a small LM world with ragged FedAP probes.  This
-module imports torch, numpy and the port only.
+(drawn with numpy), a small LM world with ragged FedAP probes, and (for
+:func:`data_main`) a softmax world whose rounds the trainer draws from a
+dataset each rank stores only its block of, and a SimpleCNN with a
+101-row test split.  This module imports torch, numpy and the port only.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from repro_torch.core.engine import FedDynConfig, FedProxConfig
 from repro_torch.core.rounds import FederatedTrainer, FLConfig
 from repro_torch.data.pipeline import FederatedData
 from repro_torch.reliability.faults import NaNGrad
+from repro_torch.utils.tree import tree_leaves
 
 DIM, CLASSES, N_TOTAL, STEPS, BATCH, TAU, ROUNDS = 6, 4, 8, 2, 5, 3, 3
 MODES = {
@@ -329,7 +332,217 @@ def program_main():
 PROGRAM_CASES = ("feddum", "feddyn", "guard")
 
 
+# ---------------------------------------------------------------------------
+# rank-local data: rounds the trainer draws from a dataset each rank stores
+# only its block of
+
+DATA_N, DATA_NK, DATA_N0, DATA_TEST = 8, 10, 18, 9
+DATA_CASES = {
+    "feddumap": dict(MODES["feddum"]),
+    "feddyn": dict(MODES["feddum"], algorithm="feddyn",
+                   feddyn=FedDynConfig(alpha=0.05)),
+    "dropout": dict(MODES["feddum"], dropout_rate=0.25),
+}
+WORK_DIR = ""   # a directory every rank of the world shares
+
+
+def data_world(n: int = DATA_N, seed: int = 5) -> FederatedData:
+    """``n`` clients of ``DATA_NK`` samples each with uneven sizes and
+    label distributions (so the gathered sizes and distributions count), a
+    server pool of ``DATA_N0`` and a test split of ``DATA_TEST``."""
+    rng = np.random.default_rng(seed)
+    return FederatedData(
+        client_x=rng.standard_normal((n, DATA_NK, DIM)).astype(np.float32),
+        client_y=rng.integers(0, CLASSES, (n, DATA_NK)).astype(np.int64),
+        sizes=rng.uniform(10.0, 50.0, n).astype(np.float32),
+        client_dists=rng.dirichlet(np.ones(CLASSES), n).astype(np.float32),
+        server_x=rng.standard_normal((DATA_N0, DIM)).astype(np.float32),
+        server_y=rng.integers(0, CLASSES, DATA_N0).astype(np.int64),
+        server_dist=np.full((CLASSES,), 0.25, np.float32),
+        test_x=rng.standard_normal((DATA_TEST, DIM)).astype(np.float32),
+        test_y=rng.integers(0, CLASSES, DATA_TEST).astype(np.int64))
+
+
+def data_config(case: str, clients: int = 4, n: int = DATA_N,
+                sbatch: int = 6, **kw) -> FLConfig:
+    """2 local steps of 5 samples a client, 3 server steps of ``sbatch``."""
+    return FLConfig(num_clients=n, clients_per_round=clients,
+                    local_epochs=1, batch_size=5, lr=0.08, lr_decay=0.97,
+                    server_batch_size=sbatch, **DATA_CASES[case], **kw)
+
+
+def data_history(case: str, backend: str, *, clients: int = 4,
+                 n: int = DATA_N, **kw):
+    """Per round (params, server_m, tau_eff, FedDyn's whole h or None) of
+    ``case`` on rounds the trainer draws, with the backend's device
+    dataset's row counts, its round program's keys and its scatters."""
+    data = data_world(n)
+    trainer = FederatedTrainer(Softmax(), data, data_config(
+        case, clients, n, **kw), device="cpu", backend=backend)
+    be = trainer.backend()
+    state = be.init_state(Softmax().init())
+    hist = []
+    for t in range(ROUNDS):
+        state, mets = be.run_rounds(state, t, 1)
+        whole = be.whole_state(state)
+        h = (None if "client_state" not in whole else
+             {k: v.clone() for k, v in
+              whole["client_state"]["per_client"]["h"].items()})
+        hist.append(({k: v.clone() for k, v in state["params"].items()},
+                     {k: v.clone() for k, v in state["server_m"].items()},
+                     float(mets[0]["tau_eff"]), h))
+    d = be.device_data()
+    info = {"rows": {k: int(d[k].shape[0]) for k in
+                     ("client_x", "client_y", "sizes", "client_dists",
+                      "test_x")},
+            "keys": be.chunk._cache_size(),
+            "scatters": getattr(be, "scatters", 0),
+            "h_rows": (None if "client_state" not in state else int(
+                state["client_state"]["per_client"]["h"]["w"].shape[0]))}
+    return hist, info
+
+
+def _my_block(d: dict, data: FederatedData) -> bool:
+    """This rank's device dataset holds exactly its block of clients (and
+    of the test split padded with row-0 copies) and row 0 of the split."""
+    from repro_torch.utils.arrays import pad_rows_with_first
+
+    r, w = dist.get_rank(), dist.get_world_size()
+    n = data.client_x.shape[0] // w
+    rows = slice(r * n, (r + 1) * n)
+    test = pad_rows_with_first(data.test_x, -(-data.test_x.shape[0] // w)
+                               * w)
+    t = test.shape[0] // w
+    return (np.array_equal(d["client_x"].numpy(), data.client_x[rows])
+            and np.array_equal(d["client_y"].numpy(), data.client_y[rows])
+            and np.array_equal(d["sizes"].numpy(), data.sizes[rows])
+            and np.array_equal(d["client_dists"].numpy(),
+                               data.client_dists[rows])
+            and np.array_equal(d["test_x"].numpy(),
+                               test[r * t:(r + 1) * t])
+            and np.array_equal(d["test_x0"].numpy(), data.test_x[:1]))
+
+
+def cnn_eval_world():
+    """A SimpleCNN of 8x8x3 images over 8 clients, its params, and a
+    101-row test split."""
+    from repro_torch.data.pipeline import build_federated_data
+    from repro_torch.data.synthetic import SyntheticSpec
+    from repro_torch.models.cnn import SimpleCNN
+
+    spec = SyntheticSpec(num_classes=10, image_shape=(8, 8, 3),
+                         train_size=1200, test_size=101, noise_scale=0.5)
+    data = build_federated_data(num_clients=8, server_fraction=0.1,
+                                device_pool=640, spec=spec)
+    model = SimpleCNN(num_classes=10, image_shape=(8, 8, 3),
+                      channels=(4, 8, 8), fc_width=16, device="cpu")
+    return model, data, model.init(torch.Generator().manual_seed(3))
+
+
+def cnn_eval(backend: str, **opts):
+    """(loss, acc) of the CNN eval world's test split on a backend, and
+    the backend's eval keys."""
+    model, data, params = cnn_eval_world()
+    cfg = FLConfig(num_clients=8, clients_per_round=4, local_epochs=1,
+                   batch_size=10)
+    trainer = FederatedTrainer(model, data, cfg, device="cpu",
+                               backend=backend, backend_opts=opts or None)
+    be = trainer.backend()
+    state = be.init_state(params)
+    got = [tuple(float(v) for v in be.evaluate(state)) for _ in range(2)]
+    return got, _my_block(be.device_data(), data) if opts.get(
+        "shard_eval", True) and backend == "mesh" else None
+
+
+def feddyn_resume():
+    """A FedDyn plan killed after its second chunk and resumed from its
+    checkpoints, against the uninterrupted run: histories, final whole
+    states, and the checkpoint's ``h``."""
+    from repro_torch.core.plan import TrainPlan
+    from repro_torch.reliability import checkpoint as ckpt
+    from repro_torch.reliability.faults import (
+        KillAfterChunk,
+        SimulatedCrash,
+    )
+
+    data = data_world()
+
+    def plan(name):
+        return TrainPlan(*TrainPlan.standard(4).events, checkpoint_every=1,
+                         checkpoint_dir=os.path.join(WORK_DIR, name))
+
+    def trainer(faults=()):
+        return FederatedTrainer(Softmax(), data, data_config(
+            "feddyn", faults=faults), device="cpu", backend="mesh")
+
+    whole = trainer().run(plan("whole"), params=Softmax().init())
+    try:
+        trainer((KillAfterChunk(2),)).run(plan("killed"),
+                                          params=Softmax().init())
+        crashed = False
+    except SimulatedCrash:
+        crashed = True
+    resumed = trainer().resume(os.path.join(WORK_DIR, "killed"))
+    saved = ckpt.load_checkpoint(os.path.join(WORK_DIR, "whole"))
+    same = (resumed.history["loss"] == whole.history["loss"] and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(resumed.state),
+                                          tree_leaves(whole.state))))
+    h = saved["state"]["client_state"]["per_client"]["h"]
+    return {"crashed": crashed, "same": same,
+            "h_rows": {k: int(np.asarray(v).shape[0]) for k, v in h.items()},
+            "h_equal": all(np.array_equal(np.asarray(h[k]), v.numpy())
+                           for k, v in whole.state["client_state"]
+                           ["per_client"]["h"].items())}
+
+
+def mesh_engine_programs(mesh):
+    """The 2-rank dense engine's program counts after serving, and the
+    collectives of its lowered wave."""
+    from repro_torch.analysis import op_lint
+    from repro_torch.serving import DecodeEngine, ServeConfig
+
+    model, params, _, prompts = serving_world("olmo-1b")
+    eng = DecodeEngine(model, params, ServeConfig(**SERVE), mesh=mesh,
+                       device="cpu")
+    done = eng.run(prompts)
+    return {"done": [(c.uid, c.tokens.tolist(), c.status) for c in done],
+            "programs": eng.program_counts(),
+            "wave": op_lint.collectives(eng.lower_wave().ops)}
+
+
+def data_main():
+    """Everything a rank of the rank-local data tests checks, in one
+    spawn."""
+    from repro_torch.analysis import op_lint
+    from repro_torch.launch.mesh import make_host_mesh
+
+    out = {"cases": {c: data_history(c, "mesh") for c in DATA_CASES}}
+    out["replicated"] = data_history("feddumap", "mesh", clients=3, n=7,
+                                     sbatch=5)
+    be = FederatedTrainer(Softmax(), data_world(), data_config("feddyn"),
+                          device="cpu", backend="mesh").backend()
+    mine = _my_block(be.device_data(), data_world())
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    out["blocks"] = every
+    evals = {}
+    for name, opts in (("sharded", {}), ("whole", {"shard_eval": False})):
+        got, block = cnn_eval("mesh", **opts)
+        evals[name] = got
+        if block is not None:
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, block)
+            evals["blocks"] = every
+    out["eval"] = evals
+    out["resume"] = feddyn_resume()
+    out["engine"] = mesh_engine_programs(make_host_mesh(device="cpu"))
+    out["budget"] = op_lint.mesh_collectives()
+    return out
+
+
 def _child(rank, world, store_path, out_path, main="rank_main"):
+    global WORK_DIR
+    WORK_DIR = os.path.dirname(store_path)
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
                             rank=rank, world_size=world)

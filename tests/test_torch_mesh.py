@@ -455,15 +455,17 @@ def test_two_ranks_serve_the_mesh_less_tokens(two_ranks, key):
 
 
 def test_two_ranks_round_collectives_equal_the_budget(two_ranks):
-    """``analysis.op_lint``'s LM world on the mesh backend at 2 ranks: the
-    round's collectives equal ``op_budget.json``'s record (2 all-reduces,
-    one per ``_reduce`` call and dtype: the FedAvg sum's leaves in one
-    buffer, the server step's gradient with the gate's accuracy in
-    another), and a changed count fails."""
+    """``analysis.op_lint``'s LM world on the mesh backend at 2 ranks, its
+    8 clients' data rank-local: the round's collectives equal
+    ``op_budget.json``'s record (3 all-reduces, one per ``_reduce`` call
+    and dtype: the selected clients' sizes and label distributions from
+    their owners, the FedAvg sum's leaves, the server step's gradient with
+    the gate's accuracy; and one reduce-scatter of the rank's clients'
+    int32 samples from their owners), and a changed count fails."""
     from repro_torch.analysis import op_lint
 
     got = two_ranks["mesh_round"]
-    assert got == {"c10d.allreduce_": 2}
+    assert got == {"c10d.allreduce_": 3, "c10d._reduce_scatter_base_": 1}
     assert op_lint.check_mesh_budget(got) == []
     assert op_lint.check_mesh_budget(dict(got, **{"c10d.allgather_": 1}))
 

@@ -112,7 +112,7 @@ def test_round_step_matches_the_jax_round_step(jax_world, use_masks):
     be = trainer.backend(use_masks=use_masks)
     st = be.init_state(interop.params_from_jax(jax_world["params0"], "cpu"))
     ptrs = [t.data_ptr() for t in tree_leaves(st)]
-    metric_ids = set()
+    metric_ids, kept = set(), []
     for r, batch in enumerate(jax_world["draws"]):
         sj, mj = run(sj, batch)
         st, mt = trainer.round_step(st, batch)
@@ -124,6 +124,7 @@ def test_round_step_matches_the_jax_round_step(jax_world, use_masks):
                     err_msg=f"round {r}: {what}")
         assert abs(float(mt["tau_eff"]) - float(mj["tau_eff"])) <= TOL
         metric_ids |= {id(v) for v in mt.values()}
+        kept.append(mt)     # alive, so no id is reused by a later round
     assert "masks" in st if use_masks else "masks" not in st
     assert be.chunk._cache_size() == 1
     assert [t.data_ptr() for t in tree_leaves(st)] == ptrs
