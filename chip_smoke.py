@@ -267,6 +267,25 @@ Phases, in order; any failure raises and the script exits non-zero:
               over the local, mesh and serving scenarios.  Every other phase runs the
               captured engine and rounds too: the training phases' rounds
               after the first on a state are graph replays.
+27. tp      — tensor parallelism over the ``model`` mesh axis (one card
+              holds one rank; NCCL refuses two on one device): olmo-1b at
+              full width and depth on a (1, 1) mesh over the NCCL world of
+              one, the sharded train step (f32, kernel mode, a FedAP
+              decision at 0.5 injected; eager, then captured), prefill
+              (bf16, K4, 4 x 512) and 32 masked decode steps (K5, K1)
+              bitwise the unsharded steps; each rank's block of one
+              full-width layer of olmo-1b (model 2 and 4) and chatglm3-6b
+              (2: kv split; 4: kv whole), its parts computed on the card
+              and summed by the check against the whole block (attention
+              through K4 and the FFN in f32 and bf16, the FFN's f32
+              gradients, the vocab-parallel loss and argmax with the ranks
+              as threads); rank 0 of deepseek-67b on a (1, 4) mesh at full
+              width and all 95 layers (bf16, 33.7 GB drawn on the card): a
+              1 x 2048 prefill (K4) and 16 masked decode steps (K5, K1),
+              its bytes against the dry run's per-device bytes, its
+              recorded collectives against the dry run's counts, ms a
+              step; and K1, K4 and K5 at that rank's shapes against their
+              plain versions, timed beside the library call.
 
 Each phase after the build prints its peak device memory; ``[time]`` lines
 give each phase's wall seconds and the total.
@@ -6428,6 +6447,585 @@ def _serving_mesh(torch, mesh) -> dict:
 
 
 PHASE_SECONDS: dict = {}    # phase -> wall seconds, for the [time] lines
+# ---------------------------------------------------------------------------
+# phase 27: tensor parallelism over the "model" mesh axis
+# ---------------------------------------------------------------------------
+
+TP_BATCH = (2, 2, 4, 128)       # clients, local steps, rows a step, tokens
+TP_PREFILL = (4, 512)           # B x S of the world-of-one prefill
+TP_DECODE_STEPS = 32            # world-of-one decode steps
+# each rank's block of one full-width layer: (arch, model ranks)
+TP_BLOCKS = (("olmo-1b", 2), ("olmo-1b", 4), ("chatglm3-6b", 2),
+             ("chatglm3-6b", 4))
+TP_BLOCK_ROWS = (2, 256)        # B x S into a block
+# the summed blocks against the whole block, relative L2: f32 sums in
+# another order; bf16 rounds each rank's part and the whole alike
+TP_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+TP_SHARD = ("deepseek-67b", 4, 2048, 16)    # arch, ranks, prefill S, steps
+TP_TIMES: dict = {}     # kernel name -> its times at a shard's shape
+
+
+def _rel_l2(torch, got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _tp_launches() -> dict:
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.kernels import masked_matmul as k1
+
+    return {"masked_matmul": k1.launches, "masked_matmul_dx": k1.dx_launches,
+            "masked_matmul_dw": k1.dw_launches, "flash_attention": k4.launches,
+            "decode_attention": k5.launches}
+
+
+def _tp_reset() -> None:
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.kernels import masked_matmul as k1
+
+    k1.launches = k1.dx_launches = k1.dw_launches = 0
+    k4.launches = k5.launches = 0
+
+
+def _tp_add(total: dict) -> dict:
+    got = _tp_launches()
+    for k, n in got.items():
+        total[k] = total.get(k, 0) + n
+    return got
+
+
+def phase_tp(torch) -> dict:
+    """Tensor parallelism over the ``model`` mesh axis (``LM.shard``, the
+    ``mesh=`` steps of ``launch.steps``).  One card holds one rank, and
+    NCCL refuses two ranks on one device, so: (1) a world of one over NCCL
+    runs the sharded steps bitwise the unsharded ones (olmo-1b at full
+    width and depth); (2) each rank's block of one full-width layer runs
+    the kernels at its shapes, and the check sums the ranks' parts against
+    the whole block; (3) rank 0 of deepseek-67b on a (1, 4) mesh at full
+    width and depth runs a prefill and decode steps, its memory and
+    collectives held to the dry run's.  Returns {kernel name: launches} of
+    (1) and (3)'s sharded runs."""
+    launches: dict = {}
+    _tp_world_of_one(torch, launches)
+    _tp_blocks(torch)
+    _tp_shard(torch, launches)
+    return launches
+
+
+def _tp_world_of_one(torch, launches) -> None:
+    """olmo-1b, all 16 layers, on a (1, 1) mesh over the NCCL world of one:
+    the sharded train step (f32, FedDUMAP in kernel mode, a FedAP decision
+    at 0.5 injected after the first round; the first round eager, the
+    second captured) against the unsharded step, the sharded prefill (bf16,
+    ``attn_impl="pallas"``, TP_PREFILL) and TP_DECODE_STEPS masked decode
+    steps against the unsharded ones, every output bitwise."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.utils.tree import tree_leaves
+
+    mesh = make_host_mesh(data=1, model=1)
+    base = get_config("olmo-1b")
+    cfg = dataclasses.replace(base, param_dtype="float32")
+    c, e, b, s = TP_BATCH
+    run = steps.FLRunConfig(lr=3e-3, local_steps=e, server_tau=2,
+                            server_batch=b, use_masks=True,
+                            masked_compute="kernel")
+    batch = steps.fl_batch_specs(cfg, InputShape("tp-olmo", s, c * b,
+                                                 "train"),
+                                 c, run, abstract=False, seed=30)
+    log(f"[tp] world of one over {dist.get_backend()!r}: mesh "
+        f"{mesh.mesh_dim_names} {tuple(mesh.shape)}; olmo-1b f32 "
+        f"{cfg.num_layers} layers, {c} clients x {e} local steps of {b} x "
+        f"{s} + 2 server steps of {b}, kernel mode")
+    host, times = [], {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    start = gen.get_state()
+    for name, m in (("unsharded", None), ("sharded", mesh)):
+        model = build_model(cfg, mesh=m)
+        init, step = steps.make_fl_train_step(cfg, run, c, model=model,
+                                              mesh=m)
+        gen.set_state(start)            # both runs from the same draw
+        state = init(gen, filter_masks={"mlp": torch.ones(
+                         (cfg.num_layers, cfg.d_ff), device="cuda")})
+        _tp_reset()
+        for r in range(2):
+            if r == 1:
+                kept = model.decide_kept(state["params"], 0.5)
+                state = steps.with_masks(
+                    state, model.param_masks(state["params"], kept),
+                    model.filter_masks(state["params"], kept))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, tau = step(state, batch)
+            torch.cuda.synchronize()
+            times[(name, r)] = time.perf_counter() - t0
+            leaves = [t.to("cpu", copy=True) for k in ("params", "server_m")
+                      for t in tree_leaves(state[k])] + [tau.to("cpu")]
+            if name == "unsharded":
+                host.append(leaves)
+                continue
+            diff = sum(not torch.equal(a, b_)
+                       for a, b_ in zip(leaves, host[r]))
+            log(f"[tp] train step round {r + 1} "
+                f"({'eager' if r == 0 else 'captured'}): sharded "
+                f"{times[('sharded', r)]:.3f} s, unsharded "
+                f"{times[('unsharded', r)]:.3f} s; tau_eff "
+                f"{float(tau):.6f}; {len(leaves) - diff} of {len(leaves)} "
+                f"params/server_m leaves and tau_eff bitwise equal")
+            require(diff == 0, f"tp: the sharded train step's round {r + 1} "
+                    f"differs from the unsharded one in {diff} tensors")
+        if m is not None:
+            got = _tp_add(launches)
+            require(step.program.captures == 1, "tp: the sharded step was "
+                    "not captured")
+            log(f"[tp] sharded train step launches K1 "
+                f"{got['masked_matmul']} K2 {got['masked_matmul_dx']} K3 "
+                f"{got['masked_matmul_dw']} (two rounds); program keys "
+                f"{step.program._cache_size()}, captures "
+                f"{step.program.captures}")
+        del state, step, init, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    del host
+
+    # the serve steps: bf16, K4 in the prefill, K5 and K1 in decode
+    bsz, seq = TP_PREFILL
+    model = build_model(base, attn_impl="pallas")
+    params = model.init(gen)
+    fm = model.filter_masks(params, model.decide_kept(params, 0.5))
+    tokens = torch.randint(0, base.vocab_size, (bsz, seq + TP_DECODE_STEPS),
+                           device="cuda", generator=gen)
+    outs = {}
+    for name, m in (("unsharded", None), ("sharded", mesh)):
+        md, prefill = steps.make_prefill_step(base, mesh=m,
+                                              attn_impl="pallas")
+        _, decode = steps.make_decode_step(base, mesh=m, model=md)
+        _tp_reset()
+        with torch.no_grad():
+            got = [prefill(params, {"tokens": tokens[:, :seq]})]
+            cache = md.init_cache(bsz, seq + TP_DECODE_STEPS)
+            for i in range(TP_DECODE_STEPS):
+                logits, cache = decode(params, cache,
+                                       {"tokens": tokens[:, i:i + 1]},
+                                       masks=fm)
+                got.append(logits)
+        torch.cuda.synchronize()
+        outs[name] = got + [cache["k"], cache["v"]]
+        if m is not None:
+            n = _tp_add(launches)
+    same = all(torch.equal(a, b_) for a, b_ in zip(outs["sharded"],
+                                                 outs["unsharded"]))
+    log(f"[tp] sharded prefill (bf16, pallas, {bsz} x {seq}) and "
+        f"{TP_DECODE_STEPS} masked decode steps bitwise the unsharded: "
+        f"{same}; launches K4 {n['flash_attention']}, K5 "
+        f"{n['decode_attention']}, K1 {n['masked_matmul']}")
+    require(same, "tp: the sharded serve steps differ from the unsharded")
+    L = base.num_layers
+    require(n["flash_attention"] == L
+            and n["decode_attention"] == L * TP_DECODE_STEPS
+            and n["masked_matmul"] == 2 * L * TP_DECODE_STEPS,
+            f"tp: serve launches {n}")
+    del outs, params, model, cache
+
+
+def _tp_ranks(torch, cfg, m, group_of_rank):
+    """The ``m`` rank models of ``cfg`` on a (1, m) mesh, rank r's group
+    ``group_of_rank(r)``, with the plan."""
+    from repro_torch.launch.dryrun import ShapeMesh
+    from repro_torch.models.lm import LM
+    from repro_torch.sharding.specs import make_plan
+
+    plan = make_plan(ShapeMesh({"data": 1, "model": m}), cfg)
+    whole = LM(cfg)
+    return plan, [whole.shard(plan, {"data": 0, "model": r},
+                              group_of_rank(r)) for r in range(m)]
+
+
+def _tp_block_of(torch, model, tree):
+    from repro_torch.sharding.specs import shard_tree
+
+    return shard_tree(tree, model.block_specs(), model._plan, model._coords,
+                      axes=model.axes(),
+                      kv_heads=model.cfg.padded_num_kv_heads)
+
+
+def _tp_blocks(torch) -> None:
+    """Each rank's block of one full-width layer (TP_BLOCKS), through the
+    ``tp`` code with ``RecordingGroup``s (their collectives move nothing:
+    each rank's part is computed on the card and the check sums them):
+    attention (K4) and the FFN (K1 where a rank's d_ff is 128-aligned) in
+    f32 and bf16, the FFN's f32 gradients (K2, K3), and the vocab-parallel
+    loss and argmax of the head, whose collectives the ranks run as threads
+    (``ThreadGroup``) on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import LM, _unstack
+    from repro_torch.sharding import tp
+    from repro_torch.sharding.specs import shard_tree
+    from repro_torch.utils.tree import tree_map
+
+    bsz, seq = TP_BLOCK_ROWS
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for arch, m in TP_BLOCKS:
+        cfg = dataclasses.replace(get_config(arch), num_layers=1,
+                                  param_dtype="float32")
+        whole = LM(cfg).init(gen)
+        layer = _unstack(whole["layers"])[0]
+        kept = LM(cfg).decide_kept(whole, 0.5)
+        fm = LM(cfg).filter_masks(whole, kept)["mlp"][0]
+        plan, ranks = _tp_ranks(torch, cfg, m,
+                                lambda r: tp.RecordingGroup(r, m))
+        blocks = [_tp_block_of(torch, md, whole) for md in ranks]
+        lay = ranks[0].tp
+        ff = cfg.d_ff // m if lay.mlp else cfg.d_ff
+        pos = L.default_positions(bsz, seq, cfg.rope, device="cuda")
+        tag = (f"[tp] {arch} model={m}: {cfg.num_heads // m if lay.heads else cfg.num_heads}"
+               f" q / {lay.kv_heads} kv heads a rank ("
+               f"{'kv split' if lay.kv else 'kv whole'}), d_ff {ff} a rank "
+               f"({'K1' if ff % 128 == 0 else 'the masked plain product'})")
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            x = torch.randn((bsz, seq, cfg.d_model), generator=gen,
+                            device="cuda").to(dtype)
+            cast = (lambda t: t.to(dtype))
+            lw = tree_map(cast, layer)
+            want_a = L.attention_block(lw["attn"], x, pos, cfg,
+                                       attn_impl="pallas")
+            want_f = L.apply_mlp(lw["mlp"], x, cfg.act, fm)
+            got_a = got_f = 0
+            for md, blk in zip(ranks, blocks):
+                lb = tree_map(cast, _unstack(blk["layers"])[0])
+                lo = md.tp.group.rank * ff if lay.mlp else 0
+                part = L.attention_block(lb["attn"], x, pos, cfg,
+                                         attn_impl="pallas", tp=md.tp)
+                got_a = got_a + part.float()
+                got_f = got_f + L.apply_mlp(lb["mlp"], x, cfg.act,
+                                            fm[lo:lo + ff], md.tp).float()
+                if md.tp.group.rank == 0:   # K4 and K1 at the rank's shapes
+                    e4 = _rel_l2(torch, part, L.attention_block(
+                        lb["attn"], x, pos, cfg, attn_impl="xla", tp=md.tp))
+                    log(f"[kernels] flash_attention {arch} rank 0 of {m} "
+                        f"{dname}: its block's attention against the plain "
+                        f"attention, rel L2 {e4:.3e} (limit "
+                        f"{TP_TOL[dname]:.0e})")
+                    require(e4 <= TP_TOL[dname], f"tp K4 {arch} {m} {dname}: "
+                            f"{e4:.3e}")
+                    if ff % 128 == 0:
+                        x2 = x.reshape(-1, cfg.d_model)
+                        wi = lb["mlp"]["wi"].contiguous()   # a block's view
+                        bm = fm[lo:lo + ff].reshape(-1, 128).amax(1)
+                        err, rel = max_rel_err(
+                            torch, ops.masked_matmul_fwd(x2, wi, bm),
+                            ref.masked_matmul_ref(x2, wi, bm))
+                        log(f"[kernels] masked_matmul {arch} rank 0 of {m} "
+                            f"{dname} M={x2.shape[0]} K={cfg.d_model} "
+                            f"N={ff}: max_abs_err={err:.3e} rel={rel:.3e} "
+                            f"(tol {TOL[dname]:.3e})")
+                        require(rel <= TOL[dname], f"tp K1 {arch} {m} "
+                                f"{dname}: error {rel:.3e}")
+            ea, ef = _rel_l2(torch, got_a, want_a), _rel_l2(torch, got_f,
+                                                            want_f)
+            log(f"{tag} {dname}: attention (K4) summed over ranks, rel L2 "
+                f"{ea:.3e}; FFN (masked at 0.5) rel L2 {ef:.3e} (limit "
+                f"{TP_TOL[dname]:.0e})")
+            require(ea <= TP_TOL[dname] and ef <= TP_TOL[dname],
+                    f"tp blocks {arch} {m} {dname}: over the limit")
+        # the FFN's f32 gradients: a rank's leaves against its block of
+        # the whole gradient; the input's parts summed
+        x = torch.randn((bsz, seq, cfg.d_model), generator=gen,
+                        device="cuda")
+        dy = torch.randn(x.shape, generator=gen, device="cuda")
+
+        def grads(mlp, mask, lt):
+            with torch.enable_grad():
+                q = {k: v.detach().requires_grad_(True)
+                     for k, v in mlp.items()}
+                xi = x.detach().requires_grad_(True)
+                y = L.apply_mlp(q, xi, cfg.act, mask, lt)
+                gs = torch.autograd.grad((y * dy).sum(), [xi] + [
+                    q[k] for k in sorted(q)])
+            return gs[0], dict(zip(sorted(q), gs[1:]))
+
+        want_dx, want_g = grads(layer["mlp"], fm, None)
+        dx, worst = 0, 0.0
+        for md, blk in zip(ranks, blocks):
+            lo = md.tp.group.rank * ff if lay.mlp else 0
+            gx, g = grads(_unstack(blk["layers"])[0]["mlp"],
+                          fm[lo:lo + ff], md.tp)
+            dx = dx + gx
+            mine = shard_tree({k: v[None] for k, v in want_g.items()},
+                              md.block_specs()["layers"]["mlp"], md._plan,
+                              md._coords, axes=md.axes()["layers"]["mlp"])
+            for k in g:
+                worst = max(worst, _rel_l2(torch, g[k], mine[k][0]))
+        edx = _rel_l2(torch, dx, want_dx)
+        log(f"{tag} f32 FFN gradients: each rank's wi/wg/wo against its "
+            f"block of the whole gradient, worst rel L2 {worst:.3e}; the "
+            f"input's summed {edx:.3e} (limit {TP_TOL['float32']:.0e})")
+        require(worst <= TP_TOL["float32"] and edx <= TP_TOL["float32"],
+                f"tp blocks {arch} {m}: gradients over the limit")
+        # the vocab-parallel loss and argmax, the ranks as threads
+        h = torch.randn((bsz, seq, cfg.d_model), generator=gen,
+                        device="cuda")
+        labels = torch.randint(0, cfg.vocab_size, (bsz, seq), device="cuda",
+                               generator=gen)
+        head = "embed" if cfg.tie_embeddings else "unembed"
+        parts = [h @ (blk[head].T if cfg.tie_embeddings else blk[head])
+                 for blk in blocks]
+        logits = torch.cat(parts, -1)
+        whole_logits = h @ (whole[head].T if cfg.tie_embeddings
+                            else whole[head])
+        want_nll = -torch.log_softmax(logits, -1).gather(
+            -1, labels[..., None])[..., 0]
+        threads = tp.ThreadGroup.ranks(m)
+        outs = tp.ThreadGroup.run([
+            (lambda r=r: (
+                tp.vocab_cross_entropy(parts[r], labels, dataclasses.replace(
+                    ranks[r].tp, group=threads[r])),
+                tp.vocab_argmax(parts[r], dataclasses.replace(
+                    ranks[r].tp, group=threads[r]))))
+            for r in range(m)])
+        enll = max(_rel_l2(torch, nll, want_nll) for nll, _ in outs)
+        same = all(torch.equal(a, logits.argmax(-1)) for _, a in outs)
+        el = _rel_l2(torch, logits, whole_logits)
+        log(f"{tag}: vocab-parallel loss rel L2 {enll:.3e} (limit "
+            f"{TP_TOL['float32']:.0e}) and argmax equal on every rank: "
+            f"{same}, against the joined columns (those against the whole "
+            f"head: rel L2 {el:.3e})")
+        require(enll <= TP_TOL["float32"] and same
+                and el <= TP_TOL["float32"], f"tp head {arch} {m}: differs")
+        del whole, layer, blocks, ranks, parts, logits, whole_logits
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _tp_kernel_times(torch, model, params, cache, x_dec, fm) -> None:
+    """K1, K4 and K5 at the rank's shapes of TP_SHARD against their plain
+    versions (the check) and timed beside them, the library call and the
+    bound (TP_TIMES)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import flash_attention as k4
+    from repro_torch.kernels import masked_matmul as k1
+    from repro_torch.kernels import ref
+
+    timer = Timer(torch, reps=10)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cfg = model.cfg
+    lay = model.tp
+    hq = cfg.num_heads // lay.group.size
+    kvh, hd, seq = lay.kv_heads, cfg.resolved_head_dim, TP_SHARD[2]
+    dt = torch.bfloat16
+    # K4: the prefill's attention at the rank's heads
+    q = torch.randn((1, seq, hq, hd), generator=gen, device="cuda").to(dt)
+    k = torch.randn((1, seq, kvh, hd), generator=gen, device="cuda").to(dt)
+    v = torch.randn((1, seq, kvh, hd), generator=gen, device="cuda").to(dt)
+    got = k4.flash_attention(q, k, v, causal=True)
+    err4 = _k4_check(torch, f"tp shard {hq} q / {kvh} kv S={seq}",
+                     "bfloat16", got, ref.flash_attention_ref(q, k, v))
+    order = _gqa_heads(hq, kvh)
+    qt = q[:, :, order].transpose(1, 2).contiguous()
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    ms, lib = timer.turns(
+        lambda: k4.flash_attention(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True))
+    plain = timer(lambda: ref.flash_attention_ref(q, k, v))
+    bound, by, _ = _k4_bound(1, seq, seq, hq, kvh, hd, True, None, 2,
+                             "bfloat16")
+    TP_TIMES["flash_attention"] = {
+        "tp_shape": f"deepseek-67b rank of 4: B 1 x S {seq}, {hq} q / {kvh} "
+                    f"kv heads of {hd}, causal, bf16",
+        "tp_ms": ms, "tp_plain_ms": plain, "tp_library_ms": lib,
+        "tp_bound_ms": bound, "tp_bound_by": by, "tp_max_abs_err": err4}
+    # K5: a decode step's attention over the rank's cache
+    lens = torch.full((1,), min(int(cache["index"]), cache["k"].shape[2]),
+                      dtype=torch.int32, device="cuda")
+    qd = torch.randn((1, 1, hq, hd), generator=gen, device="cuda").to(dt)
+    ck, cv = cache["k"][0], cache["v"][0]
+    got = k5.decode_attention(qd, ck, cv, lens)
+    want = ref.decode_attention_ref(qd, ck, cv, lens)
+    torch.cuda.synchronize()
+    err5, rel5 = max_rel_err(torch, got, want)
+    require(rel5 <= TOL["bfloat16"], f"tp K5 at the shard: {rel5:.3e}")
+    qdt = qd[:, :, order].transpose(1, 2).contiguous()
+    kdt = ck.transpose(1, 2).contiguous()
+    vdt = cv.transpose(1, 2).contiguous()
+    mask = (torch.arange(ck.shape[1], device="cuda")
+            < lens[:, None])[:, None, None, :]
+    ms5, lib5 = timer.turns(
+        lambda: k5.decode_attention(qd, ck, cv, lens),
+        lambda: F.scaled_dot_product_attention(qdt, kdt, vdt,
+                                               attn_mask=mask,
+                                               enable_gqa=True))
+    plain5 = timer(lambda: ref.decode_attention_ref(qd, ck, cv, lens))
+    bound5 = _k5_bound_ms(1, hq, kvh, hd, int(lens.sum()), 2, "bfloat16")
+    TP_TIMES["decode_attention"] = {
+        "tp_shape": f"deepseek-67b rank of 4: B 1, {hq} q / {kvh} kv heads "
+                    f"of {hd}, length {int(lens[0])} of {ck.shape[1]} rows, "
+                    f"bf16",
+        "tp_ms": ms5, "tp_plain_ms": plain5, "tp_library_ms": lib5,
+        "tp_bound_ms": bound5, "tp_bound_by": "bytes",
+        "tp_max_abs_err": err5}
+    log(f"[kernels] decode_attention tp shard {hq} q / {kvh} kv bf16: "
+        f"max_abs_err={err5:.3e} rel={rel5:.3e} (tol {TOL['bfloat16']:.3e})")
+    # K1: the decode step's up product (M = 1) at the rank's d_ff
+    w = params["layers"]["mlp"]["wi"][0]
+    bm = fm["mlp"][0].reshape(-1, 128).amax(1)
+    got = k1.masked_matmul(x_dec, w, bm)
+    want = ref.masked_matmul_ref(x_dec, w, bm)
+    torch.cuda.synchronize()
+    err1, rel1 = max_rel_err(torch, got, want)
+    require(rel1 <= TOL["bfloat16"], f"tp K1 at the shard: {rel1:.3e}")
+    ms1, lib1 = timer.turns(lambda: k1.masked_matmul(x_dec, w, bm),
+                            lambda: torch.matmul(x_dec, w))
+    plain1 = timer(lambda: ref.masked_matmul_ref(x_dec, w, bm))
+    kept = int((bm > 0).sum())
+    bound1, by1 = _mm_bound("fwd", x_dec.shape[0], w.shape[0], w.shape[1],
+                            kept, 2, "bfloat16")
+    TP_TIMES["masked_matmul"] = {
+        "tp_shape": f"deepseek-67b rank of 4 at decode: M {x_dec.shape[0]}, "
+                    f"K {w.shape[0]}, N {w.shape[1]} (kept {kept} of "
+                    f"{bm.numel()} blocks), bf16",
+        "tp_ms": ms1, "tp_plain_ms": plain1, "tp_library_ms": lib1,
+        "tp_bound_ms": bound1, "tp_bound_by": by1, "tp_max_abs_err": err1}
+    log(f"[kernels] masked_matmul tp shard M={x_dec.shape[0]} "
+        f"K={w.shape[0]} N={w.shape[1]} bf16: max_abs_err={err1:.3e} "
+        f"rel={rel1:.3e} (tol {TOL['bfloat16']:.3e})")
+    for name, rec in TP_TIMES.items():
+        log(f"[tp] {name} at {rec['tp_shape']}: kernel {rec['tp_ms']:.4f} ms,"
+            f" plain {rec['tp_plain_ms']:.4f} ms, library "
+            f"{rec['tp_library_ms']:.4f} ms, bound {rec['tp_bound_ms']:.4f} "
+            f"ms ({rec['tp_bound_by']}); {CARD}")
+
+
+def _tp_shard(torch, launches) -> None:
+    """Rank 0 of deepseek-67b on a (1, 4) mesh at full width and all its
+    layers, bf16, its block drawn on the card from a seeded generator: one
+    prefill (K4) and TP_SHARD decode steps (K5, and K1 through all-ones
+    filter masks) through the sharded steps, with a ``RecordingGroup`` for
+    the ranks that are not there.  The params' bytes against the dry run's
+    ``per_device_bytes`` at (1, 4) (within 1%), the recorded collectives
+    against the dry run's counts of the same steps on the meta device
+    (equal), ms per step and finite outputs."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models.api import build_model
+    from repro_torch.models.lm import LM
+    from repro_torch.utils.tree import tree_leaves
+
+    arch, m, seq, n_dec = TP_SHARD
+    cfg = get_config(arch)
+    shape = {"data": 1, "model": m}
+    mesh = dryrun.ShapeMesh(shape)
+    model = build_model(cfg, mesh=mesh, attn_impl="pallas")
+    group = model.tp.group
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    init_s = time.perf_counter() - t0
+    whole = LM(cfg).on_meta()
+    dry = dryrun.per_device_bytes(cfg, whole, shape,
+                                  whole.param_shapes())["params"]
+    nominal = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    log(f"[tp] {arch} rank 0 of {shape}: {cfg.num_layers} layers, "
+        f"{nominal / 1e9:.3f} GB of bf16 params drawn in {init_s:.1f} s; "
+        f"allocated {held / 1e9:.3f} GB against the dry run's per-device "
+        f"{dry / 1e9:.3f} GB ({held / dry - 1:+.4%}); {CARD}")
+    require(abs(held / dry - 1) <= 0.01, "tp shard: params' bytes differ "
+            "from the dry run's by more than 1%")
+    counts = {}
+    for kind, sh in (("prefill", InputShape("tp-prefill", seq, 1,
+                                            "prefill")),
+                     ("decode", InputShape("tp-decode", seq + n_dec + 2, 1,
+                                           "decode"))):
+        counts[kind] = dryrun.count_step(
+            cfg, sh, shape)["counter"].totals.collective_counts
+    _, prefill = steps.make_prefill_step(cfg, mesh=mesh, model=model)
+    _, decode = steps.make_decode_step(cfg, mesh=mesh, model=model)
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq + n_dec + 2),
+                           device="cuda", generator=gen)
+    fm = model.filter_masks(params, {})
+
+    def recorded(start):
+        got: dict = {}
+        for kind, _ in group.calls[start:]:
+            got[kind] = got.get(kind, 0) + 1
+        return got
+
+    with torch.no_grad():
+        prefill(params, {"tokens": tokens[:, :seq]})      # warm
+        torch.cuda.synchronize()
+        _tp_reset()
+        mark = len(group.calls)
+        t0 = time.perf_counter()
+        last = prefill(params, {"tokens": tokens[:, :seq]})
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        got_p = recorded(mark)
+        cache = model.init_cache(1, seq + n_dec + 2)
+        for t in (cache["k"], cache["v"]):      # a filled context
+            t.normal_(generator=gen)
+        cache["index"].fill_(seq)
+        x_dec = torch.randn((1, cfg.d_model), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+        for i in range(2):                      # warm
+            logits, cache = decode(params, cache, {"tokens": tokens[
+                :, seq + i:seq + i + 1]}, masks=fm)
+        torch.cuda.synchronize()
+        n_p = _tp_add(launches)
+        _tp_reset()
+        mark = len(group.calls)
+        outs = [last]
+        t0 = time.perf_counter()
+        for i in range(2, n_dec + 2):
+            logits, cache = decode(params, cache, {"tokens": tokens[
+                :, seq + i:seq + i + 1]}, masks=fm)
+            outs.append(logits)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / n_dec
+        got_d = recorded(mark)
+        n_d = _tp_add(launches)
+    per_step = {k: v // n_dec for k, v in got_d.items()}
+    finite = all(bool(torch.isfinite(o).all()) for o in outs)
+    log(f"[tp] {arch} rank 0: prefill 1 x {seq} {prefill_ms:.1f} ms (K4 "
+        f"{n_p['flash_attention']} a prefill), decode "
+        f"{step_ms:.2f} ms a step over {n_dec} steps (K5 "
+        f"{n_d['decode_attention'] // n_dec}, K1 "
+        f"{n_d['masked_matmul'] // n_dec} a step); {CARD}")
+    log(f"[tp] {arch} rank 0 collectives: prefill {got_p} (dry run "
+        f"{counts['prefill']}), decode a step {per_step} over {n_dec} "
+        f"steps (dry run {counts['decode']}); outputs finite: {finite}")
+    require(got_p == counts["prefill"] and per_step == counts["decode"]
+            and all(v == per_step[k] * n_dec for k, v in got_d.items()),
+            "tp shard: recorded collectives differ from the dry run's")
+    require(finite, "tp shard: non-finite outputs")
+    L = cfg.num_layers
+    require(n_d["decode_attention"] == L * n_dec
+            and n_d["masked_matmul"] == 2 * L * n_dec,
+            f"tp shard: decode launches {n_d}")
+    _tp_kernel_times(torch, model, params, cache, x_dec, fm)
+    del params, cache, outs
+
+
 CARD = ""                   # nvidia-smi's name and power limit of the card
 
 
@@ -6496,7 +7094,8 @@ def main() -> int:
             ("whisper", lambda: phase_whisper(torch)),
             ("steps", lambda: phase_steps(torch)),
             ("mesh", lambda: phase_mesh(torch)),
-            ("capture", lambda: phase_capture(torch))):
+            ("capture", lambda: phase_capture(torch)),
+            ("tp", lambda: phase_tp(torch))):
         for name, n in _phase(torch, label, path).items():
             launches[name] = launches.get(name, 0) + n
     import torch.distributed as dist
@@ -6507,6 +7106,7 @@ def main() -> int:
         log(f"[time] {name}: {sec:.1f} s")
     log(f"[time] total: {time.perf_counter() - start:.1f} s (limit 1200 s)")
     for name, rec in records.items():
+        rec.update(TP_TIMES.get(name, {}))
         rec["launches"] = launches[name]
         rec.update(tpu_kernel=rec["replaces"], max_err=rec["max_abs_err"],
                    kernel_ms=rec["ms"])

@@ -34,6 +34,13 @@ meaning, on the CPU:
   ``DecodeEngine(mesh=)`` wave (one all-gather).  A new collective in one
   of them fails the check.  Re-record after an intended change with
   ``python -m repro_torch.analysis.op_lint --update``.
+* **The tensor-parallel steps** (``launch.steps`` over a ``(1, 2)`` mesh of
+  the same 2 ranks, the dense test model of ``tests/test_torch_tp.py``:
+  2 layers, d 256, H 4 over KV 2, d_ff 512, vocab 512): one kernel-mode
+  FedDUMAP round of the train step, the prefill step and a decode step,
+  their collectives equal to ``op_budget.json``'s (``tp_step``,
+  ``tp_prefill``, ``tp_decode``), and the round free of host reads,
+  host-made tensors and f64 ops, as a mesh round is.
 """
 from __future__ import annotations
 
@@ -275,6 +282,7 @@ def _rank(rank: int, world: int, store: str, out: str) -> None:
                             rank=rank, world_size=world)
     try:
         counts = mesh_collectives()
+        counts.update(tp_collectives())
         if rank == 0:
             with open(out, "w") as f:
                 json.dump(counts, f)
@@ -305,6 +313,67 @@ def spawn_mesh_programs(timeout: float = 240.0) -> dict:
                     p.terminate()
         with open(out) as f:
             return json.load(f)
+
+
+TP_PROGRAMS = ("tp_step", "tp_prefill", "tp_decode")
+
+
+def tp_config():
+    """The dense test model of the tensor-parallel checks."""
+    from repro_torch.configs import get_config
+
+    return get_config("olmo-1b").reduced(num_heads=4, num_kv_heads=2,
+                                         d_ff=512)
+
+
+def record_tp() -> dict:
+    """{program: recorded ops} of the tensor-parallel steps on a ``(1,
+    MESH_RANKS)`` mesh over every rank of the process group: one round of
+    the kernel-mode FedDUMAP step (2 clients x 2 local steps of 2 x 16
+    tokens, 2 server steps of 2), a prefill of 2 x 16 and a decode step."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.engine import init_round_state
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = tp_config()
+    mesh = make_host_mesh(data=1, model=MESH_RANKS, device="cpu")
+    run = steps.FLRunConfig(lr=3e-3, local_steps=2, server_tau=2,
+                            server_batch=2, use_masks=True,
+                            masked_compute="kernel")
+    _, step = steps.make_fl_train_step(cfg, run, 2, device="cpu", mesh=mesh)
+    model, prefill = steps.make_prefill_step(cfg, device="cpu", mesh=mesh)
+    _, decode = steps.make_decode_step(cfg, device="cpu", mesh=mesh)
+    params = model.init(torch.Generator().manual_seed(0))
+    state = init_round_state(params, step.eng,
+                             filter_masks=model.filter_masks(params, {}))
+    batch = step.local(steps.fl_batch_specs(
+        cfg, InputShape("tp", 16, 4, "train"), 2, run, abstract=False,
+        seed=4, device="cpu"))
+    out = {}
+    with CostCounter(record=True) as c:
+        step.body(state, batch)
+    out["tp_step"] = c.ops
+    tokens = torch.zeros((2, 16), dtype=torch.int64)
+    with torch.no_grad():
+        with CostCounter(record=True) as c:
+            prefill(params, {"tokens": tokens})
+        out["tp_prefill"] = c.ops
+        cache = model.init_cache(2, 16)
+        with CostCounter(record=True) as c:
+            decode(params, cache, {"tokens": tokens[:, :1]})
+        out["tp_decode"] = c.ops
+    return out
+
+
+def tp_collectives() -> dict:
+    """{program: {kind: count}} of :func:`record_tp`, plus ``"lint"``: the
+    round's violations of the mesh round's rules."""
+    ops = record_tp()
+    out = {k: _counts(v) for k, v in ops.items()}
+    out["lint"] = check_stream("tensor-parallel step", ops["tp_step"],
+                               mesh_less=False)
+    return out
 
 
 def load_budget() -> dict:
@@ -350,8 +419,9 @@ def check(*, mesh: bool = True) -> list[str]:
         errors += check_stream(label, record_lockstep(arch, masked=masked))
     if mesh:
         got = spawn_mesh_programs()
-        for program in MESH_PROGRAMS:
+        for program in MESH_PROGRAMS + TP_PROGRAMS:
             errors += check_mesh_budget(got[program], program=program)
+        errors += got["lint"]
     return errors
 
 
@@ -367,11 +437,12 @@ def main(argv=None) -> int:
     if args.update:
         budget = load_budget()
         got = spawn_mesh_programs()
-        for program in MESH_PROGRAMS:
+        for program in MESH_PROGRAMS + TP_PROGRAMS:
             budget[program] = {"ranks": MESH_RANKS,
                                "collectives": got[program]}
         BUDGET_PATH.write_text(json.dumps(budget, indent=2) + "\n")
-        print(f"recorded: { {k: budget[k] for k in MESH_PROGRAMS} }")
+        print(f"recorded: "
+              f"{ {k: budget[k] for k in MESH_PROGRAMS + TP_PROGRAMS} }")
         return 0
     errors = check()
     for e in errors:

@@ -615,21 +615,11 @@ class MeshBackend(LocalBackend):
         tensors packed into one flat buffer (kept per dtype and sizes, so a
         captured round addresses the same one every replay), one
         ``dist.all_reduce`` on it, and each tensor copied back out."""
+        from repro_torch.sharding.tp import TPGroup, packed_all_reduce
+
         t0 = time.perf_counter()
-        groups: dict = {}
-        for t in tensors:
-            groups.setdefault(t.dtype, []).append(t)
-        for dtype, ts in groups.items():
-            sizes = tuple(t.numel() for t in ts)
-            flat = self._buckets.get((dtype, sizes))
-            if flat is None:
-                flat = self._buckets[(dtype, sizes)] = torch.empty(
-                    sum(sizes), dtype=dtype, device=ts[0].device)
-            torch.cat([t.reshape(-1) for t in ts], out=flat)
-            dist.all_reduce(flat)
-            for t, part in zip(ts, flat.split(sizes)):
-                t.copy_(part.view(t.shape))
-        self.reductions += len(groups)
+        self.reductions += packed_all_reduce(
+            tensors, TPGroup(None, self.rank, self.world), self._buckets)
         if not (self.device.type == "cuda"
                 and torch.cuda.is_current_stream_capturing()):
             self.reduce_seconds += time.perf_counter() - t0

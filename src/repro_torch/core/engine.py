@@ -147,7 +147,13 @@ class RoundShard:
     and zeros elsewhere, and a sum over the ranks (each element has one
     non-zero contributor, so the sum is exact) gives the rows whole, with
     ``reduce``, or this rank's block of them, with ``scatter(tensors)``
-    (which returns the summed tensors' rows at ``clients``)."""
+    (which returns the summed tensors' rows at ``clients``).
+
+    ``model`` (a ``sharding.tp.TPGroup``): the ranks that each hold a block
+    of every param (tensor parallelism over the ``model`` mesh axis), whose
+    guard verdicts span them all: a NaN may sit in one rank's block only.
+    Everything else of the round is elementwise on the blocks, or reads
+    losses and accuracies that the model already reduced over them."""
 
     reduce: Callable
     clients: range | None = None
@@ -156,6 +162,7 @@ class RoundShard:
     owned: range | None = None
     num_clients: int | None = None
     scatter: Callable | None = None
+    model: Any = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -465,10 +472,16 @@ def write_owned(tree, rows, held: torch.Tensor, local: torch.Tensor
     tree_map(one, tree, rows)
 
 
-def _all_finite(*trees) -> torch.Tensor:
-    """0-d bool tensor: every element of every leaf is finite."""
-    return torch.stack([torch.isfinite(t).all() for tree in trees
-                        for t in tree_leaves(tree)]).all()
+def _all_finite(*trees, group=None) -> torch.Tensor:
+    """0-d bool tensor: every element of every leaf is finite (on every
+    rank of ``group``, whose ranks hold blocks of the leaves)."""
+    ok = torch.stack([torch.isfinite(t).all() for tree in trees
+                      for t in tree_leaves(tree)]).all()
+    if group is None:
+        return ok
+    from repro_torch.sharding.tp import all_true
+
+    return all_true(ok, group)
 
 
 def _where_(cond, a, b) -> None:
@@ -516,6 +529,7 @@ def _round(cfg, grad_fn, loss_and_acc_fn, state, batch, shard=None):
     active = batch.get("active")
     act = active.float() if active is not None else None
     guard = cfg.guard != "off"
+    blocks = None if shard is None else shard.model   # the guard's verdicts
     delta_form = guard or act is not None
     communicated = cfg.local_momentum == "communicated"
     if guard:
@@ -582,7 +596,8 @@ def _round(cfg, grad_fn, loss_and_acc_fn, state, batch, shard=None):
         if guard:
             # a rejected client is scrubbed back to the broadcast point
             # before anything reads it: zero weight alone keeps NaN
-            ok = _all_finite(p, m) if communicated else _all_finite(p)
+            ok = _all_finite(*((p, m) if communicated else (p,)),
+                             group=blocks)
             _where_(ok, p, params)
             if communicated:
                 _where_(ok, m, m0)
@@ -741,7 +756,7 @@ def _round(cfg, grad_fn, loss_and_acc_fn, state, batch, shard=None):
         server_ok = torch.ones((), dtype=torch.bool, device=lr.device)
         if cfg.use_server_update:
             server_ok = (torch.isfinite(t_eff) & torch.isfinite(acc)
-                         & _all_finite(proposed))
+                         & _all_finite(proposed, group=blocks))
             _where_(server_ok, proposed, w_half)
             t_eff = torch.where(server_ok, t_eff, 0.0)
             acc = torch.where(server_ok, acc, 0.0)

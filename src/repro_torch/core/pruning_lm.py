@@ -56,27 +56,37 @@ def _aligned_keep(d: int, rate: float, align: int | None,
     return keep
 
 
-def ffn_unit_scores(layers: Any, act: str) -> torch.Tensor:
-    """[L, d_ff] product-norm scores for stacked dense FFN layers (f32)."""
+def _split(tp) -> bool:
+    return tp is not None and tp.mlp
+
+
+def ffn_unit_scores(layers: Any, act: str, tp=None) -> torch.Tensor:
+    """[L, d_ff] product-norm scores for stacked dense FFN layers (f32).
+    ``tp`` (a ``sharding.tp.TPLayout`` splitting the units): the layers are
+    a rank's units, and the scores of the whole d_ff are gathered from the
+    ranks."""
     mlp = layers["mlp"]
     s_in = torch.linalg.vector_norm(mlp["wi"].float(), dim=1)          # [L, ff]
     if "wg" in mlp:
         s_in = s_in * torch.linalg.vector_norm(mlp["wg"].float(), dim=1)
     s_out = torch.linalg.vector_norm(mlp["wo"].float(), dim=2)         # [L, ff]
-    return s_in * s_out
+    scores = s_in * s_out
+    return tp.group.all_gather(scores, 1) if _split(tp) else scores
 
 
 def ffn_kept_indices(params: Any, cfg: ModelConfig, rate: float,
-                     *, align: int | None = 128) -> np.ndarray:
+                     *, align: int | None = 128, tp=None) -> np.ndarray:
     """[L, keep] kept-unit index rows, sorted per layer (host numpy).
 
     The highest scores are kept.  Ties order as the reference's
     ``argsort(scores)[:, ::-1]`` over a stable ascending sort: the LATER
-    index of two equal scores ranks first.
+    index of two equal scores ranks first.  Under ``tp`` the decision is
+    the whole d_ff's (the scores gathered, the aligned count of the whole),
+    every rank taking the same one.
     """
     if cfg.family not in ("dense", "vlm", "hybrid"):
         raise ValueError(f"prune_lm_ffn does not apply to family {cfg.family}")
-    scores = ffn_unit_scores(params["layers"], cfg.act).cpu().numpy()
+    scores = ffn_unit_scores(params["layers"], cfg.act, tp).cpu().numpy()
     d_ff = scores.shape[1]
     keep = _aligned_keep(d_ff, rate, align, layer=f"mlp stack (d_ff={d_ff})")
     return _top_rows(scores, keep)
@@ -121,22 +131,29 @@ def shrink_ffn_at(params: Any, idx: Any) -> Any:
     return new_params
 
 
-def _unit_masks(params: Any, kept: Any) -> torch.Tensor | None:
+def _unit_masks(params: Any, kept: Any, tp=None) -> torch.Tensor | None:
     """[L, d_ff] 0/1 kept-unit masks from ``{"mlp": [L, keep]}``; None when
-    no decision is in force."""
+    no decision is in force.  Under ``tp`` the rank's columns of the whole
+    d_ff's masks (``kept`` indexes the whole)."""
     idx = kept.get("mlp") if kept else None
     if idx is None:
         return None
     wi = params["layers"]["mlp"]["wi"]
-    m = torch.zeros((wi.shape[0], wi.shape[2]), dtype=torch.float32,
+    ff = wi.shape[2]
+    ways = tp.group.size if _split(tp) else 1
+    m = torch.zeros((wi.shape[0], ff * ways), dtype=torch.float32,
                     device=wi.device)
-    return m.scatter_(1, _index_rows(idx, wi.device), 1.0)
+    m.scatter_(1, _index_rows(idx, wi.device), 1.0)
+    if ways == 1:
+        return m
+    lo = tp.group.rank * ff
+    return m[:, lo:lo + ff].contiguous()
 
 
-def ffn_filter_masks(params: Any, kept: Any) -> dict:
+def ffn_filter_masks(params: Any, kept: Any, tp=None) -> dict:
     """``{"mlp": [L, d_ff] 0/1}`` filter keep-masks for masked decode (all
-    ones when no decision is in force)."""
-    m = _unit_masks(params, kept)
+    ones when no decision is in force); a rank's columns under ``tp``."""
+    m = _unit_masks(params, kept, tp)
     if m is None:
         wi = params["layers"]["mlp"]["wi"]
         m = torch.ones((wi.shape[0], wi.shape[2]), dtype=torch.float32,
@@ -144,17 +161,18 @@ def ffn_filter_masks(params: Any, kept: Any) -> dict:
     return {"mlp": m}
 
 
-def ffn_param_masks(params: Any, kept: Any) -> Any:
+def ffn_param_masks(params: Any, kept: Any, tp=None) -> Any:
     """Param-structured 0/1 masks with zeros on exactly the coordinates
     :func:`shrink_ffn_at` slices away (wi/wg columns and the coupled wo
-    rows); masking the params with them equals shrinking them."""
+    rows); masking the params with them equals shrinking them.  Under
+    ``tp``: a rank's block of them."""
     def ones(tree):
         if isinstance(tree, dict):
             return {k: ones(v) for k, v in tree.items()}
         return torch.ones(tree.shape, dtype=torch.float32, device=tree.device)
 
     masks = ones(params)
-    unit = _unit_masks(params, kept)
+    unit = _unit_masks(params, kept, tp)
     if unit is None:
         return masks
     mlp = masks["layers"]["mlp"]

@@ -64,6 +64,23 @@ def params_from_jax(tree, device="cuda", dtype=None) -> dict:
     return convert(tree, ())
 
 
+def shard_params_from_jax(tree, model, device="cuda", dtype=None) -> dict:
+    """A JAX/numpy param tree of the whole model, as :func:`params_from_jax`
+    makes it, cut to the block of a rank's ``model`` (``LM.shard``): every
+    leaf through ``sharding.specs.shard_tree`` under the model's plan, its
+    query heads in the [g, kv] grouping."""
+    from repro_torch.sharding.specs import shard_tree
+
+    whole = params_from_jax(tree, "cpu", dtype)
+    if model.tp is None:
+        return tree_map(lambda t: t.to(_device.resolve(device)), whole)
+    mine = shard_tree(whole, model.block_specs(), model._plan,
+                      model._coords, axes=model.axes(),
+                      kv_heads=model.cfg.padded_num_kv_heads)
+    return tree_map(lambda t: t.clone(memory_format=torch.contiguous_format)
+                    .to(_device.resolve(device)), mine)
+
+
 def _hwio_to_oihw(t: torch.Tensor, lead: int = 0) -> torch.Tensor:
     """A conv kernel HWIO -> OIHW behind ``lead`` leading axes (FedDyn's
     per-client ``[N, ...]``); a leaf of another rank is returned as is."""

@@ -18,7 +18,10 @@ too) and totals, in the reference's ``CostTotals`` shape:
                      eager step reads its inputs from device memory and
                      writes its outputs back;
   * collectives    — counts and input bytes per kind (``all-reduce``,
-                     ``all-gather``, ...), from the ``c10d`` operations;
+                     ``all-gather``, ...), from the ``c10d`` operations, or
+                     reported by a ``sharding.tp.RecordingGroup``, which
+                     also adds the bytes each rank puts on the wire over
+                     its group's size (``collective_wire``);
   * kernels        — each hand-written kernel's calls, FLOPs and bytes, by
                      name, from its wrapper's ``work(...)``: the kernels
                      launch through ctypes, where the dispatcher cannot see
@@ -81,6 +84,7 @@ class CostTotals:
     op_bytes: float = 0.0
     collective_bytes: dict = dataclasses.field(default_factory=dict)
     collective_counts: dict = dataclasses.field(default_factory=dict)
+    collective_wire: float = 0.0
     kernel_calls: dict = dataclasses.field(default_factory=dict)
     kernel_flops: dict = dataclasses.field(default_factory=dict)
     kernel_bytes: dict = dataclasses.field(default_factory=dict)
@@ -107,6 +111,7 @@ class CostTotals:
                 "op_bytes": self.op_bytes,
                 "collective_counts": dict(self.collective_counts),
                 "collective_bytes": dict(self.collective_bytes),
+                "collective_wire_bytes_per_device": self.collective_wire,
                 "kernel_work": {k: {"calls": self.kernel_calls[k],
                                     "flops": self.kernel_flops[k],
                                     "bytes": self.kernel_bytes[k]}
@@ -207,6 +212,18 @@ class CostCounter(TorchDispatchMode):
             yield
         finally:
             self._quiet -= 1
+
+    def collective(self, kind: str, nbytes: float, ranks: int) -> None:
+        """One collective that no ``c10d`` operation ran (a recording
+        group's): ``nbytes`` of input over a group of ``ranks``."""
+        t = self.totals
+        t.collective_counts[kind] = t.collective_counts.get(kind, 0) + 1
+        t.collective_bytes[kind] = t.collective_bytes.get(kind, 0.0) + nbytes
+        if ranks > 1:
+            t.collective_wire += nbytes * _RING.get(kind,
+                                                    lambda n: 1.0)(ranks)
+        if self.record:
+            self.ops.append((f"collective:{kind}", ()))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}

@@ -16,13 +16,26 @@ record holds the fields of the reference's that mean something here:
 
   flops, bytes         the whole step's (every client of the round, as one
                        process runs it; the kernels by their ``work``);
-  collective_*         the collectives the step itself ran: none, as one
-                       process runs the step (``MeshBackend``'s round
-                       reductions are ``analysis.op_lint``'s to count);
+  collective_*         the collectives of the step, under the reference's
+                       names: ``collective_counts`` and
+                       ``collective_bytes_by_kind`` (input bytes per kind)
+                       and ``collective_wire_bytes_per_device`` (the bytes a
+                       card puts on the wire, ring factors over each
+                       group's size).  A dense arch that the port runs
+                       tensor-parallel on the mesh (``LM.shard``: olmo-1b
+                       and chatglm3-6b on both production meshes) is
+                       counted as rank 0's part of the step (``counted``),
+                       its collectives recorded by ``sharding.tp.
+                       RecordingGroup``s of the mesh's axes; the other
+                       archs count the whole step as one process runs it,
+                       with no collective, and ``collectives_pending``
+                       says what their collectives wait for (FSDP, or
+                       their family's slice: ROADMAP queue 1);
   kernel_work          each hand-written kernel's calls, FLOPs and bytes;
   model_flops, useful_flops_ratio   6 N D (2 N D serving) over ``flops``;
   roofline             the step spread over the mesh's cards at the H100's
-                       rates (``launch.roofline``), the parameters' dtype;
+                       rates (``launch.roofline``), the parameters' dtype
+                       (rank 0's part on one card, for a rank's count);
   per_device_bytes     the params (the round state when training) and the
                        decode cache on one device of each production mesh
                        (16 x 16 and 2 x 16 x 16), under ``sharding.specs``
@@ -47,14 +60,20 @@ from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.configs.base import INPUT_SHAPES
 from repro_torch.launch import roofline
 from repro_torch.launch.cost import CostCounter
-from repro_torch.launch.steps import (FLRunConfig, fl_batch_specs,
-                                      make_fl_train_step)
+from repro_torch.core.engine import init_round_state
+from repro_torch.launch.steps import (FLRunConfig, engine_config,
+                                      fl_batch_specs,
+                                      make_decode_step, make_fl_train_step,
+                                      make_prefill_step)
 from repro_torch.models.api import build_model, decode_cache_len, input_specs
 from repro_torch.sharding import fl_specs, specs
 from repro_torch.utils.tree import tree_leaves
 
 MESHES = {"16x16": {"data": 16, "model": 16},
           "2x16x16": {"pod": 2, "data": 16, "model": 16}}
+
+
+STEP_RUN = FLRunConfig(local_steps=1, server_tau=1)   # the counted round
 
 
 class ShapeMesh:
@@ -77,29 +96,42 @@ def sharded_bytes(tensors, spec_tree, plan) -> float:
     return total
 
 
-def _meta_model(cfg):
-    return build_model(cfg, device="cpu").on_meta()
+def _meta_model(cfg, mesh=None):
+    return build_model(cfg, device="cpu", mesh=mesh).on_meta()
 
 
-def dryrun_pair(arch: str, shape_name: str, *, mesh: str = "16x16",
-                cfg=None) -> dict:
-    """Count one (arch, shape) step on the meta device; the record.
-    ``cfg`` replaces the arch's registered config (a reduced one, say)."""
-    cfg = get_config(arch) if cfg is None else cfg
-    shape = INPUT_SHAPES[shape_name]
-    plan = specs.make_plan(ShapeMesh(MESHES[mesh]), cfg)
-    chips = math.prod(MESHES[mesh].values())
-    model = _meta_model(cfg)
-    params = cache = state = None
-    t0 = time.perf_counter()
+def tp_pending(cfg, plan) -> str | None:
+    """None where the step runs tensor-parallel on ``plan`` (the port's
+    ``LM.shard``); else what its collectives wait for."""
+    if cfg.family != "dense":
+        return (f"the {cfg.family} family's tensor-parallel slice (ROADMAP "
+                f"queue 1)")
+    if any(plan.axis_size(a) > 1 for a in (plan.fsdp_axes, plan.batch_axes)
+           if a):
+        return "FSDP over 'data' (ROADMAP queue 1)"
+    return None
+
+
+def count_step(cfg, shape, mesh_shape: dict) -> dict:
+    """One step of (cfg, shape) counted on the meta device: the whole step
+    as one process runs it, or, where it runs tensor-parallel on a mesh of
+    ``mesh_shape``, rank 0's part of it with its collectives recorded
+    (``sharding.tp.RecordingGroup``, one per mesh axis group).  Returns
+    ``{"counter", "params", "state", "cache", "model", "rank"}``."""
+    plan = specs.make_plan(ShapeMesh(mesh_shape), cfg)
+    rank = tp_pending(cfg, plan) is None
+    mesh = ShapeMesh(mesh_shape) if rank else None
+    model = _meta_model(cfg, mesh)
+    state = cache = None
     if shape.kind == "train":
-        run = FLRunConfig(local_steps=1, server_tau=1)
+        run = STEP_RUN
         clients = max(plan.num_clients, 1)
         init_state, train_step = make_fl_train_step(cfg, run, clients,
-                                                    model=model)
+                                                    model=model, mesh=mesh)
         state = init_state(torch.Generator())
         params = state["params"]
-        batch = fl_batch_specs(cfg, shape, clients, run, abstract=True)
+        batch = train_step.local(fl_batch_specs(cfg, shape, clients, run,
+                                                abstract=True))
         with CostCounter() as counter:     # the step program's body
             train_step.body(state, batch)
     else:
@@ -107,46 +139,106 @@ def dryrun_pair(arch: str, shape_name: str, *, mesh: str = "16x16",
         batch = input_specs(cfg, shape, abstract=True)
         with torch.no_grad():
             if shape.kind == "prefill":
+                _, prefill = make_prefill_step(cfg, model=model, mesh=mesh)
                 with CostCounter() as counter:
-                    model.apply(params, batch)[:, -1, :]
+                    prefill(params, batch)
             else:
                 window = (cfg.sliding_window if shape.name == "long_500k"
                           else None)
                 cache = model.init_cache(shape.global_batch,
                                          decode_cache_len(cfg, shape),
                                          window=window)
+                _, decode = make_decode_step(cfg, model=model, mesh=mesh)
                 with CostCounter() as counter:
-                    model.decode_step(params, cache, batch)
+                    decode(params, cache, batch)
+    return {"counter": counter, "params": params, "state": state,
+            "cache": cache, "model": model, "rank": rank}
+
+
+def dryrun_pair(arch: str, shape_name, *, mesh: str = "16x16",
+                cfg=None) -> dict:
+    """Count one (arch, shape) step on the meta device; the record.
+    ``cfg`` replaces the arch's registered config (a reduced one, say);
+    ``shape_name`` may be an ``InputShape``."""
+    cfg = get_config(arch) if cfg is None else cfg
+    shape = (INPUT_SHAPES[shape_name] if isinstance(shape_name, str)
+             else shape_name)
+    plan = specs.make_plan(ShapeMesh(MESHES[mesh]), cfg)
+    chips = math.prod(MESHES[mesh].values())
+    t0 = time.perf_counter()
+    got = count_step(cfg, shape, MESHES[mesh])
     count_s = time.perf_counter() - t0
-    per_device = {}
-    for name, shape_of in MESHES.items():
-        p = specs.make_plan(ShapeMesh(shape_of), cfg)
-        per_device[name] = {"params": sharded_bytes(
-            params, specs.param_specs(params, model.axes(), p), p)}
-        if state is not None:
-            per_device[name]["state"] = sharded_bytes(
-                state, fl_specs.fl_state_specs(state, model.axes(), p), p)
-        if cache is not None:
-            per_device[name]["cache"] = sharded_bytes(
-                cache, specs.cache_specs(cache, p, cfg), p)
+    counter, model = got["counter"], got["model"]
+    whole = model._whole() if model.tp is not None else model
+    params = whole.param_shapes()
+    state = cache = None
+    if got["state"] is not None:      # the round state at whole shapes
+        state = init_round_state(params, engine_config(STEP_RUN),
+                                 num_clients=max(plan.num_clients, 1))
+    if got["cache"] is not None:
+        cache = whole.on_meta().init_cache(
+            shape.global_batch, decode_cache_len(cfg, shape),
+            window=(cfg.sliding_window if shape.name == "long_500k"
+                    else None))
+    per_device = {name: per_device_bytes(cfg, whole, shape_of, params,
+                                         state, cache, tp=got["rank"])
+                  for name, shape_of in MESHES.items()}
     tot = counter.totals
     mflops = roofline.model_flops(cfg, shape,
                                   training=shape.kind == "train")
-    return {
-        "arch": arch, "shape": shape_name, "mesh": mesh, "chips": chips,
+    if got["rank"]:
+        # rank 0's part of the step: the roofline of one card, its own
+        # collectives' wire bytes
+        wire = tot.collective_wire
+        terms = roofline.roofline_terms(
+            flops=tot.flops, bytes_accessed=tot.bytes, wire_bytes=wire,
+            chips=1, dtype=cfg.param_dtype)
+        step_flops = tot.flops * chips
+        note = None
+    else:
+        wire = tot.wire_bytes(chips)
+        terms = roofline.roofline_terms(
+            flops=tot.flops, bytes_accessed=tot.bytes, wire_bytes=wire,
+            chips=chips, dtype=cfg.param_dtype)
+        step_flops = tot.flops
+        note = tp_pending(cfg, plan)
+    rec = {
+        "arch": arch, "shape": shape.name, "mesh": mesh, "chips": chips,
         "num_clients": plan.num_clients, "fl_client_axis": cfg.fl_client_axis,
         "count_s": round(count_s, 1),
+        "counted": "rank 0's part" if got["rank"] else "the whole step",
         **tot.as_dict(),
-        "collective_wire_bytes": tot.wire_bytes(chips),
-        "roofline": roofline.roofline_terms(
-            flops=tot.flops, bytes_accessed=tot.bytes,
-            wire_bytes=tot.wire_bytes(chips), chips=chips,
-            dtype=cfg.param_dtype),
+        "collective_bytes_by_kind": dict(tot.collective_bytes),
+        "collective_wire_bytes": wire,
+        "roofline": terms,
         "model_flops": mflops,
-        "useful_flops_ratio": mflops / tot.flops if tot.flops else None,
+        "useful_flops_ratio": mflops / step_flops if step_flops else None,
         "per_device_bytes": per_device,
         "ok": True,
     }
+    if note is not None:
+        rec["collectives_pending"] = note
+    return rec
+
+
+def per_device_bytes(cfg, model, mesh_shape: dict, params, state=None,
+                     cache=None, *, tp: bool = False) -> dict:
+    """The params (and the round state, the decode cache) on one device of
+    a mesh of ``mesh_shape`` under ``sharding.specs`` placements, from the
+    whole model's meta shapes; ``axis_sizes`` reads the mesh's shape, so no
+    world of that size is needed.  ``tp``: the state of the
+    tensor-parallel step, whose filter masks follow the params."""
+    p = specs.make_plan(ShapeMesh(mesh_shape), cfg)
+    out = {"params": sharded_bytes(
+        params, specs.param_specs(params, model.axes(), p), p)}
+    if state is not None:
+        out["state"] = sharded_bytes(state, fl_specs.fl_state_specs(
+            state, model.axes(), p,
+            filter_axes=model.filter_axes() if tp else None), p)
+    if cache is not None:
+        out["cache"] = sharded_bytes(cache, specs.cache_specs(cache, p, cfg),
+                                     p)
+    return out
 
 
 def main(argv=None) -> int:

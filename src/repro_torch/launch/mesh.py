@@ -10,9 +10,13 @@ With no process group yet, :func:`make_host_mesh` starts a world of one
 over an in-process ``HashStore``: NCCL for a CUDA device, gloo for the
 CPU; it needs no network and no environment variables.  More ranks come
 from the caller's own ``init_process_group`` (``torchrun``, or a
-``FileStore`` in tests) before the call.  A CUDA device over a group
-without NCCL, or a CPU device over one without gloo, raises; so does a
-failed NCCL start.  Nothing falls back.
+``FileStore`` in tests) before the call.  On a machine with N cards,
+``torchrun --nproc-per-node N`` starts N ranks, each taking
+``LOCAL_RANK``'s card, and ``make_host_mesh(data=, model=)`` lays them out
+(the tensor-parallel steps over ``model``; not run here: one card, and
+NCCL refuses two ranks on one device).  A CUDA device over a group without
+NCCL, or a CPU device over one without gloo, raises; so does a failed NCCL
+start.  Nothing falls back.
 """
 from __future__ import annotations
 
@@ -77,6 +81,13 @@ def make_production_mesh(*, multi_pod: bool = False,
                          f"the process group has {world}")
     _process_group(dev)
     return init_device_mesh(dev.type, shape, mesh_dim_names=names)
+
+
+def axis_group(mesh, name: str):
+    """The process group of the ranks that share every coordinate of
+    ``mesh`` but ``name``'s: this rank's group along that dim
+    (``DeviceMesh.get_group``)."""
+    return mesh.get_group(name)
 
 
 def reduce_scatter(out: torch.Tensor, flat: torch.Tensor,

@@ -32,6 +32,18 @@ the same shapes replay it.
 
 ``fl_batch_specs`` builds the (arch x shape) train batch over C clients:
 meta-device tensors, or seeded arrays equal to the reference's.
+
+With ``mesh=`` (a ``(data, model)`` mesh) each step is one rank's part of
+the reference's SPMD program: the dense family tensor-parallel over
+``model`` (``build_model(mesh=)``, ``sharding.tp``), every state tensor the
+rank's block under ``fl_state_specs``.  The train step takes the whole
+batch and keeps the rank's block under ``fl_batch_partition_specs``
+(clients over the client axes, each server step's rows over them too,
+replicated over ``model``); its client and server sums run over the
+client axes (``RoundShard``), the guard's verdicts over ``model``.  The
+serve steps take the whole batch, run the rank's rows (``serve_batch_specs``)
+and return the whole logits, as the reference's global array is.  On a
+world of one every step is bitwise the unsharded one.
 """
 from __future__ import annotations
 
@@ -46,6 +58,7 @@ from repro_torch.core.engine import (
     EngineConfig,
     FedDynConfig,
     FedProxConfig,
+    RoundShard,
     build_model_fns,
     init_round_state,
     round_core,
@@ -53,7 +66,9 @@ from repro_torch.core.engine import (
 from repro_torch.core.momentum import FedDUMConfig
 from repro_torch.core.server_update import FedDUConfig
 from repro_torch.models.api import build_model, input_specs
-from repro_torch.models.lm import loss_and_acc_of
+from repro_torch.models.lm import argmax_of, loss_and_acc_of
+from repro_torch.sharding import fl_specs, tp
+from repro_torch.sharding.specs import make_plan, mesh_coords, shard_tree
 from repro_torch.utils.tree import tree_leaves
 
 
@@ -84,7 +99,8 @@ class FLRunConfig:
 
 def token_accuracy(model, params, batch) -> torch.Tensor:
     logits = model.apply(params, batch)
-    ok = (logits.argmax(-1) == batch["labels"]).float()
+    ok = (argmax_of(logits, getattr(model, "tp", None))
+          == batch["labels"]).float()
     mask = batch.get("loss_mask")
     if mask is not None:
         return (ok * mask).sum() / mask.sum().clamp_min(1.0)
@@ -100,7 +116,7 @@ def loss_and_accuracy(model, params, batch, masks=None):
         logits, aux = model.apply_with_aux(params, batch)
     else:
         logits, aux = model.apply_with_aux(params, batch, masks=masks)
-    return loss_and_acc_of(logits, aux, batch)
+    return loss_and_acc_of(logits, aux, batch, getattr(model, "tp", None))
 
 
 def engine_config(run: FLRunConfig) -> EngineConfig:
@@ -124,7 +140,7 @@ def engine_config(run: FLRunConfig) -> EngineConfig:
 
 
 def make_fl_train_step(cfg: ModelConfig, run: FLRunConfig, num_clients: int,
-                       *, model: Any = None, device="cuda"):
+                       *, model: Any = None, device="cuda", mesh=None):
     """Returns ``(init_state(generator, filter_masks=None), train_step(state,
     batch) -> (state, tau_eff))``.
 
@@ -134,6 +150,11 @@ def make_fl_train_step(cfg: ModelConfig, run: FLRunConfig, num_clients: int,
     params from the generator; in kernel mode it needs the model's all-ones
     ``filter_masks``.  ``train_step`` updates ``state`` in place.
 
+    ``mesh``: the rank's part of the step (see the module docstring); the
+    model is ``build_model(cfg, device=, mesh=)`` unless given (then a
+    model sharded over the same mesh), ``init_state`` draws the rank's
+    block and takes its filter masks (``model.filter_masks(params, {})``).
+
     batch:
       client  pytree with leading [C, steps, ...] dims
       server  pytree with leading [tau, ...] dim
@@ -142,7 +163,8 @@ def make_fl_train_step(cfg: ModelConfig, run: FLRunConfig, num_clients: int,
       n0      0-d f32
       sel     [C] int (FedDyn only: the clients' slots in client_state)
     """
-    model = build_model(cfg, device=device) if model is None else model
+    if model is None:
+        model = build_model(cfg, device=device, mesh=mesh)
     eng = engine_config(run)
 
     def loss_fn(p, b, fm):
@@ -160,7 +182,7 @@ def make_fl_train_step(cfg: ModelConfig, run: FLRunConfig, num_clients: int,
                                 filter_masks=filter_masks,
                                 num_clients=num_clients)
 
-    return init_state, TrainStep(eng, grad_fn, la_fn)
+    return init_state, TrainStep(eng, grad_fn, la_fn, mesh=mesh, model=model)
 
 
 class TrainStep:
@@ -169,27 +191,82 @@ class TrainStep:
     CUDA graph per state and batch shapes on the card, keys counted on the
     CPU), made at the first call on the device of the state's tensors;
     ``tau_eff`` is a tensor of its own.  :meth:`body` is the program's
-    eager body (what ``launch.dryrun`` counts)."""
+    eager body (what ``launch.dryrun`` counts) on the batch that
+    :meth:`local` gives.
 
-    def __init__(self, eng: EngineConfig, grad_fn, la_fn):
+    With ``mesh``, :meth:`local` keeps the rank's block of the batch and
+    sets the round's :class:`~repro_torch.core.engine.RoundShard`: the
+    clients and the server rows it holds where the client axes split them,
+    their sums packed into one all-reduce per dtype over those axes
+    (``sharding.tp.packed_all_reduce``), and the ``model`` group of the
+    guard.  The program then captures the collectives inside its graph
+    (``capture_error_mode="thread_local"``, as the mesh round's)."""
+
+    def __init__(self, eng: EngineConfig, grad_fn, la_fn, *, mesh=None,
+                 model=None):
         self.eng, self.grad_fn, self.la_fn = eng, grad_fn, la_fn
         self._inputs = programs.InputBuffers()
         self.program = None
+        self.shard = None
+        self.mesh = mesh
+        if mesh is not None:
+            self.plan = make_plan(mesh, model.cfg)
+            self._coords = mesh_coords(mesh)
+            self._model_group = model.tp.group if model.tp else None
+            ca = self.plan.client_axes
+            self._clients = (tp.group_of(mesh, ca) if ca and
+                             self.plan.axis_size(ca) > 1 else None)
+            if self.plan.batch_axes and \
+                    self.plan.axis_size(self.plan.batch_axes) > 1:
+                raise ValueError(
+                    f"{model.cfg.name} splits each client's batch over "
+                    f"{self.plan.batch_axes}: FSDP over 'data' is queued in "
+                    f"ROADMAP queue 1")
+            self._buckets: dict = {}
+
+    def _reduce(self, tensors) -> None:
+        tp.packed_all_reduce(tensors, self._clients, self._buckets)
+
+    def local(self, batch: dict) -> dict:
+        """The rank's block of ``batch`` (views), with :attr:`shard` set for
+        it; ``batch`` itself without a mesh."""
+        if self.mesh is None:
+            return batch
+        plan = self.plan
+        parts = fl_specs.fl_batch_partition_specs(batch, plan)
+        mine = shard_tree(batch, parts, plan, self._coords)
+        clients = server_rows = None
+        weight = 1.0
+        if self._clients is not None:
+            n, c = self._clients.size, batch["sizes"].shape[0]
+            if any(parts["client"][k].parts[0] for k in parts["client"]):
+                per = c // n
+                clients = range(self._clients.rank * per,
+                                (self._clients.rank + 1) * per)
+            if any(any(p.parts) for p in parts["server"].values()):
+                server_rows, weight = slice(None), 1.0 / n
+        self.shard = RoundShard(
+            reduce=self._reduce, clients=clients, server_rows=server_rows,
+            server_weight=weight, model=self._model_group)
+        return mine
 
     def body(self, state: dict, batch: dict) -> dict:
         """One ``round_core`` with every state tensor left in the storage it
         started in; returns the round's metrics."""
         old = tree_leaves(state)
-        _, met = round_core(self.eng, self.grad_fn, self.la_fn, state, batch)
+        _, met = round_core(self.eng, self.grad_fn, self.la_fn, state, batch,
+                            self.shard)
         programs.settle(state, old)
         return met
 
     def __call__(self, state: dict, batch: dict):
         if self.program is None:
+            kw = ({} if self.mesh is None
+                  else {"capture_error_mode": "thread_local"})
             self.program = programs.Program(
                 self.body, name="fl_step",
-                device=tree_leaves(state["params"])[0].device)
-        met = self.program(state, self._inputs(batch))
+                device=tree_leaves(state["params"])[0].device, **kw)
+        met = self.program(state, self._inputs(self.local(batch)))
         return state, met["tau_eff"].clone()
 
 
@@ -216,22 +293,77 @@ def with_masks(state: dict, masks: Any, filter_masks: Any = None) -> dict:
     return masked_round_state(state, masks, filter_masks=filter_masks)
 
 
-def make_prefill_step(cfg: ModelConfig, *, device="cuda"):
-    """``(model, prefill_step(params, batch) -> next-token logits [B, V])``."""
-    model = build_model(cfg, device=device)
+class _Whole:
+    """The serve steps' placement on a mesh: the rank's rows of a batch
+    (``serve_batch_specs``), and the whole logits from the ranks' vocab
+    columns and rows."""
+
+    def __init__(self, model, mesh):
+        self.model, self.mesh = model, mesh
+        if mesh is not None:
+            self.plan, self.coords = make_plan(mesh, model.cfg), mesh_coords(
+                mesh)
+            axes = self.plan.client_axes + self.plan.batch_axes
+            self.rows = (tp.group_of(mesh, axes) if axes and
+                         self.plan.axis_size(axes) > 1 else None)
+
+    @staticmethod
+    def rows_of(batch: dict) -> int:
+        return (batch["tokens"] if "tokens" in batch
+                else batch["embeds"]).shape[0]
+
+    def batch(self, batch: dict) -> dict:
+        if self.mesh is None:
+            return batch
+        return shard_tree(batch, fl_specs.serve_batch_specs(batch, self.plan),
+                          self.plan, self.coords)
+
+    def logits(self, logits: torch.Tensor, rows: int) -> torch.Tensor:
+        layout = self.model.tp
+        if layout is not None and layout.vocab:
+            logits = tp.gather_model(logits, layout)
+        if self.mesh is not None and self.rows is not None \
+                and logits.shape[0] != rows:
+            logits = self.rows.all_gather(logits, 0)
+        return logits
+
+
+def make_prefill_step(cfg: ModelConfig, *, device="cuda", mesh=None,
+                      attn_impl: str = "xla", model: Any = None):
+    """``(model, prefill_step(params, batch) -> next-token logits [B, V])``.
+    ``mesh``: the model is the rank's block, ``params`` its params, and the
+    step takes the whole batch and returns the whole logits.  ``model``
+    overrides ``build_model(cfg, device=, mesh=, attn_impl=)`` (the dry
+    run's on the meta device)."""
+    if model is None:
+        model = build_model(cfg, device=device, mesh=mesh,
+                            attn_impl=attn_impl)
+    place = _Whole(model, mesh)
 
     def prefill_step(params, batch):
-        return model.apply(params, batch)[:, -1, :]
+        rows = place.rows_of(batch)
+        logits = model.apply(params, place.batch(batch))[:, -1, :]
+        return place.logits(logits, rows)
 
     return model, prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, *, device="cuda"):
-    """``(model, decode_step(params, cache, batch) -> (logits, cache))``."""
-    model = build_model(cfg, device=device)
+def make_decode_step(cfg: ModelConfig, *, device="cuda", mesh=None,
+                     model: Any = None):
+    """``(model, decode_step(params, cache, batch[, masks]) -> (logits,
+    cache))``.  ``mesh``: the model is the rank's block, ``params``,
+    ``cache`` (``model.init_cache`` of the whole batch size) and ``masks``
+    (its filter masks) its own, and the step takes the whole batch and
+    returns the whole logits.  ``model`` overrides ``build_model``."""
+    if model is None:
+        model = build_model(cfg, device=device, mesh=mesh)
+    place = _Whole(model, mesh)
 
-    def decode_step(params, cache, batch):
-        return model.decode_step(params, cache, batch)
+    def decode_step(params, cache, batch, masks=None):
+        rows = place.rows_of(batch)
+        logits, cache = model.decode_step(params, cache, place.batch(batch),
+                                          masks=masks)
+        return place.logits(logits, rows), cache
 
     return model, decode_step
 

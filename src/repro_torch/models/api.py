@@ -19,8 +19,25 @@ from repro_torch.models.lm import DTYPES, LM
 
 
 def build_model(cfg: ModelConfig, *, attn_impl: str = "xla",
-                device="cuda") -> LM:
-    return LM(cfg, attn_impl=attn_impl, device=device)
+                device="cuda", mesh=None) -> LM:
+    """The model; with ``mesh`` (a ``DeviceMesh`` with a ``"model"`` dim,
+    or a mesh known by its shape, whose collectives are then recorded),
+    this rank's block of it (:meth:`LM.shard`) under
+    ``sharding.specs.make_plan(mesh, cfg)``.  A family other than dense on
+    a ``model`` dim wider than one, and an FSDP axis wider than one, raise
+    (ROADMAP queue 1)."""
+    model = LM(cfg, attn_impl=attn_impl, device=device)
+    if mesh is None:
+        return model
+    from repro_torch.sharding import tp
+    from repro_torch.sharding.specs import (axis_sizes, make_plan,
+                                            mesh_coords)
+
+    plan = make_plan(mesh, cfg)
+    if cfg.family != "dense" and axis_sizes(mesh).get("model", 1) == 1 \
+            and plan.axis_size(plan.fsdp_axes) == 1:
+        return model            # nothing of it is split
+    return model.shard(plan, mesh_coords(mesh), tp.group_of(mesh, ("model",)))
 
 
 def _pos_streams(cfg: ModelConfig) -> int:

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.masked_matmul import BLOCK_N
+from repro_torch.sharding import tp as TP
 
 
 # ---------------------------------------------------------------------------
@@ -176,7 +177,7 @@ ATTN_IMPLS = ("xla", "pallas")
 
 
 def attention_block(params, x, positions, cfg: ModelConfig, *, window=None,
-                    attn_impl: str = "xla", cross_kv=None):
+                    attn_impl: str = "xla", cross_kv=None, tp=None):
     """Causal self-attention over a whole sequence: q/k/v projections, rope,
     attention (optionally over a sliding ``window``), the output projection.
     x [B,S,d] -> [B,S,d].  ``attn_impl="xla"`` runs the plain
@@ -191,8 +192,14 @@ def attention_block(params, x, positions, cfg: ModelConfig, *, window=None,
     Head counts come from the params' shapes.  With padded heads
     (``cfg.pad_heads_to``) the reference tiles K/V up to H, which maps query
     head h to kv head ``h mod KV``: the [g, kv] grouping that both paths here
-    apply to GQA K/V directly, so K/V are passed on untiled."""
+    apply to GQA K/V directly, so K/V are passed on untiled.
+
+    ``tp`` (a ``sharding.tp.TPLayout`` whose ``heads`` are split): the
+    params are a rank's heads, in the [g, kv] grouping over its kv heads
+    (``sharding.specs.head_index``), so the attention needs no collective;
+    the output projection's parts are summed over the ranks."""
     b, s, _ = x.shape
+    x, params = _tp_in(x, params, tp)
     if cross_kv is None:
         sc = rope_sin_cos(positions, cfg.rope, params["wq"].shape[-1])
         q = apply_rope(_heads(x, params["wq"]), positions, cfg.rope, sc)
@@ -211,7 +218,27 @@ def attention_block(params, x, positions, cfg: ModelConfig, *, window=None,
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                          f"{attn_impl!r}")
     wo = params["wo"]
-    return out.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+    return _tp_out(out.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1]), tp)
+
+
+def _tp_in(x, params, tp):
+    """A rank's attention input: ``x`` whose gradient sums over the ranks,
+    and, where the kv heads stay whole, ``wk``/``wv`` whose gradients do
+    (each rank's queries read them)."""
+    if tp is None or not tp.heads:
+        return x, params
+    x = TP.to_model(x, tp.group)
+    if not tp.kv:
+        params = dict(params, wk=TP.to_model(params["wk"], tp.group),
+                      wv=TP.to_model(params["wv"], tp.group))
+    return x, params
+
+
+def _tp_out(y, tp, split: str = "heads"):
+    """A row-parallel product's parts summed over the ranks."""
+    if tp is None or not getattr(tp, split):
+        return y
+    return TP.from_model(y, tp.group)
 
 
 def encoder_attention(params, x):
@@ -233,7 +260,7 @@ def encoder_attention(params, x):
 
 
 def attention_decode(params, x, cache_k, cache_v, cache_index, positions,
-                     cfg: ModelConfig):
+                     cfg: ModelConfig, tp=None):
     """One-token decode.  x [B,1,d]; cache [B,S,KV,hd].  Returns the
     attention output [B,1,d] and writes the new K/V into the cache.
 
@@ -247,8 +274,12 @@ def attention_decode(params, x, cache_k, cache_v, cache_index, positions,
     reference returns a fresh cache selected with a one-hot ``where``.  A
     frozen slot of the engine writes at its unchanged index, a slot that
     stays invalid.
+
+    ``tp``: a rank's heads and its cache's kv heads (all of them where
+    they stay whole), as :func:`attention_block` takes them.
     """
     b = x.shape[0]
+    x, params = _tp_in(x, params, tp)
     s_cache, kvh, hd = cache_k.shape[1], cache_k.shape[2], cache_k.shape[3]
     sc = rope_sin_cos(positions, cfg.rope, hd)
     q = apply_rope(_heads(x, params["wq"]), positions, cfg.rope, sc)
@@ -268,7 +299,8 @@ def attention_decode(params, x, cache_k, cache_v, cache_index, positions,
     out = ops.decode_attention(q, cache_k, cache_v, lengths)
     h = out.shape[2]
     wo = params["wo"]
-    return out.reshape(b, 1, h * hd) @ wo.reshape(h * hd, wo.shape[-1])
+    return _tp_out(out.reshape(b, 1, h * hd) @ wo.reshape(h * hd,
+                                                          wo.shape[-1]), tp)
 
 
 def attention_decode_cross(params, x, cross_k, cross_v):
@@ -293,19 +325,25 @@ def attention_decode_cross(params, x, cross_k, cross_v):
 # MLP (SwiGLU / GELU), optionally FedAP-masked
 # ---------------------------------------------------------------------------
 
-def apply_mlp(params, x, act: str, mask=None):
+def apply_mlp(params, x, act: str, mask=None, tp=None):
     """Dense FFN (GELU in the tanh form, as ``jax.nn.gelu``).  With ``mask``
     ([d_ff] 0/1) the pruned hidden units are zeroed at the pre-activation
     (silu(0) = gelu(0) = 0 through wo, so the logits equal the shrunk
     model's) and the up/gate products go through :func:`masked_dense`, which
-    skips fully pruned 128-column blocks."""
+    skips fully pruned 128-column blocks.
+
+    ``tp`` (a ``sharding.tp.TPLayout`` whose ``mlp`` units are split): the
+    params and ``mask`` are a rank's units; the input's gradient and the
+    output's parts are summed over the ranks."""
+    if tp is not None and tp.mlp:
+        x = TP.to_model(x, tp.group)
     if mask is None:
         h = x @ params["wi"]
         if act == "silu":
             h = F.silu(x @ params["wg"]) * h
         else:
             h = F.gelu(h, approximate="tanh")
-        return h @ params["wo"]
+        return _tp_out(h @ params["wo"], tp, "mlp")
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     h = masked_dense(x2, params["wi"], mask)
@@ -313,7 +351,7 @@ def apply_mlp(params, x, act: str, mask=None):
         h = F.silu(masked_dense(x2, params["wg"], mask)) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return (h @ params["wo"]).reshape(shape)
+    return _tp_out((h @ params["wo"]).reshape(shape), tp, "mlp")
 
 
 def masked_dense(x, w, mask, b=None):

@@ -75,6 +75,7 @@ from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.sharding import tp as TP
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -164,23 +165,41 @@ def _unstack(stacked) -> list:
             for i in range(len(leaves[0]))]
 
 
-def loss_and_acc_of(logits, aux, batch):
+def argmax_of(logits, tp=None):
+    """The argmax over the vocabulary of ``logits`` [..., V], or, under a
+    ``tp`` layout that splits the vocab, of a rank's columns of them
+    (:func:`sharding.tp.vocab_argmax`)."""
+    if tp is not None and tp.vocab:
+        return TP.vocab_argmax(logits, tp)
+    return logits.argmax(-1)
+
+
+def loss_and_acc_of(logits, aux, batch, tp=None, *, with_acc: bool = True):
     """(mean next-token cross-entropy + ``aux``, token accuracy) of
     ``logits`` [B,S,V] against ``batch["labels"]`` [B,S], over
     ``batch["loss_mask"]`` when given (log-softmax in f32); ``aux`` None adds
     nothing.  The one loss of every LM entry point (``LM.loss``,
-    ``LM.loss_and_acc``, ``launch.steps.loss_and_accuracy``)."""
+    ``LM.loss_and_acc``, ``launch.steps.loss_and_accuracy``).  ``tp``: the
+    logits are a rank's vocab columns (``sharding.tp``'s vocab-parallel loss
+    and argmax); ``with_acc=False`` returns None for the accuracy."""
     labels = batch["labels"].long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
-    ok = (logits.argmax(-1) == labels).float()
+    if tp is not None and tp.vocab:
+        nll = TP.vocab_cross_entropy(logits, labels, tp)
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
     mask = batch.get("loss_mask")
     if mask is None:
-        loss, acc = nll.sum() / nll.numel(), ok.mean()
+        loss = nll.sum() / nll.numel()
     else:
         denom = mask.sum().clamp_min(1.0)
-        loss, acc = (nll * mask).sum() / denom, (ok * mask).sum() / denom
-    return (loss if aux is None else loss + aux), acc
+        loss = (nll * mask).sum() / denom
+    loss = loss if aux is None else loss + aux
+    if not with_acc:
+        return loss, None
+    ok = (argmax_of(logits, tp) == labels).float()
+    acc = ok.mean() if mask is None else (ok * mask).sum() / denom
+    return loss, acc
 
 
 class LM:
@@ -214,6 +233,10 @@ class LM:
         self.encdec = cfg.family == "encdec"
         self._meta = (L.mamba2_meta(cfg) if self.hybrid
                       else L.mlstm_meta(cfg) if self.ssm else None)
+        # a rank's block of the model (:meth:`shard`): its layout, plan and
+        # mesh coordinates
+        self.tp = None
+        self._plan = self._coords = None
 
     def _is_slstm(self, i: int) -> bool:
         """Whether ssm layer ``i`` is an sLSTM block (every
@@ -240,10 +263,120 @@ class LM:
         n = self.cfg.num_layers
         return [(a, min(a + k, n)) for a in range(0, n, k)]
 
+    # -- tensor parallelism -----------------------------------------------------
+    def shard(self, plan, coords: dict, group) -> "LM":
+        """This model over a rank's block of the params: the placements of
+        ``sharding.specs.param_specs`` under ``plan``, at mesh coordinates
+        ``coords``, with ``group`` (a ``sharding.tp.TPGroup``) the ranks of
+        the ``model`` axis.  Query heads take the [g, kv] grouping of
+        ``specs.head_index``.  Every method then makes and takes the rank's
+        tensors: ``init`` draws its block (the unsharded draws for a group
+        of one), ``apply`` and ``decode_step`` give its vocab columns of the
+        logits, ``init_cache`` its kv heads (and its rows of a batch the
+        plan splits), the losses and FedAP's decision are the whole
+        model's.  The dense family only; an FSDP axis wider than one and
+        padded heads are refused (ROADMAP queue 1)."""
+        from repro_torch.sharding.specs import param_specs
+
+        cfg = self.cfg
+        if cfg.family != "dense":
+            raise ValueError(
+                f"tensor parallelism over the 'model' mesh axis runs the "
+                f"dense family; {cfg.name} is {cfg.family!r} (its TP slice "
+                f"is queued in ROADMAP queue 1)")
+        fsdp = plan.axis_size(plan.fsdp_axes) if plan.fsdp_axes else 1
+        if fsdp > 1:
+            raise ValueError(
+                f"{cfg.name} is FSDP-sharded over {plan.fsdp_axes} ({fsdp} "
+                f"ways) on this mesh; FSDP over 'data' is queued in ROADMAP "
+                f"queue 1 (a (1, m) mesh runs it tensor-parallel only)")
+        if cfg.padded_num_heads != cfg.num_heads:
+            raise ValueError(f"{cfg.name}: padded heads under tensor "
+                             f"parallelism (ROADMAP queue 1)")
+        whole = self.param_shapes()
+        sp = param_specs(whole, self.axes(), plan)
+        attn = sp["layers"]["attn"]
+        heads = attn["wq"].parts[2] is not None
+        kv = attn["wk"].parts[2] is not None
+        h, kvh = cfg.num_heads, cfg.padded_num_kv_heads
+        if heads and not kv and (h // group.size) % kvh:
+            raise ValueError(
+                f"{cfg.name}: {h} query heads over {group.size} ranks with "
+                f"its {kvh} kv heads whole leaves a rank's heads short of the "
+                f"[g, kv] grouping (ROADMAP queue 1)")
+        vocab = sp["embed"].parts[0] is not None
+        out = copy.copy(self)
+        out.tp = TP.TPLayout(
+            group=group, heads=heads, kv=kv,
+            mlp=sp["layers"]["mlp"]["wi"].parts[2] is not None, vocab=vocab,
+            vocab_start=(group.rank * (cfg.vocab_size // group.size)
+                         if vocab else 0),
+            kv_heads=kvh // group.size if kv else kvh)
+        out._plan, out._coords = plan, dict(coords)
+        return out
+
+    def _whole(self) -> "LM":
+        whole = copy.copy(self)
+        whole.tp = whole._plan = whole._coords = None
+        return whole
+
+    def _rows(self, batch_size: int) -> int:
+        """A rank's rows of a batch of ``batch_size``: its block where the
+        plan splits the batch (``cache_specs``, ``serve_batch_specs``)."""
+        if self._plan is None:
+            return batch_size
+        axes = self._plan.client_axes + self._plan.batch_axes
+        n = self._plan.axis_size(axes) if axes else 1
+        return batch_size // n if batch_size % n == 0 else batch_size
+
+    def _init_block(self, generator: torch.Generator) -> dict:
+        """A rank's params drawn at its block's shapes with the whole
+        model's scales, a layer at a time (no f32 copy of a whole stacked
+        leaf forms); the draws are not the unsharded model's."""
+        cfg = self.cfg
+        hd = cfg.resolved_head_dim
+        s_in = 1.0 / math.sqrt(cfg.d_model)
+        scales = {("", "embed"): s_in, ("", "unembed"): s_in,
+                  ("attn", "wq"): s_in, ("attn", "wk"): s_in,
+                  ("attn", "wv"): s_in,
+                  ("attn", "wo"): 1.0 / math.sqrt(cfg.num_heads * hd),
+                  ("mlp", "wi"): s_in, ("mlp", "wg"): s_in,
+                  ("mlp", "wo"): 1.0 / math.sqrt(cfg.d_ff)}
+
+        def draw(shape, scale):
+            out = torch.empty(shape, dtype=self.dtype, device=self.device)
+            if out.device.type == "meta":
+                return out
+            rows = out if out.dim() > 2 else out[None]
+            for r in rows:
+                r.copy_(torch.randn(r.shape, generator=generator,
+                                    dtype=torch.float32,
+                                    device=self.device).mul_(scale))
+            return out
+
+        def walk(node, parent):
+            out = {}
+            for k, v in node.items():       # the init's order
+                if isinstance(v, dict):
+                    out[k] = walk(v, k)
+                elif k in ("scale", "bias"):
+                    fill = torch.ones if k == "scale" else torch.zeros
+                    out[k] = fill(v.shape, dtype=self.dtype,
+                                  device=self.device)
+                else:
+                    out[k] = draw(v.shape, scales[(parent, k)])
+            return out
+
+        return walk(self.param_shapes(), "")
+
     # -- init -----------------------------------------------------------------
     def init(self, generator: torch.Generator) -> dict:
         """Random params drawn from ``generator`` (which must live on this
-        model's device): normal with the reference's per-tensor scales."""
+        model's device): normal with the reference's per-tensor scales (a
+        rank's block of a model split over more than one rank:
+        :meth:`_init_block`)."""
+        if self.tp is not None and self.tp.group.size > 1:
+            return self._init_block(generator)
         cfg = self.cfg
         params = {"embed": L._init_normal(
             (cfg.vocab_size, cfg.d_model), 1.0 / math.sqrt(cfg.d_model),
@@ -297,8 +430,29 @@ class LM:
 
     def param_shapes(self) -> dict:
         """The param tree on the meta device: every leaf's shape and dtype,
-        with no storage (any arch, at any size)."""
-        return self.on_meta().init(torch.Generator())
+        with no storage (any arch, at any size); a rank's block of it for a
+        sharded model (:meth:`shard`)."""
+        whole = self._whole().on_meta().init(torch.Generator())
+        if self.tp is None:
+            return whole
+        from repro_torch.sharding.specs import shard_tree
+
+        return shard_tree(whole, self.block_specs(), self._plan,
+                          self._coords, axes=_axes_of(whole),
+                          kv_heads=self.cfg.padded_num_kv_heads)
+
+    def block_specs(self) -> dict:
+        """The ``sharding.specs.Spec`` tree of the whole params under a
+        sharded model's plan (what ``shard_tree``/``gather_tree`` take)."""
+        from repro_torch.sharding.specs import param_specs
+
+        whole = self._whole().param_shapes()
+        return param_specs(whole, _axes_of(whole), self._plan)
+
+    def filter_axes(self) -> dict:
+        """The logical axes of the FFN filter masks ``{"mlp": [L, d_ff]}``
+        (``sharding.fl_specs.fl_state_specs(filter_axes=)``)."""
+        return {"mlp": ("layers", "mlp")}
 
     def axes(self) -> dict:
         """The logical-axis tree of the params: one tuple of axis names per
@@ -313,6 +467,8 @@ class LM:
         when given, else the rows of ``embed`` at ``batch["tokens"]``."""
         if "embeds" in batch:
             return batch["embeds"].to(self.dtype)
+        if self.tp is not None and self.tp.vocab:
+            return TP.vocab_embed(params["embed"], batch["tokens"], self.tp)
         return params["embed"][batch["tokens"]]
 
     def _encode(self, params, batch):
@@ -366,6 +522,8 @@ class LM:
     def _head(self, params, x):
         cfg = self.cfg
         x = L.apply_norm(params.get("norm_out", {}), x, cfg.norm)
+        if self.tp is not None and self.tp.vocab:   # a rank's vocab columns
+            x = TP.to_model(x, self.tp.group)
         if cfg.tie_embeddings:
             return x @ params["embed"].T
         return x @ params["unembed"]
@@ -381,12 +539,13 @@ class LM:
         else:
             h = L.apply_norm(layer.get("norm_a", {}), x, cfg.norm)
             x = x + L.attention_block(layer["attn"], h, positions, cfg,
-                                      window=window, attn_impl=self.attn_impl)
+                                      window=window, attn_impl=self.attn_impl,
+                                      tp=self.tp)
         h = L.apply_norm(layer.get("norm_f", {}), x, cfg.norm)
         if self.moe:
             y, aux = L.apply_moe(layer["moe"], h, cfg)
             return x + y, aux["load_balance"] + aux["router_z"]
-        return x + L.apply_mlp(layer["mlp"], h, cfg.act, mask), None
+        return x + L.apply_mlp(layer["mlp"], h, cfg.act, mask, self.tp), None
 
     def apply(self, params, batch, *, window="auto", masks=None):
         """Full-sequence logits [B,S,V] for ``batch["tokens"]`` [B,S] or
@@ -488,7 +647,8 @@ class LM:
         ``window``) against ``batch["labels"]`` [B,S], over
         ``batch["loss_mask"]`` when given (log-softmax in f32), plus the moe
         family's summed ``load_balance + router_z`` after the mean."""
-        return self._loss_acc(params, batch, masks, window)[0]
+        return self._loss_acc(params, batch, masks, window,
+                              with_acc=False)[0]
 
     def loss_and_acc(self, params, x, y, *, masks=None):
         """The federated trainer's model contract: ``(x, y)`` = (tokens [B,S],
@@ -501,9 +661,11 @@ class LM:
         dicts."""
         return self._loss_acc(params, {"tokens": x, "labels": y}, masks)
 
-    def _loss_acc(self, params, batch, masks, window="auto"):
+    def _loss_acc(self, params, batch, masks, window="auto", *,
+                  with_acc: bool = True):
         logits, aux = self._forward(params, batch, window, masks)
-        return loss_and_acc_of(logits, aux, batch)
+        return loss_and_acc_of(logits, aux, batch, self.tp,
+                               with_acc=with_acc)
 
     # -- FedAP seam -------------------------------------------------------------
     def decide_kept(self, params, p_star, *, align=128) -> dict:
@@ -513,19 +675,19 @@ class LM:
         from repro_torch.core import pruning_lm
 
         return {"mlp": pruning_lm.ffn_kept_indices(
-            params, self.cfg, float(p_star), align=align)}
+            params, self.cfg, float(p_star), align=align, tp=self.tp)}
 
     def filter_masks(self, params, kept) -> dict:
         """``{"mlp": [L, d_ff] 0/1}`` keep-masks for masked decode."""
         from repro_torch.core import pruning_lm
 
-        return pruning_lm.ffn_filter_masks(params, kept)
+        return pruning_lm.ffn_filter_masks(params, kept, tp=self.tp)
 
     def param_masks(self, params, kept) -> dict:
         """Param-structured 0/1 masks (wi/wg columns + wo rows)."""
         from repro_torch.core import pruning_lm
 
-        return pruning_lm.ffn_param_masks(params, kept)
+        return pruning_lm.ffn_param_masks(params, kept, tp=self.tp)
 
     def shrink_params(self, params, kept) -> dict:
         """Gather the kept FFN units (params or any tree of the same
@@ -551,14 +713,18 @@ class LM:
         ``(c, n, h, m)`` (sLSTM)``}``, f32 recurrent states whose size does
         not depend on ``cache_len``.  encdec: ``{"self": {"k", "v": [L, B,
         S, KV, hd]}, "cross": {"k", "v": [L, B, F, KV, hd]}}`` (the cross
-        K/V zero until :meth:`prefill_cross`)."""
+        K/V zero until :meth:`prefill_cross`).  A sharded model's cache is
+        the rank's block (``cache_specs``): its kv heads, and its rows of
+        ``batch_size`` where the plan splits the batch."""
         cfg = self.cfg
         rows = cache_len if window is None else min(cache_len, window)
         index = torch.zeros((), dtype=torch.int32, device=self.device)
+        batch_size = self._rows(batch_size)
+        kvh = cfg.padded_num_kv_heads if self.tp is None else self.tp.kv_heads
 
         def kv(length):
-            shape = (cfg.num_layers, batch_size, length,
-                     cfg.padded_num_kv_heads, cfg.resolved_head_dim)
+            shape = (cfg.num_layers, batch_size, length, kvh,
+                     cfg.resolved_head_dim)
             return {"k": torch.zeros(shape, dtype=self.dtype,
                                      device=self.device),
                     "v": torch.zeros(shape, dtype=self.dtype,
@@ -668,12 +834,14 @@ class LM:
                 layer = tree_map(lambda t: t[i], lp)
                 h = L.apply_norm(layer.get("norm_a", {}), x, cfg.norm)
                 x = x + L.attention_decode(layer["attn"], h, cache["k"][i],
-                                           cache["v"][i], idx, pos, cfg)
+                                           cache["v"][i], idx, pos, cfg,
+                                           self.tp)
                 h = L.apply_norm(layer.get("norm_f", {}), x, cfg.norm)
                 if self.moe:
                     x = x + L.apply_moe(layer["moe"], h, cfg)[0]
                 else:
-                    x = x + L.apply_mlp(layer["mlp"], h, cfg.act, rows[i])
+                    x = x + L.apply_mlp(layer["mlp"], h, cfg.act, rows[i],
+                                        self.tp)
         cache = {**cache, "index": idx + 1}
         return self._head(params, x), cache
 

@@ -25,7 +25,7 @@ from repro_torch.utils.tree import tree_map
 
 
 def fl_state_specs(state_shapes: Any, model_axes: Any, plan: MeshPlan, *,
-                   client_axes: tuple = ()) -> Any:
+                   client_axes: tuple = (), filter_axes: Any = None) -> Any:
     """Round state ``{params, server_m, [global_m], [masks],
     [filter_masks], [client_state], round}``: every param-structured slot
     follows the params' model placement (TP/FSDP, replicated over the
@@ -37,7 +37,11 @@ def fl_state_specs(state_shapes: Any, model_axes: Any, plan: MeshPlan, *,
     not divide); ``shared`` leaves follow the params.
 
     ``model_axes=None`` (simulation models publish no axis tree) replicates
-    every param-structured slot: the batch's client axis is what shards."""
+    every param-structured slot: the batch's client axis is what shards.
+
+    ``filter_axes`` (the model's ``filter_axes()``): the filter masks follow
+    them, as the tensor-parallel step keeps them (a rank's units of each
+    row); None replicates them, as the reference does."""
     def replicated(v):
         return tree_map(lambda leaf: plan.spec(()), v)
 
@@ -56,6 +60,8 @@ def fl_state_specs(state_shapes: Any, model_axes: Any, plan: MeshPlan, *,
         if k == "client_state":
             return {"per_client": tree_map(per_client_spec, v["per_client"]),
                     "shared": shared_spec(v["shared"])}
+        if k == "filter_masks" and filter_axes is not None:
+            return param_specs(v, filter_axes, plan)
         if k == "filter_masks" or model_axes is None:
             return replicated(v)
         return param_specs(v, model_axes, plan)

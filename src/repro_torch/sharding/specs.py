@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+import torch
 from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
@@ -231,3 +232,120 @@ def cache_specs(cache_shapes: Any, plan: MeshPlan, cfg: ModelConfig) -> Any:
         return plan.spec(parts)
 
     return tree_map(one, cache_shapes)
+
+
+# ---------------------------------------------------------------------------
+# a rank's block of every leaf
+# ---------------------------------------------------------------------------
+
+def mesh_coords(mesh) -> dict:
+    """``{axis name: this rank's coordinate}`` on each named dim of
+    ``mesh``: a ``DeviceMesh``'s own coordinate, or rank 0's of a mesh
+    known only by its shape (the dry run's)."""
+    names = tuple(axis_sizes(mesh))
+    get = getattr(mesh, "get_coordinate", None)
+    coord = get() if get is not None else None
+    if coord is None:
+        return {n: 0 for n in names}
+    return dict(zip(names, coord))
+
+
+def _block(part, plan: MeshPlan, coords: dict) -> tuple[int, int]:
+    """(this rank's block index, the number of blocks) of a dim split over
+    ``part`` (an axis name or a tuple of them, the first the slowest)."""
+    idx, ways = 0, 1
+    for a in (part if isinstance(part, tuple) else (part,)):
+        n = plan.axis_size((a,))
+        idx, ways = idx * n + coords[a], ways * n
+    return idx, ways
+
+
+def head_index(num_heads: int, num_kv: int, ways: int, block: int):
+    """The query heads a rank of a ``ways``-way split of ``"heads"`` holds,
+    in its local order, as global indices; None for the contiguous block.
+
+    Query head ``h = g * KV + kv`` attends kv head ``kv`` (the [g, kv]
+    grouping of the attention and of K4/K5).  Where ``ways`` divides KV, the
+    rank holds its block of kv heads, so it takes every ``g`` for them:
+    heads ``g * KV + kv`` for kv in its block, ``g`` major.  Otherwise the
+    K/V stay replicated and the contiguous block is the rank's block of
+    ``g`` for every kv.  Either way its heads keep the [g, kv] grouping over
+    the kv heads it holds."""
+    if num_kv % ways or num_kv == num_heads:
+        return None
+    per = num_kv // ways
+    g = torch.arange(num_heads // num_kv)
+    kv = torch.arange(block * per, (block + 1) * per)
+    return (g[:, None] * num_kv + kv[None, :]).reshape(-1)
+
+
+def _take(leaf, spec: Spec, logical, plan, coords, kv_heads):
+    for d, part in enumerate(spec.parts):
+        if part is None:
+            continue
+        idx, ways = _block(part, plan, coords)
+        rows = None
+        if logical is not None and logical[d] == "heads" and kv_heads:
+            rows = head_index(leaf.shape[d], kv_heads, ways, idx)
+        if rows is None:
+            per = leaf.shape[d] // ways
+            leaf = leaf.narrow(d, idx * per, per)
+        else:
+            leaf = leaf.index_select(d, rows.to(leaf.device))
+    return leaf
+
+
+def _leaf_axes(tree, axes) -> list:
+    leaves = tree_leaves(tree)
+    if axes is None:
+        return [None] * len(leaves)
+    out = _axes_leaves(axes)
+    if len(out) != len(leaves):
+        raise ValueError(f"tree/axes mismatch: {len(leaves)} vs {len(out)}")
+    return out
+
+
+def shard_tree(tree: Any, spec_tree: Any, plan: MeshPlan, coords: dict, *,
+               axes: Any = None, kv_heads: int | None = None) -> Any:
+    """This rank's block of every leaf of ``tree`` under its :class:`Spec`:
+    along each split dim, block ``coords`` of the dim's mesh axes (a
+    contiguous narrow: a view; meta tensors give the block's shape).
+    With ``axes`` (the tree's logical-axis tree) and the model's padded
+    ``kv_heads``, a ``"heads"`` dim takes the grouped heads of
+    :func:`head_index` (a copy) where the split divides KV."""
+    out = [_take(t, s, ax, plan, coords, kv_heads) for t, s, ax in zip(
+        tree_leaves(tree), tree_leaves(spec_tree), _leaf_axes(tree, axes))]
+    return tree_unflatten(tree, out)
+
+
+def gather_tree(tree: Any, spec_tree: Any, plan: MeshPlan, groups: dict, *,
+                axes: Any = None, kv_heads: int | None = None) -> Any:
+    """The inverse of :func:`shard_tree` over the process groups: every
+    split dim gathered whole from the ranks of ``groups[axis]`` (a
+    ``sharding.tp.TPGroup``; one mesh axis a dim), the grouped heads put
+    back in their places.  A collective: every rank of each group calls
+    it."""
+    def one(leaf, spec, logical):
+        for d, part in enumerate(spec.parts):
+            if part is None or plan.axis_size(
+                    part if isinstance(part, tuple) else (part,)) == 1:
+                continue        # not split, or over axes of one rank
+            if isinstance(part, tuple):
+                raise ValueError(f"gather_tree gathers one mesh axis a dim, "
+                                 f"not {part}")
+            group = groups[part]
+            whole = group.all_gather(leaf, d)
+            if logical is not None and logical[d] == "heads" and kv_heads \
+                    and head_index(whole.shape[d], kv_heads, group.size,
+                                   0) is not None:
+                rows = torch.cat([head_index(whole.shape[d], kv_heads,
+                                             group.size, r)
+                                  for r in range(group.size)])
+                whole = whole.index_select(d, torch.argsort(rows).to(
+                    whole.device))
+            leaf = whole
+        return leaf
+
+    out = [one(t, s, ax) for t, s, ax in zip(
+        tree_leaves(tree), tree_leaves(spec_tree), _leaf_axes(tree, axes))]
+    return tree_unflatten(tree, out)

@@ -540,6 +540,178 @@ def data_main():
     return out
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism over the "model" mesh axis: the pod-scale steps of a
+# small dense LM, the params a JAX init's (saved by the test as numpy)
+
+# case -> (arch, heads, kv heads): the kv heads split over a 2-way model
+# axis, and one kv head kept whole on every rank
+TP_CASES = {"kv_split": ("olmo-1b", 4, 2), "kv_whole": ("chatglm3-6b", 4, 1)}
+TP_RUN = dict(lr=3e-3, local_steps=2, server_tau=2, server_batch=2,
+              use_masks=True, masked_compute="kernel")
+TP_CLIENTS, TP_SEQ, TP_DECODE = 2, 16, 8
+TP_SHAPES = {"train": ("tp-train", TP_SEQ, 2 * TP_CLIENTS, "train"),
+             "prefill": ("tp-prefill", TP_SEQ, 2, "prefill")}
+
+
+def tp_config(case: str):
+    from repro_torch.configs import get_config
+
+    arch, h, kv = TP_CASES[case]
+    return get_config(arch).reduced(num_heads=h, num_kv_heads=kv, d_ff=512)
+
+
+class RankNaN:
+    """A device fault: client ``client``'s trained model becomes NaN in the
+    block of the ``model`` rank ``rank`` only."""
+
+    def __init__(self, client: int, rank: int, model_rank: int):
+        self.client, self.hit = client, rank == model_rank
+
+    def apply_client(self, local, params, sel, round_):
+        from repro_torch.utils.tree import tree_map
+
+        if not self.hit:
+            return local
+        hit = sel == self.client
+        return tree_map(lambda t: t.copy_(torch.where(hit, torch.nan, t)),
+                        local)
+
+
+def _whole(model, tree):
+    """A param-structured tree of a rank's blocks, gathered whole."""
+    from repro_torch.sharding.specs import gather_tree
+
+    return gather_tree(tree, model.block_specs(), model._plan,
+                       {"model": model.tp.group}, axes=model.axes(),
+                       kv_heads=model.cfg.padded_num_kv_heads)
+
+
+def tp_train(case: str, mesh, inputs: dict, *, rounds: int = 2,
+             guard: bool = False) -> dict:
+    """Round 0 of the kernel-mode FedDUMAP step; then (``rounds`` 2) the
+    FedAP decision at 0.5 on the sharded params, ``with_masks`` and round
+    1.  ``guard``: one round under ``reject_client`` with client 0's model
+    NaN in model rank 0's block only.  The params after each round
+    gathered whole, and each round's tau_eff and health."""
+    import dataclasses
+
+    from repro_torch import interop
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import engine
+    from repro_torch.launch import steps
+    from repro_torch.utils.tree import tree_map
+
+    cfg = tp_config(case)
+    run = steps.FLRunConfig(
+        **(dict(TP_RUN, use_masks=False, masked_compute="params",
+                guard="reject_client") if guard else TP_RUN))
+    _, step = steps.make_fl_train_step(cfg, run, TP_CLIENTS, device="cpu",
+                                       mesh=mesh)
+    model = build_tp(cfg, mesh)
+    params = interop.shard_params_from_jax(inputs[case]["params"], model,
+                                           device="cpu")
+    fm = None if guard else model.filter_masks(params, {})
+    state = engine.init_round_state(params, step.eng, filter_masks=fm,
+                                    num_clients=TP_CLIENTS)
+    if guard:
+        step.eng = dataclasses.replace(step.eng, faults=(RankNaN(
+            0, 0, model.tp.group.rank),))
+    batch = steps.fl_batch_specs(cfg, InputShape(*TP_SHAPES["train"]),
+                                 TP_CLIENTS, run, abstract=False, seed=4,
+                                 device="cpu")
+    out = {"params": [], "tau": [], "health": []}
+    for r in range(rounds):
+        if r == 1:
+            kept = model.decide_kept(state["params"], 0.5)
+            whole_p = _whole(model, state["params"])
+            plain = build_tp(cfg, None)
+            out["kept"] = (kept["mlp"], plain.decide_kept(whole_p,
+                                                          0.5)["mlp"])
+            state = steps.with_masks(
+                state, model.param_masks(state["params"], kept),
+                model.filter_masks(state["params"], kept))
+            out["masks"] = (_whole(model, state["masks"]),
+                            plain.param_masks(whole_p, kept))
+            out["filter_masks"] = (
+                model.tp.group.all_gather(state["filter_masks"]["mlp"], 1),
+                plain.filter_masks(whole_p, kept)["mlp"])
+        met = step.body(state, step.local(batch))
+        sh = step.shard
+        out["shard"] = (None if sh.clients is None else tuple(sh.clients),
+                        sh.server_rows is not None, sh.server_weight)
+        out["params"].append(_whole(model, tree_map(torch.clone,
+                                                    state["params"])))
+        out["tau"].append(float(met["tau_eff"]))
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, float(met["health"]))
+        out["health"].append(every)
+    return out
+
+
+def build_tp(cfg, mesh):
+    from repro_torch.models.api import build_model
+
+    return build_model(cfg, device="cpu", mesh=mesh)
+
+
+def tp_serve(case: str, mesh, inputs: dict) -> dict:
+    """The prefill step's whole logits and TP_DECODE greedy decode steps
+    (tokens and logits) from the sharded params."""
+    from repro_torch import interop
+    from repro_torch.launch import steps
+
+    cfg = tp_config(case)
+    model, prefill = steps.make_prefill_step(cfg, device="cpu", mesh=mesh)
+    _, decode = steps.make_decode_step(cfg, device="cpu", mesh=mesh)
+    params = interop.shard_params_from_jax(inputs[case]["params"], model,
+                                           device="cpu")
+    tokens = torch.from_numpy(inputs["tokens"])
+    out = {}
+    with torch.no_grad():
+        out["prefill"] = prefill(params, {"tokens": tokens})
+        cache = model.init_cache(tokens.shape[0], TP_SEQ)
+        tok = tokens[:, :1]
+        out["tokens"], out["logits"] = [], []
+        for _ in range(TP_DECODE):
+            logits, cache = decode(params, cache, {"tokens": tok})
+            tok = logits[:, -1].argmax(-1, keepdim=True).to(tokens.dtype)
+            out["tokens"].append(tok[:, 0])
+            out["logits"].append(logits[:, -1])
+    return out
+
+
+def tp_main():
+    """Everything a rank of the 2-rank (1, 2) world checks, in one spawn:
+    both head placements through the three steps, the guard, and the
+    programs' collectives (``analysis.op_lint.tp_collectives``)."""
+    from repro_torch.analysis import op_lint
+    from repro_torch.launch.mesh import make_host_mesh
+
+    inputs = torch.load(os.path.join(WORK_DIR, "tp_inputs.pt"),
+                        weights_only=False)
+    mesh = make_host_mesh(data=1, model=2, device="cpu")
+    out = {}
+    for case in TP_CASES:
+        out[case] = {"serve": tp_serve(case, mesh, inputs),
+                     "train": tp_train(case, mesh, inputs),
+                     "guard": tp_train(case, mesh, inputs, rounds=1,
+                                          guard=True)}
+    out["collectives"] = op_lint.tp_collectives()
+    return out
+
+
+def tp4_main():
+    """One kernel-mode step of each case on a (2, 2) mesh of 4 ranks."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    inputs = torch.load(os.path.join(WORK_DIR, "tp_inputs.pt"),
+                        weights_only=False)
+    mesh = make_host_mesh(data=2, model=2, device="cpu")
+    return {case: tp_train(case, mesh, inputs, rounds=1)
+            for case in TP_CASES}
+
+
 def _child(rank, world, store_path, out_path, main="rank_main"):
     global WORK_DIR
     WORK_DIR = os.path.dirname(store_path)

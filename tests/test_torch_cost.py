@@ -316,10 +316,24 @@ def test_dryrun_on_the_meta_device(arch, shape):
             cfg.ssm, chunk=get_config(arch).ssm.chunk))
     rec = dryrun.dryrun_pair(arch, shape, cfg=cfg)
     assert rec["ok"] and rec["flops"] > 0 and rec["bytes"] > 0
-    assert rec["chips"] == 256 and rec["collective_counts"] == {}
+    assert rec["chips"] == 256
+    # the reduced olmo-1b runs tensor-parallel on the 16-way model axis
+    # (its 4 heads stay whole, its d_ff 512 and vocab 512 split: one
+    # all-reduce at the embedding and after each FFN, the loss's three, the
+    # accuracy's two, each FFN's and the head's input gradient; the client
+    # axis's FedAvg sum and server-step sum; the whole logits gathered
+    # over model and then over the batch's rows), counted as rank 0's
+    # part; the other families keep the whole step and no collective
+    L = cfg.num_layers
+    want = ({"all-reduce": 4 * L + 14} if shape == "train_4k" else
+            {"all-reduce": 1 + L, "all-gather": 2})
+    tp = arch == "olmo-1b"
+    assert rec["collective_counts"] == (want if tp else {})
+    assert ("collectives_pending" in rec) != tp
     assert rec["model_flops"] == roofline.model_flops(
         cfg, INPUT_SHAPES[shape], training=shape == "train_4k")
-    assert rec["useful_flops_ratio"] == rec["model_flops"] / rec["flops"]
+    assert rec["useful_flops_ratio"] == rec["model_flops"] / (
+        rec["flops"] * (rec["chips"] if tp else 1))
     assert rec["roofline"]["bottleneck"] in ("compute", "memory")
     assert set(rec["per_device_bytes"]) == {"16x16", "2x16x16"}
     for dev in rec["per_device_bytes"].values():
